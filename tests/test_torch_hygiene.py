@@ -1,0 +1,128 @@
+"""Rules the port keeps: it imports nothing of JAX or of the JAX package,
+its import needs no CUDA toolchain, and its build step fails loudly.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "unet_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_files_were_found():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"chip_smoke.py", "unet_tpu_torch/ops/functional.py",
+            "unet_tpu_torch/ops/kernels/_build.py",
+            "unet_tpu_torch/cli/generate.py"} <= names
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_and_no_jax_package_import(path):
+    for module in _imported_modules(path):
+        top = module.split(".")[0]
+        assert top not in ("jax", "jaxlib", "flax", "optax"), (path, module)
+        assert top != "unet_tpu", (path, module)
+
+
+def test_import_needs_no_toolchain_and_pulls_in_no_jax():
+    """A fresh interpreter imports every module of the port with `nvcc` and
+    `triton` unreachable, builds nothing, and ends with no JAX loaded."""
+    code = """
+import importlib, pathlib, sys
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('triton', 'jax', 'jaxlib', 'unet_tpu'):
+            raise ImportError('blocked: ' + name)
+sys.meta_path.insert(0, Block())
+for m in ('jax', 'jaxlib'):
+    sys.modules.pop(m, None)
+root = pathlib.Path('unet_tpu_torch')
+for p in sorted(root.rglob('*.py')):
+    mod = '.'.join(p.with_suffix('').parts)
+    if mod.endswith('__init__'):
+        mod = mod[:-9]
+    importlib.import_module(mod)
+from unet_tpu_torch.ops.kernels import _build
+assert _build._lib is None
+assert not [m for m in sys.modules if m.split('.')[0] in ('triton', 'unet_tpu')]
+print('ok')
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PATH": "/nonexistent", "HOME": "/nonexistent"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_build_step_raises_without_nvcc(monkeypatch, tmp_path):
+    from unet_tpu_torch.ops.kernels import _build
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if pathlib.Path("/usr/local/cuda/bin/nvcc").exists():
+        pytest.skip("a CUDA toolkit is installed at its usual place")
+    with pytest.raises(_build.KernelCompileError, match="nvcc not found"):
+        _build.build()
+    assert _build._lib is None
+
+
+def test_build_step_reports_the_compilers_output(monkeypatch, tmp_path):
+    """A compiler that refuses a source: the error carries its output and
+    names the file; nothing is left in the build directory."""
+    from unet_tpu_torch.ops.kernels import _build
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such instruction' >&2\n"
+                    "exit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(_build.KernelCompileError) as e:
+        _build.build()
+    text = str(e.value)
+    assert "no such instruction" in text and "exit 3" in text
+    assert "groupnorm.cu" in text and "attention.cu" in text
+    assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_sources_and_digest():
+    from unet_tpu_torch.ops.kernels import _build
+    names = [p.name for p in _build.sources()]
+    assert names == sorted(names)
+    assert {"attention.cu", "groupnorm.cu"} <= set(names)
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    tag = _build._digest(_build.sources())
+    assert tag == _build._digest(_build.sources()) and len(tag) == 16
+
+
+def test_check_launch_passes_zero():
+    from unet_tpu_torch.ops.kernels import _build
+    _build.check_launch(0, "anything")   # no library needed for success
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu():
+    """On a machine with no CUDA device the script exits non-zero and prints
+    no result line."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

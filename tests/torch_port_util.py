@@ -1,0 +1,66 @@
+"""Shared helpers of the tests/test_torch_*.py files: the one place where
+the JAX package (`unet_tpu`) and its PyTorch/CUDA port (`unet_tpu_torch`)
+meet.  Inputs and weights are made from a seed with numpy and handed to
+both sides as numpy arrays; everything runs on the CPU, where the port's
+kernel wrappers take their plain versions.
+"""
+
+import numpy as np
+import torch
+
+from unet_tpu.config import UnetConfig as JaxConfig
+from unet_tpu.io import checkpoint as jax_ckpt
+from unet_tpu_torch.config import UnetConfig
+from unet_tpu_torch.io import checkpoint as port_ckpt
+from unet_tpu_torch.io import convert
+from unet_tpu_torch.models import unet as port_unet
+
+# Smaller than conftest.SMALL_CFG so the JAX side traces in about a second:
+# two levels, one res block each, attention at ds 2 (C=64, two heads).
+TINY = dict(model_channels=32, image_size=16, channel_mult=(1, 2),
+            num_res_blocks=1, attention_ds=(2,))
+
+
+def configs(**overrides):
+    """(JAX package's config, port's config) with the same fields."""
+    fields = {**TINY, **overrides}
+    return JaxConfig(**fields), UnetConfig(**fields)
+
+
+def flat_weights(cfg: UnetConfig, num_classes=None, seed=0) -> np.ndarray:
+    """A torch-order flat float32 parameter vector with trained-looking
+    statistics: GroupNorm scales near 1, weights N(0, 1/fan_in), the rest
+    N(0, 0.1^2)."""
+    rng = np.random.default_rng(seed)
+    shapes = port_ckpt._shape_model(cfg, num_classes)
+    chunks = []
+    for path, kind in port_unet.param_order(cfg, num_classes):
+        shape = tuple(port_unet.get_param(shapes, path).shape)
+        a = rng.standard_normal(shape, dtype=np.float32)
+        if path[-1] == "scale":
+            a = 1.0 + 0.1 * a
+        elif kind in ("conv", "linear", "conv1d"):
+            a = a / np.sqrt(np.prod(shape[1:]), dtype=np.float32)
+        else:
+            a = 0.1 * a
+        chunks.append(a.ravel())
+    return np.concatenate(chunks).astype(np.float32)
+
+
+def both_models(jcfg, cfg, num_classes=None, seed=0):
+    """(JAX pytree, port module on the CPU, flat vector) of one weight set."""
+    flat = flat_weights(cfg, num_classes, seed)
+    params = jax_ckpt.unflatten_params(flat, jcfg, num_classes)
+    model = convert.params_from_flat(flat, cfg, num_classes, device="cpu")
+    return params, model, flat
+
+
+def t2n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().numpy() if t.dtype == torch.bfloat16 \
+        else t.detach().numpy()
+
+
+def j2n(a) -> np.ndarray:
+    """A JAX array as float32/float64 numpy (bfloat16 widened)."""
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a

@@ -1,0 +1,190 @@
+"""Samplers: DDPM ancestral and DDIM (port of unet_tpu/diffusion/sampler.py).
+
+DDPM math:
+  loop t = T-1 ... 2 (998 model calls for T=1000);
+  eps = model(x_t, t);
+  mu_t   = (x_t - beta[t-1]/sqrt(1-abar[t-1]) * eps) / sqrt(1-beta[t-1]);
+  sigma_t = sqrt((1-abar[t-2])/(1-abar[t-1]) * beta[t-1]);
+  x_{t-1} = mu_t + sigma_t * N(0,1)      (noise added at every step).
+
+The JAX package runs the chain as one compiled loop; here it is a Python
+loop under `torch.no_grad()` that never waits for the device: the per-step
+scalars come from the numpy schedule tables, float32 as the JAX package
+computes them, and nothing is read back until the caller takes the images.
+Where the JAX functions take a PRNG key, these take a `torch.Generator` on
+the model's device; the two frameworks draw different numbers, so parity
+tests feed `x_init` and `noise`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from unet_tpu_torch.config import UnetConfig
+from unet_tpu_torch.diffusion.gaussian import GaussianDiffusion
+
+
+def make_model_fn(cfg: UnetConfig, *, compute_dtype=torch.float32,
+                  y=None, guidance_scale: float = 1.0):
+    """`model_fn(model, x, t) -> eps` (float32) for the samplers.
+
+    y = None: unconditional.  y = an int or (B,) labels: class-conditional
+    eps.  guidance_scale w != 1 additionally applies classifier-free
+    guidance, eps = eps_uncond + w * (eps_cond - eps_uncond), computed as ONE
+    model call on a doubled batch ([y | null]); w = 1 is the plain
+    conditional call and w = 0 the unconditional one."""
+    def labels(x):
+        if torch.is_tensor(y):
+            return y.to(device=x.device, dtype=torch.long).expand(x.shape[0])
+        return torch.full((x.shape[0],), int(y), dtype=torch.long,
+                          device=x.device)
+
+    def model_fn(model, x, t):
+        net = model.to_compute(compute_dtype)
+        if y is None:
+            return net(x, t).float()
+        yy = labels(x)
+        if guidance_scale == 0.0:
+            yy = torch.full_like(yy, -1)
+        if guidance_scale in (0.0, 1.0):
+            return net(x, t, yy).float()
+        eps_c, eps_u = net(torch.cat([x, x]), torch.cat([t, t]),
+                           torch.cat([yy, torch.full_like(yy, -1)])
+                           ).float().chunk(2)
+        return eps_u + guidance_scale * (eps_c - eps_u)
+    return model_fn
+
+
+def _start(model, cfg, generator, batch_size, x_init):
+    if x_init is not None:
+        return x_init.to(device=model.device, dtype=torch.float32)
+    return torch.randn((batch_size, cfg.image_size, cfg.image_size,
+                        cfg.in_channels), generator=generator,
+                       device=model.device)
+
+
+@torch.no_grad()
+def ddpm_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
+                generator=None, *, batch_size: int = 1,
+                compute_dtype=torch.float32, x_init=None, num_steps=None,
+                model_fn=None, y=None, guidance_scale: float = 1.0,
+                noise=None):
+    """Draw `batch_size` images on the model's device.  Returns (B, H, W, C)
+    float32 in [-1, 1]-ish (unclipped).  `num_steps` truncates the chain to
+    its first iterations (t = T-1 downward).  `y`/`guidance_scale` select
+    class-conditional and classifier-free-guided sampling (see
+    make_model_fn); `model_fn` overrides the model call entirely.  `noise`
+    (n_steps, B, H, W, C) supplies the per-step injected noise instead of
+    drawing it from `generator`, and `x_init` the start: the cross-framework
+    parity hooks."""
+    T = diffusion.num_timesteps
+    f32 = np.float32
+    betas, abar = diffusion.betas, diffusion.alphas_cumprod
+    net = model.to_compute(compute_dtype)
+    x = _start(net, cfg, generator, batch_size, x_init)
+    if model_fn is None:
+        model_fn = make_model_fn(cfg, compute_dtype=compute_dtype, y=y,
+                                 guidance_scale=guidance_scale)
+    n = T - 2 if num_steps is None else min(num_steps, T - 2)
+    if noise is not None and noise.shape[0] < n:
+        raise ValueError(f"noise has {noise.shape[0]} steps, chain needs {n}")
+    for i in range(n):
+        t = T - 1 - i  # t runs T-1, T-2, ..., 2
+        eps = model_fn(net, x, torch.full((x.shape[0],), float(t),
+                                          device=x.device))
+        beta_t, alpha_t, alpha_t_1 = betas[t - 1], abar[t - 1], abar[t - 2]
+        c_eps = beta_t / np.sqrt(f32(1.0) - alpha_t)
+        c_mu = f32(1.0) / np.sqrt(f32(1.0) - beta_t)
+        sigma = np.sqrt((f32(1.0) - alpha_t_1) / (f32(1.0) - alpha_t)
+                        * beta_t)
+        z = (torch.randn(x.shape, generator=generator, device=x.device)
+             if noise is None else noise[i].to(x.device))
+        x = (x - float(c_eps) * eps) * float(c_mu) + float(sigma) * z
+    return x
+
+
+def make_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion, *,
+                 batch_size: int = 1, compute_dtype=torch.float32,
+                 num_steps=None, y=None, guidance_scale: float = 1.0):
+    """`sample(model, generator) -> (B, H, W, C)` closure over the DDPM
+    chain's settings."""
+    return lambda model, generator=None: ddpm_sample(
+        model, cfg, diffusion, generator, num_steps=num_steps,
+        batch_size=batch_size, compute_dtype=compute_dtype,
+        y=y, guidance_scale=guidance_scale)
+
+
+@torch.no_grad()
+def ddim_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
+                generator=None, *, num_steps: int = 50, eta: float = 0.0,
+                batch_size: int = 1, compute_dtype=torch.float32,
+                x_init=None, model_fn=None, y=None,
+                guidance_scale: float = 1.0, noise=None):
+    """DDIM sampler (Song et al. 2020): `num_steps` model calls instead of
+    the ancestral chain's T-2.
+
+    Model time t indexes table slot t-1, as in ddpm_sample: an evenly
+    spaced descending subsequence T-1 = t_1 > t_2 > ... > t_S >= 1, with
+
+      x0_pred = (x - sqrt(1-abar_t) eps) / sqrt(abar_t)
+      sigma   = eta sqrt((1-abar_prev)/(1-abar_t)) sqrt(1-abar_t/abar_prev)
+      x <- sqrt(abar_prev) x0_pred + sqrt(1-abar_prev-sigma^2) eps
+           + sigma N(0,1)
+
+    with abar_prev = 1 at the final step, so eta=0 is deterministic given
+    x_init.  `noise` (n_steps, B, H, W, C) supplies the injected noise, a
+    parity hook like ddpm_sample's."""
+    T = diffusion.num_timesteps
+    if not 1 <= num_steps <= T - 1:
+        raise ValueError(f"num_steps must be in [1, {T - 1}], got {num_steps}")
+    f32 = np.float32
+    abar = diffusion.alphas_cumprod
+    ts = np.unique(np.linspace(1, T - 1, num_steps)
+                   .round().astype(np.int64))[::-1]
+    a_cur = abar[ts - 1]
+    a_prev = np.concatenate([abar[ts[1:] - 1], [1.0]])
+    sigma = (eta * np.sqrt((1.0 - a_prev) / (1.0 - a_cur))
+             * np.sqrt(np.maximum(1.0 - a_cur / a_prev, 0.0)))
+    a_cur, a_prev, sigma = (a.astype(f32) for a in (a_cur, a_prev, sigma))
+
+    net = model.to_compute(compute_dtype)
+    x = _start(net, cfg, generator, batch_size, x_init)
+    if model_fn is None:
+        model_fn = make_model_fn(cfg, compute_dtype=compute_dtype, y=y,
+                                 guidance_scale=guidance_scale)
+    if noise is not None and noise.shape[0] < len(ts):
+        raise ValueError(
+            f"noise has {noise.shape[0]} steps, chain needs {len(ts)}")
+    for i in range(len(ts)):
+        eps = model_fn(net, x, torch.full((x.shape[0],), float(ts[i]),
+                                          device=x.device))
+        a_t, a_p, sg = a_cur[i], a_prev[i], sigma[i]
+        c_x0 = f32(1.0) / np.sqrt(a_t)
+        x0 = (x - float(np.sqrt(f32(1.0) - a_t)) * eps) * float(c_x0)
+        c_dir = np.sqrt(np.maximum(f32(1.0) - a_p - sg * sg, f32(0.0)))
+        x = float(np.sqrt(a_p)) * x0 + float(c_dir) * eps
+        if sg != 0.0:
+            z = (torch.randn(x.shape, generator=generator, device=x.device)
+                 if noise is None else noise[i].to(x.device))
+            x = x + float(sg) * z
+    return x
+
+
+def make_ddim_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion, *,
+                      num_steps: int = 50, eta: float = 0.0,
+                      batch_size: int = 1, compute_dtype=torch.float32,
+                      y=None, guidance_scale: float = 1.0):
+    """`sample(model, generator) -> (B, H, W, C)` closure over the DDIM
+    chain's settings."""
+    return lambda model, generator=None: ddim_sample(
+        model, cfg, diffusion, generator, num_steps=num_steps, eta=eta,
+        batch_size=batch_size, compute_dtype=compute_dtype,
+        y=y, guidance_scale=guidance_scale)
+
+
+def to_uint8(images) -> np.ndarray:
+    """[-1, 1] float images -> uint8 numpy array: (x + 1) * 127.5, clipped
+    to [0, 255] and truncated."""
+    arr = (images.detach().float().cpu().numpy() + 1.0) * 127.5
+    return np.clip(arr, 0, 255).astype(np.uint8)

@@ -1,0 +1,343 @@
+"""The ADM U-Net: static architecture plan and the `UNet` module (port of
+unet_tpu/models/unet.py).
+
+`build_plan`, `fwd_flops` and `param_order` are the JAX package's, value for
+value.  `UNet` holds its parameters under the JAX package's pytree paths
+(`time_mlp.l1.w`, `input[3].res.gn1.scale`, ...), so one `param_order` path
+addresses the same parameter in both packages.  `init` and `apply` mirror the
+JAX functions of those names.  Forward only; no space-to-depth path and no
+rematerialisation.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from unet_tpu_torch.config import UnetConfig
+from unet_tpu_torch.models import blocks
+from unet_tpu_torch.ops import functional as F
+
+# Layer kinds appearing in a plan:
+#   ("conv_in", cin, cout)  ("res", cin, cout)  ("attn", c)
+#   ("down", c)  ("up", c)
+Layer = Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class UnetPlan:
+    input_blocks: Tuple[Tuple[Layer, ...], ...]
+    middle: Tuple[Layer, ...]
+    output_blocks: Tuple[Tuple[Layer, ...], ...]
+    out_channels_pre_head: int
+
+
+def build_plan(cfg: UnetConfig) -> UnetPlan:
+    """Walk the architecture as the guided-diffusion constructor does: the
+    input column pushes one skip per block; the output column pops them in
+    reverse."""
+    ch = cfg.channel_mult[0] * cfg.model_channels
+    input_blocks: List[Tuple[Layer, ...]] = [(("conv_in", cfg.in_channels, ch),)]
+    skip_chans = [ch]
+    ds = 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            layers: List[Layer] = [("res", ch, mult * cfg.model_channels)]
+            ch = mult * cfg.model_channels
+            if ds in cfg.attention_ds:
+                layers.append(("attn", ch))
+            input_blocks.append(tuple(layers))
+            skip_chans.append(ch)
+        if level != len(cfg.channel_mult) - 1:
+            input_blocks.append((("down", ch),))
+            skip_chans.append(ch)
+            ds *= 2
+
+    middle: Tuple[Layer, ...] = (("res", ch, ch), ("attn", ch), ("res", ch, ch))
+
+    output_blocks: List[Tuple[Layer, ...]] = []
+    for level, mult in reversed(list(enumerate(cfg.channel_mult))):
+        for i in range(cfg.num_res_blocks + 1):
+            ich = skip_chans.pop()
+            layers = [("res", ch + ich, mult * cfg.model_channels)]
+            ch = mult * cfg.model_channels
+            if ds in cfg.attention_ds:
+                layers.append(("attn", ch))
+            if level and i == cfg.num_res_blocks:
+                layers.append(("up", ch))
+                ds //= 2
+            output_blocks.append(tuple(layers))
+
+    return UnetPlan(tuple(input_blocks), middle, tuple(output_blocks), ch)
+
+
+def fwd_flops(cfg: UnetConfig, batch_size: int = 1) -> int:
+    """Analytic forward matmul/conv FLOPs (2 * MACs) for one batch: convs,
+    linears and attention dots along the plan `UNet.forward` executes."""
+    plan = build_plan(cfg)
+
+    def conv(h, w, cin, cout, k=3):
+        return 2 * h * w * cin * cout * k * k
+
+    def res(h, w, cin, cout):
+        f = conv(h, w, cin, cout) + conv(h, w, cout, cout)
+        emb_out = 2 * cout if cfg.use_scale_shift_norm else cout
+        f += 2 * cfg.time_embed_dim * emb_out
+        if cin != cout:
+            f += conv(h, w, cin, cout, k=1)
+        return f
+
+    def attn(h, w, c):
+        t = h * w
+        # qkv 1x1 + QK^T + PV + proj 1x1
+        return 2 * t * c * 3 * c + 2 * 2 * t * t * c + 2 * t * c * c
+
+    def group(h, w, layers):
+        f = 0
+        for layer in layers:
+            kind = layer[0]
+            if kind == "conv_in":
+                f += conv(h, w, layer[1], layer[2])
+            elif kind == "res":
+                f += res(h, w, layer[1], layer[2])
+            elif kind == "attn":
+                f += attn(h, w, layer[1])
+            elif kind == "down":
+                h, w = h // 2, w // 2
+            elif kind == "up":
+                h, w = h * 2, w * 2
+        return f, h, w
+
+    s = cfg.image_size
+    ted = cfg.time_embed_dim
+    total = 2 * (cfg.model_channels * ted + ted * ted)  # time MLP
+    h = w = s
+    for layers in plan.input_blocks + (plan.middle,) + plan.output_blocks:
+        f, h, w = group(h, w, layers)
+        total += f
+    total += conv(s, s, plan.out_channels_pre_head, cfg.out_channels)
+    return total * batch_size
+
+
+# ---------------------------------------------------------------------------
+# Modules
+
+
+class LayerGroup(nn.Module):
+    """One entry of the plan's input or output column: its layers applied in
+    order.  "down" and "up" have no parameters."""
+
+    def __init__(self, layers, cfg: UnetConfig, generator=None):
+        super().__init__()
+        self.layers = layers
+        for layer in layers:
+            kind = layer[0]
+            if kind == "conv_in":
+                self.conv = blocks.Conv2d(layer[1], layer[2], 3, generator)
+            elif kind == "res":
+                self.res = _res(layer, cfg, generator)
+            elif kind == "attn":
+                self.attn = _attn(layer, cfg, generator)
+
+    def forward(self, h, emb):
+        for layer in self.layers:
+            kind = layer[0]
+            if kind == "conv_in":
+                h = self.conv(h)
+            elif kind == "res":
+                h = self.res(h, emb)
+            elif kind == "attn":
+                h = self.attn(h)
+            elif kind == "down":
+                h = F.avg_pool_2x(h)
+            elif kind == "up":
+                h = F.upsample_nearest_2x(h)
+        return h
+
+
+def _res(layer, cfg, generator):
+    return blocks.ResBlock(layer[1], layer[2], cfg.time_embed_dim,
+                           scale_shift_norm=cfg.use_scale_shift_norm,
+                           num_groups=cfg.gn_num_groups, eps=cfg.gn_eps,
+                           generator=generator)
+
+
+def _attn(layer, cfg, generator):
+    return blocks.AttentionBlock(layer[1], head_size=cfg.num_head_channels,
+                                 num_groups=cfg.gn_num_groups, eps=cfg.gn_eps,
+                                 generator=generator)
+
+
+class UNet(nn.Module):
+    """The U-Net over NHWC tensors.  Parameters are initialised on the CPU
+    from `generator` (torch-default statistics); move the module with
+    `.to(device)` or build it through `init`."""
+
+    def __init__(self, cfg: UnetConfig, num_classes: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.cfg = cfg
+        self.num_classes = num_classes
+        plan = build_plan(cfg)
+        ted = cfg.time_embed_dim
+        self.time_mlp = nn.Module()
+        self.time_mlp.l1 = blocks.Linear(cfg.model_channels, ted, generator)
+        self.time_mlp.l2 = blocks.Linear(ted, ted, generator)
+        if num_classes is not None:
+            self.label_emb = nn.Parameter(
+                torch.empty(num_classes, ted).normal_(generator=generator))
+        self.input = nn.ModuleList(
+            LayerGroup(b, cfg, generator) for b in plan.input_blocks)
+        self.middle = nn.Module()
+        self.middle.res1 = _res(plan.middle[0], cfg, generator)
+        self.middle.attn = _attn(plan.middle[1], cfg, generator)
+        self.middle.res2 = _res(plan.middle[2], cfg, generator)
+        self.output = nn.ModuleList(
+            LayerGroup(b, cfg, generator) for b in plan.output_blocks)
+        self.out = nn.Module()
+        self.out.gn = blocks.GroupNorm(plan.out_channels_pre_head,
+                                       cfg.gn_num_groups, cfg.gn_eps)
+        self.out.conv = blocks.Conv2d(plan.out_channels_pre_head,
+                                      cfg.out_channels, 3, generator)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.out.conv.w.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.out.conv.w.device
+
+    def to_compute(self, dtype) -> "UNet":
+        """This module if its parameters already have `dtype`, else a copy
+        cast to it.  The samplers cast once, before their loop."""
+        if dtype is None or dtype == self.dtype:
+            return self
+        return copy.deepcopy(self).to(dtype)
+
+    def forward(self, x, t, y=None):
+        """x: (B, H, W, C_in) NHWC; t: (B,) timesteps; y: optional (B,)
+        integer labels, where -1 is the null label: no class embedding is
+        added, so the call equals the unconditional one (the
+        classifier-free-guidance convention).  Computes in the parameters'
+        type and returns (B, H, W, C_out) in it."""
+        cfg = self.cfg
+        x = x.to(self.dtype)
+        emb = F.timestep_embedding(t, cfg.model_channels,
+                                   max_period=cfg.max_period).to(self.dtype)
+        emb = self.time_mlp.l2(F.silu(self.time_mlp.l1(emb)))
+        if y is not None:
+            if self.num_classes is None:
+                raise ValueError("labels given to an unconditional model")
+            lab = self.label_emb[y.clamp(min=0)]
+            emb = emb + torch.where((y >= 0)[:, None], lab,
+                                    torch.zeros((), dtype=lab.dtype,
+                                                device=lab.device))
+        h = x
+        skips = []
+        for group in self.input:
+            h = group(h, emb)
+            skips.append(h)
+        h = self.middle.res1(h, emb)
+        h = self.middle.attn(h)
+        h = self.middle.res2(h, emb)
+        for group in self.output:
+            h = group(torch.cat([h, skips.pop()], dim=-1), emb)
+        return self.out.conv(self.out.gn(h))
+
+
+def init(cfg: UnetConfig, num_classes: Optional[int] = None, *,
+         generator: Optional[torch.Generator] = None,
+         device="cuda") -> UNet:
+    """A `UNet` with torch-default init statistics drawn from `generator`
+    (a CPU generator, so one seed gives one model on any device), placed on
+    `device`."""
+    return UNet(cfg, num_classes, generator).to(device)
+
+
+def apply(model: UNet, x, t, y=None, *, compute_dtype=None):
+    """Full U-Net forward with the parameters cast to `compute_dtype` for the
+    call (None: the parameters' own type), as the JAX package's `apply`."""
+    return model.to_compute(compute_dtype)(x, t, y)
+
+
+# ---------------------------------------------------------------------------
+# torch named_parameters() flat order (the .bin interchange contract).
+
+# Each entry: (path-in-module, kind) with kind in {"gn", "conv", "linear",
+# "conv1d"}: the same paths and kinds as the JAX package, where the kind
+# selects the transpose between its native layouts and torch shapes.
+ParamRef = Tuple[Tuple, str]
+
+
+def _res_order(prefix, cin, cout) -> List[ParamRef]:
+    refs = [
+        (prefix + ("gn1", "scale"), "gn"), (prefix + ("gn1", "bias"), "gn"),
+        (prefix + ("conv1", "w"), "conv"), (prefix + ("conv1", "b"), "gn"),
+        (prefix + ("emb", "w"), "linear"), (prefix + ("emb", "b"), "gn"),
+        (prefix + ("gn2", "scale"), "gn"), (prefix + ("gn2", "bias"), "gn"),
+        (prefix + ("conv2", "w"), "conv"), (prefix + ("conv2", "b"), "gn"),
+    ]
+    if cin != cout:
+        refs += [(prefix + ("skip", "w"), "conv"),
+                 (prefix + ("skip", "b"), "gn")]
+    return refs
+
+
+def _attn_order(prefix) -> List[ParamRef]:
+    return [
+        (prefix + ("gn", "scale"), "gn"), (prefix + ("gn", "bias"), "gn"),
+        (prefix + ("qkv", "w"), "conv1d"), (prefix + ("qkv", "b"), "gn"),
+        (prefix + ("proj", "w"), "conv1d"), (prefix + ("proj", "b"), "gn"),
+    ]
+
+
+def _group_order(prefix, layers) -> List[ParamRef]:
+    refs: List[ParamRef] = []
+    for layer in layers:
+        kind = layer[0]
+        if kind == "conv_in":
+            refs += [(prefix + ("conv", "w"), "conv"),
+                     (prefix + ("conv", "b"), "gn")]
+        elif kind == "res":
+            refs += _res_order(prefix + ("res",), layer[1], layer[2])
+        elif kind == "attn":
+            refs += _attn_order(prefix + ("attn",))
+    return refs
+
+
+def param_order(cfg: UnetConfig, num_classes: Optional[int] = None
+                ) -> List[ParamRef]:
+    """Flat parameter order of the .bin file: torch named_parameters() order
+    of the guided-diffusion model."""
+    plan = build_plan(cfg)
+    refs: List[ParamRef] = [
+        (("time_mlp", "l1", "w"), "linear"), (("time_mlp", "l1", "b"), "gn"),
+        (("time_mlp", "l2", "w"), "linear"), (("time_mlp", "l2", "b"), "gn"),
+    ]
+    if num_classes is not None:
+        refs.append((("label_emb",), "gn"))
+    for i, layers in enumerate(plan.input_blocks):
+        refs += _group_order(("input", i), layers)
+    refs += _res_order(("middle", "res1"), *plan.middle[0][1:])
+    refs += _attn_order(("middle", "attn"))
+    refs += _res_order(("middle", "res2"), *plan.middle[2][1:])
+    for i, layers in enumerate(plan.output_blocks):
+        refs += _group_order(("output", i), layers)
+    refs += [
+        (("out", "gn", "scale"), "gn"), (("out", "gn", "bias"), "gn"),
+        (("out", "conv", "w"), "conv"), (("out", "conv", "b"), "gn"),
+    ]
+    return refs
+
+
+def get_param(model: UNet, path) -> nn.Parameter:
+    """The parameter a `param_order` path names."""
+    node = model
+    for k in path:
+        node = node[k] if isinstance(k, int) else getattr(node, k)
+    return node

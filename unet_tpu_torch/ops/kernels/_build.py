@@ -1,0 +1,138 @@
+"""Build-and-load step for the hand-written CUDA kernels.
+
+The JAX package needs no counterpart (Pallas kernels are compiled by JAX);
+here every `csrc/*.cu` is compiled by `nvcc` for sm_90a and linked into one
+shared library with a plain C interface, which is loaded with `ctypes`.
+The sources include no PyTorch header, so a build takes seconds.
+
+The build happens at first use, never at import: importing this module
+needs neither `nvcc` nor a GPU.  Objects are compiled in parallel (one
+`nvcc` per source, all started together) into `unet_tpu_torch/build/`,
+under a name derived from the sources' contents, so an unchanged tree
+builds once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+
+# `-Xptxas -v` costs nothing and puts each kernel's registers, shared memory
+# and spills into `build_log`.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lib: Optional[ctypes.CDLL] = None
+# Seconds the last build took (0.0 when the library was already on disk) and
+# what the compiler printed during it.
+build_seconds = 0.0
+build_log = ""
+
+
+class KernelCompileError(RuntimeError):
+    """`nvcc` is missing or refused a source; carries its output."""
+
+
+def find_nvcc() -> str:
+    candidates = [shutil.which("nvcc")]
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        if os.environ.get(var):
+            candidates.append(os.path.join(os.environ[var], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise KernelCompileError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and in "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
+
+
+def sources():
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def _digest(paths) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in list(paths) + sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one shared library; returns its path.
+    Raises KernelCompileError with nvcc's output when any step fails."""
+    global build_seconds, build_log
+    srcs = sources()
+    if not srcs:
+        raise KernelCompileError(f"no CUDA sources under {CSRC_DIR}")
+    tag = _digest(srcs)
+    lib_path = BUILD_DIR / f"libunet_kernels_{tag}.so"
+    if lib_path.exists():
+        build_seconds, build_log = 0.0, ""
+        return lib_path
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    jobs = []
+    for src in srcs:
+        obj = BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures, logs = [], []
+    for src, obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {src.name} "
+                            f"(exit {proc.returncode}):\n{out}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failures:
+            raise KernelCompileError("\n".join(failures))
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise KernelCompileError(
+                f"nvcc failed to link (exit {link.returncode}):\n"
+                f"{link.stdout}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build is harmless
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.unlink(o)
+    build_log = "".join(logs)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' shared library, built first if need be.  The wrappers
+    declare their functions' `argtypes` on it."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.unet_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.unet_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_launch(code: int, name: str) -> None:
+    """Raise if a launcher returned a CUDA error code (0 is success)."""
+    if code != 0:
+        text = load().unet_cuda_error_string(code).decode()
+        raise RuntimeError(
+            f"{name}: kernel launch failed with CUDA error {code} ({text})")

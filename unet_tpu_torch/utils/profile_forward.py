@@ -1,0 +1,96 @@
+"""Device time of one U-Net forward by kernel family, from `torch.profiler`.
+
+    python -m unet_tpu_torch.utils.profile_forward [--batch_size 8] [--reps 5]
+
+Runs the default ImageNet-64 model (random weights from a seed) on the CUDA
+device in bfloat16 and in float32 ("highest": TF32 off), traces `reps`
+forwards after warm-up, and prints one JSON object: per type, the device
+milliseconds and the kernel launches of one forward, summed by family.  It
+answers which kernels the card spends a forward in; the time the card waits
+for the host is not in it.  No counterpart in the JAX package, whose
+profiles come from `jax.profiler`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from unet_tpu_torch.config import UnetConfig
+from unet_tpu_torch.models import unet
+from unet_tpu_torch.ops import functional
+
+# The first family whose marker occurs in a device kernel's name takes it.
+FAMILIES = (
+    ("gn_act_fwd", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("qkv_attention_fwd", ("qkv_attention_fwd_kernel",)),
+    ("cudnn_layout_change", ("nhwcToNchw", "nchwToNhwc")),
+    ("convolution", ("fprop", "convolve", "cudnn", "conv")),
+    ("matmul", ("gemm", "nvjet", "cublas", "gemv")),
+    ("copy_and_concatenate", ("direct_copy", "CatArray")),
+    ("elementwise_and_reduce", ("elementwise", "reduce_kernel")),
+)
+
+
+def profile_forward(model, batch=8, reps=5, seed=0):
+    """Device milliseconds and launches of one forward by kernel family,
+    bfloat16 and float32, from a trace of `reps` forwards."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, cfg.image_size, cfg.image_size, cfg.in_channels),
+                    generator=gen, device=device)
+    t = torch.full((batch,), 500.0, device=device)
+    result = {"batch": batch, "forwards_traced": reps}
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float32", torch.float32)):
+        net = model.to_compute(dtype)
+        with torch.no_grad():
+            for _ in range(3):
+                net(x, t)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    net(x, t)
+                torch.cuda.synchronize()
+        families = {}
+        for event in prof.key_averages():
+            if event.device_type != DeviceType.CUDA:
+                continue
+            family = next((f for f, marks in FAMILIES
+                           if any(m in event.key for m in marks)), "other")
+            entry = families.setdefault(family, {"ms": 0.0, "launches": 0.0})
+            entry["ms"] += event.device_time_total / reps / 1e3
+            entry["launches"] += event.count / reps
+        if not families:
+            raise RuntimeError("the profiler recorded no device kernel")
+        result[name] = dict(
+            families, total_ms=sum(f["ms"] for f in families.values()),
+            total_launches=sum(f["launches"] for f in families.values()))
+    return result
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_forward needs a CUDA device")
+    functional.set_f32_precision("highest")
+    model = unet.init(UnetConfig(),
+                      generator=torch.Generator().manual_seed(0),
+                      device=torch.device("cuda", 0))
+    print(json.dumps({"phase": "profile", "device":
+                      torch.cuda.get_device_name(0),
+                      **profile_forward(model, args.batch_size, args.reps)}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
