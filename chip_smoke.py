@@ -8,13 +8,14 @@ object per line:
 
   1. `device`: the card, its power limit, the torch/CUDA/nvcc versions, and
      the seconds the kernels took to build from unet_tpu_torch/csrc/.
-  2. `kernel_checks`: each hand-written kernel against its plain PyTorch
-     version on the card, float32 and bfloat16, at the shapes the U-Net
-     gives it, with the kernel's, the plain version's and a library call's
-     time and the least time the card could take.  Each is timed twice
-     after warm-up: as it is called (CUDA events around a loop of calls)
-     and on the device alone (the same calls replayed from a CUDA graph).
-     Every repetition reads the same input, so the cache is warm.
+  2. `kernel_checks`: each hand-written kernel (GroupNorm and attention,
+     forward and backward) against its plain PyTorch version on the card,
+     float32 and bfloat16, at the shapes the U-Net gives it in sampling and
+     in training, with the kernel's, the plain version's and a library
+     call's time and the least time the card could take.  Each is timed
+     twice after warm-up: as it is called (CUDA events around a loop of
+     calls) and on the device alone (the same calls replayed from a CUDA
+     graph).  Every repetition reads the same input, so the cache is warm.
   3. `forward`: one U-Net forward at each batch the requests below give the
      model (4, 8 and the doubled 16 of classifier-free guidance), the module
      on the kernels against the same module on the plain versions, and the
@@ -27,9 +28,23 @@ object per line:
      against model calls x launches per forward.  A short untimed request of
      each kind goes first, and each kernel is held against its plain version
      at every distinct shape those requests hand it.
-  5. `{"kernels": [...]}`: one summary entry per kernel; then the seconds
-     the whole run took, the card's name and power limit, and the result
-     line.
+  5. `train_step`: one float32 training step of the default model at B=32,
+     its loss and every gradient on the kernels against the same step on the
+     plain versions; then ten `step_with` steps on one fixed batch, whose
+     loss must fall.
+  6. `train`: the training CLI (`cli.train.main`) on a `.bin` of seeded
+     images written by the port's `write_bin`, the default model at full
+     width and depth, B=32: bfloat16 for 20 steps with a checkpoint at step
+     20 and a resume from it to step 30; float32 for 10 steps; bfloat16 with
+     remat and microbatches of 16 for 4 steps.  Finite losses, the log
+     lines, the checkpoints' steps and the kernels' launch counts per step
+     are asserted; ms/step, images/s and peak memory reported.  A one-step
+     untimed run of each kind goes first, and each kernel is held against
+     its plain version at every distinct shape those steps hand it.
+  7. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+     of the sampling requests and the training runs together; then the
+     seconds the whole run took, the card's name and power limit, and the
+     result line.
 
 float32 runs in "highest" precision (TF32 off for matmuls and cuDNN).
 A failed build, launch or comparison raises, so the exit code is non-zero.
@@ -37,7 +52,10 @@ A failed build, launch or comparison raises, so the exit code is non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -45,6 +63,7 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 if not torch.cuda.is_available():
@@ -54,7 +73,9 @@ if not torch.cuda.is_available():
 import torch.nn.functional as TF  # noqa: E402  (yardstick timings only)
 
 from unet_tpu_torch.cli import generate  # noqa: E402
-from unet_tpu_torch.config import UnetConfig  # noqa: E402
+from unet_tpu_torch.cli import train as train_cli  # noqa: E402
+from unet_tpu_torch.config import TrainConfig, UnetConfig  # noqa: E402
+from unet_tpu_torch.data.dataset import write_bin  # noqa: E402
 from unet_tpu_torch.diffusion.gaussian import (  # noqa: E402
     GaussianDiffusion, named_beta_schedule)
 from unet_tpu_torch.diffusion.sampler import make_sampler, to_uint8  # noqa: E402
@@ -62,10 +83,14 @@ from unet_tpu_torch.io import checkpoint as ckpt_io  # noqa: E402
 from unet_tpu_torch.models import unet  # noqa: E402
 from unet_tpu_torch.ops import functional  # noqa: E402
 from unet_tpu_torch.ops.kernels import _build  # noqa: E402
+from unet_tpu_torch.ops.kernels import attention as attn_mod  # noqa: E402
+from unet_tpu_torch.ops.kernels import groupnorm as gn_mod  # noqa: E402
 from unet_tpu_torch.ops.kernels.attention import (  # noqa: E402
-    qkv_attention_fwd, qkv_attention_plain)
+    qkv_attention_bwd, qkv_attention_bwd_plain, qkv_attention_fwd,
+    qkv_attention_plain)
 from unet_tpu_torch.ops.kernels.groupnorm import (  # noqa: E402
-    gn_act_fwd, gn_act_fwd_plain)
+    gn_act_bwd, gn_act_bwd_plain, gn_act_fwd, gn_act_fwd_plain)
+from unet_tpu_torch.training import trainer  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # Published peaks of one H100 SXM (dense): device memory and arithmetic.
@@ -97,6 +122,32 @@ def attention_tol(want):
 STAT_TOL = dict(atol=1e-5, rtol=1e-5)  # mean, rstd: float32 in both
 FORWARD_ATOL = 2e-3  # whole U-Net, float32: the repo's bar for the model
 
+
+def partial_tol(want):
+    """GroupNorm backward's dgamma_b, dbeta_b: float32 sums over the H*W
+    rows of a batch element, added in another order by the kernel, so their
+    difference grows like sqrt(H*W) float32 roundings of the largest term:
+    at H*W = 4096 that is 64 * 2^-24 = 3.8e-6 of the largest value."""
+    return dict(atol=4e-6 * want.abs().max().item(), rtol=0.0)
+
+
+def attention_bwd_tol(want):
+    """Attention backward: float32 as the forward.  bfloat16: one bfloat16
+    step where both round the same float32 value on either side of a
+    rounding point (2^-7 relative), plus the products of ds and p that one
+    side rounds to bfloat16 a step away from the other (ds is rounded
+    before the dq and dk products, p before the dv product, and the two
+    compute them in another order): 8 x 2^-8 of the output's root mean
+    square."""
+    if want.dtype == torch.float32:
+        return F32_TOL
+    rms = want.float().square().mean().sqrt().item()
+    return dict(atol=8 * 2.0 ** -8 * rms, rtol=2.0 ** -7)
+
+
+TRAIN_LOSS_RTOL = 1e-5  # one float32 step, kernels against plain versions
+TRAIN_GRAD_ATOL = 1e-3  # every gradient: the repo's bar for the model
+
 # B=4 and B=16 cut the rows into other chunks than B=8 (at 64x64: 66 chunks of
 # 63 rows with a last chunk of one row, and 17 of 241, against 33 of 125).
 GN_SHAPES = [(8, 64, 64, 64), (8, 32, 32, 320), (8, 16, 16, 448),
@@ -106,6 +157,15 @@ GN_SHAPES = [(8, 64, 64, 64), (8, 32, 32, 320), (8, 16, 16, 448),
 PATH_BATCHES = (4, 8, 16)
 ATTN_SHAPES = [(8, 256, 192, 6), (8, 64, 256, 8), (4, 1024, 192, 6),
                (2, 576, 64, 2), (2, 100, 64, 2)]  # (B, T, C, NH)
+# The backward kernels at the trainer's batch (32, and 16 with microbatches):
+# the first and the widest concatenated GroupNorm inputs of each level, and
+# both attention resolutions; two small ragged shapes besides.
+TRAIN_BATCH = 32
+GN_BWD_SHAPES = [(32, 64, 64, 64), (32, 64, 64, 128), (32, 32, 32, 320),
+                 (32, 16, 16, 448), (32, 8, 8, 1024), (16, 64, 64, 64),
+                 (3, 5, 7, 96)]
+ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
+                   (2, 100, 64, 2)]
 
 
 def emit(obj) -> None:
@@ -142,12 +202,13 @@ def time_ms(fn, reps=20, warmup=3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, reps=20) -> float:
+def graph_ms(fn, reps=20, stream=None) -> float:
     """Time of `fn` on the device alone: `reps` calls are recorded into one
     CUDA graph and the graph's replay is timed, so the host's share of a
-    call (argument checks, allocations, the launch itself) is left out."""
+    call (argument checks, allocations, the launch itself) is left out.
+    `stream`: the stream to capture on (by default a new one)."""
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -160,16 +221,28 @@ def graph_ms(fn, reps=20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def timings(kernel, plain, library) -> dict:
+def timings(kernel, plain, library, library_stream=None) -> dict:
     """Each of the three as it is called (`*_ms`: CUDA events around a loop
     of calls, the larger of the host's and the device's time per call) and
-    on the device alone (`*_graph_ms`)."""
+    on the device alone (`*_graph_ms`).  A library backward runs through
+    autograd, which puts each backward kernel on the stream its forward ran
+    on: `library_stream` is that stream, and the library is timed and
+    captured there."""
     out = {}
     for name, fn in (("kernel", kernel), ("plain", plain),
                      ("library", library)):
-        out[f"{name}_ms"] = time_ms(fn)
-        out[f"{name}_graph_ms"] = graph_ms(fn)
+        stream = library_stream if name == "library" else None
+        with torch.cuda.stream(stream):
+            out[f"{name}_ms"] = time_ms(fn)
+            out[f"{name}_graph_ms"] = graph_ms(fn, stream=stream)
     return out
+
+
+def side_stream():
+    """A new stream that starts after the work queued so far."""
+    stream = torch.cuda.Stream(device=DEV)
+    stream.wait_stream(torch.cuda.current_stream())
+    return stream
 
 
 def compare(got, want, tol, what) -> float:
@@ -195,12 +268,7 @@ def check_groupnorm(gen):
         for dtype in (torch.float32, torch.bfloat16):
             for act in ("silu", "none"):
                 B, H, W, C = shape
-                x = (torch.randn(shape, generator=gen, device=DEV) * 2 + 0.5
-                     ).to(dtype)
-                gamma = (torch.randn(C, generator=gen, device=DEV) * 0.3 + 1
-                         ).to(dtype)
-                beta = (torch.randn(C, generator=gen, device=DEV) * 0.2
-                        ).to(dtype)
+                x, gamma, beta = gn_inputs(shape, dtype, gen)
                 y, mean, rstd = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
                 torch.cuda.synchronize()
                 yp, meanp, rstdp = gn_act_fwd_plain(x, gamma, beta, 32, 1e-5,
@@ -266,75 +334,241 @@ def check_attention(gen):
     return cases
 
 
-class swapped:
-    """Within the block, the functional ops call `gn` and `attn` in place of
-    the kernels' wrappers (for the comparisons only)."""
+def gn_inputs(shape, dtype, gen):
+    C = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=DEV) * 2 + 0.5).to(dtype)
+    gamma = (torch.randn(C, generator=gen, device=DEV) * 0.3 + 1).to(dtype)
+    beta = (torch.randn(C, generator=gen, device=DEV) * 0.2).to(dtype)
+    return x, gamma, beta
 
-    def __init__(self, gn, attn):
-        self.mine = (gn, attn)
+
+def compare_gn_bwd(got, want, dtype, what):
+    """Worst error of dx and of the partials against the plain version."""
+    err = compare(got[0], want[0], GN_TOL[dtype], what + " dx")
+    err_partials = max(compare(g, w, partial_tol(w), what + " partials")
+                       for g, w in zip(got[1:], want[1:]))
+    return err, err_partials
+
+
+def check_groupnorm_bwd(gen):
+    cases = []
+    for shape in GN_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for act in ("silu", "none"):
+                B, H, W, C = shape
+                x, gamma, beta = gn_inputs(shape, dtype, gen)
+                dy = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+                _, mean, rstd = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
+                args = (x, gamma, beta, mean, rstd, dy, 32, act)
+                got = gn_act_bwd(*args)
+                torch.cuda.synchronize()
+                want = gn_act_bwd_plain(*args)
+                err, err_partials = compare_gn_bwd(
+                    got, want, dtype, f"gn_act_bwd {shape} {dtype} act={act}")
+                partials_of_largest = max(
+                    (g - w).abs().max().item() / w.abs().max().item()
+                    for g, w in zip(got[1:], want[1:]))
+
+                # The library's GroupNorm(+SiLU) backward on the same values:
+                # autograd through F.group_norm and F.silu, graph retained.
+                stream = side_stream()
+                with torch.cuda.stream(stream):
+                    xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+                    gl = gamma.detach().requires_grad_()
+                    bl = beta.detach().requires_grad_()
+                    yl = TF.group_norm(xl, 32, gl, bl, 1e-5)
+                    yl = TF.silu(yl) if act == "silu" else yl
+                dyl = dy.permute(0, 3, 1, 2)
+
+                def library():
+                    return torch.autograd.grad(yl, (xl, gl, bl), dyl,
+                                               retain_graph=True)
+
+                item = x.element_size()
+                # x and dy read, dx written; gamma, beta, mean, rstd read;
+                # the (B, C) partials written
+                nbytes = (3 * x.numel() * item + 2 * C * item
+                          + 2 * B * 32 * 4 + 2 * B * C * 4)
+                # x-hat, the SiLU's derivative, dz, two sums, dx
+                flops = x.numel() * (20 if act == "silu" else 10)
+                bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+                cases.append(dict(
+                    shape=list(shape), dtype=str(dtype), act=act,
+                    max_abs_err=err, partials_max_abs_err=err_partials,
+                    partials_err_of_largest=partials_of_largest,
+                    tol=GN_TOL[dtype],
+                    **timings(lambda: gn_act_bwd(*args),
+                              lambda: gn_act_bwd_plain(*args), library,
+                              stream),
+                    bound_ms=bound_ms, bound_by=bound_by))
+                del yl
+    return cases
+
+
+def check_attention_bwd(gen):
+    cases = []
+    for B, T, C, NH in ATTN_BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn((B, T, 3 * C), generator=gen, device=DEV
+                              ).to(dtype)
+            dout = torch.randn((B, T, C), generator=gen, device=DEV).to(dtype)
+            got = qkv_attention_bwd(qkv, dout, NH)
+            torch.cuda.synchronize()
+            want = qkv_attention_bwd_plain(qkv, dout, NH)
+            tol = attention_bwd_tol(want)
+            err = compare(got, want, tol,
+                          f"qkv_attention_bwd {(B, T, C, NH)} {dtype}")
+            beyond = ((got.float() - want.float()).abs()
+                      - 2.0 ** -7 * want.float().abs()).max().item()
+            rms = want.float().square().mean().sqrt().item()
+            HS = C // NH
+            stream = side_stream()
+            with torch.cuda.stream(stream):
+                ql = qkv.detach().requires_grad_()
+                q, k, v = (a.transpose(1, 2) for a in
+                           ql.view(B, T, 3, NH, HS).unbind(2))
+                out = TF.scaled_dot_product_attention(q, k, v)
+            dol = dout.view(B, T, NH, HS).transpose(1, 2)
+
+            def library():
+                return torch.autograd.grad(out, ql, dol, retain_graph=True)
+
+            item = qkv.element_size()
+            # qkv and dout read, d(qkv) written; five T x T x HS products
+            # per head (scores, dp, dq, dk, dv)
+            bound_ms, bound_by = bound(7 * B * T * C * item,
+                                       10 * B * NH * T * T * HS, dtype)
+            cases.append(dict(
+                shape=[B, T, C, NH], dtype=str(dtype), max_abs_err=err,
+                tol=tol, err_beyond_one_bf16_step=beyond, out_rms=rms,
+                **timings(lambda: qkv_attention_bwd(qkv, dout, NH),
+                          lambda: qkv_attention_bwd_plain(qkv, dout, NH),
+                          library, stream),
+                bound_ms=bound_ms, bound_by=bound_by))
+            del out
+    return cases
+
+
+class swapped:
+    """Within the block, the autograd Functions and the functional ops call
+    the given functions in place of the kernels' wrappers (for the
+    comparisons and the shape records only): `fwd` and `bwd` map
+    "gn"/"attn" to a forward and a backward."""
+
+    NAMES = {("gn", "fwd"): (gn_mod.GroupNormAct, "fwd"),
+             ("gn", "bwd"): (gn_mod.GroupNormAct, "bwd"),
+             ("attn", "fwd"): (attn_mod.QKVAttention, "fwd"),
+             ("attn", "bwd"): (attn_mod.QKVAttention, "bwd")}
+
+    def __init__(self, **mine):
+        self.mine = mine  # e.g. gn_fwd=..., attn_bwd=...
 
     def __enter__(self):
-        self.saved = (functional.gn_act_fwd, functional.qkv_attention_fwd)
-        functional.gn_act_fwd, functional.qkv_attention_fwd = self.mine
+        self.saved = {}
+        for key, fn in self.mine.items():
+            owner, name = self.NAMES[tuple(key.split("_"))]
+            self.saved[key] = getattr(owner, name)
+            setattr(owner, name, staticmethod(fn))
 
     def __exit__(self, *exc):
-        functional.gn_act_fwd, functional.qkv_attention_fwd = self.saved
+        for key, fn in self.saved.items():
+            owner, name = self.NAMES[tuple(key.split("_"))]
+            setattr(owner, name, staticmethod(fn))
 
 
 def plain_versions():
     """The plain versions on the card instead of the kernels."""
-    return swapped(gn_act_fwd_plain, qkv_attention_plain)
+    return swapped(gn_fwd=gn_act_fwd_plain, gn_bwd=gn_act_bwd_plain,
+                   attn_fwd=qkv_attention_plain,
+                   attn_bwd=qkv_attention_bwd_plain)
 
 
-def recording(gn_seen, attn_seen):
+def recording(seen):
     """Within the block, the kernels' wrappers note the shape of every input
-    they are given."""
+    they are given in `seen`: {"gn_fwd", "gn_bwd", "attn_fwd", "attn_bwd"}
+    -> set of signatures."""
 
-    def gn(x, gamma, beta, num_groups, eps, act):
-        gn_seen.add((tuple(x.shape), num_groups, eps, act))
+    def gn_fwd(x, gamma, beta, num_groups, eps, act):
+        seen["gn_fwd"].add((tuple(x.shape), num_groups, eps, act))
         return gn_act_fwd(x, gamma, beta, num_groups, eps, act)
 
-    def attn(qkv, num_heads):
-        attn_seen.add((tuple(qkv.shape), num_heads))
+    def gn_bwd(x, gamma, beta, mean, rstd, dy, num_groups, act):
+        seen["gn_bwd"].add((tuple(x.shape), num_groups, 1e-5, act))
+        return gn_act_bwd(x, gamma, beta, mean, rstd, dy, num_groups, act)
+
+    def attn_fwd(qkv, num_heads):
+        seen["attn_fwd"].add((tuple(qkv.shape), num_heads))
         return qkv_attention_fwd(qkv, num_heads)
 
-    return swapped(gn, attn)
+    def attn_bwd(qkv, dout, num_heads):
+        seen["attn_bwd"].add((tuple(qkv.shape), num_heads))
+        return qkv_attention_bwd(qkv, dout, num_heads)
+
+    return swapped(gn_fwd=gn_fwd, gn_bwd=gn_bwd, attn_fwd=attn_fwd,
+                   attn_bwd=attn_bwd)
 
 
-def check_seen_shapes(gn_seen, attn_seen, gen):
+def new_seen():
+    return {"gn_fwd": set(), "gn_bwd": set(), "attn_fwd": set(),
+            "attn_bwd": set()}
+
+
+def check_seen_shapes(seen, gen):
     """Kernel against plain version on random tensors of every shape noted,
     float32 and bfloat16.  Returns the count of shapes and the worst error
     per type."""
     worst = {"torch.float32": 0.0, "torch.bfloat16": 0.0}
+
+    def note(dtype, err):
+        worst[str(dtype)] = max(worst[str(dtype)], err)
+
     for dtype in (torch.float32, torch.bfloat16):
-        for shape, groups, eps, act in sorted(gn_seen):
-            a = (torch.randn(shape, generator=gen, device=DEV) * 2 + 0.5
-                 ).to(dtype)
-            g = (torch.randn(shape[-1], generator=gen, device=DEV) * 0.3 + 1
-                 ).to(dtype)
-            b = (torch.randn(shape[-1], generator=gen, device=DEV) * 0.2
-                 ).to(dtype)
+        for shape, groups, eps, act in sorted(seen["gn_fwd"]):
+            a, g, b = gn_inputs(shape, dtype, gen)
             got = gn_act_fwd(a, g, b, groups, eps, act)
             want = gn_act_fwd_plain(a, g, b, groups, eps, act)
             what = f"gn_act_fwd {shape} {dtype} act={act}"
-            worst[str(dtype)] = max(worst[str(dtype)], compare(
-                got[0], want[0], GN_TOL[dtype], what))
+            note(dtype, compare(got[0], want[0], GN_TOL[dtype], what))
             compare(got[1], want[1], STAT_TOL, what + " mean")
             compare(got[2], want[2], STAT_TOL, what + " rstd")
-        for shape, heads in sorted(attn_seen):
+        for shape, groups, eps, act in sorted(seen["gn_bwd"]):
+            a, g, b = gn_inputs(shape, dtype, gen)
+            _, mean, rstd = gn_act_fwd(a, g, b, groups, eps, act)
+            dy = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            args = (a, g, b, mean, rstd, dy, groups, act)
+            note(dtype, max(compare_gn_bwd(
+                gn_act_bwd(*args), gn_act_bwd_plain(*args), dtype,
+                f"gn_act_bwd {shape} {dtype} act={act}")))
+        for shape, heads in sorted(seen["attn_fwd"]):
             qkv = torch.randn(shape, generator=gen, device=DEV).to(dtype)
             want = qkv_attention_plain(qkv, heads)
-            worst[str(dtype)] = max(worst[str(dtype)], compare(
+            note(dtype, compare(
                 qkv_attention_fwd(qkv, heads), want, attention_tol(want),
                 f"qkv_attention_fwd {shape} {dtype}"))
-    return dict(gn_shapes=len(gn_seen), attention_shapes=len(attn_seen),
-                batches=sorted({shape[0] for shape, *_ in gn_seen}),
+        for shape, heads in sorted(seen["attn_bwd"]):
+            qkv = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            dout = torch.randn(shape[:2] + (shape[2] // 3,), generator=gen,
+                               device=DEV).to(dtype)
+            want = qkv_attention_bwd_plain(qkv, dout, heads)
+            note(dtype, compare(
+                qkv_attention_bwd(qkv, dout, heads), want,
+                attention_bwd_tol(want),
+                f"qkv_attention_bwd {shape} {dtype}"))
+    return dict(**{f"{k}_shapes": len(v) for k, v in seen.items()},
+                batches=sorted({shape[0] for shape, *_ in seen["gn_fwd"]}),
                 worst_max_abs_err=worst)
 
 
+KERNELS = (gn_act_fwd, gn_act_bwd, qkv_attention_fwd, qkv_attention_bwd)
+
+
 def reset_counts() -> None:
-    gn_act_fwd.launches = 0
-    qkv_attention_fwd.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
 
 
 def launches_per_forward(cfg):
@@ -344,6 +578,19 @@ def launches_per_forward(cfg):
     n_res = sum(layer[0] == "res" for layer in layers)
     n_attn = sum(layer[0] == "attn" for layer in layers)
     return 2 * n_res + n_attn + 1, n_attn
+
+
+def launches_per_step(cfg, remat, microbatches):
+    """Each kernel's launches in one train step: one forward and one
+    backward per microbatch; with remat the forward of every layer group
+    runs again in the backward, all GroupNorms but the final one (which
+    sits outside the groups) and every attention."""
+    gn, attn = launches_per_forward(cfg)
+    gn_fwd, attn_fwd = (2 * gn - 1, 2 * attn) if remat else (gn, attn)
+    return {"gn_act_fwd": microbatches * gn_fwd,
+            "gn_act_bwd": microbatches * gn,
+            "qkv_attention_fwd": microbatches * attn_fwd,
+            "qkv_attention_bwd": microbatches * attn}
 
 
 def check_forward(model, gen):
@@ -444,8 +691,8 @@ def drive_path(tmp, totals, gen):
     # One short untimed request of each kind first: the first call at a
     # batch size and type pays cuDNN's and cuBLAS's set-up.  They also show
     # which shapes the requests hand the kernels.
-    gn_seen, attn_seen = set(), set()
-    with recording(gn_seen, attn_seen):
+    seen = new_seen()
+    with recording(seen):
         for dtype in ("bfloat16", "float32"):
             cli(files["uncond"], "--sampler", "ddim", "--ddim_steps", "2",
                 "--batch_size", "8", "--compute_dtype", dtype)()
@@ -453,7 +700,7 @@ def drive_path(tmp, totals, gen):
             "--batch_size", "8", "--compute_dtype", "bfloat16",
             "--class_label", "3", "--guidance_scale", "3.0")()
         ddpm_chain(4, torch.bfloat16, num_steps=2)
-    seen = check_seen_shapes(gn_seen, attn_seen, gen)
+    seen = check_seen_shapes(seen, gen)
     if seen["batches"] != sorted(PATH_BATCHES):
         raise AssertionError(f"the requests ran at batches {seen['batches']}")
 
@@ -466,6 +713,8 @@ def drive_path(tmp, totals, gen):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         gn_n, attn_n = gn_act_fwd.launches, qkv_attention_fwd.launches
+        if gn_act_bwd.launches or qkv_attention_bwd.launches:
+            raise AssertionError(f"{name}: a backward kernel ran: {counts()}")
         shape = (batch, cfg.image_size, cfg.image_size, cfg.out_channels)
         if images.shape != shape or str(images.dtype) != "uint8":
             raise AssertionError(
@@ -484,6 +733,151 @@ def drive_path(tmp, totals, gen):
             images_per_s=batch / seconds, gn_act_fwd_launches=gn_n,
             qkv_attention_fwd_launches=attn_n,
             pixel_mean=float(images.mean())))
+    return records, seen
+
+
+def check_train_step(gen):
+    """One float32 step of the default model at the trainer's batch: loss
+    and gradients on the kernels against the same on the plain versions;
+    then ten `step_with` steps on one fixed batch, t and noise, whose loss
+    must fall."""
+    cfg = UnetConfig()
+    model = unet.init(cfg, generator=torch.Generator().manual_seed(2),
+                      device=DEV)
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, lr=1e-3)
+    grad_fn = trainer._make_grad_fn(
+        trainer.make_loss_fn(cfg, diffusion, torch.float32), tc)
+    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    batch = torch.rand(shape, generator=gen, device=DEV) * 2 - 1
+    t = torch.randint(0, cfg.max_period, (TRAIN_BATCH,), generator=gen,
+                      device=DEV)
+    noise = torch.randn(shape, generator=gen, device=DEV)
+    loss, grads = grad_fn(model, batch, t, noise)
+    with plain_versions():
+        ploss, pgrads = grad_fn(model, batch, t, noise)
+    loss, ploss = loss.item(), ploss.item()
+    rel = abs(loss - ploss) / abs(ploss)
+    if not (math.isfinite(loss) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"train step f32: loss {loss} against {ploss} "
+                             "on the plain versions")
+    grad_err = max(compare(g, p, dict(atol=TRAIN_GRAD_ATOL, rtol=0.0),
+                           f"train step f32 gradient {i}")
+                   for i, (g, p) in enumerate(zip(grads, pgrads)))
+    grad_max = max(p.abs().max().item() for p in pgrads)
+    del grads, pgrads
+
+    state = trainer.init_state(model)
+    _, step_with = trainer.make_train_step(cfg, tc, diffusion, DEV)
+    losses = torch.stack([step_with(state, batch, t, noise)[1]
+                          for _ in range(10)]).tolist()
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"ten steps on one batch: losses {losses}")
+    return dict(batch=TRAIN_BATCH, loss=loss, plain_loss=ploss,
+                loss_rel_err=rel, loss_rtol=TRAIN_LOSS_RTOL,
+                grad_max_abs_err=grad_err, grad_atol=TRAIN_GRAD_ATOL,
+                grad_max_abs=grad_max, ten_step_losses=losses)
+
+
+LOG_LINE = re.compile(r"step (\d+): loss (\S+) \(([0-9.]+) ms/step\)")
+
+
+def drive_train(tmp, totals, gen):
+    """The training CLI at the default model, full width and depth, B=32:
+    returns the run records and the check of the kernels at the shapes the
+    trainer's first steps give them, and adds the launches to `totals`."""
+    cfg = UnetConfig()
+    rng = np.random.default_rng(0)
+    data = os.path.join(tmp, "train.bin")
+    pixels = rng.integers(0, 256, (256, cfg.in_channels, cfg.image_size,
+                                   cfg.image_size), dtype=np.uint8)
+    write_bin(data, pixels.astype(np.float32) / 127.5 - 1.0)
+
+    def run(name, *flags):
+        log = os.path.join(tmp, f"{name}.txt")
+        argv = ["--data_file", data, "--device", str(DEV),
+                "--batch_size", str(TRAIN_BATCH), "--output_dir",
+                os.path.join(tmp, name.split("_")[0]), "--log_file", log,
+                *flags]
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            state = train_cli.main(argv)
+        torch.cuda.synchronize()
+        with open(log) as f:
+            return state, f.read(), out.getvalue()
+
+    # One untimed step of each kind first: cuDNN's and cuBLAS's set-up, and
+    # the shapes the trainer hands the kernels.
+    seen = new_seen()
+    with recording(seen):
+        for flags in (["--compute_dtype", "bfloat16"],
+                      ["--compute_dtype", "float32"],
+                      ["--compute_dtype", "bfloat16", "--remat", "true",
+                       "--microbatch", str(TRAIN_BATCH // 2)]):
+            run("warm", "--iterations", "1", "--log_interval", "1",
+                "--save_interval", "0", *flags)
+    seen = check_seen_shapes(seen, gen)
+    if seen["batches"] != [TRAIN_BATCH // 2, TRAIN_BATCH]:
+        raise AssertionError(f"the trainer ran at batches {seen['batches']}")
+
+    bf16 = ["--compute_dtype", "bfloat16", "--ema_rate", "0.999"]
+    runs = [
+        ("bf16", 0, 20, False, 1, [*bf16, "--iterations", "20",
+                                   "--log_interval", "10",
+                                   "--save_interval", "20"]),
+        ("bf16_resume", 20, 30, False, 1, [
+            *bf16, "--iterations", "30", "--log_interval", "10",
+            "--save_interval", "10", "--model_weights",
+            os.path.join(tmp, "bf16", "model_20.bin")]),
+        ("f32", 0, 10, False, 1, ["--compute_dtype", "float32",
+                                  "--iterations", "10", "--log_interval",
+                                  "5", "--save_interval", "0"]),
+        ("remat", 0, 4, True, 2, ["--compute_dtype", "bfloat16", "--remat",
+                                  "true", "--microbatch",
+                                  str(TRAIN_BATCH // 2),
+                                  "--iterations", "4", "--log_interval", "2",
+                                  "--save_interval", "0"]),
+    ]
+    records = []
+    for name, first, last, remat, micro, flags in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        state, log, out = run(name, *flags)
+        seconds = time.perf_counter() - t0
+        got = counts()
+        want = {k: (last - first) * v
+                for k, v in launches_per_step(cfg, remat, micro).items()}
+        if got != want:
+            raise AssertionError(f"train {name}: launches {got}, want {want}")
+        lines = LOG_LINE.findall(log)
+        steps = [int(s) for s, _, _ in lines]
+        losses = [float(loss) for _, loss, _ in lines]
+        interval = steps[0] - first if steps else 0
+        if (steps != list(range(first + interval, last + 1, interval))
+                or not all(map(math.isfinite, losses))):
+            raise AssertionError(f"train {name}: log lines {lines}")
+        if state.step != last:
+            raise AssertionError(f"train {name}: ended at step {state.step}")
+        if name.startswith("bf16"):
+            path = os.path.join(tmp, "bf16", f"model_{last}.bin")
+            if f"saved {path}" not in log:
+                raise AssertionError(f"train {name}: no checkpoint line")
+            if ckpt_io.load(path, device=DEV).step != last:
+                raise AssertionError(f"train {name}: checkpoint step")
+        if name == "bf16_resume" and "loaded" not in out:
+            raise AssertionError("train bf16_resume: did not load")
+        for k, v in got.items():
+            totals[k] += v
+        ms = float(lines[-1][2])  # the last interval: warm
+        records.append(dict(
+            run=name, steps=f"{first}->{last}", remat=remat,
+            microbatches=micro, batch=TRAIN_BATCH, logged_losses=losses,
+            ms_per_step_last_interval=ms,
+            images_per_s=TRAIN_BATCH / ms * 1e3,
+            peak_mib=trainer.device_peak_memory_mib(DEV),
+            seconds=seconds, launches=got,
+            launches_per_step=launches_per_step(cfg, remat, micro)))
+        del state
     return records, seen
 
 
@@ -520,33 +914,55 @@ def main() -> None:
           "f32_precision": "highest (TF32 off)"})
 
     gen = torch.Generator(device=DEV).manual_seed(0)
-    gn_cases = check_groupnorm(gen)
-    attn_cases = check_attention(gen)
-    emit({"phase": "kernel_checks", "gn_act_fwd": gn_cases,
-          "qkv_attention_fwd": attn_cases})
+    cases = {"gn_act_fwd": check_groupnorm(gen),
+             "qkv_attention_fwd": check_attention(gen),
+             "gn_act_bwd": check_groupnorm_bwd(gen),
+             "qkv_attention_bwd": check_attention_bwd(gen)}
+    emit({"phase": "kernel_checks", **cases})
 
     model = unet.init(UnetConfig(),
                       generator=torch.Generator().manual_seed(0), device=DEV)
     emit({"phase": "forward", **check_forward(model, gen)})
     del model
 
-    totals = {"gn_act_fwd": 0, "qkv_attention_fwd": 0}
+    totals = {fn.__name__: 0 for fn in KERNELS}
     with tempfile.TemporaryDirectory() as tmp:
         records, seen = drive_path(tmp, totals, gen)
     emit({"phase": "path", "model": "UnetConfig() ImageNet-64, full depth",
-          "kernel_inputs_of_the_requests": seen, "requests": records})
+          "kernel_inputs_of_the_requests": seen, "requests": records,
+          "launches": dict(totals)})
+
+    emit({"phase": "train_step", "model": "UnetConfig(), float32 highest",
+          **check_train_step(gen)})
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, seen = drive_train(tmp, totals, gen)
+    emit({"phase": "train", "model": "UnetConfig() ImageNet-64, full depth",
+          "kernel_inputs_of_the_steps": seen, "runs": runs,
+          "launches_with_the_requests": dict(totals)})
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {totals}")
 
+    gn_src, attn_src = ("unet_tpu_torch/csrc/groupnorm.cu",
+                        "unet_tpu_torch/csrc/attention.cu")
     emit({"kernels": [
-        summary("gn_act_fwd", "unet_tpu_torch/csrc/groupnorm.cu",
-                "unet_tpu/ops/pallas/groupnorm.py:165", gn_cases,
+        summary("gn_act_fwd", gn_src, "unet_tpu/ops/pallas/groupnorm.py:165",
+                cases["gn_act_fwd"],
                 dict(shape=[8, 64, 64, 64], dtype="torch.bfloat16",
                      act="silu"), totals["gn_act_fwd"]),
-        summary("qkv_attention_fwd", "unet_tpu_torch/csrc/attention.cu",
-                "unet_tpu/ops/pallas/attention.py:160", attn_cases,
+        summary("qkv_attention_fwd", attn_src,
+                "unet_tpu/ops/pallas/attention.py:160",
+                cases["qkv_attention_fwd"],
                 dict(shape=[8, 256, 192, 6], dtype="torch.bfloat16"),
                 totals["qkv_attention_fwd"]),
+        summary("gn_act_bwd", gn_src, "unet_tpu/ops/pallas/groupnorm.py:200",
+                cases["gn_act_bwd"],
+                dict(shape=[32, 64, 64, 64], dtype="torch.bfloat16",
+                     act="silu"), totals["gn_act_bwd"]),
+        summary("qkv_attention_bwd", attn_src,
+                "unet_tpu/ops/pallas/attention.py:189",
+                cases["qkv_attention_bwd"],
+                dict(shape=[32, 256, 192, 6], dtype="torch.bfloat16"),
+                totals["qkv_attention_bwd"]),
     ]})
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -186,16 +186,6 @@ def test_unet_bf16_runs_and_stays_close_to_f32(rng):
     assert (got.float() - ref).abs().max() < 0.15
 
 
-def test_unet_forward_refuses_grad_mode():
-    """The kernels have no backward yet: a forward that would record a
-    graph raises instead of giving a wrong gradient later."""
-    _, cfg = configs()
-    model = port_unet.init(cfg, device="cpu")
-    x = torch.zeros(1, 16, 16, 3)
-    with pytest.raises(RuntimeError, match="no backward"):
-        model(x, torch.zeros(1))
-
-
 CONFIGS = [dict(), dict(model_channels=64, image_size=64,
                         channel_mult=(1, 2, 3, 4), num_res_blocks=2,
                         attention_ds=(4, 8)),

@@ -1,0 +1,331 @@
+"""Training CLI (port of the single-device path of unet_tpu/cli/train.py;
+the same flags, plus `--device`).
+
+python -m unet_tpu_torch.cli.train --data_file data/train.bin \\
+    [--batch_size 32] [--iterations N] [--compute_dtype bfloat16] \\
+    [--model_weights models/model_N.bin] [--device cuda]
+
+A fresh init (from `--seed`) or `--model_weights` (parameters, AdamW
+moments, step, seed, EMA and loader cursor: a resumed run continues the
+original's trajectory), then the step loop over the `.bin` stream: a text
+log line every `--log_interval` steps ("step N: loss L (X ms/step)") and the
+same numbers as a key-value table (and a CSV file under `--csv_log_dir`), a
+full checkpoint `output_dir/model_<step>.bin` every `--save_interval`.
+`--init_model_only` writes the initial checkpoint and exits.
+
+The step loop never waits for the device within a log interval: the
+losses stay on the device and are read once per interval.  Flags of paths
+that later slices port raise `NotImplementedError` at a non-default value,
+naming their `ROADMAP.md` item.  `--native_loader` is accepted and the
+batches come from `data.dataset.data_loader`, which gives the same batches
+as the JAX package's native loaders.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import torch
+
+from unet_tpu_torch.config import TrainConfig, UnetConfig
+from unet_tpu_torch.data import dataset
+from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
+                                               named_beta_schedule)
+from unet_tpu_torch.io import checkpoint as ckpt_io
+from unet_tpu_torch.models import unet
+from unet_tpu_torch.training import trainer
+from unet_tpu_torch.utils.args import add_dict_to_argparser
+from unet_tpu_torch.utils.logger import Logger, TextLog
+
+
+def defaults() -> dict:
+    return dict(
+        model_weights="",       # .bin checkpoint to load ("" = fresh init)
+        data_file="data/elephant_train.bin",
+        log_file="log.txt",
+        image_size=64,
+        num_channels=64,
+        num_res_blocks=2,
+        attention_resolutions="16,8",  # resolution units; ds factors are
+        #                                image_size // res
+        channel_mult="",               # "" = (1,2,3,4)
+        num_head_channels=32,
+        class_cond=False,
+        num_classes=10,
+        use_scale_shift_norm=False,
+        randomize=False,               # shuffle + p=0.5 flip
+        data_dir="",                   # directory of images instead of a .bin
+        diffusion_steps=1000,
+        noise_schedule="linear",
+        lr=1e-4,
+        weight_decay=0.0,
+        lr_anneal_steps=0,         # >0 anneals lr linearly to 0 over this
+        #                            many steps
+        microbatch=0,              # >0 runs microbatches of this size with
+        #                            averaged grads (full-batch math)
+        label_dropout=0.0,         # classifier-free-guidance training
+        ema_rate=0.0,              # >0 keeps a float32 parameter EMA and
+        #                            saves it in checkpoints
+        batch_size=32,
+        log_interval=100,
+        save_interval=10_000,
+        iterations=100_000,
+        init_model_only=False,
+        init_model_filename="unet_init.bin",
+        seed=0,
+        compute_dtype="float32",   # float32 | bfloat16
+        remat=False,
+        shuffle=False,
+        flip=False,                # p=0.5 horizontal flip augmentation
+        host_rng=False,
+        log_norms=False,           # grad/param norms + peak memory
+        num_devices=0,             # 0 = all visible devices; the port
+        #                            trains on one
+        fsdp=False,
+        tensor_parallel=1,
+        spatial_parallel=1,
+        num_shards=1,              # dataloader shards; this process reads
+        shard_index=0,             # shard shard_index of num_shards
+        coordinator_address="",
+        num_processes=0,
+        process_id=-1,
+        auto_resume=False,
+        native_loader=True,        # accepted; batches come from data_loader
+        output_dir="models",
+        csv_log_dir="",
+        device="cuda",             # where the model trains
+    )
+
+
+def create_argparser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    add_dict_to_argparser(parser, defaults())
+    return parser
+
+
+def model_config_from_args(args) -> UnetConfig:
+    """Flags -> UnetConfig, as the JAX package's CLI converts them."""
+    if args.channel_mult == "":
+        channel_mult = (1, 2, 3, 4)
+    else:
+        channel_mult = tuple(
+            int(m) for m in str(args.channel_mult).split(","))
+    attention_ds = tuple(
+        args.image_size // int(res)
+        for res in str(args.attention_resolutions).split(","))
+    return UnetConfig(model_channels=args.num_channels,
+                      num_res_blocks=args.num_res_blocks,
+                      image_size=args.image_size,
+                      max_period=args.diffusion_steps,
+                      attention_ds=attention_ds,
+                      channel_mult=channel_mult,
+                      num_head_channels=args.num_head_channels,
+                      use_scale_shift_norm=args.use_scale_shift_norm)
+
+
+# Flags of paths not ported yet: (flag, is it set?, ROADMAP.md item).
+_LATER = (
+    ("--num_devices", lambda a: a.num_devices > 1, 8),
+    ("--fsdp", lambda a: a.fsdp, 8),
+    ("--tensor_parallel", lambda a: a.tensor_parallel != 1, 8),
+    ("--spatial_parallel", lambda a: a.spatial_parallel != 1, 8),
+    ("--coordinator_address", lambda a: bool(a.coordinator_address), 8),
+    ("--num_processes", lambda a: a.num_processes not in (0, 1), 8),
+    ("--process_id", lambda a: a.process_id not in (-1, 0), 8),
+    ("--data_dir", lambda a: bool(a.data_dir), 4),
+    ("--class_cond", lambda a: a.class_cond, 4),
+    ("--host_rng", lambda a: a.host_rng, 5),
+    ("--auto_resume", lambda a: a.auto_resume, 6),
+)
+
+
+def _reject_not_ported(args) -> None:
+    for flag, is_set, item in _LATER:
+        if is_set(args):
+            raise NotImplementedError(
+                f"train: {flag} is not ported to unet_tpu_torch yet "
+                f"(ROADMAP.md, Queue 1 item {item})")
+
+
+def _reject_bad_combos(args) -> None:
+    """Error loudly instead of silently ignoring flags."""
+    def bad(cond, msg):
+        if cond:
+            raise SystemExit(f"train: {msg}")
+    bad(not 0.0 <= args.ema_rate < 1.0, "--ema_rate must be in [0, 1)")
+    bad(not 0.0 <= args.label_dropout < 1.0,
+        "--label_dropout must be in [0, 1)")
+    bad(args.label_dropout > 0.0 and not args.class_cond,
+        "--label_dropout needs --class_cond")
+    bad(args.lr_anneal_steps < 0, "--lr_anneal_steps must be >= 0")
+    bad(args.noise_schedule not in ("linear", "cosine"),
+        f"unknown --noise_schedule {args.noise_schedule!r}")
+    bad(args.compute_dtype not in ("float32", "bfloat16"),
+        f"unknown --compute_dtype {args.compute_dtype!r}")
+    bad(args.log_interval < 1, "--log_interval must be >= 1")
+    bad(args.save_interval < 0,
+        "--save_interval must be >= 0 (0 = never save)")
+    bad(args.microbatch < 0, "--microbatch must be >= 0")
+    bad(args.microbatch > 0 and args.batch_size % args.microbatch != 0,
+        f"--microbatch {args.microbatch} does not divide "
+        f"--batch_size {args.batch_size}")
+    bad(args.shard_index >= args.num_shards,
+        "--shard_index must be < --num_shards")
+
+
+def main(argv=None) -> trainer.TrainState:
+    """Train as the flags say; returns the final state (None with
+    --init_model_only)."""
+    args = create_argparser().parse_args(argv)
+    _reject_not_ported(args)
+    _reject_bad_combos(args)  # before any work happens
+    if not args.init_model_only and not os.path.exists(args.data_file):
+        raise SystemExit(f"train: data file not found: {args.data_file} "
+                         "(write one with data.dataset.write_bin)")
+    device = torch.device(args.device)
+    cfg = model_config_from_args(args)
+    num_classes = None
+    tc = TrainConfig(batch_size=args.batch_size, lr=args.lr,
+                     weight_decay=args.weight_decay,
+                     lr_anneal_steps=args.lr_anneal_steps,
+                     microbatch=args.microbatch,
+                     label_dropout=args.label_dropout,
+                     ema_rate=args.ema_rate,
+                     iterations=args.iterations,
+                     log_interval=args.log_interval,
+                     save_interval=args.save_interval,
+                     compute_dtype=args.compute_dtype, remat=args.remat,
+                     shuffle=args.shuffle or args.randomize)
+
+    # --- model init / load ---
+    ckpt = None
+    seed = args.seed
+    if args.model_weights:
+        ckpt = ckpt_io.load(args.model_weights, cfg, num_classes,
+                            device=device)
+        argv_flags = sys.argv[1:] if argv is None else argv
+        if ckpt.ema is not None and args.ema_rate == 0.0:
+            if "--ema_rate" in argv_flags:
+                # explicit --ema_rate 0: the user is turning the EMA off
+                ckpt.ema = None
+                print("dropping the checkpoint's EMA (--ema_rate 0)")
+            elif ckpt.ema_rate > 0.0:
+                # the rate travels in the checkpoint (header[39]): resuming
+                # without --ema_rate keeps averaging at it
+                args.ema_rate = ckpt.ema_rate
+                tc = dataclasses.replace(tc, ema_rate=ckpt.ema_rate)
+                print(f"resuming EMA at its checkpointed rate "
+                      f"{ckpt.ema_rate:g}")
+            else:
+                raise SystemExit(
+                    "train: checkpoint carries EMA weights but no rate — "
+                    "pass --ema_rate to keep averaging, or --ema_rate 0 "
+                    "to drop the EMA")
+        if ckpt.rng_seed is not None:
+            seed = ckpt.rng_seed
+        if (ckpt.noise_schedule is not None
+                and ckpt.noise_schedule != args.noise_schedule):
+            # q_sample must use the schedule the run was trained with
+            print(f"resuming with the checkpointed noise schedule "
+                  f"{ckpt.noise_schedule!r} (not {args.noise_schedule!r})")
+            args.noise_schedule = ckpt.noise_schedule
+        params = ckpt.params
+        print(f"loaded {args.model_weights} (step {ckpt.step})")
+    else:
+        params = unet.init(cfg, num_classes,
+                           generator=torch.Generator().manual_seed(seed),
+                           device=device)
+        print(f"fresh init (seed {seed}, "
+              f"{ckpt_io.num_params(cfg, num_classes):,} params)")
+
+    if args.init_model_only:
+        ckpt_io.save(args.init_model_filename, ckpt_io.Checkpoint(
+            params=params, cfg=cfg, batch_size=tc.batch_size,
+            noise_schedule=args.noise_schedule))
+        print(f"wrote init checkpoint to {args.init_model_filename}")
+        return None
+
+    if ckpt is not None:
+        state = trainer.from_checkpoint(ckpt, seed=seed, ema_rate=tc.ema_rate)
+    else:
+        state = trainer.init_state(params, seed=seed, ema_rate=tc.ema_rate)
+    start_step = state.step
+
+    # --- data + step function ---
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule(args.noise_schedule, cfg.max_period),
+        device=device)
+    if args.log_norms:
+        step_fn = trainer.make_train_step_aux(cfg, tc, diffusion, device)
+    else:
+        step_fn, _ = trainer.make_train_step(cfg, tc, diffusion, device)
+    hdr = dataset.BinDataset(args.data_file)
+    if ((hdr.height, hdr.width, hdr.channels)
+            != (cfg.image_size, cfg.image_size, cfg.in_channels)):
+        raise SystemExit(
+            f"train: {args.data_file} holds "
+            f"{hdr.height}x{hdr.width}x{hdr.channels} images but the "
+            f"model is configured for {cfg.image_size}x"
+            f"{cfg.image_size}x{cfg.in_channels} — pass --image_size "
+            f"{hdr.height} (and matching arch flags)")
+    loader = dataset.data_loader(args.data_file, tc.batch_size,
+                                 shuffle=tc.shuffle,
+                                 flip=args.flip or args.randomize,
+                                 seed=seed, skip_batches=start_step,
+                                 num_shards=args.num_shards,
+                                 shard_index=args.shard_index)
+
+    # --- loop ---
+    text_log = TextLog(args.log_file)
+    kv_log = Logger(args.csv_log_dir or None)
+    counter = trainer.LossCounter()
+    os.makedirs(args.output_dir, exist_ok=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    pending = []  # this interval's losses, still on the device
+    t_flush = time.perf_counter()
+    it = start_step
+    while it < tc.iterations:
+        batch = torch.from_numpy(next(loader)).to(device)
+        if args.log_norms:
+            state, aux = step_fn(state, batch)
+            pending.append(aux["loss"])
+            kv_log.logkv_mean("grad_norm_mean", float(aux["grad_norm"]))
+            kv_log.logkv("grad_norm", float(aux["grad_norm"]))
+            kv_log.logkv_mean("param_norm", float(aux["param_norm"]))
+        else:
+            state, loss = step_fn(state, batch)
+            pending.append(loss)
+        it += 1
+        if it % tc.log_interval == 0:
+            for loss in torch.stack(pending).tolist():  # waits for the card
+                counter.add(loss)
+            pending.clear()
+            dt = (time.perf_counter() - t_flush) / tc.log_interval
+            mean_loss = counter.mean_and_reset()
+            text_log.log(f"step {it}: loss {mean_loss:.6f} "
+                         f"({dt * 1e3:.2f} ms/step)")
+            kv_log.logkv("step", it)
+            kv_log.logkv("loss", mean_loss)
+            kv_log.logkv("ms_per_step", dt * 1e3)
+            if args.log_norms:
+                peak = trainer.device_peak_memory_mib(device)
+                if peak is not None:
+                    kv_log.logkv("peak_mem_MiB", round(peak, 1))
+            kv_log.dumpkvs()
+            t_flush = time.perf_counter()
+        if tc.save_interval > 0 and it % tc.save_interval == 0:
+            path = os.path.join(args.output_dir, f"model_{it}.bin")
+            ckpt_io.save(path, trainer.to_checkpoint(
+                state, cfg, batch_size=tc.batch_size, loader_pos=it,
+                ema_rate=tc.ema_rate, noise_schedule=args.noise_schedule))
+            text_log.log(f"saved {path}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

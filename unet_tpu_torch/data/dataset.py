@@ -1,0 +1,135 @@
+"""Binary image dataset (.bin, magic 20240620): writer, reader and loader
+(port of unet_tpu/data/dataset.py, which is numpy only; this is the port's
+own copy of `write_bin`, `BinDataset` and `data_loader`).
+
+File contract: 256-int32 header [magic, n_imgs, C, H, W] followed by n_imgs
+float32 images, CHW, values in [-1, 1].
+
+The reader memory-maps the file and serves NHWC batches; the CHW->HWC
+transpose happens on the host at batch-assembly time.  The loader's draws
+from its numpy generator are the JAX package's, in the same order, so both
+packages see bit-identical batch streams, resumed ones included.
+`images_to_bin` and `image_dir_loader` need Pillow and are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+
+MAGIC = 20240620
+HEADER_INTS = 256
+
+
+def write_bin(path: str, images: np.ndarray) -> None:
+    """images: (N, C, H, W) fp32 in [-1, 1]."""
+    n, c, h, w = images.shape
+    header = np.zeros(HEADER_INTS, dtype=np.int32)
+    header[0], header[1], header[2], header[3], header[4] = MAGIC, n, c, h, w
+    with open(path, "wb") as f:
+        f.write(header.tobytes())
+        f.write(np.ascontiguousarray(images, dtype=np.float32).tobytes())
+
+
+class BinDataset:
+    """Memory-mapped view over a .bin dataset; zero-copy until batch read."""
+
+    def __init__(self, path: str):
+        header = np.fromfile(path, dtype=np.int32, count=HEADER_INTS)
+        if header[0] != MAGIC:
+            raise ValueError(f"bad magic {header[0]} in {path}")
+        self.n_images = int(header[1])
+        self.channels = int(header[2])
+        self.height = int(header[3])
+        self.width = int(header[4])
+        self._mmap = np.memmap(
+            path, dtype=np.float32, mode="r", offset=HEADER_INTS * 4,
+            shape=(self.n_images, self.channels, self.height, self.width))
+
+    def __len__(self) -> int:
+        return self.n_images
+
+    def batch_nhwc(self, indices: np.ndarray) -> np.ndarray:
+        """Gather a batch and transpose to NHWC fp32."""
+        return np.ascontiguousarray(
+            self._mmap[indices].transpose(0, 2, 3, 1), dtype=np.float32)
+
+
+def data_loader(path: str, batch_size: int, *, shuffle: bool = False,
+                flip: bool = False,
+                seed: int = 0, num_shards: int = 1, shard_index: int = 0,
+                skip_batches: int = 0,
+                ) -> Iterator[np.ndarray]:
+    """Infinite NHWC batch iterator.
+
+    Default (shuffle=False): sequential fixed-stride batches wrapping at
+    the end of an epoch.  flip=True applies a p=0.5 horizontal flip per
+    image.  With num_shards > 1, each shard reads a disjoint interleaved
+    slice for data-parallel training.
+
+    skip_batches=N fast-forwards the stream past its first N batches
+    WITHOUT reading pixel data — cursor arithmetic plus replaying the
+    rng draws (flip masks, shuffle permutations) so a resumed run sees
+    the exact batch sequence the original run would have from step N on.
+    The stream position is checkpointed as header[14]
+    (io/checkpoint.py).
+    """
+    ds = BinDataset(path)
+    n = len(ds)
+    if n < batch_size * num_shards:
+        # loud instead of silently clamping per_epoch to 1: a short shard
+        # slice would yield ragged batches
+        raise ValueError(
+            f"dataset has {n} images < batch_size*num_shards = "
+            f"{batch_size}*{num_shards}; every rank needs at least one "
+            f"full batch per epoch")
+    rng = np.random.default_rng(seed)
+
+    def maybe_flip(batch):
+        if not flip:
+            return batch
+        mask = rng.random(batch.shape[0]) < 0.5
+        batch = batch.copy()
+        batch[mask] = batch[mask, :, ::-1]  # flip width (NHWC axis 2)
+        return batch
+
+    def skip_flip_draws(k_batches):
+        if flip and k_batches:
+            rng.random((k_batches, batch_size))
+
+    if shuffle:
+        # per_epoch comes from the GLOBAL size, not the shard slice: all
+        # ranks share one seeded stream, and shard-local lengths differ
+        # when num_shards does not divide n — a per-rank per_epoch would
+        # desynchronize the permutation cadence after the first epoch
+        # and silently overlap the shards.
+        # Every rank's slice holds >= per_epoch*batch_size images:
+        # floor(n/S) >= B*floor(n/(B*S)).
+        per_epoch = max(n // (batch_size * num_shards), 1)
+        # replay whole epochs (one permutation + its flip draws each) ...
+        for _ in range(skip_batches // per_epoch):
+            rng.permutation(n)
+            skip_flip_draws(per_epoch)
+        start = skip_batches % per_epoch
+        while True:
+            perm = rng.permutation(n)
+            perm = perm[shard_index::num_shards]
+            skip_flip_draws(start)  # ... then the partial epoch
+            for i in range(start, per_epoch):
+                yield maybe_flip(ds.batch_nhwc(
+                    perm[i * batch_size:(i + 1) * batch_size]))
+            start = 0
+    else:
+        idx = np.arange(n)[shard_index::num_shards]
+        # same GLOBAL epoch length as the shuffle branch, so all ranks
+        # wrap in lockstep, as in the JAX package's loaders
+        per_epoch = max(n // (batch_size * num_shards), 1)
+        m = per_epoch * batch_size
+        pos = (skip_batches % per_epoch) * batch_size
+        skip_flip_draws(skip_batches)
+        while True:
+            if pos + batch_size > m:
+                pos = 0
+            yield maybe_flip(ds.batch_nhwc(idx[pos:pos + batch_size]))
+            pos += batch_size

@@ -87,3 +87,11 @@ class GaussianDiffusion:
         a = self.sqrt_alphas_cumprod[ti][:, None, None, None]
         b = self.sqrt_one_minus_alphas_cumprod[ti][:, None, None, None]
         return a * x_start.float() + b * noise.float()
+
+
+def sample_timesteps(generator: torch.Generator, batch_size: int,
+                     num_timesteps: int, device="cuda") -> torch.Tensor:
+    """Uniform integer timesteps in [0, num_timesteps), int64 (B,), drawn
+    from `generator` (which lives on `device`)."""
+    return torch.randint(0, num_timesteps, (batch_size,), generator=generator,
+                         device=device)

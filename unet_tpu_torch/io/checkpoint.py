@@ -27,9 +27,11 @@ from another writer may hold garbage in its spare slots); header[9]
 The port keeps its parameters in torch shapes, the file's own order, so no
 transpose happens here (the JAX package transposes at this boundary;
 io/convert.py does the same for a JAX pytree).  Parameters and the EMA load
-as `UNet` modules on `device`; the AdamW moments stay flat float32 numpy
-vectors in file order until the training slice gives them a home.
-`load_torch_pt` is not ported yet.
+as `UNet` modules on `device`; in a `Checkpoint` the AdamW moments are flat
+float32 numpy vectors in file order (`flatten_tensors` / `unflatten_like`
+convert them to and from one tensor per parameter; the trainer's
+`to_checkpoint` / `from_checkpoint` use them).  `load_torch_pt` is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -117,6 +119,30 @@ def unflatten_params(flat: np.ndarray, cfg: UnetConfig,
             p.copy_(vec[offset:offset + p.numel()].view(p.shape))
             offset += p.numel()
     return model
+
+
+def flatten_tensors(tensors) -> np.ndarray:
+    """Tensors shaped like the parameters, in their order -> one flat
+    float32 vector (the file's layout of the AdamW moments)."""
+    return torch.cat([t.detach().float().reshape(-1) for t in tensors]
+                     ).cpu().numpy()
+
+
+def unflatten_like(flat: np.ndarray, model: unet.UNet):
+    """Flat float32 vector in file order -> one float32 tensor per
+    parameter of `model`, shaped and laid out like it, on its device."""
+    params = list(model.parameters())
+    need = sum(p.numel() for p in params)
+    if need != flat.size:
+        raise ValueError(f"vector has {flat.size} values, model needs {need}")
+    vec = torch.tensor(np.asarray(flat, np.float32), device=model.device)
+    out, offset = [], 0
+    for p in params:
+        t = torch.empty_like(p, dtype=torch.float32)
+        t.copy_(vec[offset:offset + p.numel()].view(p.shape))
+        out.append(t)
+        offset += p.numel()
+    return out
 
 
 def num_params(cfg: UnetConfig, num_classes: Optional[int] = None) -> int:
@@ -273,3 +299,4 @@ def load(path: str, cfg: Optional[UnetConfig] = None,
                       rng_seed=rng_seed, loader_pos=loader_pos or 0,
                       host_rng_state=host_rng_state, ema=ema,
                       ema_rate=ema_rate, noise_schedule=noise_schedule)
+

@@ -6,8 +6,8 @@ A block is an `nn.Module` whose parameters carry the JAX package's names
 the `.bin` file (`models.unet.param_order`).
 Initialisation follows the torch defaults the JAX package reproduces:
 U(+-1/sqrt(fan_in)) for conv and linear weights and biases, ones and zeros
-for GroupNorm.  Forward only: the kernels under the blocks have no backward
-yet.
+for GroupNorm.  A block computes in its parameters' type; `models.unet.apply`
+casts them to the compute type, once, for a call.
 """
 
 from __future__ import annotations

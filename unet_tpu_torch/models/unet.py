@@ -5,8 +5,10 @@ unet_tpu/models/unet.py).
 value.  `UNet` holds its parameters under the JAX package's pytree paths
 (`time_mlp.l1.w`, `input[3].res.gn1.scale`, ...), so one `param_order` path
 addresses the same parameter in both packages.  `init` and `apply` mirror the
-JAX functions of those names.  Forward only; no space-to-depth path and no
-rematerialisation.
+JAX functions of those names: `apply` casts the parameters to the compute
+type once, inside the autograd graph, and with `remat` recomputes each layer
+group in the backward (`torch.utils.checkpoint`, as the JAX package wraps
+each group in `jax.checkpoint`).  No space-to-depth path.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.models import blocks
@@ -214,17 +217,20 @@ class UNet(nn.Module):
 
     def to_compute(self, dtype) -> "UNet":
         """This module if its parameters already have `dtype`, else a copy
-        cast to it.  The samplers cast once, before their loop."""
+        cast to it, detached from this one.  The samplers cast once, before
+        their loop; training casts inside the graph (`apply`)."""
         if dtype is None or dtype == self.dtype:
             return self
         return copy.deepcopy(self).to(dtype)
 
-    def forward(self, x, t, y=None):
+    def forward(self, x, t, y=None, *, remat=False):
         """x: (B, H, W, C_in) NHWC; t: (B,) timesteps; y: optional (B,)
         integer labels, where -1 is the null label: no class embedding is
         added, so the call equals the unconditional one (the
         classifier-free-guidance convention).  Computes in the parameters'
-        type and returns (B, H, W, C_out) in it."""
+        type and returns (B, H, W, C_out) in it.  `remat` recomputes each
+        layer group's forward in the backward instead of keeping its
+        activations."""
         cfg = self.cfg
         x = x.to(self.dtype)
         emb = F.timestep_embedding(t, cfg.model_channels,
@@ -237,16 +243,28 @@ class UNet(nn.Module):
             emb = emb + torch.where((y >= 0)[:, None], lab,
                                     torch.zeros((), dtype=lab.dtype,
                                                 device=lab.device))
+
+        def run(module, *args):
+            if not remat:
+                return module(*args)
+            # The recompute runs in the backward, after `apply` has put the
+            # float32 parameters back: bind the ones the group holds now
+            # (the compute-type casts).  No random op inside a group, so no
+            # RNG state to keep.
+            return checkpoint(torch.func.functional_call, module,
+                              dict(module.named_parameters()), args,
+                              use_reentrant=False, preserve_rng_state=False)
+
         h = x
         skips = []
         for group in self.input:
-            h = group(h, emb)
+            h = run(group, h, emb)
             skips.append(h)
-        h = self.middle.res1(h, emb)
-        h = self.middle.attn(h)
-        h = self.middle.res2(h, emb)
+        h = run(self.middle.res1, h, emb)
+        h = run(self.middle.attn, h)
+        h = run(self.middle.res2, h, emb)
         for group in self.output:
-            h = group(torch.cat([h, skips.pop()], dim=-1), emb)
+            h = run(group, torch.cat([h, skips.pop()], dim=-1), emb)
         return self.out.conv(self.out.gn(h))
 
 
@@ -259,10 +277,19 @@ def init(cfg: UnetConfig, num_classes: Optional[int] = None, *,
     return UNet(cfg, num_classes, generator).to(device)
 
 
-def apply(model: UNet, x, t, y=None, *, compute_dtype=None):
+def apply(model: UNet, x, t, y=None, *, compute_dtype=None,
+          remat: bool = False):
     """Full U-Net forward with the parameters cast to `compute_dtype` for the
-    call (None: the parameters' own type), as the JAX package's `apply`."""
-    return model.to_compute(compute_dtype)(x, t, y)
+    call (None: the parameters' own type), once and inside the autograd
+    graph, so the gradients reach `model`'s own parameters (bfloat16-rounded
+    values in float32 for a bfloat16 call), as the JAX package's `apply`.
+    `remat` recomputes each layer group in the backward (the JAX package's
+    `remat=True`); the final GroupNorm and conv stay outside any group."""
+    if compute_dtype is None or compute_dtype == model.dtype:
+        return model(x, t, y, remat=remat)
+    cast = {n: p.to(compute_dtype) for n, p in model.named_parameters()}
+    return torch.func.functional_call(model, cast, (x, t, y),
+                                      {"remat": remat})
 
 
 # ---------------------------------------------------------------------------

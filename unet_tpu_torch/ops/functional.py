@@ -8,9 +8,10 @@ tensor, so nothing is copied.
 
 `group_norm_silu` and `qkv_attention` are the two ops the JAX package has
 Pallas kernels for.  Here they ARE the hand-written CUDA kernels
-(ops/kernels/) whenever the tensor lies on a GPU; there is no mode switch.
-Convolutions and linears go to cuDNN and cuBLAS, as the JAX package leaves
-them to XLA.  The loss and every gradient arrive with the training slice.
+(ops/kernels/), forward and backward, whenever the tensor lies on a GPU,
+through the autograd Functions `GroupNormAct` and `QKVAttention`; there is
+no mode switch.  Convolutions and linears go to cuDNN and cuBLAS, as the JAX
+package leaves them to XLA, and their gradients to autograd.
 
 float32 precision: `set_f32_precision("highest")` turns TF32 off for both
 matmuls and cuDNN convolutions (PyTorch leaves it on for convolutions by
@@ -25,8 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from unet_tpu_torch.ops.kernels.attention import qkv_attention_fwd
-from unet_tpu_torch.ops.kernels.groupnorm import gn_act_fwd
+from unet_tpu_torch.ops.kernels.attention import QKVAttention
+from unet_tpu_torch.ops.kernels.groupnorm import GroupNormAct
 
 
 def set_f32_precision(name: str) -> None:
@@ -66,7 +67,7 @@ def group_norm_silu(x, gamma, beta, *, num_groups=32, eps=1e-5,
     """GroupNorm over (H, W, C//G) per group, then SiLU (act="silu") or
     nothing (act="none").  float32 statistics, two-pass variance for every
     input type, as the JAX package's kernel."""
-    return gn_act_fwd(x, gamma, beta, num_groups, eps, act)[0]
+    return GroupNormAct.apply(x, gamma, beta, num_groups, eps, act)
 
 
 def group_norm(x, gamma, beta, *, num_groups=32, eps=1e-5):
@@ -114,4 +115,11 @@ def qkv_attention(qkv, num_heads):
     qkv: (B, T, 3C), channels laid out [q(C) | k(C) | v(C)], each C split
     contiguously into (NH, HS).  Returns (B, T, C).  The scale 1/sqrt(HS) is
     applied to q before the dot; the softmax runs in float32."""
-    return qkv_attention_fwd(qkv, num_heads)
+    return QKVAttention.apply(qkv, num_heads)
+
+
+def mse_loss(pred, target):
+    """mean((pred - target)^2) over all elements, in float32 (float64 for
+    float64 input) whatever the inputs' type."""
+    acc = torch.promote_types(pred.dtype, torch.float32)
+    return (pred.to(acc) - target.to(acc)).square().mean()

@@ -1,10 +1,14 @@
-"""Attention forward: the CUDA kernel's wrapper and its plain version.
+"""Attention, forward and backward: the CUDA kernels' wrappers, their plain
+versions, and the autograd Function that joins the two.
 
 Counterpart of unet_tpu/ops/pallas/attention.py.  `qkv_attention_fwd`
 replaces the Pallas forward kernel there (`_fwd_kernel`, launched by
-`_fwd_call`, reached through `qkv_attention_fused`) with csrc/attention.cu:
-non-causal multi-head attention straight from the packed (B, T, 3C) QKV
-tensor, [q | k | v] with each C split contiguously into (NH, HS).
+`_fwd_call`, reached through `qkv_attention_fused`) and `qkv_attention_bwd`
+the backward kernel (`_bwd_kernel`, launched by `_bwd_call`, reached through
+`_att_bwd`), both with csrc/attention.cu: non-causal multi-head attention
+straight from the packed (B, T, 3C) QKV tensor, [q | k | v] with each C
+split contiguously into (NH, HS).  `QKVAttention` is the counterpart of the
+`custom_vjp` `qkv_attention_fused`: its only residual is qkv.
 
 What bounds it on an H100: `4 * B*T*C * itemsize` bytes of traffic and
 `4 * B*NH*T*T*HS` operations; at HS = 32 the operations win above a few
@@ -14,8 +18,9 @@ online softmax over them, so the (B, NH, T, T) scores never reach device
 memory and any T is taken (the ragged tile is masked).  Its products are
 float32 FMAs for now; tensor-core products are a later change.
 
-The backward kernel of the JAX file (`_bwd_kernel`) is not ported yet, so
-the wrapper refuses an input that requires grad.
+The backward recomputes the scores from qkv (`10 * B*NH*T*T*HS` operations)
+in two kernels that need no order between blocks: one thread per query for
+dq and the rows' softmax statistics, then one thread per key for dk and dv.
 """
 
 from __future__ import annotations
@@ -53,21 +58,10 @@ def _check(qkv, num_heads):
     C = qkv.shape[-1] // 3
     if num_heads <= 0 or C % num_heads:
         raise ValueError(f"C={C} does not split into {num_heads} heads")
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        raise RuntimeError(
-            "qkv_attention_fwd has no backward yet: call it under "
-            "torch.no_grad() or with an input that does not require grad")
 
 
-def qkv_attention_fwd(qkv, num_heads):
-    """Multi-head attention over qkv (B, T, 3C) -> (B, T, C).
-
-    A CUDA tensor goes to the hand-written kernel (float32 or bfloat16,
-    contiguous, head size 32) or raises; only a CPU tensor takes the plain
-    version."""
-    _check(qkv, num_heads)
-    if qkv.device.type == "cpu":
-        return qkv_attention_plain(qkv, num_heads)
+def _check_cuda(qkv, num_heads):
+    """What the kernels take beyond `_check`."""
     if qkv.device.type != "cuda":
         raise ValueError(f"unsupported device {qkv.device}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
@@ -84,10 +78,24 @@ def qkv_attention_fwd(qkv, num_heads):
         raise ValueError(f"empty input {tuple(qkv.shape)}")
     if B > 65535 or num_heads > 65535:
         raise ValueError(f"the kernel does not take B={B}, NH={num_heads}")
+
+
+def qkv_attention_fwd(qkv, num_heads):
+    """Multi-head attention over qkv (B, T, 3C) -> (B, T, C).
+
+    A CUDA tensor goes to the hand-written kernel (float32 or bfloat16,
+    contiguous, head size 32) or raises; only a CPU tensor takes the plain
+    version."""
+    _check(qkv, num_heads)
+    if qkv.device.type == "cpu":
+        return qkv_attention_plain(qkv, num_heads)
+    _check_cuda(qkv, num_heads)
+    B, T, C3 = qkv.shape
+    C = C3 // 3
     out = torch.empty((B, T, C), dtype=qkv.dtype, device=qkv.device)
     if qkv.data_ptr() % 16 or out.data_ptr() % 16:
         raise ValueError("qkv must be 16-byte aligned")
-    fn = _launcher()
+    fn = _launcher("unet_qkv_attention_fwd")
     with torch.cuda.device(qkv.device):
         code = fn(qkv.data_ptr(), out.data_ptr(), B, T, C, num_heads,
                   1.0 / math.sqrt(HEAD_SIZE),
@@ -102,10 +110,110 @@ def qkv_attention_fwd(qkv, num_heads):
 qkv_attention_fwd.launches = 0
 
 
-def _launcher():
-    fn = _build.load().unet_qkv_attention_fwd
+def qkv_attention_bwd_plain(qkv, dout, num_heads):
+    """Plain PyTorch attention backward with the rounding points of the
+    kernel and of the TPU kernel's `_bwd_kernel`: scores and the softmax
+    recomputed from qkv in float32 (float64 for float64 input), dout taken in
+    v's type, p kept in float32 inside ds = p (dp - rowsum(dp p)), ds and p
+    rounded to the input type before the products that give dq = (ds k) *
+    scale, dk = ds^T qs and dv = p^T dout, each accumulated in float32.
+    Returns d(qkv) (B, T, 3C) in qkv's type."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    HS = C // num_heads
+    dt = qkv.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    scale = 1.0 / math.sqrt(HS)
+    q, k, v = (a.reshape(B, T, num_heads, HS).to(acc)
+               for a in qkv.split(C, dim=-1))
+    qs = (q * scale).to(dt).to(acc)
+    dob = dout.reshape(B, T, num_heads, HS).to(dt).to(acc)
+    p = torch.softmax(torch.einsum("bthd,bshd->bhts", qs, k), dim=-1)
+    dp = torch.einsum("bthd,bshd->bhts", dob, v)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dsb = ds.to(dt).to(acc)
+    dq = torch.einsum("bhts,bshd->bthd", dsb, k) * scale
+    dk = torch.einsum("bhts,bthd->bshd", dsb, qs)
+    dv = torch.einsum("bhts,bthd->bshd", p.to(dt).to(acc), dob)
+    return torch.cat([a.reshape(B, T, C) for a in (dq, dk, dv)],
+                     dim=-1).to(dt)
+
+
+def qkv_attention_bwd(qkv, dout, num_heads):
+    """Backward of `qkv_attention_fwd` from qkv and dout (B, T, C) alone.
+    Returns d(qkv) (B, T, 3C) in qkv's type.
+
+    A CUDA tensor goes to the hand-written kernels (the forward's types and
+    head size; dout of any strides is made contiguous first) or raises; only
+    a CPU tensor takes the plain version."""
+    _check(qkv, num_heads)
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    if dout.shape != (B, T, C):
+        raise ValueError(f"dout must be ({B}, {T}, {C}), got "
+                         f"{tuple(dout.shape)}")
+    if qkv.device.type == "cpu":
+        return qkv_attention_bwd_plain(qkv, dout, num_heads)
+    _check_cuda(qkv, num_heads)
+    if dout.dtype != qkv.dtype or dout.device != qkv.device:
+        raise TypeError(f"dout must be {qkv.dtype} on {qkv.device}")
+    dout = dout.contiguous()
+    dqkv = torch.empty_like(qkv)
+    # The rows' softmax maximum, 1 / sum and D, from the first kernel to the
+    # second (see `gn_act_fwd` on the lifetime of scratch).
+    stats = torch.empty((3, B, num_heads, T), dtype=torch.float32,
+                        device=qkv.device)
+    if qkv.data_ptr() % 16 or dout.data_ptr() % 16 or dqkv.data_ptr() % 16:
+        raise ValueError("qkv and dout must be 16-byte aligned")
+    fn = _launcher("unet_qkv_attention_bwd")
+    with torch.cuda.device(qkv.device):
+        code = fn(qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+                  stats.data_ptr(), B, T, C, num_heads,
+                  1.0 / math.sqrt(HEAD_SIZE),
+                  int(qkv.dtype == torch.bfloat16),
+                  torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "qkv_attention_bwd")
+    qkv_attention_bwd.launches += 1
+    return dqkv
+
+
+# Launches of the kernel since the count was last set to 0.
+qkv_attention_bwd.launches = 0
+
+
+class QKVAttention(torch.autograd.Function):
+    """out = attention(qkv) with `qkv_attention_fwd` forward and
+    `qkv_attention_bwd` backward; the only residual is qkv, as in the JAX
+    package's `_att_fwd`/`_att_bwd`.  `fwd` and `bwd` are the two functions
+    it calls (chip_smoke.py sets them to the plain versions for its
+    comparisons)."""
+
+    fwd = staticmethod(qkv_attention_fwd)
+    bwd = staticmethod(qkv_attention_bwd)
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return QKVAttention.fwd(qkv, num_heads)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return QKVAttention.bwd(qkv, dout, ctx.num_heads), None
+
+
+_ARGTYPES = {
+    "unet_qkv_attention_fwd": "pp" "iiii" "f" "i" "p",
+    "unet_qkv_attention_bwd": "pppp" "iiii" "f" "i" "p",
+}
+
+
+def _launcher(name):
+    fn = getattr(_build.load(), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, i, ctypes.c_float, i, p]
+        kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int,
+                 "f": ctypes.c_float}
+        fn.argtypes = [kinds[k] for k in _ARGTYPES[name]]
         fn.restype = ctypes.c_int
     return fn
