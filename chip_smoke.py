@@ -41,10 +41,21 @@ object per line:
      are asserted; ms/step, images/s and peak memory reported.  A one-step
      untimed run of each kind goes first, and each kernel is held against
      its plain version at every distinct shape those steps hand it.
-  7. `{"kernels": [...]}`: one summary entry per kernel, its launches those
-     of the sampling requests and the training runs together; then the
-     seconds the whole run took, the card's name and power limit, and the
-     result line.
+  7. `conv_checks` and `conv`: the kernel-benchmark path.  The
+     implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
+     scripts/conv_proto.py) is held against its plain version at the six
+     shapes of that script's bench and at ragged ones, float32 and bfloat16,
+     and a rerun must give the same bits (timed at the headline shape
+     only); then `unet_tpu_torch.scripts.conv_proto --bench`,
+     `bench_ops` and `block_timing` (forward and backward, `UnetConfig()`
+     full width and depth, B=32) run in this process, with the convolution
+     kernel's launches counted exactly and every other kernel's at least
+     once, and each GroupNorm and attention kernel is held against its
+     plain version at every shape those scripts handed it.
+  8. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+     of the sampling requests and the training runs together (the
+     convolution's: those of the `conv` phase); then the seconds the whole
+     run took, the card's name and power limit, and the result line.
 
 float32 runs in "highest" precision (TF32 off for matmuls and cuDNN).
 A failed build, launch or comparison raises, so the exit code is non-zero.
@@ -88,14 +99,17 @@ from unet_tpu_torch.ops.kernels import groupnorm as gn_mod  # noqa: E402
 from unet_tpu_torch.ops.kernels.attention import (  # noqa: E402
     qkv_attention_bwd, qkv_attention_bwd_plain, qkv_attention_fwd,
     qkv_attention_plain)
+from unet_tpu_torch.ops.kernels.conv3x3 import (  # noqa: E402
+    conv3x3_hwbc, conv3x3_hwbc_plain)
 from unet_tpu_torch.ops.kernels.groupnorm import (  # noqa: E402
     gn_act_bwd, gn_act_bwd_plain, gn_act_fwd, gn_act_fwd_plain)
+from unet_tpu_torch.scripts import bench_ops, block_timing  # noqa: E402
+from unet_tpu_torch.scripts import conv_proto  # noqa: E402
 from unet_tpu_torch.training import trainer  # noqa: E402
+from unet_tpu_torch.utils.benchmark import (  # noqa: E402
+    bound, device_line, graph_ms)
 
 DEV = torch.device("cuda", 0)
-# Published peaks of one H100 SXM (dense): device memory and arithmetic.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Tolerances, kernel against plain version on the same inputs.  float32: the
 # two differ in summation order only.  bfloat16: both round a float32 result
 # once, so where the float32 values fall on either side of a rounding point
@@ -166,18 +180,20 @@ GN_BWD_SHAPES = [(32, 64, 64, 64), (32, 64, 64, 128), (32, 32, 32, 320),
                  (3, 5, 7, 96)]
 ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
                    (2, 100, 64, 2)]
+# The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
+# ragged ones: odd sizes, a single pixel, and C below any tile width.
+CONV_SHAPES = [(conv_proto.bench_size(C), conv_proto.bench_size(C),
+                conv_proto.BATCH, C, O) for C, O in conv_proto.SHAPES] + [
+    (7, 5, 3, 24, 40), (1, 1, 1, 8, 8), (64, 64, 32, 3, 64)]
+# The convolution against its plain version: one rounding of a float32 sum
+# in each, as GroupNorm.
+CONV_TOL = GN_TOL
+# The case the `kernels` line reports: conv_proto's and bench_ops's headline.
+CONV_HEADLINE = dict(shape=[64, 64, 32, 192, 64], dtype="torch.bfloat16")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def ptxas_summary(log: str) -> dict:
@@ -197,25 +213,6 @@ def time_ms(fn, reps=20, warmup=3) -> float:
     start.record()
     for _ in range(reps):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps=20, stream=None) -> float:
-    """Time of `fn` on the device alone: `reps` calls are recorded into one
-    CUDA graph and the graph's replay is timed, so the host's share of a
-    call (argument checks, allocations, the launch itself) is left out.
-    `stream`: the stream to capture on (by default a new one)."""
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=stream):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -254,12 +251,6 @@ def compare(got, want, tol, what) -> float:
             f"{what}: max abs error {err.max().item():.3e} outside "
             f"atol {tol['atol']} rtol {tol['rtol']}")
     return err.max().item()
-
-
-def bound(nbytes, flops, dtype):
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
 
 
 def check_groupnorm(gen):
@@ -559,7 +550,8 @@ def check_seen_shapes(seen, gen):
                 worst_max_abs_err=worst)
 
 
-KERNELS = (gn_act_fwd, gn_act_bwd, qkv_attention_fwd, qkv_attention_bwd)
+KERNELS = (gn_act_fwd, gn_act_bwd, qkv_attention_fwd, qkv_attention_bwd,
+           conv3x3_hwbc)
 
 
 def reset_counts() -> None:
@@ -590,7 +582,8 @@ def launches_per_step(cfg, remat, microbatches):
     return {"gn_act_fwd": microbatches * gn_fwd,
             "gn_act_bwd": microbatches * gn,
             "qkv_attention_fwd": microbatches * attn_fwd,
-            "qkv_attention_bwd": microbatches * attn}
+            "qkv_attention_bwd": microbatches * attn,
+            "conv3x3_hwbc": 0}  # the model convolves through cuDNN
 
 
 def check_forward(model, gen):
@@ -713,8 +706,10 @@ def drive_path(tmp, totals, gen):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         gn_n, attn_n = gn_act_fwd.launches, qkv_attention_fwd.launches
-        if gn_act_bwd.launches or qkv_attention_bwd.launches:
-            raise AssertionError(f"{name}: a backward kernel ran: {counts()}")
+        if (gn_act_bwd.launches or qkv_attention_bwd.launches
+                or conv3x3_hwbc.launches):
+            raise AssertionError(f"{name}: a backward kernel or the "
+                                 f"convolution kernel ran: {counts()}")
         shape = (batch, cfg.image_size, cfg.image_size, cfg.out_channels)
         if images.shape != shape or str(images.dtype) != "uint8":
             raise AssertionError(
@@ -881,6 +876,99 @@ def drive_train(tmp, totals, gen):
     return records, seen
 
 
+def check_conv(gen):
+    """The convolution kernel against its plain version at `CONV_SHAPES`,
+    float32 and bfloat16, twice (the second call must give the same bits).
+    The plain version sums in float64, so `library_max_abs_err`, cuDNN's
+    distance from it (`F.conv2d` on the channels_last view of a (B, H, W, C)
+    copy of the input, as conv_proto's bench), shows the error of cuDNN's
+    own sum beside the kernel's.  Only the headline case, `CONV_HEADLINE`,
+    is timed (kernel, plain version and cuDNN alone, as called and on the
+    device alone); conv_proto's bench times the kernel and cuDNN at the
+    others."""
+    cases = []
+    for shape in CONV_SHAPES:
+        H, W, B, C, O = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((H, W, B, C), generator=gen, device=DEV).to(dtype)
+            w = (torch.randn((3, 3, C, O), generator=gen, device=DEV) * 0.05
+                 ).to(dtype)
+            b = torch.randn(O, generator=gen, device=DEV).to(dtype)
+            got = conv3x3_hwbc(x, w, b)
+            again = conv3x3_hwbc(x, w, b)
+            torch.cuda.synchronize()
+            what = f"conv3x3_hwbc {shape} {dtype}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: a rerun gave other bits")
+            want = conv3x3_hwbc_plain(x, w, b)
+            err = compare(got, want, CONV_TOL[dtype], what)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_nchw = x.permute(2, 0, 1, 3).contiguous().permute(0, 3, 1, 2)
+            lib = TF.conv2d(x_nchw, w_oihw, b, padding=1).permute(2, 3, 0, 1)
+            lib_err = (lib.float() - want.float()).abs().max().item()
+            item = x.element_size()
+            bound_ms, bound_by = bound(
+                (x.numel() + w.numel() + H * W * B * O + O) * item,
+                2 * H * W * B * O * 9 * C, dtype)
+            case = dict(shape=list(shape), dtype=str(dtype), max_abs_err=err,
+                        tol=CONV_TOL[dtype], library_max_abs_err=lib_err,
+                        bound_ms=bound_ms, bound_by=bound_by)
+            if case["shape"] == CONV_HEADLINE["shape"] and (
+                    case["dtype"] == CONV_HEADLINE["dtype"]):
+                case.update(timings(
+                    lambda: conv3x3_hwbc(x, w, b),
+                    lambda: conv3x3_hwbc_plain(x, w, b),
+                    lambda: TF.conv2d(x_nchw, w_oihw, b, padding=1)))
+            cases.append(case)
+    return cases
+
+
+def drive_conv(gen):
+    """The kernel-benchmark path: conv_proto's check and bench, bench_ops
+    and block_timing (forward and backward) at `UnetConfig()`, B=32, in
+    bfloat16, all on the card.  Returns their results, what they printed,
+    the kernels' launches, and the check of the GroupNorm and attention
+    kernels at every shape these scripts handed them (the attention core of
+    bench_ops at T=1024 among them).  The convolution's launches must be
+    exactly those of conv_proto, and every other kernel must have run."""
+    seen = new_seen()
+    reset_counts()
+    with recording(seen), contextlib.redirect_stdout(io.StringIO()) as out:
+        proto = conv_proto.run(["--bench", "--device", "cuda"])
+        ops = bench_ops.run(["--device", "cuda", "--reps", "20"])
+        split = block_timing.run(["--backward", "--reps", "8",
+                                  "--device", "cuda"])
+    torch.cuda.synchronize()
+    got = counts()
+    want = 1 + sum(row["kernel_calls"] for row in proto["bench"])
+    if got["conv3x3_hwbc"] != want:
+        raise AssertionError(f"conv: {got['conv3x3_hwbc']} convolution "
+                             f"launches, want {want}")
+    if min(got.values()) <= 0:
+        raise AssertionError(f"conv: a kernel was never launched: {got}")
+    if len(proto["bench"]) != len(conv_proto.SHAPES):
+        raise AssertionError("conv_proto: the bench did not run every shape")
+    numbers = ([r["kernel_ms"] for r in proto["bench"]]
+               + [r["mean_ms"] for r in ops["ops"].values()]
+               + [r[k] for r in split for k in ("full_ms", "attention_free_ms")]
+               + [r["device_alone"][k] for r in split
+                  for k in ("full_ms", "attention_free_ms")])
+    if len(split) != 2 or not all(math.isfinite(v) and v > 0
+                                  for v in numbers):
+        raise AssertionError(f"conv: bad timings {numbers}")
+    if ((32, 1024, 576), 6) not in seen["attn_bwd"]:
+        raise AssertionError("conv: bench_ops's attention core did not reach "
+                             "the backward kernel")
+    seen = check_seen_shapes(seen, gen)
+    if seen["batches"] != [32]:
+        raise AssertionError(f"conv: the scripts ran at batches "
+                             f"{seen['batches']}")
+    return dict(conv_proto=proto, bench_ops=ops, block_timing=split,
+                printed=out.getvalue().splitlines(), launches=got,
+                kernel_inputs_of_the_scripts=seen)
+
+
 def summary(name, source, replaces, cases, headline, launches):
     """The contract's entry for one kernel: the numbers of the headline case
     (a shape of the main path, bfloat16) and every case beside it."""
@@ -900,7 +988,7 @@ def summary(name, source, replaces, cases, headline, launches):
 
 def main() -> None:
     t_start = time.perf_counter()
-    smi = nvidia_smi_line()
+    smi = device_line()
     functional.set_f32_precision("highest")
     _build.load()
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
@@ -939,6 +1027,13 @@ def main() -> None:
     emit({"phase": "train", "model": "UnetConfig() ImageNet-64, full depth",
           "kernel_inputs_of_the_steps": seen, "runs": runs,
           "launches_with_the_requests": dict(totals)})
+
+    cases["conv3x3_hwbc"] = check_conv(gen)
+    emit({"phase": "conv_checks", "conv3x3_hwbc": cases["conv3x3_hwbc"]})
+    conv = drive_conv(gen)
+    totals["conv3x3_hwbc"] = conv["launches"]["conv3x3_hwbc"]
+    emit({"phase": "conv", "model": "UnetConfig() ImageNet-64, full depth, "
+          "B=32 bfloat16", **conv})
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {totals}")
 
@@ -963,6 +1058,10 @@ def main() -> None:
                 cases["qkv_attention_bwd"],
                 dict(shape=[32, 256, 192, 6], dtype="torch.bfloat16"),
                 totals["qkv_attention_bwd"]),
+        summary("conv3x3_hwbc", "unet_tpu_torch/csrc/conv3x3.cu",
+                "scripts/conv_proto.py:111", cases["conv3x3_hwbc"],
+                CONV_HEADLINE,
+                totals["conv3x3_hwbc"]),
     ]})
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)

@@ -27,7 +27,12 @@ def test_port_files_were_found():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "unet_tpu_torch/ops/functional.py",
             "unet_tpu_torch/ops/kernels/_build.py",
-            "unet_tpu_torch/cli/generate.py"} <= names
+            "unet_tpu_torch/cli/generate.py",
+            "unet_tpu_torch/ops/kernels/conv3x3.py",
+            "unet_tpu_torch/utils/benchmark.py",
+            "unet_tpu_torch/scripts/conv_proto.py",
+            "unet_tpu_torch/scripts/bench_ops.py",
+            "unet_tpu_torch/scripts/block_timing.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -96,7 +101,8 @@ def test_build_step_reports_the_compilers_output(monkeypatch, tmp_path):
         _build.build()
     text = str(e.value)
     assert "no such instruction" in text and "exit 3" in text
-    assert "groupnorm.cu" in text and "attention.cu" in text
+    assert ("groupnorm.cu" in text and "attention.cu" in text
+            and "conv3x3.cu" in text)
     assert list((tmp_path / "build").iterdir()) == []
 
 
@@ -104,7 +110,7 @@ def test_sources_and_digest():
     from unet_tpu_torch.ops.kernels import _build
     names = [p.name for p in _build.sources()]
     assert names == sorted(names)
-    assert {"attention.cu", "groupnorm.cu"} <= set(names)
+    assert {"attention.cu", "conv3x3.cu", "groupnorm.cu"} <= set(names)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     tag = _build._digest(_build.sources())

@@ -45,7 +45,7 @@ FAMILIES = (
 )
 
 
-def _families(fn, reps):
+def kernel_families(fn, reps):
     """Device milliseconds and launches of one call of `fn` by kernel
     family, from a trace of `reps` calls."""
     from torch.autograd import DeviceType
@@ -87,7 +87,7 @@ def profile_forward(model, batch=8, reps=5, seed=0):
         with torch.no_grad():
             for _ in range(3):
                 net(x, t)
-            result[name] = _families(lambda: net(x, t), reps)
+            result[name] = kernel_families(lambda: net(x, t), reps)
     return result
 
 
@@ -110,7 +110,8 @@ def profile_train_step(model, batch=32, reps=5, seed=0):
         _, step_with = trainer.make_train_step(cfg, tc, device=device)
         for _ in range(3):
             step_with(state, x, t, noise)
-        result[name] = _families(lambda: step_with(state, x, t, noise), reps)
+        result[name] = kernel_families(
+            lambda: step_with(state, x, t, noise), reps)
     return result
 
 
