@@ -7,7 +7,9 @@ any of them it exits non-zero and prints no result.  What it does, one JSON
 object per line:
 
   1. `device`: the card, its power limit, the torch/CUDA/nvcc versions, and
-     the seconds the kernels took to build from unet_tpu_torch/csrc/.
+     the seconds the kernels took to build from unet_tpu_torch/csrc/, with
+     ptxas's registers of each kernel and the most bytes any kernel spills
+     (a spill, or a build log that names no kernel, fails the run).
   2. `kernel_checks`: each hand-written kernel (GroupNorm and attention,
      forward and backward) against its plain PyTorch version on the card,
      float32 and bfloat16, at the shapes the U-Net gives it in sampling and
@@ -16,6 +18,8 @@ object per line:
      twice after warm-up: as it is called (CUDA events around a loop of
      calls) and on the device alone (the same calls replayed from a CUDA
      graph).  Every repetition reads the same input, so the cache is warm.
+     Each attention kernel runs twice at every case and must give the same
+     bits again.
   3. `forward`: one U-Net forward at each batch the requests below give the
      model (4, 8 and the doubled 16 of classifier-free guidance), the module
      on the kernels against the same module on the plain versions, and the
@@ -196,15 +200,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def ptxas_summary(log: str) -> dict:
-    """The most registers any kernel uses and the bytes any kernel spills,
-    from what `nvcc -Xptxas -v` printed during the build."""
-    registers = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
-    return {"kernels": len(registers), "max_registers": max(registers, default=0),
-            "max_spill_bytes": max(spills, default=0)}
-
-
 def time_ms(fn, reps=20, warmup=3) -> float:
     for _ in range(warmup):
         fn()
@@ -299,8 +294,11 @@ def check_attention(gen):
             qkv = torch.randn((B, T, 3 * C), generator=gen, device=DEV
                               ).to(dtype)
             out = qkv_attention_fwd(qkv, NH)
+            again = qkv_attention_fwd(qkv, NH)
             torch.cuda.synchronize()
             what = f"qkv_attention_fwd {(B, T, C, NH)} {dtype}"
+            if not torch.equal(out, again):
+                raise AssertionError(f"{what}: a rerun gave other bits")
             want = qkv_attention_plain(qkv, NH)
             tol = attention_tol(want)
             err = compare(out, want, tol, what)
@@ -404,11 +402,14 @@ def check_attention_bwd(gen):
                               ).to(dtype)
             dout = torch.randn((B, T, C), generator=gen, device=DEV).to(dtype)
             got = qkv_attention_bwd(qkv, dout, NH)
+            again = qkv_attention_bwd(qkv, dout, NH)
             torch.cuda.synchronize()
+            what = f"qkv_attention_bwd {(B, T, C, NH)} {dtype}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: a rerun gave other bits")
             want = qkv_attention_bwd_plain(qkv, dout, NH)
             tol = attention_bwd_tol(want)
-            err = compare(got, want, tol,
-                          f"qkv_attention_bwd {(B, T, C, NH)} {dtype}")
+            err = compare(got, want, tol, what)
             beyond = ((got.float() - want.float()).abs()
                       - 2.0 ** -7 * want.float().abs()).max().item()
             rms = want.float().square().mean().sqrt().item()
@@ -993,13 +994,16 @@ def main() -> None:
     _build.load()
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True).stdout
+    ptxas = _build.ptxas_summary(_build.build_log)
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "nvidia_smi_name_power_limit": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-2].strip(),
-          "build_seconds": _build.build_seconds,
-          "ptxas": ptxas_summary(_build.build_log),
+          "build_seconds": _build.build_seconds, "ptxas": ptxas,
           "f32_precision": "highest (TF32 off)"})
+    if not ptxas["kernels"] or ptxas["max_spill_bytes"]:
+        raise AssertionError(f"no kernel in the build log, or a kernel "
+                             f"spills registers: {ptxas}")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     cases = {"gn_act_fwd": check_groupnorm(gen),

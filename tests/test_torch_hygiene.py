@@ -4,6 +4,7 @@ its import needs no CUDA toolchain, and its build step fails loudly.
 
 import ast
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -104,6 +105,103 @@ def test_build_step_reports_the_compilers_output(monkeypatch, tmp_path):
     assert ("groupnorm.cu" in text and "attention.cu" in text
             and "conv3x3.cu" in text)
     assert list((tmp_path / "build").iterdir()) == []
+
+
+def test_build_keeps_the_compilers_output_beside_the_library(
+        monkeypatch, tmp_path):
+    """A compiler that succeeds: its output is `build_log` after the build,
+    and again when the next call finds the library already on disk."""
+    from unet_tpu_torch.ops.kernels import _build
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nout=\nwhile [ $# -gt 0 ]; do\n"
+                    "  [ \"$1\" = -o ] && out=$2\n  shift\ndone\n"
+                    "echo 'ptxas info    : Used 40 registers'\n"
+                    ": > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "build_log", "")
+    lib = _build.build()
+    fresh = _build.build_log
+    assert fresh.count("Used 40 registers") == len(_build.sources())
+    monkeypatch.setattr(_build, "build_log", "")
+    assert _build.build() == lib
+    assert _build.build_seconds == 0.0 and _build.build_log == fresh
+    assert sorted(p.name for p in lib.parent.iterdir()) == sorted(
+        [lib.name, lib.with_suffix(".log").name])
+
+
+@pytest.mark.parametrize("mangled, name", [
+    ("_ZN45_GLOBAL__N__d44ee978_12_attention_cu_9f1402cf28qkv_attention_fwd"
+     "_mma_kernelEPK13__nv_bfloat16PS0_iif", "qkv_attention_fwd_mma_kernel"),
+    ("_ZN45_GLOBAL__N__564b41ec_12_groupnorm_cu_0b627da415gn_stats_kernelI13"
+     "__nv_bfloat16Li1EEEvPKT_Pfiiii", "gn_stats_kernel"),
+    ("_Z10foo_kernelPf", "foo_kernel"),
+    ("unet_kernel", "unet_kernel"),
+    ("_ZNbroken", "_ZNbroken")])
+def test_kernel_name_from_a_mangled_name(mangled, name):
+    """nvcc names an anonymous namespace after the source file, and a
+    template's arguments follow the name."""
+    from unet_tpu_torch.ops.kernels import _build
+    assert _build.kernel_name(mangled) == name
+
+
+PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN3abc8a_kernelIfEEvPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc8a_kernelIfEEvPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN3abc8a_kernelIdEEvPd' for 'sm_90a'
+ptxas info    : Function properties for _ZN3abc8a_kernelIdEEvPd
+    8 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, 384 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z8b_kernelv' for 'sm_90a'
+ptxas info    : Used 16 registers, 384 bytes cmem[0]
+"""
+
+
+def test_ptxas_summary_lists_each_kernel_and_the_spills():
+    from unet_tpu_torch.ops.kernels import _build
+    assert _build.ptxas_summary(PTXAS_LOG) == {
+        "kernels": 3, "max_registers": 255, "max_spill_bytes": 12,
+        "registers": {"a_kernel": [40, 255], "b_kernel": [16]}}
+
+
+def test_ptxas_summary_of_a_log_without_ptxas_names_no_kernel():
+    """What `chip_smoke.py` fails on: a library whose build log is lost."""
+    from unet_tpu_torch.ops.kernels import _build
+    assert _build.ptxas_summary("")["kernels"] == 0
+    assert _build.ptxas_summary("nvcc: warning\n")["kernels"] == 0
+
+
+def _c_signature(name):
+    """The parameter kinds of an `extern "C"` launcher in csrc/*.cu: "p"
+    for a pointer or stream, "i" for int, "f" for float."""
+    from unet_tpu_torch.ops.kernels import _build
+    for src in _build.sources():
+        m = re.search(r'extern "C" int %s\(([^)]*)\)' % name,
+                      src.read_text())
+        if m:
+            kinds = ""
+            for param in m.group(1).split(","):
+                ctype = param.strip().rsplit(" ", 1)[0]
+                kinds += ("p" if "*" in param or ctype == "cudaStream_t"
+                          else {"int": "i", "float": "f"}[ctype])
+            return kinds
+    raise AssertionError(f"no launcher {name} in csrc")
+
+
+@pytest.mark.parametrize("module, name", [
+    ("attention", "unet_qkv_attention_fwd"),
+    ("attention", "unet_qkv_attention_bwd"),
+    ("groupnorm", "unet_gn_act_fwd"),
+    ("groupnorm", "unet_gn_act_bwd")])
+def test_launcher_argtypes_match_the_sources(module, name):
+    """The ctypes signature a wrapper declares is the one its launcher
+    takes: a mismatch passes wrong arguments on the GPU without an error."""
+    import importlib
+    mod = importlib.import_module(f"unet_tpu_torch.ops.kernels.{module}")
+    assert mod._ARGTYPES[name] == _c_signature(name)
 
 
 def test_sources_and_digest():

@@ -63,19 +63,25 @@ def test_gn_act_bwd_plain_vs_pallas(cg, act, dtype):
     np.testing.assert_allclose(t2n(db), j2n(want_db)[:, 0], **TOL["float32"])
 
 
-@pytest.mark.parametrize("T", [64, 256])
+@pytest.mark.parametrize("T, C, NH", [
+    pytest.param(64, 64, 2, id="64"), pytest.param(256, 64, 2, id="256"),
+    pytest.param(64, 256, 8, id="64-C256-NH8"), pytest.param(8, 64, 2, id="8"),
+    pytest.param(72, 64, 2, id="72"), pytest.param(136, 64, 2, id="136"),
+    pytest.param(72, 256, 8, id="72-C256-NH8")])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_qkv_attention_bwd_plain_vs_pallas(T, dtype):
+def test_qkv_attention_bwd_plain_vs_pallas(T, C, NH, dtype):
     """T = 256 takes two query blocks in the Pallas kernel, whose dk and dv
-    then add up across its sequential grid axis."""
+    then add up across its sequential grid axis; C = 256 in 8 heads is the
+    ds-8 level's head layout; T = 8, 72 and 136 leave the CUDA kernels'
+    64-row tiles short or ragged."""
     rng = np.random.default_rng(T)
-    qkv = rng.standard_normal((2, T, 192), dtype=np.float32)
-    dout = rng.standard_normal((2, T, 64), dtype=np.float32)
+    qkv = rng.standard_normal((2, T, 3 * C), dtype=np.float32)
+    dout = rng.standard_normal((2, T, C), dtype=np.float32)
     want = jax_attn._bwd_call(jnp.asarray(qkv).astype(JDT[dtype]),
-                              jnp.asarray(dout).astype(JDT[dtype]), 2)
+                              jnp.asarray(dout).astype(JDT[dtype]), NH)
     got = port_attn.qkv_attention_bwd(torch.from_numpy(qkv).to(TDT[dtype]),
                                       torch.from_numpy(dout).to(TDT[dtype]),
-                                      2)
+                                      NH)
     assert got.dtype == TDT[dtype] and got.shape == qkv.shape
     np.testing.assert_allclose(t2n(got), j2n(want), **TOL[dtype])
 

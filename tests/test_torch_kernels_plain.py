@@ -96,6 +96,23 @@ def test_qkv_attention_fwd_vs_pallas(rng, B, T, C, NH, dtype):
                                   else dict(atol=1.5e-2)))
 
 
+@pytest.mark.parametrize("B,T,C,NH", [(1, 8, 64, 2), (1, 72, 64, 2),
+                                      (1, 136, 64, 2), (2, 64, 256, 8),
+                                      (1, 72, 256, 8)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_qkv_attention_fwd_vs_pallas_at_ragged_tiles(B, T, C, NH, dtype):
+    """T = 8, 72 and 136 leave the CUDA kernels' 64-row tiles short or
+    ragged (the Pallas kernel takes any multiple of 8); C = 256 in 8 heads
+    is the ds-8 level's head layout.  Inputs from a seed of their own."""
+    qkv = np.random.default_rng(T + C).standard_normal((B, T, 3 * C),
+                                                       dtype=np.float32)
+    got = port_attn.qkv_attention_fwd(torch.from_numpy(qkv).to(TDT[dtype]),
+                                      NH)
+    want = qkv_attention_fused(jnp.asarray(qkv).astype(JDT[dtype]), NH)
+    assert got.dtype == TDT[dtype] and got.shape == (B, T, C)
+    np.testing.assert_allclose(t2n(got), j2n(want), **ATTN_TOL[dtype])
+
+
 def test_attention_plain_rounding_points():
     """bfloat16: q * scale is rounded before the score product and the
     softmax weights before the value product, as the TPU kernel does."""

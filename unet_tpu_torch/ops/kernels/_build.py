@@ -9,7 +9,7 @@ The build happens at first use, never at import: importing this module
 needs neither `nvcc` nor a GPU.  Objects are compiled in parallel (one
 `nvcc` per source, all started together) into `unet_tpu_torch/build/`,
 under a name derived from the sources' contents, so an unchanged tree
-builds once.
+builds once; what the compiler printed is kept beside the library.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,13 +28,13 @@ CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 
 # `-Xptxas -v` costs nothing and puts each kernel's registers, shared memory
-# and spills into `build_log`.
+# and spills into `build_log` (`ptxas_summary` reads them).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: Optional[ctypes.CDLL] = None
 # Seconds the last build took (0.0 when the library was already on disk) and
-# what the compiler printed during it.
+# what the compiler printed during the build of the library in use.
 build_seconds = 0.0
 build_log = ""
 
@@ -77,8 +78,10 @@ def build() -> Path:
         raise KernelCompileError(f"no CUDA sources under {CSRC_DIR}")
     tag = _digest(srcs)
     lib_path = BUILD_DIR / f"libunet_kernels_{tag}.so"
+    log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
-        build_seconds, build_log = 0.0, ""
+        build_seconds = 0.0
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -108,6 +111,9 @@ def build() -> Path:
             raise KernelCompileError(
                 f"nvcc failed to link (exit {link.returncode}):\n"
                 f"{link.stdout}")
+        tmp_log = log_path.with_name(f"{log_path.name}.{os.getpid()}.tmp")
+        tmp_log.write_text("".join(logs))
+        os.replace(tmp_log, log_path)
         os.replace(tmp, lib_path)  # atomic: a concurrent build is harmless
     finally:
         for o in objs:
@@ -116,6 +122,39 @@ def build() -> Path:
     build_log = "".join(logs)
     build_seconds = time.perf_counter() - t0
     return lib_path
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name without its namespace, template arguments and
+    parameter types, from its mangled name (`_Z` <length> <name>, or `_ZN`
+    <length> <namespace> <length> <name>); the mangled name otherwise."""
+    m = re.match(r"_ZN?(\d+)", mangled)
+    if not m:
+        return mangled
+    start, length = m.end(), int(m.group(1))
+    if mangled.startswith("_ZN"):  # the name follows the namespace
+        n = re.match(r"\d+", mangled[start + length:])
+        if not n:
+            return mangled
+        start, length = start + length + n.end(), int(n.group())
+    return mangled[start:start + length]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Each kernel's registers (a list: one entry per instantiation, in the
+    build's order) and the most bytes any kernel spills, from what `nvcc
+    -Xptxas -v` printed (`build_log`)."""
+    registers = {}
+    for entry in log.split("Compiling entry function '")[1:]:
+        used = re.search(r"Used (\d+) registers", entry)
+        registers.setdefault(kernel_name(entry.split("'", 1)[0]), []).append(
+            int(used.group(1)) if used else None)
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+    counts = [n for regs in registers.values() for n in regs if n is not None]
+    return {"kernels": sum(len(r) for r in registers.values()),
+            "max_registers": max(counts, default=0),
+            "max_spill_bytes": max(spills, default=0),
+            "registers": registers}
 
 
 def load() -> ctypes.CDLL:

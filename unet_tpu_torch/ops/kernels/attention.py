@@ -2,25 +2,30 @@
 versions, and the autograd Function that joins the two.
 
 Counterpart of unet_tpu/ops/pallas/attention.py.  `qkv_attention_fwd`
-replaces the Pallas forward kernel there (`_fwd_kernel`, launched by
+replaces the Pallas forward kernel there (`_fwd_kernel`, :41, launched by
 `_fwd_call`, reached through `qkv_attention_fused`) and `qkv_attention_bwd`
-the backward kernel (`_bwd_kernel`, launched by `_bwd_call`, reached through
-`_att_bwd`), both with csrc/attention.cu: non-causal multi-head attention
-straight from the packed (B, T, 3C) QKV tensor, [q | k | v] with each C
-split contiguously into (NH, HS).  `QKVAttention` is the counterpart of the
-`custom_vjp` `qkv_attention_fused`: its only residual is qkv.
+the backward kernel (`_bwd_kernel`, :61, launched by `_bwd_call`, reached
+through `_att_bwd`), both with csrc/attention.cu: non-causal multi-head
+attention straight from the packed (B, T, 3C) QKV tensor, [q | k | v] with
+each C split contiguously into (NH, HS).  `QKVAttention` is the counterpart
+of the `custom_vjp` `qkv_attention_fused`: its only residual is qkv.
 
-What bounds it on an H100: `4 * B*T*C * itemsize` bytes of traffic and
-`4 * B*NH*T*T*HS` operations; at HS = 32 the operations win above a few
-hundred tokens.  The kernel keeps one query per thread in registers, passes
-the head's keys and values through shared memory in tiles and runs an
-online softmax over them, so the (B, NH, T, T) scores never reach device
-memory and any T is taken (the ragged tile is masked).  Its products are
-float32 FMAs for now; tensor-core products are a later change.
+What bounds it on an H100: the forward moves `4 * B*T*C * itemsize` bytes
+and does `4 * B*NH*T*T*HS` operations, the backward `7 * B*T*C * itemsize`
+and `10 * B*NH*T*T*HS`; in bfloat16 that is T/2 and 5T/7 operations a
+byte, below the card's 295 at the U-Net's T = 64 and 256, so device memory
+bounds both there.
+In bfloat16 every product is a tensor-core `mma.sync` on bf16 tiles that
+`cp.async` stages in shared memory, a warp owning 16 query (or key) rows,
+four warps (64 rows) a block, with an online softmax in registers; the
+scores never reach device memory and any T is taken (the ragged tile is
+masked).  float32 keeps FMA kernels with one row per thread (the JAX
+package's float32 path is full float32, which TF32 tensor cores would not
+match).
 
-The backward recomputes the scores from qkv (`10 * B*NH*T*T*HS` operations)
-in two kernels that need no order between blocks: one thread per query for
-dq and the rows' softmax statistics, then one thread per key for dk and dv.
+The backward recomputes the scores from qkv in two kernels that need no
+order between blocks: one for dq and the rows' softmax statistics (two
+sweeps over the keys), then one for dk and dv (a sweep over the queries).
 """
 
 from __future__ import annotations

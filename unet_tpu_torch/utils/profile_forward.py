@@ -32,8 +32,11 @@ FAMILIES = (
     ("gn_act_bwd", ("gn_bwd_sums_kernel", "gn_bwd_apply_kernel")),
     ("gn_act_fwd", ("gn_stats_kernel", "gn_apply_kernel")),
     ("qkv_attention_bwd", ("qkv_attention_bwd_dq_kernel",
-                           "qkv_attention_bwd_dkv_kernel")),
-    ("qkv_attention_fwd", ("qkv_attention_fwd_kernel",)),
+                           "qkv_attention_bwd_dkv_kernel",
+                           "qkv_attention_bwd_dq_mma_kernel",
+                           "qkv_attention_bwd_dkv_mma_kernel")),
+    ("qkv_attention_fwd", ("qkv_attention_fwd_kernel",
+                           "qkv_attention_fwd_mma_kernel")),
     ("cudnn_layout_change", ("nhwcToNchw", "nchwToNhwc")),
     ("convolution_backward", ("dgrad", "wgrad", "convolveNd_wgrad",
                               "bprop")),
