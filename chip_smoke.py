@@ -18,8 +18,9 @@ object per line:
      twice after warm-up: as it is called (CUDA events around a loop of
      calls) and on the device alone (the same calls replayed from a CUDA
      graph).  Every repetition reads the same input, so the cache is warm.
-     Each attention kernel runs twice at every case and must give the same
-     bits again.
+     Each GroupNorm and attention kernel runs twice at every case and must
+     give the same bits again; a GroupNorm case records its cluster size
+     and whether its blocks staged their rows in shared memory.
   3. `forward`: one U-Net forward at each batch the requests below give the
      model (4, 8 and the doubled 16 of classifier-free guidance), the module
      on the kernels against the same module on the plain versions, and the
@@ -166,22 +167,33 @@ def attention_bwd_tol(want):
 TRAIN_LOSS_RTOL = 1e-5  # one float32 step, kernels against plain versions
 TRAIN_GRAD_ATOL = 1e-3  # every gradient: the repo's bar for the model
 
-# B=4 and B=16 cut the rows into other chunks than B=8 (at 64x64: 66 chunks of
-# 63 rows with a last chunk of one row, and 17 of 241, against 33 of 125).
+# B=4 and B=16 cut the rows into other clusters than B=8 (at 64x64: 16
+# blocks of 256 rows at B=4 and 8, 8 of 512 at B=16); (8,8,8,256) is the
+# smallest input of the model; (2,128,128,256) is too large to stage in
+# shared memory, so its blocks stream their rows through it on every pass;
+# (2,8,8,4160) has more 16-byte vectors a row than a block has threads, so
+# a thread takes two (bfloat16) or three (float32, the last step short).
 GN_SHAPES = [(8, 64, 64, 64), (8, 32, 32, 320), (8, 16, 16, 448),
              (8, 8, 8, 512), (4, 64, 64, 64), (16, 64, 64, 64),
-             (4, 8, 8, 512), (16, 32, 32, 320)]
+             (4, 8, 8, 512), (16, 32, 32, 320), (8, 8, 8, 256),
+             (2, 128, 128, 256), (2, 8, 8, 4160)]
 # Batches the requests give the model: DDPM at 4, DDIM at 8, guidance at 2 x 8.
 PATH_BATCHES = (4, 8, 16)
 ATTN_SHAPES = [(8, 256, 192, 6), (8, 64, 256, 8), (4, 1024, 192, 6),
                (2, 576, 64, 2), (2, 100, 64, 2)]  # (B, T, C, NH)
 # The backward kernels at the trainer's batch (32, and 16 with microbatches):
 # the first and the widest concatenated GroupNorm inputs of each level, and
-# both attention resolutions; two small ragged shapes besides.
+# both attention resolutions; two small ragged shapes besides.  In float32,
+# (32,64,64,192) (the widest input at 64x64) does not fit in a cluster's
+# shared memory and streams its rows through it on both passes.
+# (32,8,8,2048) is the widest input of the trainer at --num_channels 256
+# (512 threads a block in float32); (2,8,8,2080) has more 16-byte vectors
+# a row than a block has threads, so a thread takes two.
 TRAIN_BATCH = 32
 GN_BWD_SHAPES = [(32, 64, 64, 64), (32, 64, 64, 128), (32, 32, 32, 320),
                  (32, 16, 16, 448), (32, 8, 8, 1024), (16, 64, 64, 64),
-                 (3, 5, 7, 96)]
+                 (3, 5, 7, 96), (32, 64, 64, 192), (32, 8, 8, 2048),
+                 (2, 8, 8, 2080)]
 ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
                    (2, 100, 64, 2)]
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
@@ -248,6 +260,20 @@ def compare(got, want, tol, what) -> float:
     return err.max().item()
 
 
+def same_bits(got, again, what) -> None:
+    """Raises unless two results (tuples of tensors) are equal bit for bit."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{what}: a rerun gave other bits")
+
+
+def gn_geometry(shape, dtype, backward) -> dict:
+    """The cluster size the wrapper chooses for a GroupNorm case, and
+    whether the rows stay in shared memory (staged) or stream through it."""
+    geo = gn_mod.geometry(*shape, 32, dtype, backward)
+    return dict(cluster=geo.cluster, staged=geo.staged,
+                streamed=geo.streamed)
+
+
 def check_groupnorm(gen):
     cases = []
     for shape in GN_SHAPES:
@@ -256,10 +282,12 @@ def check_groupnorm(gen):
                 B, H, W, C = shape
                 x, gamma, beta = gn_inputs(shape, dtype, gen)
                 y, mean, rstd = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
+                again = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
                 torch.cuda.synchronize()
+                what = f"gn_act_fwd {shape} {dtype} act={act}"
+                same_bits((y, mean, rstd), again, what)
                 yp, meanp, rstdp = gn_act_fwd_plain(x, gamma, beta, 32, 1e-5,
                                                     act)
-                what = f"gn_act_fwd {shape} {dtype} act={act}"
                 err = compare(y, yp, GN_TOL[dtype], what)
                 err_mean = compare(mean, meanp, STAT_TOL, what + " mean")
                 err_rstd = compare(rstd, rstdp, STAT_TOL, what + " rstd")
@@ -276,6 +304,7 @@ def check_groupnorm(gen):
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 cases.append(dict(
                     shape=list(shape), dtype=str(dtype), act=act,
+                    **gn_geometry(shape, dtype, False),
                     max_abs_err=err, mean_max_abs_err=err_mean,
                     rstd_max_abs_err=err_rstd, tol=GN_TOL[dtype],
                     **timings(
@@ -350,10 +379,12 @@ def check_groupnorm_bwd(gen):
                 _, mean, rstd = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
                 args = (x, gamma, beta, mean, rstd, dy, 32, act)
                 got = gn_act_bwd(*args)
+                again = gn_act_bwd(*args)
                 torch.cuda.synchronize()
+                what = f"gn_act_bwd {shape} {dtype} act={act}"
+                same_bits(got, again, what)
                 want = gn_act_bwd_plain(*args)
-                err, err_partials = compare_gn_bwd(
-                    got, want, dtype, f"gn_act_bwd {shape} {dtype} act={act}")
+                err, err_partials = compare_gn_bwd(got, want, dtype, what)
                 partials_of_largest = max(
                     (g - w).abs().max().item() / w.abs().max().item()
                     for g, w in zip(got[1:], want[1:]))
@@ -383,6 +414,7 @@ def check_groupnorm_bwd(gen):
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 cases.append(dict(
                     shape=list(shape), dtype=str(dtype), act=act,
+                    **gn_geometry(shape, dtype, True),
                     max_abs_err=err, partials_max_abs_err=err_partials,
                     partials_err_of_largest=partials_of_largest,
                     tol=GN_TOL[dtype],
@@ -507,8 +539,8 @@ def new_seen():
 
 def check_seen_shapes(seen, gen):
     """Kernel against plain version on random tensors of every shape noted,
-    float32 and bfloat16.  Returns the count of shapes and the worst error
-    per type."""
+    float32 and bfloat16; each GroupNorm kernel runs twice and must give the
+    same bits.  Returns the count of shapes and the worst error per type."""
     worst = {"torch.float32": 0.0, "torch.bfloat16": 0.0}
 
     def note(dtype, err):
@@ -518,8 +550,9 @@ def check_seen_shapes(seen, gen):
         for shape, groups, eps, act in sorted(seen["gn_fwd"]):
             a, g, b = gn_inputs(shape, dtype, gen)
             got = gn_act_fwd(a, g, b, groups, eps, act)
-            want = gn_act_fwd_plain(a, g, b, groups, eps, act)
             what = f"gn_act_fwd {shape} {dtype} act={act}"
+            same_bits(got, gn_act_fwd(a, g, b, groups, eps, act), what)
+            want = gn_act_fwd_plain(a, g, b, groups, eps, act)
             note(dtype, compare(got[0], want[0], GN_TOL[dtype], what))
             compare(got[1], want[1], STAT_TOL, what + " mean")
             compare(got[2], want[2], STAT_TOL, what + " rstd")
@@ -528,9 +561,11 @@ def check_seen_shapes(seen, gen):
             _, mean, rstd = gn_act_fwd(a, g, b, groups, eps, act)
             dy = torch.randn(shape, generator=gen, device=DEV).to(dtype)
             args = (a, g, b, mean, rstd, dy, groups, act)
+            got = gn_act_bwd(*args)
+            what = f"gn_act_bwd {shape} {dtype} act={act}"
+            same_bits(got, gn_act_bwd(*args), what)
             note(dtype, max(compare_gn_bwd(
-                gn_act_bwd(*args), gn_act_bwd_plain(*args), dtype,
-                f"gn_act_bwd {shape} {dtype} act={act}")))
+                got, gn_act_bwd_plain(*args), dtype, what)))
         for shape, heads in sorted(seen["attn_fwd"]):
             qkv = torch.randn(shape, generator=gen, device=DEV).to(dtype)
             want = qkv_attention_plain(qkv, heads)

@@ -122,3 +122,22 @@ def test_bench_ops_runs_on_the_cpu():
                        "--dtype", "float32"])
     assert r["device"] == "cpu" and len(r["ops"]) == 11
     assert all(v["mean_ms"] > 0 for v in r["ops"].values())
+
+
+def test_ab_trees_reads_the_shape_lists_and_summarises():
+    """The A/B script times both trees at the current chip_smoke.py's shape
+    lists (read without importing it) and reports, per case, each tree's
+    fastest device-alone time and the ratio of the second tree's to the
+    first's."""
+    from unet_tpu_torch.utils import ab_trees
+    lists = ab_trees.shape_lists("chip_smoke.py")
+    assert set(lists) == set(ab_trees.SHAPE_LISTS)
+    assert (8, 64, 64, 64) in lists["GN_SHAPES"]
+    case = dict(shape=[8, 64, 64, 64], dtype="torch.bfloat16", act="silu")
+    turns = [("old", {"check_groupnorm": [dict(case, kernel_graph_ms=2.0)]}),
+             ("new", {"check_groupnorm": [dict(case, kernel_graph_ms=1.5)]}),
+             ("new", {"check_groupnorm": [dict(case, kernel_graph_ms=1.0)]}),
+             ("old", {"check_groupnorm": [dict(case, kernel_graph_ms=3.0)]})]
+    summary = ab_trees.summarise(turns)
+    assert summary == {"check_groupnorm [8, 64, 64, 64] torch.bfloat16 silu":
+                       {"old": 2.0, "new": 1.0, "ratio": 0.5}}

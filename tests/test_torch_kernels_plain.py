@@ -157,21 +157,12 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch(rng):
     lambda: port_attn.qkv_attention_fwd(torch.zeros(1, 4, 100), 1),
     lambda: port_attn.qkv_attention_fwd(torch.zeros(1, 4, 96), 5),
     lambda: port_attn.qkv_attention_fwd(torch.zeros(4, 96), 1),
+    # what the cluster kernels take: at most 65535 batch elements, and a
+    # block's float32 arrays (6 C floats in the backward) within 227 KB
+    lambda: port_gn.geometry(65536, 1, 1, 64, 32, torch.float32, False),
+    lambda: port_gn.geometry(1, 2, 2, 16384, 32, torch.float32, True),
+    lambda: port_gn.geometry(1, 2, 2, 64, 48, torch.float32, False),
 ])
 def test_wrappers_refuse_bad_shapes(call):
     with pytest.raises(ValueError):
         call()
-
-
-@pytest.mark.parametrize("batch,rows", [(8, 4096), (8, 1024), (8, 256),
-                                        (8, 64), (1, 1), (1, 7), (3, 1000),
-                                        (16, 16384), (64, 64)])
-def test_gn_chunking_covers_every_row_with_no_empty_chunk(batch, rows):
-    """The cut of a batch element's rows into blocks that the wrapper hands
-    the kernel: the chunks cover all rows, and the last one is not empty."""
-    nchunks, per = port_gn.chunking(batch, rows)
-    assert nchunks >= 1 and per >= 1
-    assert nchunks * per >= rows
-    assert (nchunks - 1) * per < rows
-    if rows >= 8 * nchunks and nchunks > 1:
-        assert per >= 8

@@ -1,33 +1,11 @@
-// GroupNorm + optional SiLU on an NHWC tensor: forward and backward.
+// GroupNorm + optional SiLU on an NHWC tensor: forward and backward, one
+// launch each.
 //
 // Forward.  Replaces the Pallas kernel `_fwd_kernel` of
 // unet_tpu/ops/pallas/groupnorm.py (launched by `_fwd_call`, reached through
 // `group_norm_act`): float32 mean and variance per (batch, group) over
 // (H, W, C/G), z = (x - mean) * rstd * gamma + beta, z * sigmoid(z) when the
 // activation is SiLU; y in x's type, mean and rstd (B, G) in float32.
-//
-// Bound on an H100: memory traffic.  The function must read x once and
-// write y once, 2 * B*H*W*C * itemsize bytes; the arithmetic is a few
-// operations per element.
-//
-// Design.  In NHWC one group's elements are H*W runs of only C/G contiguous
-// values, so a block per group would read short pieces at stride C.  Here a
-// thread owns one group within one row: thread t works on group t % G of
-// row t / G, so that G neighbouring threads read one whole contiguous row,
-// each with one vector load per V elements, and sums its own group with no
-// fold from channels to groups.  One batch element is too much for one block
-// and too few blocks would leave most SMs idle, so the rows of a batch
-// element are cut into chunks, one block each.  Blocks run in no order, so
-// the reduction has two stages:
-//   1. gn_stats_kernel: each block takes the mean of its chunk per group,
-//      then the sum of squared differences from that mean (two passes over
-//      the chunk, the second served by the cache), and writes (mean, M2)
-//      per (batch, chunk, group) to scratch memory;
-//   2. gn_apply_kernel: each block first combines the chunks' partials of
-//      its batch element by the parallel-variance formula
-//      (M2 = sum M2_i + n_i (mean_i - mean)^2), which has none of the
-//      cancellation of E[x^2] - E[x]^2, then normalises its own chunk.
-// The same stream orders the two launches.
 //
 // Backward.  Replaces the Pallas kernel `_bwd_kernel` of the same file
 // (launched by `_bwd_call`, reached through `_gn_bwd`): from x, gamma, beta,
@@ -36,194 +14,513 @@
 // without activation); the per-batch float32 partials dbeta_b = sum_hw dz and
 // dgamma_b = sum_hw dz * xhat (B, C); per group t1 = mean_g(dbeta_b * gamma)
 // and t2 = mean_g(dgamma_b * gamma); dx = rstd (dz gamma - t1 - xhat t2) in
-// x's type.  Bound: memory traffic again, x and dy read and dx written once.
-// The sums are per channel, so here a thread owns V neighbouring channels of
-// one row (C / V threads cover a row) and keeps V sums of each kind in
-// registers.  The rows are cut into the forward's chunks, and the reduction
-// has two stages without atomics, so a rerun gives the same bits:
-//   1. gn_bwd_sums_kernel: per (batch, chunk) the chunk's sums per channel,
-//      added over the block's row slots in a fixed order, to scratch memory;
-//   2. gn_bwd_apply_kernel: each block adds the chunks' sums of its batch
-//      element in chunk order (block 0 of the batch element writes them out
-//      as dgamma_b, dbeta_b), forms t1 and t2 per group, and writes dx for
-//      its own chunk (x and dy read a second time, mostly from the cache).
+// x's type.
+//
+// Bound on an H100: memory traffic.  The forward must read x and write y
+// once, the backward read x and dy and write dx once; the arithmetic is a
+// few operations per element (a few tens for the backward's SiLU
+// derivative, which both of its passes need).
+//
+// Design.  The TPU kernel keeps one batch element's (H, W, C) slab in its
+// fast memory, so x leaves device memory once however many passes the
+// statistics take.  Here one thread-block cluster (up to 16 blocks on
+// neighbouring SMs, each able to read the others' shared memory) works on
+// one batch element: grid (cluster, B), cluster dims (cluster, 1, 1).  The
+// block of rank r takes rows [r * rows_per_block, ...) of the element's H*W
+// rows, in NHWC one contiguous run of rows * C values.  Its rows pass
+// through a ring of kSlots tiles in shared memory, each tile copied in by
+// bulk copies (`cp.async.bulk`) that complete on the tile's `mbarrier`, so
+// that a pass works on one tile while the next ones arrive (`Rows`).  Where
+// the block's rows fit in the ring (every bfloat16 shape of the U-Net) they
+// are copied once and stay, so every pass after the first reads shared
+// memory; where they do not, every pass streams them through the ring
+// again (the repeats mostly from L2).  Where C * itemsize is no multiple of
+// 16 (no bulk copy), every pass reads device memory.  All in one launch.
+//
+// Inside a block, thread t takes the V neighbouring channels (16 bytes when
+// C allows) at (t % L) * V, in rows t / L, + RS, + 2 RS, ..., where L threads
+// cover a row (L = C / V, or the whole block where a row has more vectors
+// than a block has threads: then each thread also takes the channels
+// J * L * V further on, J = 1, 2, ..., one pass over the rows for each):
+// neighbouring threads read neighbouring pieces of a row, and a thread's
+// channels, their groups and its constants (mean, rstd, gamma, beta) are the
+// same in every row, so they are loaded once, before the row loops.  Sums
+// are kept per channel in registers and folded over the row slots (within
+// a warp by shuffles where it holds several), then over a group's channels,
+// through shared memory in a fixed order.
+//
+//   forward: the block's mean per group, then (a second pass) its sum of
+//     squared differences from that mean, M2.  Every block then copies the
+//     (mean, M2) of every block of its cluster from their shared memory and
+//     combines them by the parallel-variance formula
+//     M2 = sum_i M2_i + n_i (mean_i - mean)^2 (none of the cancellation of
+//     E[x^2] - E[x]^2) in rank order, so all hold the same bits; then it
+//     normalises its rows.
+//   backward: pass 1 sums dz and dz * xhat per channel; every block adds the
+//     cluster's sums (slices of the ranks side by side, then the slices in
+//     order; rank 0 writes dgamma_b and dbeta_b), forms t1 and t2 per group,
+//     and writes dx in pass 2.
+//
+// Nothing goes through device memory between the passes and no atomics are
+// used, so a rerun gives the same bits.  A block's shared memory may be read
+// by the others only while it runs: after its last read of another block's
+// shared memory every thread arrives at the cluster barrier, and the block
+// waits on that barrier before it exits.
+
+#include <cooperative_groups.h>
+
+#include <cstdint>
+#include <mutex>
+#include <set>
+#include <tuple>
 
 #include "common.cuh"
 
 namespace {
 
-// Rows [r0, r1) of this block's chunk.
-__device__ __forceinline__ void chunk_rows(int chunk, int rows_per_chunk, int HW,
-                                           int& r0, int& r1) {
-    r0 = chunk * rows_per_chunk;
-    r1 = min(HW, r0 + rows_per_chunk);
+namespace cgrp = cooperative_groups;
+
+constexpr int kTargetThreads = 256;
+// At most this many threads a block: 512, but 256 for the backward at 8
+// values a thread, which needs the registers (at 128 a thread, it spills).
+constexpr int kMaxThreads = 512;
+constexpr int kMaxThreadsBwd8 = 256;
+constexpr int kMaxCluster = 16;
+constexpr int kSlots = 4;
+constexpr int kMaxSmem = 227 * 1024;  // what one block may use on an H100
+
+// C / V threads cover a row; a block holds as many whole rows as fit in
+// kTargetThreads (at least one).  Where a row has more vectors than the
+// block's cap, each thread takes J of them, in ceil(C / V / J) threads.
+__host__ __device__ constexpr int max_threads(int backward, int V) {
+    return backward && V >= 8 ? kMaxThreadsBwd8 : kMaxThreads;
 }
 
-// Sum over the row slots of one group; the result is valid in row slot 0.
-__device__ __forceinline__ float reduce_row_slots(float* red, float v, int g, int rs,
-                                                  int G, int RS) {
-    red[rs * G + g] = v;
-    __syncthreads();
-    float tot = 0.f;
-    if (rs == 0) {
-        for (int i = 0; i < RS; ++i) tot += red[i * G + g];
+__host__ __device__ inline int block_threads(int backward, int C, int V) {
+    const int per_row = C / V, cap = max_threads(backward, V);
+    if (per_row < kTargetThreads) return (kTargetThreads / per_row) * per_row;
+    const int J = (per_row + cap - 1) / cap;
+    return (per_row + J - 1) / J;
+}
+
+// Floats of shared memory beside the staged rows (see the kernels' layouts).
+__host__ __device__ inline size_t smem_floats(int backward, int cluster, int RS, int C, int G) {
+    return backward ? 2 * (size_t)RS * C + 4 * (size_t)C + 2 * (size_t)G
+                    : (size_t)RS * C + C + (4 + 2 * (size_t)cluster) * G;
+}
+
+// Offset of the mbarriers, after the staged rows and the floats.
+__host__ __device__ inline size_t barrier_offset(size_t staged_bytes, size_t floats) {
+    return (staged_bytes + 4 * floats + 7) / 8 * 8;
+}
+
+// Bytes of the ring of a block's rows (x, and dy in the backward): room for
+// all of them, or for kSlots tiles, whichever is less; none where rows are
+// not staged (C * itemsize no multiple of 16).
+__host__ __device__ inline size_t ring_bytes(int backward, int rows_per_block, int tile_rows,
+                                             int C, int V, int item) {
+    if (V * item != 16) return 0;
+    return (size_t)(backward ? 2 : 1) * min(rows_per_block, kSlots * tile_rows) * C * item;
+}
+
+// Bytes of dynamic shared memory of one block.  The wrapper counts the same
+// (ops/kernels/groupnorm.py::smem_bytes) to choose the geometry.
+inline size_t smem_bytes(int backward, int cluster, int rows_per_block, int tile_rows, int C,
+                         int G, int V, int item) {
+    const int threads = block_threads(backward, C, V);
+    const int RS = threads / min(C / V, threads);
+    return barrier_offset(ring_bytes(backward, rows_per_block, tile_rows, C, V, item),
+                          smem_floats(backward, cluster, RS, C, G)) +
+           8 * kSlots;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(smem_u32(bar)), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this block's shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+            "r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+#ifdef GN_PHASE_CLOCKS
+// A build with -DGN_PHASE_CLOCKS (utils/gn_phases.py) keeps thread 0's
+// cycle counter at each phase boundary of the first kClockBlocks blocks,
+// and the global timer (ns) at the start and the end.
+constexpr int kClockBlocks = 4096, kClockSlots = 16;
+__device__ long long g_phase_clocks[kClockBlocks * kClockSlots];
+#define PHASE(i)                                                                  \
+    do {                                                                          \
+        const int blk_ = blockIdx.y * gridDim.x + blockIdx.x;                     \
+        if (threadIdx.x == 0 && blk_ < kClockBlocks) {                            \
+            long long ns_;                                                        \
+            asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns_));               \
+            g_phase_clocks[blk_ * kClockSlots + (i)] = clock64();                 \
+            if ((i) == 0) g_phase_clocks[blk_ * kClockSlots + 14] = ns_;          \
+            g_phase_clocks[blk_ * kClockSlots + 15] = ns_;                        \
+        }                                                                         \
+    } while (0)
+#else
+#define PHASE(i) \
+    do {         \
+    } while (0)
+#endif
+
+// Where a block's rows come from.  Staged (STAGED), they pass through a
+// ring of kSlots slots of `tile_rows` rows in shared memory, one tile a
+// slot, each copied in by one thread's bulk copies and completing on the
+// slot's mbarrier.  Where the block's tiles fit in the ring (`resident`)
+// each is copied once and every pass after the first reads shared memory;
+// otherwise every pass streams the tiles through the ring again, the next
+// kSlots - 1 tiles' copies in flight while one is read.  Not staged, every
+// pass reads device memory.  x and, in the backward, dy (n = 1 or 2).
+template <typename T, bool STAGED>
+struct Rows {
+    const T* src[2];  // the block's first row in device memory
+    T* buf[2];        // the ring (STAGED)
+    int n, C, nrows, tile_rows, ntiles, passes;
+    uint64_t* bars;
+
+    __device__ bool resident() const { return ntiles <= kSlots; }
+
+    // Thread 0: the copy of the q-th tile of the whole sequence (tile
+    // q % ntiles, into slot q % kSlots).
+    __device__ void issue(int q) const {
+        const int t = q % ntiles, slot = q % kSlots;
+        const int r0 = t * tile_rows, r1 = min(nrows, r0 + tile_rows);
+        const uint32_t bytes = static_cast<uint32_t>((size_t)(r1 - r0) * C * sizeof(T));
+        mbar_arrive_expect_tx(&bars[slot], n * bytes);
+        for (int i = 0; i < n; ++i)
+            bulk_load(buf[i] + (size_t)slot * tile_rows * C, src[i] + (size_t)r0 * C, bytes,
+                      &bars[slot]);
     }
-    return tot;
-}
 
-template <typename T, int V>
-__global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ partials,
-                                int HW, int C, int G, int rows_per_chunk) {
-    extern __shared__ float smem[];
-    const int RS = blockDim.x / G;
-    float* red = smem;            // RS * G
-    float* mean_s = smem + RS * G;  // G
-    const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
-    const int g = threadIdx.x % G, rs = threadIdx.x / G;
-    const int cg = C / G;
-    int r0, r1;
-    chunk_rows(chunk, rows_per_chunk, HW, r0, r1);
-    const T* xg = x + (size_t)b * HW * C + (size_t)g * cg;
-
-    float s = 0.f;
-    for (int r = r0 + rs; r < r1; r += RS) {
-        const T* p = xg + (size_t)r * C;
-        for (int j = 0; j < cg; j += V) {
-            Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(p + j);
-#pragma unroll
-            for (int k = 0; k < V; ++k) s += to_float<T>(v.v[k]);
+    // Every thread: set up the barriers and start the first copies.
+    __device__ void start() const {
+        if (!STAGED) return;
+        if (threadIdx.x == 0) {
+            for (int j = 0; j < kSlots; ++j) mbar_init(&bars[j], 1);
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        }
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            const int total = resident() ? ntiles : passes * ntiles;
+            for (int q = 0; q < min(kSlots, total); ++q) issue(q);
         }
     }
-    float tot = reduce_row_slots(red, s, g, rs, G, RS);
-    if (rs == 0) mean_s[g] = tot / (float)((r1 - r0) * cg);
-    __syncthreads();
-    const float mu = mean_s[g];
 
-    float s2 = 0.f;
-    for (int r = r0 + rs; r < r1; r += RS) {
-        const T* p = xg + (size_t)r * C;
-        for (int j = 0; j < cg; j += V) {
-            Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(p + j);
-#pragma unroll
-            for (int k = 0; k < V; ++k) {
-                float d = to_float<T>(v.v[k]) - mu;
-                s2 += d * d;
+    // f(r, x row, dy row) for this thread's rows r = rs, rs + RS, ... of
+    // the block, in pass `pass` (0, 1, ... passes - 1; every thread takes
+    // part in every pass, in order).
+    template <typename F>
+    __device__ __forceinline__ void pass_over(int pass, int rs, int RS, F f) const {
+        const bool res = resident();
+        if (!STAGED || (res && pass > 0)) {  // every row where it stays
+            const T* s0 = STAGED ? buf[0] : src[0];
+            const T* s1 = STAGED ? buf[1] : src[1];
+            for (int r = rs; r < nrows; r += RS)
+                f(r, s0 + (size_t)r * C, n > 1 ? s1 + (size_t)r * C : nullptr);
+            return;
+        }
+        for (int t = 0; t < ntiles; ++t) {
+            const int q = res ? t : pass * ntiles + t, slot = q % kSlots;
+            mbar_wait(&bars[slot], (q / kSlots) & 1);
+            const int r0 = t * tile_rows, r1 = min(nrows, r0 + tile_rows);
+            const size_t shift = ((size_t)slot * tile_rows - r0) * C;  // row r at r * C + shift
+            for (int r = r0 + (rs - r0 % RS + RS) % RS; r < r1; r += RS)
+                f(r, buf[0] + shift + (size_t)r * C,
+                  n > 1 ? buf[1] + shift + (size_t)r * C : nullptr);
+            if (!res) {  // the slot is free again once every thread is done with it
+                __syncthreads();
+                if (threadIdx.x == 0 && q + kSlots < passes * ntiles) issue(q + kSlots);
             }
         }
     }
-    float m2 = reduce_row_slots(red, s2, g, rs, G, RS);
-    if (rs == 0) {
-        float* out = partials + (((size_t)b * nchunks + chunk) * G + g) * 2;
-        out[0] = mu;
-        out[1] = m2;
-    }
+};
+
+// The logistic function with the hardware's exponential and reciprocal
+// (a few ulp, against the many instructions of expf and a division).
+__device__ __forceinline__ float sigmoid(float z) {
+    return __fdividef(1.f, 1.f + __expf(-z));
 }
 
 template <typename T, int V>
-__global__ void gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                                const T* __restrict__ beta,
-                                const float* __restrict__ partials, T* __restrict__ y,
-                                float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                                int HW, int C, int G, int rows_per_chunk, float eps,
-                                int act_silu) {
-    extern __shared__ float smem[];
-    float* mean_s = smem;          // G
-    float* rstd_s = smem + G;      // G
-    float* gamma_s = smem + 2 * G;  // C
-    float* beta_s = gamma_s + C;   // C
-    const int RS = blockDim.x / G;
-    const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
-    const int cg = C / G;
+__device__ __forceinline__ void load_floats(const T* p, float (&f)[V]) {
+    const Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(p);
+#pragma unroll
+    for (int k = 0; k < V; ++k) f[k] = to_float<T>(v.v[k]);
+}
 
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        const float* part = partials + ((size_t)b * nchunks * G + g) * 2;
-        const float n_all = (float)HW * (float)cg;
-        float mean = 0.f;
-        for (int i = 0; i < nchunks; ++i) {
-            int q0, q1;
-            chunk_rows(i, rows_per_chunk, HW, q0, q1);
-            mean += (float)((q1 - q0) * cg) * part[(size_t)i * G * 2];
+// Lanes that one group's fold is spread over: a power of two, at most 32,
+// with G groups of them in the block.
+__device__ __forceinline__ int fold_lanes(int G) {
+    int lanes = 1;
+    while (lanes < 32 && 2 * lanes * G <= (int)blockDim.x) lanes *= 2;
+    return lanes;
+}
+
+// The sum over P neighbouring lanes (a power of two; lanes t < `active`
+// take part, whole groups of P of them), in a fixed order.
+__device__ __forceinline__ float lanes_sum(float s, int P, int t, int active) {
+    if (P > 1) {
+        const int in_warp = active - (t & ~31);
+        const unsigned mask = in_warp >= 32 ? 0xffffffffu : (1u << in_warp) - 1;
+        for (int off = P / 2; off > 0; off /= 2) s += __shfl_xor_sync(mask, s, off);
+    }
+    return s;
+}
+
+// Whether a warp holds several row slots (L threads a row divides 32; then
+// blockDim.x is kTargetThreads, whole warps, and a thread takes one vector
+// of a row).
+__device__ __forceinline__ bool warp_slots(int L) { return L < 32 && 32 % L == 0; }
+
+// Puts this thread's per-channel values v (channels c0 ... c0 + V - 1 of row
+// slot rs; none where c0 >= C) into red.  Where a warp holds several row
+// slots they are first added across the warp by shuffles, so that red holds
+// one row a warp.
+template <int V>
+__device__ __forceinline__ void deposit(float (&v)[V], float* red, int rs, int c0, int L, int C) {
+    if (warp_slots(L)) {
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+            for (int off = L; off < 32; off *= 2) v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+        if ((threadIdx.x & 31) < L) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) red[(threadIdx.x / 32) * C + c0 + k] = v[k];
         }
+    } else if (c0 < C) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) red[rs * C + c0 + k] = v[k];
+    }
+}
+
+// Each group's sum over the block of what `deposit` put into red, divided
+// by n: out[2 g].  The row slots are added per channel (one thread a
+// channel), then P neighbouring lanes take a group's channels and shuffles
+// add the lanes; a fixed order throughout.
+__device__ __forceinline__ void group_sums(float* red, float* chan, float* out, int RS, int L,
+                                           int C, int G, float n) {
+    __syncthreads();
+    const int rows = warp_slots(L) ? blockDim.x / 32 : RS;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        float sum = 0.f;
+        for (int i = 0; i < rows; ++i) sum += red[i * C + c];
+        chan[c] = sum;
+    }
+    __syncthreads();
+    const int cg = C / G, P = fold_lanes(G);
+    for (int t = threadIdx.x; t < G * P; t += blockDim.x) {
+        const int g = t / P, p = t % P;
+        float sum = 0.f;
+        for (int j = p; j < cg; j += P) sum += chan[g * cg + j];
+        sum = lanes_sum(sum, P, t, G * P);
+        if (p == 0) out[2 * g] = sum / n;
+    }
+    __syncthreads();
+}
+
+template <typename T, int V, bool WIDE>
+__global__ void __launch_bounds__(max_threads(0, V), 1)
+    gn_act_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                      const T* __restrict__ beta, T* __restrict__ y, float* __restrict__ mean_out,
+                      float* __restrict__ rstd_out, int HW, int C, int G, int rows_per_block,
+                      int tile_rows, float eps, int act_silu) {
+    constexpr bool kStaged = V * sizeof(T) == 16;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int rank = blockIdx.x, ranks = gridDim.x, b = blockIdx.y;
+    const int row0 = rank * rows_per_block, nrows = min(HW - row0, rows_per_block);
+    // L threads cover a row; a thread takes J vectors of it (WIDE: more
+    // vectors a row than the block has threads, L the whole block).
+    const int L = WIDE ? (int)blockDim.x : C / V, RS = blockDim.x / L, rs = threadIdx.x / L;
+    const int J = WIDE ? (C / V + L - 1) / L : 1;
+    const int c00 = (threadIdx.x % L) * V;  // the first; the j-th at c00 + j * L * V
+    const int cg = C / G;
+    const size_t data = ring_bytes(0, rows_per_block, tile_rows, C, V, sizeof(T));
+    float* red = reinterpret_cast<float*>(smem + data);  // RS x C: per row slot and channel
+    float* chan = red + RS * C;  // C: per channel
+    float* part = chan + C;      // 2G: this block's (mean, M2) per group
+    float* stat = part + 2 * G;  // 2G: the batch element's (mean, rstd) per group
+    float* recv = stat + 2 * G;  // ranks x 2G: every block's (mean, M2)
+    uint64_t* bars = reinterpret_cast<uint64_t*>(
+        smem + barrier_offset(data, smem_floats(0, ranks, RS, C, G)));
+    PHASE(0);
+    const int ntiles = (nrows + tile_rows - 1) / tile_rows;
+    const Rows<T, kStaged> rows{{x + ((size_t)b * HW + row0) * C, nullptr},
+                                {reinterpret_cast<T*>(smem), nullptr},
+                                1, C, nrows, tile_rows, ntiles, 3 * J, bars};
+    rows.start();
+    PHASE(1);
+    float scale[V], shift[V];  // gamma and beta of the thread's channels, for now
+    const auto affine = [&](int c0) {
+        if (WIDE && c0 >= C) return;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            scale[k] = to_float<T>(gamma[c0 + k]);
+            shift[k] = to_float<T>(beta[c0 + k]);
+        }
+    };
+    if (!WIDE) affine(c00);  // loaded while the rows arrive
+
+    float acc[V];
+#pragma unroll 1
+    for (int j = 0; j < J; ++j) {
+        const int c0 = c00 + j * L * V;
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = 0.f;
+        rows.pass_over(j, rs, RS, [&](int, const T* xr, const T*) {
+            if (WIDE && c0 >= C) return;
+            float v[V];
+            load_floats<T, V>(xr + c0, v);
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] += v[k];
+        });
+        deposit<V>(acc, red, rs, c0, L, C);
+    }
+    PHASE(2);
+    group_sums(red, chan, part, RS, L, C, G, (float)(nrows * cg));
+    PHASE(3);
+
+    float mu[V];
+#pragma unroll 1
+    for (int j = 0; j < J; ++j) {
+        const int c0 = c00 + j * L * V;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            mu[k] = !WIDE || c0 < C ? part[2 * ((c0 + k) / cg)] : 0.f;
+            acc[k] = 0.f;
+        }
+        rows.pass_over(J + j, rs, RS, [&](int, const T* xr, const T*) {
+            if (WIDE && c0 >= C) return;
+            float v[V];
+            load_floats<T, V>(xr + c0, v);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const float d = v[k] - mu[k];
+                acc[k] += d * d;
+            }
+        });
+        deposit<V>(acc, red, rs, c0, L, C);
+    }
+    group_sums(red, chan, part + 1, RS, L, C, G, 1.f);
+    PHASE(4);
+
+    // Every block's (mean, M2) is written: copy them all here, then combine
+    // them in rank order.
+    cluster_arrive();
+    cluster_wait();
+    cgrp::cluster_group cluster = cgrp::this_cluster();
+    for (int t = threadIdx.x; t < G * ranks; t += blockDim.x) {
+        const int g = t % G, from = t / G;
+        const float* p = cluster.map_shared_rank(part, from) + 2 * g;
+        recv[2 * (from * G + g)] = p[0];
+        recv[2 * (from * G + g) + 1] = p[1];
+    }
+    cluster_arrive();  // this block reads no other block's shared memory from here on
+    __syncthreads();
+    PHASE(5);
+    const float n_all = (float)HW * (float)cg;
+    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+        float pm[kMaxCluster], pq[kMaxCluster], pn[kMaxCluster];
+#pragma unroll
+        for (int i = 0; i < kMaxCluster; ++i) {
+            if (i < ranks) {
+                pm[i] = recv[2 * (i * G + g)];
+                pq[i] = recv[2 * (i * G + g) + 1];
+                pn[i] = (float)(min(HW - i * rows_per_block, rows_per_block) * cg);
+            }
+        }
+        float mean = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxCluster; ++i)
+            if (i < ranks) mean += pn[i] * pm[i];
         mean /= n_all;
         float m2 = 0.f;
-        for (int i = 0; i < nchunks; ++i) {
-            int q0, q1;
-            chunk_rows(i, rows_per_chunk, HW, q0, q1);
-            float d = part[(size_t)i * G * 2] - mean;
-            m2 += part[(size_t)i * G * 2 + 1] + (float)((q1 - q0) * cg) * d * d;
+#pragma unroll
+        for (int i = 0; i < kMaxCluster; ++i) {
+            if (i < ranks) {
+                const float d = pm[i] - mean;
+                m2 += pq[i] + pn[i] * d * d;
+            }
         }
-        float rstd = rsqrtf(m2 / n_all + eps);
-        mean_s[g] = mean;
-        rstd_s[g] = rstd;
-        if (chunk == 0) {
+        const float rstd = rsqrtf(m2 / n_all + eps);
+        stat[2 * g] = mean;
+        stat[2 * g + 1] = rstd;
+        if (rank == 0) {
             mean_out[(size_t)b * G + g] = mean;
             rstd_out[(size_t)b * G + g] = rstd;
         }
     }
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        gamma_s[c] = to_float<T>(gamma[c]);
-        beta_s[c] = to_float<T>(beta[c]);
-    }
     __syncthreads();
+    PHASE(6);
 
-    const int g = threadIdx.x % G, rs = threadIdx.x / G;
-    const float mean = mean_s[g], rstd = rstd_s[g];
-    int r0, r1;
-    chunk_rows(chunk, rows_per_chunk, HW, r0, r1);
-    const size_t base = (size_t)b * HW * C + (size_t)g * cg;
-    for (int r = r0 + rs; r < r1; r += RS) {
-        const size_t off = base + (size_t)r * C;
-        for (int j = 0; j < cg; j += V) {
-            Vec<T, V> v = *reinterpret_cast<const Vec<T, V>*>(x + off + j);
+    T* yb = y + ((size_t)b * HW + row0) * C;
+#pragma unroll 1
+    for (int j = 0; j < J; ++j) {
+        const int c0 = c00 + j * L * V;
+        if (WIDE) affine(c0);
+        if (!WIDE || c0 < C) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const int g = (c0 + k) / cg;
+                mu[k] = stat[2 * g];
+                scale[k] *= stat[2 * g + 1];
+            }
+        }
+        rows.pass_over(2 * J + j, rs, RS, [&](int r, const T* xr, const T*) {
+            if (WIDE && c0 >= C) return;
+            float v[V];
+            load_floats<T, V>(xr + c0, v);
             Vec<T, V> o;
 #pragma unroll
             for (int k = 0; k < V; ++k) {
-                const int c = g * cg + j + k;
-                float z = (to_float<T>(v.v[k]) - mean) * rstd * gamma_s[c] + beta_s[c];
-                if (act_silu) z = z / (1.f + expf(-z));
+                float z = (v[k] - mu[k]) * scale[k] + shift[k];
+                if (act_silu) z *= sigmoid(z);
                 o.v[k] = from_float<T>(z);
             }
-            *reinterpret_cast<Vec<T, V>*>(y + off + j) = o;
-        }
+            *reinterpret_cast<Vec<T, V>*>(yb + (size_t)r * C + c0) = o;
+        });
     }
-}
-
-template <typename T, int V>
-cudaError_t launch(const void* x, const void* gamma, const void* beta, void* y,
-                   float* mean, float* rstd, float* partials, int B, int HW, int C, int G,
-                   float eps, int act_silu, int nchunks, int rows_per_chunk,
-                   cudaStream_t stream) {
-    const int RS = G >= 256 ? 1 : 256 / G;
-    const dim3 grid(nchunks, B), block(G * RS);
-    const size_t smem_stats = (size_t)(RS * G + G) * sizeof(float);
-    const size_t smem_apply = (size_t)(2 * G + 2 * C) * sizeof(float);
-    gn_stats_kernel<T, V><<<grid, block, smem_stats, stream>>>(
-        static_cast<const T*>(x), partials, HW, C, G, rows_per_chunk);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    gn_apply_kernel<T, V><<<grid, block, smem_apply, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-        partials, static_cast<T*>(y), mean, rstd, HW, C, G, rows_per_chunk, eps, act_silu);
-    return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(int vec, const void* x, const void* gamma, const void* beta, void* y,
-                     float* mean, float* rstd, float* partials, int B, int HW, int C, int G,
-                     float eps, int act_silu, int nchunks, int rows_per_chunk,
-                     cudaStream_t stream) {
-#define GN_CASE(V)                                                                       \
-    case V:                                                                              \
-        return launch<T, V>(x, gamma, beta, y, mean, rstd, partials, B, HW, C, G, eps,   \
-                            act_silu, nchunks, rows_per_chunk, stream)
-    switch (vec) {
-        GN_CASE(1);
-        GN_CASE(2);
-        GN_CASE(4);
-        GN_CASE(8);
-    }
-#undef GN_CASE
-    return cudaErrorInvalidValue;
+    PHASE(7);
+    cluster_wait();  // the others have read this block's shared memory
 }
 
 // d(loss)/dz from d(loss)/dy, where y = silu(z) or y = z.
@@ -231,260 +528,409 @@ __device__ __forceinline__ float dz_of(float dy, float xhat, float gamma, float 
                                        int act_silu) {
     if (!act_silu) return dy;
     const float z = xhat * gamma + beta;
-    const float s = 1.f / (1.f + expf(-z));
+    const float s = sigmoid(z);
     return dy * (s * (1.f + z * (1.f - s)));
 }
 
-template <typename T, int V>
-__global__ void gn_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                                   const T* __restrict__ beta, const float* __restrict__ mean,
-                                   const float* __restrict__ rstd, const T* __restrict__ dy,
-                                   float* __restrict__ partials, int HW, int C, int G,
-                                   int rows_per_chunk, int act_silu) {
-    extern __shared__ float smem[];
-    const int TPR = C / V, RS = blockDim.x / TPR;
-    float* mean_s = smem;          // G
-    float* rstd_s = mean_s + G;    // G
-    float* gamma_s = rstd_s + G;   // C
-    float* beta_s = gamma_s + C;   // C
-    float* red = beta_s + C;       // 2 * RS * C: dbeta sums, then dgamma sums
-    const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
+template <typename T, int V, bool WIDE>
+__global__ void __launch_bounds__(max_threads(1, V), 1)
+    gn_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                      const T* __restrict__ beta, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const T* __restrict__ dy,
+                      T* __restrict__ dx, float* __restrict__ dgamma_b,
+                      float* __restrict__ dbeta_b, int HW, int C, int G, int rows_per_block,
+                      int tile_rows, int act_silu) {
+    constexpr bool kStaged = V * sizeof(T) == 16;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int rank = blockIdx.x, ranks = gridDim.x, b = blockIdx.y;
+    const int row0 = rank * rows_per_block, nrows = min(HW - row0, rows_per_block);
+    // L threads cover a row; a thread takes J vectors of it (WIDE: more
+    // vectors a row than the block has threads, L the whole block).
+    const int L = WIDE ? (int)blockDim.x : C / V, RS = blockDim.x / L, rs = threadIdx.x / L;
+    const int J = WIDE ? (C / V + L - 1) / L : 1;
+    const int c00 = (threadIdx.x % L) * V;  // the first; the j-th at c00 + j * L * V
     const int cg = C / G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        mean_s[g] = mean[(size_t)b * G + g];
-        rstd_s[g] = rstd[(size_t)b * G + g];
-    }
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        gamma_s[c] = to_float<T>(gamma[c]);
-        beta_s[c] = to_float<T>(beta[c]);
-    }
-    __syncthreads();
+    const size_t slab = ring_bytes(0, rows_per_block, tile_rows, C, V, sizeof(T));
+    float* red = reinterpret_cast<float*>(smem + 2 * slab);  // 2 x RS x C: dbeta, dgamma
+    float* part = red + 2 * RS * C;  // 2C: this block's sums per channel, read by the cluster
+    float* tot = part + 2 * C;       // 2C: the batch element's, times gamma
+    float* tt = tot + 2 * C;         // 2G: t1, t2 per group
+    uint64_t* bars = reinterpret_cast<uint64_t*>(
+        smem + barrier_offset(2 * slab, smem_floats(1, ranks, RS, C, G)));
+    PHASE(0);
+    const size_t base = ((size_t)b * HW + row0) * C;
+    const int ntiles = (nrows + tile_rows - 1) / tile_rows;
+    const Rows<T, kStaged> rows{{x + base, dy + base},
+                                {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem + slab)},
+                                2, C, nrows, tile_rows, ntiles, 2 * J, bars};
+    rows.start();
+    PHASE(1);
 
-    const int c0 = (threadIdx.x % TPR) * V, rs = threadIdx.x / TPR;
-    float db[V], dg[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) db[k] = dg[k] = 0.f;
-    int r0, r1;
-    chunk_rows(chunk, rows_per_chunk, HW, r0, r1);
-    for (int r = r0 + rs; r < r1; r += RS) {
-        const size_t off = ((size_t)b * HW + r) * C + c0;
-        Vec<T, V> xv = *reinterpret_cast<const Vec<T, V>*>(x + off);
-        Vec<T, V> dv = *reinterpret_cast<const Vec<T, V>*>(dy + off);
+    for (int c = threadIdx.x; c < C; c += blockDim.x)
+        tot[c] = to_float<T>(gamma[c]);  // until the cluster's sums replace it
+    // The constants of the thread's channels c0 ... c0 + V - 1 (none where
+    // c0 >= C): mean, rstd, gamma, beta.
+    float mu[V], rsd[V], ga[V], be[V], db[V], dg[V];
+    const auto constants = [&](int c0) {
+        if (WIDE && c0 >= C) return;
 #pragma unroll
         for (int k = 0; k < V; ++k) {
             const int c = c0 + k, g = c / cg;
-            const float xhat = (to_float<T>(xv.v[k]) - mean_s[g]) * rstd_s[g];
-            const float dz = dz_of(to_float<T>(dv.v[k]), xhat, gamma_s[c], beta_s[c], act_silu);
-            db[k] += dz;
-            dg[k] += dz * xhat;
+            mu[k] = mean[(size_t)b * G + g];
+            rsd[k] = rstd[(size_t)b * G + g];
+            ga[k] = to_float<T>(gamma[c]);
+            be[k] = to_float<T>(beta[c]);
+        }
+    };
+#pragma unroll 1
+    for (int j = 0; j < J; ++j) {
+        const int c0 = c00 + j * L * V;
+        constants(c0);
+#pragma unroll
+        for (int k = 0; k < V; ++k) db[k] = dg[k] = 0.f;
+        rows.pass_over(j, rs, RS, [&](int, const T* xr, const T* dr) {
+            if (WIDE && c0 >= C) return;
+            float xv[V], dv[V];
+            load_floats<T, V>(xr + c0, xv);
+            load_floats<T, V>(dr + c0, dv);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const float xhat = (xv[k] - mu[k]) * rsd[k];
+                const float dz = dz_of(dv[k], xhat, ga[k], be[k], act_silu);
+                db[k] += dz;
+                dg[k] += dz * xhat;
+            }
+        });
+        if (!WIDE || c0 < C) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                red[rs * C + c0 + k] = db[k];
+                red[(RS + rs) * C + c0 + k] = dg[k];
+            }
         }
     }
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-        red[rs * C + c0 + k] = db[k];
-        red[(RS + rs) * C + c0 + k] = dg[k];
-    }
+    PHASE(2);
     __syncthreads();
-    float* out = partials + ((size_t)b * nchunks + chunk) * 2 * C;
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    // S threads a channel add row slots s, s + S, ... and leave the sum in
+    // row slot s, which no other thread reads; then one thread a channel
+    // adds the S sums.
+    const int S = max(1, min(RS, (int)blockDim.x / C));
+    for (int t = threadIdx.x; t < S * C; t += blockDim.x) {
+        const int c = t % C, s = t / C;
         float sb = 0.f, sg = 0.f;
-        for (int i = 0; i < RS; ++i) {
+        for (int i = s; i < RS; i += S) {
             sb += red[i * C + c];
             sg += red[(RS + i) * C + c];
         }
-        out[c] = sb;
-        out[C + c] = sg;
+        red[s * C + c] = sb;
+        red[(RS + s) * C + c] = sg;
     }
-}
-
-template <typename T, int V>
-__global__ void gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                                    const T* __restrict__ beta, const float* __restrict__ mean,
-                                    const float* __restrict__ rstd, const T* __restrict__ dy,
-                                    const float* __restrict__ partials, T* __restrict__ dx,
-                                    float* __restrict__ dgamma_b, float* __restrict__ dbeta_b,
-                                    int HW, int C, int G, int rows_per_chunk, int act_silu) {
-    extern __shared__ float smem[];
-    float* mean_s = smem;          // G
-    float* rstd_s = mean_s + G;    // G
-    float* t1_s = rstd_s + G;      // G
-    float* t2_s = t1_s + G;        // G
-    float* gamma_s = t2_s + G;     // C
-    float* beta_s = gamma_s + C;   // C
-    float* sb_s = beta_s + C;      // C: dbeta_b of this batch element
-    float* sg_s = sb_s + C;        // C: dgamma_b
-    const int TPR = C / V, RS = blockDim.x / TPR;
-    const int chunk = blockIdx.x, b = blockIdx.y, nchunks = gridDim.x;
-    const int cg = C / G;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        mean_s[g] = mean[(size_t)b * G + g];
-        rstd_s[g] = rstd[(size_t)b * G + g];
-    }
-    const float* part = partials + (size_t)b * nchunks * 2 * C;
+    __syncthreads();
     for (int c = threadIdx.x; c < C; c += blockDim.x) {
-        gamma_s[c] = to_float<T>(gamma[c]);
-        beta_s[c] = to_float<T>(beta[c]);
         float sb = 0.f, sg = 0.f;
-        for (int i = 0; i < nchunks; ++i) {
-            sb += part[(size_t)i * 2 * C + c];
-            sg += part[(size_t)i * 2 * C + C + c];
+        for (int s = 0; s < S; ++s) {
+            sb += red[s * C + c];
+            sg += red[(RS + s) * C + c];
         }
-        sb_s[c] = sb;
-        sg_s[c] = sg;
-        if (chunk == 0) {
+        part[c] = sb;
+        part[C + c] = sg;
+    }
+    PHASE(3);
+
+    // Every block's sums are written: add them, S slices of the ranks (i,
+    // i + S, ...) side by side, then the slices in order.
+    cluster_arrive();
+    cluster_wait();
+    PHASE(4);
+    cgrp::cluster_group cluster = cgrp::this_cluster();
+    for (int t = threadIdx.x; t < S * C; t += blockDim.x) {
+        const int c = t % C, slice = t / C;
+        float sb = 0.f, sg = 0.f;
+#pragma unroll 4
+        for (int i = slice; i < ranks; i += S) {
+            const float* p = cluster.map_shared_rank(part, i);
+            sb += p[c];
+            sg += p[C + c];
+        }
+        red[2 * slice * C + c] = sb;  // free since the barrier
+        red[(2 * slice + 1) * C + c] = sg;
+    }
+    cluster_arrive();  // this block reads no other block's shared memory from here on
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        float sb = 0.f, sg = 0.f;
+        for (int slice = 0; slice < S; ++slice) {
+            sb += red[2 * slice * C + c];
+            sg += red[(2 * slice + 1) * C + c];
+        }
+        const float gc = tot[c];
+        tot[c] = sb * gc;
+        tot[C + c] = sg * gc;
+        if (rank == 0) {
             dbeta_b[(size_t)b * C + c] = sb;
             dgamma_b[(size_t)b * C + c] = sg;
         }
     }
     __syncthreads();
     const float inv_n = 1.f / ((float)HW * (float)cg);
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    const int P = fold_lanes(G);
+    for (int t = threadIdx.x; t < G * P; t += blockDim.x) {
+        const int g = t / P, p = t % P;
         float t1 = 0.f, t2 = 0.f;
-        for (int c = g * cg; c < (g + 1) * cg; ++c) {
-            t1 += sb_s[c] * gamma_s[c];
-            t2 += sg_s[c] * gamma_s[c];
+        for (int c = g * cg + p; c < (g + 1) * cg; c += P) {
+            t1 += tot[c];
+            t2 += tot[C + c];
         }
-        t1_s[g] = t1 * inv_n;
-        t2_s[g] = t2 * inv_n;
+        t1 = lanes_sum(t1, P, t, G * P);
+        t2 = lanes_sum(t2, P, t, G * P);
+        if (p == 0) {
+            tt[2 * g] = t1 * inv_n;
+            tt[2 * g + 1] = t2 * inv_n;
+        }
     }
     __syncthreads();
+    PHASE(5);
 
-    const int c0 = (threadIdx.x % TPR) * V, rs = threadIdx.x / TPR;
-    int r0, r1;
-    chunk_rows(chunk, rows_per_chunk, HW, r0, r1);
-    for (int r = r0 + rs; r < r1; r += RS) {
-        const size_t off = ((size_t)b * HW + r) * C + c0;
-        Vec<T, V> xv = *reinterpret_cast<const Vec<T, V>*>(x + off);
-        Vec<T, V> dv = *reinterpret_cast<const Vec<T, V>*>(dy + off);
-        Vec<T, V> o;
+    T* dxb = dx + base;
+#pragma unroll 1
+    for (int j = 0; j < J; ++j) {
+        const int c0 = c00 + j * L * V;
+        if (WIDE) constants(c0);  // with one vector a thread, still those of pass 1
+        if (!WIDE || c0 < C) {
 #pragma unroll
-        for (int k = 0; k < V; ++k) {
-            const int c = c0 + k, g = c / cg;
-            const float xhat = (to_float<T>(xv.v[k]) - mean_s[g]) * rstd_s[g];
-            const float dz = dz_of(to_float<T>(dv.v[k]), xhat, gamma_s[c], beta_s[c], act_silu);
-            o.v[k] = from_float<T>(rstd_s[g] * (dz * gamma_s[c] - t1_s[g] - xhat * t2_s[g]));
+            for (int k = 0; k < V; ++k) {  // t1, t2 of each channel, in db, dg
+                const int g = (c0 + k) / cg;
+                db[k] = tt[2 * g];
+                dg[k] = tt[2 * g + 1];
+            }
         }
-        *reinterpret_cast<Vec<T, V>*>(dx + off) = o;
+        rows.pass_over(J + j, rs, RS, [&](int r, const T* xr, const T* dr) {
+            if (WIDE && c0 >= C) return;
+            float xv[V], dv[V];
+            load_floats<T, V>(xr + c0, xv);
+            load_floats<T, V>(dr + c0, dv);
+            Vec<T, V> o;
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const float xhat = (xv[k] - mu[k]) * rsd[k];
+                const float dz = dz_of(dv[k], xhat, ga[k], be[k], act_silu);
+                o.v[k] = from_float<T>(rsd[k] * (dz * ga[k] - db[k] - xhat * dg[k]));
+            }
+            *reinterpret_cast<Vec<T, V>*>(dxb + (size_t)r * C + c0) = o;
+        });
     }
+    PHASE(6);
+    cluster_wait();  // the others have read this block's shared memory
 }
 
-// Threads per block of the backward: C / V threads cover a row, and a block
-// holds as many whole rows as fit in 256 threads (at least one).
-inline int bwd_block(int C, int V) {
-    const int tpr = C / V;
-    return tpr >= 256 ? tpr : (256 / tpr) * tpr;
-}
-
-inline size_t bwd_sums_smem(int C, int G, int V) {
-    const int rs = bwd_block(C, V) / (C / V);
-    return (size_t)(2 * G + 2 * C + 2 * rs * C) * sizeof(float);
-}
-
-inline size_t bwd_apply_smem(int C, int G) { return (size_t)(4 * G + 4 * C) * sizeof(float); }
-
-template <typename T, int V>
-cudaError_t launch_bwd(const void* x, const void* gamma, const void* beta, const float* mean,
-                       const float* rstd, const void* dy, void* dx, float* dgamma_b,
-                       float* dbeta_b, float* partials, int B, int HW, int C, int G,
-                       int act_silu, int nchunks, int rows_per_chunk, cudaStream_t stream) {
-    const dim3 grid(nchunks, B), block(bwd_block(C, V));
-    gn_bwd_sums_kernel<T, V><<<grid, block, bwd_sums_smem(C, G, V), stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-        mean, rstd, static_cast<const T*>(dy), partials, HW, C, G, rows_per_chunk, act_silu);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    gn_bwd_apply_kernel<T, V><<<grid, block, bwd_apply_smem(C, G), stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-        mean, rstd, static_cast<const T*>(dy), partials, static_cast<T*>(dx), dgamma_b, dbeta_b,
-        HW, C, G, rows_per_chunk, act_silu);
-    return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_bwd(int vec, const void* x, const void* gamma, const void* beta,
-                         const float* mean, const float* rstd, const void* dy, void* dx,
-                         float* dgamma_b, float* dbeta_b, float* partials, int B, int HW, int C,
-                         int G, int act_silu, int nchunks, int rows_per_chunk,
-                         cudaStream_t stream) {
-#define GN_BWD_CASE(V)                                                                     \
-    case V:                                                                                \
-        return launch_bwd<T, V>(x, gamma, beta, mean, rstd, dy, dx, dgamma_b, dbeta_b,     \
-                                partials, B, HW, C, G, act_silu, nchunks, rows_per_chunk,  \
-                                stream)
-    switch (vec) {
-        GN_BWD_CASE(1);
-        GN_BWD_CASE(2);
-        GN_BWD_CASE(4);
-        GN_BWD_CASE(8);
-    }
-#undef GN_BWD_CASE
-    return cudaErrorInvalidValue;
-}
-
-// Widest vector of V elements (at most 16 bytes) that divides n.
-inline int vec_width(int n, int is_bf16) {
+// Widest vector of V elements (at most 16 bytes) that divides C.
+inline int vec_width(int C, int is_bf16) {
     const int max_vec = is_bf16 ? 8 : 4;
     int vec = 1;
-    while (vec * 2 <= max_vec && n % (vec * 2) == 0) vec *= 2;
+    while (vec * 2 <= max_vec && C % (vec * 2) == 0) vec *= 2;
     return vec;
 }
 
-inline bool bad_chunking(int HW, int nchunks, int rows_per_chunk) {
-    return nchunks <= 0 || rows_per_chunk <= 0 ||
-           (size_t)(nchunks - 1) * rows_per_chunk >= (size_t)HW ||
-           (size_t)nchunks * rows_per_chunk < (size_t)HW;
+// Whether `cluster` blocks of `rows_per_block` rows do not cover HW rows
+// exactly, with none empty; or the cluster is no power of two <= 16.
+inline bool bad_geometry(int HW, int cluster, int rows_per_block) {
+    return cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) != 0 ||
+           rows_per_block <= 0 || (size_t)(cluster - 1) * rows_per_block >= (size_t)HW ||
+           (size_t)cluster * rows_per_block < (size_t)HW;
+}
+
+// The per-device, per-kernel attributes set so far, and the configurations
+// found schedulable.
+std::mutex g_mutex;
+std::set<std::tuple<int, const void*>> g_prepared;
+std::set<std::tuple<int, const void*, int, size_t, int>> g_schedulable;
+
+// Before a kernel's first launch on a device: allow clusters of 16 (beyond
+// the portable 8) and dynamic shared memory beyond 48 KB.  Before a
+// configuration's first launch: whether one of its clusters fits on the
+// card at all (cudaOccupancyMaxActiveClusters), else cudaErrorInvalidClusterSize.
+template <typename... Params>
+cudaError_t prepare(void (*kernel)(Params...), const cudaLaunchConfig_t& cfg, int cluster) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    const void* fn = reinterpret_cast<const void*>(kernel);
+    std::lock_guard<std::mutex> lock(g_mutex);
+    if (!g_prepared.count({device, fn})) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err == cudaSuccess)
+            err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kMaxSmem);
+        if (err != cudaSuccess) return err;
+        g_prepared.insert({device, fn});
+    }
+    const auto key = std::make_tuple(device, fn, cluster, cfg.dynamicSmemBytes, (int)cfg.blockDim.x);
+    if (!g_schedulable.count(key)) {
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+        if (err != cudaSuccess) return err;
+        if (clusters == 0) return cudaErrorInvalidClusterSize;
+        g_schedulable.insert(key);
+    }
+    return cudaSuccess;
+}
+
+// One launch of `kernel` on grid (cluster, B) in clusters of (cluster, 1, 1).
+template <typename... Params, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), int cluster, int B, int threads,
+                           size_t smem, cudaStream_t stream, Args... args) {
+    if (kernel == nullptr) return cudaErrorInvalidValue;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster, B, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    cudaError_t err = prepare(kernel, cfg, cluster);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    const cudaError_t last = cudaGetLastError();  // clears what a failed call left
+    return err != cudaSuccess ? err : last;
+}
+
+template <typename T>
+using FwdKernel = void (*)(const T*, const T*, const T*, T*, float*, float*, int, int, int, int,
+                           int, float, int);
+template <typename T>
+using BwdKernel = void (*)(const T*, const T*, const T*, const float*, const float*, const T*,
+                           T*, float*, float*, int, int, int, int, int, int);
+
+// The instantiation for vector width `vec` (16 bytes: rows staged) and
+// rows with more vectors than the block has threads (`wide`) or not.
+template <typename T, bool WIDE>
+FwdKernel<T> fwd_kernel(int vec) {
+    switch (vec) {
+        case 1: return gn_act_fwd_kernel<T, 1, WIDE>;
+        case 2: return gn_act_fwd_kernel<T, 2, WIDE>;
+        case 4: return gn_act_fwd_kernel<T, 4, WIDE>;
+    }
+    if constexpr (sizeof(T) == 2) {
+        if (vec == 8) return gn_act_fwd_kernel<T, 8, WIDE>;
+    }
+    return nullptr;
+}
+
+template <typename T>
+FwdKernel<T> fwd_kernel(int vec, bool wide) {
+    return wide ? fwd_kernel<T, true>(vec) : fwd_kernel<T, false>(vec);
+}
+
+template <typename T, bool WIDE>
+BwdKernel<T> bwd_kernel(int vec) {
+    switch (vec) {
+        case 1: return gn_act_bwd_kernel<T, 1, WIDE>;
+        case 2: return gn_act_bwd_kernel<T, 2, WIDE>;
+        case 4: return gn_act_bwd_kernel<T, 4, WIDE>;
+    }
+    if constexpr (sizeof(T) == 2) {
+        if (vec == 8) return gn_act_bwd_kernel<T, 8, WIDE>;
+    }
+    return nullptr;
+}
+
+template <typename T>
+BwdKernel<T> bwd_kernel(int vec, bool wide) {
+    return wide ? bwd_kernel<T, true>(vec) : bwd_kernel<T, false>(vec);
+}
+
+// What both launchers require: the shape, the cut of the rows into the
+// cluster's blocks, tiles of at most the block's rows, and shared memory
+// within what a block may have.  Returns the bytes of dynamic shared
+// memory of one block, or 0 for a call the kernels do not take.
+inline size_t call_smem(int backward, int B, int HW, int C, int G, int is_bf16, int cluster,
+                        int rows_per_block, int tile_rows) {
+    if (B <= 0 || B > 65535 || HW <= 0 || G <= 0 || C <= 0 || C % G != 0 ||
+        bad_geometry(HW, cluster, rows_per_block) || tile_rows <= 0 ||
+        tile_rows > rows_per_block)
+        return 0;
+    const int item = is_bf16 ? 2 : 4;
+    const size_t smem = smem_bytes(backward, cluster, rows_per_block, tile_rows, C, G,
+                                   vec_width(C, is_bf16), item);
+    return smem <= (size_t)kMaxSmem ? smem : 0;
 }
 
 }  // namespace
 
-// x, y: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of x's type;
-// mean, rstd: (B, G) float32; partials: (B, nchunks, G, 2) float32 scratch.
-// The rows of a batch element are cut into `nchunks` chunks of
-// `rows_per_chunk` rows (the last may be shorter, none is empty).
-// Requires G <= 1024, C % G == 0 and (2G + 2C) floats of shared memory
-// within 48 KB.  Returns the CUDA error code of the launches (0 = success).
+// x, y: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of x's
+// type; mean, rstd: (B, G) float32.  One cluster of `cluster` blocks per
+// batch element, the rows cut into blocks of `rows_per_block` (the last may
+// be shorter, none is empty); where C * itemsize is a multiple of 16 the
+// blocks' rows pass through a ring of shared memory in tiles of `tile_rows`
+// (ops/kernels/groupnorm.py::geometry chooses all three).  Returns the CUDA
+// error code of the launch (0 = success; cudaErrorInvalidClusterSize when
+// no such cluster fits on the card).
 extern "C" int unet_gn_act_fwd(const void* x, const void* gamma, const void* beta, void* y,
-                               float* mean, float* rstd, float* partials, int B, int HW,
-                               int C, int G, float eps, int act_silu, int is_bf16,
-                               int nchunks, int rows_per_chunk, cudaStream_t stream) {
-    if (B <= 0 || HW <= 0 || G <= 0 || G > 1024 || C % G != 0 ||
-        bad_chunking(HW, nchunks, rows_per_chunk) ||
-        (size_t)(2 * G + 2 * C) * sizeof(float) > 48 * 1024 || B > 65535)
-        return (int)cudaErrorInvalidValue;
-    const int vec = vec_width(C / G, is_bf16);  // 16 bytes a thread at most
-    cudaError_t err =
-        is_bf16 ? dispatch<__nv_bfloat16>(vec, x, gamma, beta, y, mean, rstd, partials, B, HW,
-                                          C, G, eps, act_silu, nchunks, rows_per_chunk, stream)
-                : dispatch<float>(vec, x, gamma, beta, y, mean, rstd, partials, B, HW, C, G,
-                                  eps, act_silu, nchunks, rows_per_chunk, stream);
+                               float* mean, float* rstd, int B, int HW, int C, int G, float eps,
+                               int act_silu, int is_bf16, int cluster, int rows_per_block,
+                               int tile_rows, cudaStream_t stream) {
+    const size_t smem = call_smem(0, B, HW, C, G, is_bf16, cluster, rows_per_block, tile_rows);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    const int vec = vec_width(C, is_bf16), threads = block_threads(0, C, vec);
+    const bool wide = C / vec > threads;
+    cudaError_t err;
+    if (is_bf16) {
+        using T = __nv_bfloat16;
+        err = launch_cluster(fwd_kernel<T>(vec, wide), cluster, B, threads, smem, stream,
+                             static_cast<const T*>(x), static_cast<const T*>(gamma),
+                             static_cast<const T*>(beta), static_cast<T*>(y), mean, rstd, HW, C,
+                             G, rows_per_block, tile_rows, eps, act_silu);
+    } else {
+        using T = float;
+        err = launch_cluster(fwd_kernel<T>(vec, wide), cluster, B, threads, smem, stream,
+                             static_cast<const T*>(x), static_cast<const T*>(gamma),
+                             static_cast<const T*>(beta), static_cast<T*>(y), mean, rstd, HW, C,
+                             G, rows_per_block, tile_rows, eps, act_silu);
+    }
     return (int)err;
 }
 
 // x, dy, dx: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of
 // x's type; mean, rstd: (B, G) float32 from the forward; dgamma_b, dbeta_b:
-// (B, C) float32 outputs; partials: (B, nchunks, 2, C) float32 scratch.
-// The rows are cut as for the forward.  Requires C % G == 0, C / V <= 1024
-// threads a row (V the vector width, 8 for bf16 and 4 for float32 when C
-// allows) and both kernels' shared memory within 48 KB.  Returns the CUDA
-// error code of the launches (0 = success).
+// (B, C) float32 outputs.  The geometry as for the forward (the ring holds
+// tiles of both x and dy).  Returns the CUDA error code of the launch
+// (0 = success).
 extern "C" int unet_gn_act_bwd(const void* x, const void* gamma, const void* beta,
                                const float* mean, const float* rstd, const void* dy, void* dx,
-                               float* dgamma_b, float* dbeta_b, float* partials, int B, int HW,
-                               int C, int G, int act_silu, int is_bf16, int nchunks,
-                               int rows_per_chunk, cudaStream_t stream) {
-    if (B <= 0 || HW <= 0 || G <= 0 || C % G != 0 || B > 65535 ||
-        bad_chunking(HW, nchunks, rows_per_chunk))
-        return (int)cudaErrorInvalidValue;
-    const int vec = vec_width(C, is_bf16);
-    if (C / vec > 1024 || bwd_sums_smem(C, G, vec) > 48 * 1024 ||
-        bwd_apply_smem(C, G) > 48 * 1024)
-        return (int)cudaErrorInvalidValue;
-    cudaError_t err =
-        is_bf16 ? dispatch_bwd<__nv_bfloat16>(vec, x, gamma, beta, mean, rstd, dy, dx, dgamma_b,
-                                              dbeta_b, partials, B, HW, C, G, act_silu, nchunks,
-                                              rows_per_chunk, stream)
-                : dispatch_bwd<float>(vec, x, gamma, beta, mean, rstd, dy, dx, dgamma_b, dbeta_b,
-                                      partials, B, HW, C, G, act_silu, nchunks, rows_per_chunk,
-                                      stream);
+                               float* dgamma_b, float* dbeta_b, int B, int HW, int C, int G,
+                               int act_silu, int is_bf16, int cluster, int rows_per_block,
+                               int tile_rows, cudaStream_t stream) {
+    const size_t smem = call_smem(1, B, HW, C, G, is_bf16, cluster, rows_per_block, tile_rows);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    const int vec = vec_width(C, is_bf16), threads = block_threads(1, C, vec);
+    const bool wide = C / vec > threads;
+    cudaError_t err;
+    if (is_bf16) {
+        using T = __nv_bfloat16;
+        err = launch_cluster(bwd_kernel<T>(vec, wide), cluster, B, threads, smem, stream,
+                             static_cast<const T*>(x), static_cast<const T*>(gamma),
+                             static_cast<const T*>(beta), mean, rstd, static_cast<const T*>(dy),
+                             static_cast<T*>(dx), dgamma_b, dbeta_b, HW, C, G, rows_per_block,
+                             tile_rows, act_silu);
+    } else {
+        using T = float;
+        err = launch_cluster(bwd_kernel<T>(vec, wide), cluster, B, threads, smem, stream,
+                             static_cast<const T*>(x), static_cast<const T*>(gamma),
+                             static_cast<const T*>(beta), mean, rstd, static_cast<const T*>(dy),
+                             static_cast<T*>(dx), dgamma_b, dbeta_b, HW, C, G, rows_per_block,
+                             tile_rows, act_silu);
+    }
     return (int)err;
 }
+
+#ifdef GN_PHASE_CLOCKS
+// The phase clocks of the last launch (see PHASE): kClockBlocks x
+// kClockSlots int64; returns the CUDA error code of the copy.
+extern "C" int unet_gn_phase_clocks(long long* out) {
+    return (int)cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+}
+#endif

@@ -32,6 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Flags added to NVCC_FLAGS, set before the first `load`: an instrumented
+# build (utils/gn_phases.py sets -DGN_PHASE_CLOCKS) gets a library of its own.
+extra_flags: tuple = ()
+
 _lib: Optional[ctypes.CDLL] = None
 # Seconds the last build took (0.0 when the library was already on disk) and
 # what the compiler printed during the build of the library in use.
@@ -62,7 +66,7 @@ def sources():
 
 
 def _digest(paths) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra_flags)).encode())
     for p in list(paths) + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
@@ -89,7 +93,7 @@ def build() -> Path:
     jobs = []
     for src in srcs:
         obj = BUILD_DIR / f"{src.stem}_{tag}.{os.getpid()}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", str(src), "-o", str(obj)]
         jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failures, logs = [], []

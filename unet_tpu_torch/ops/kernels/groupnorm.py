@@ -8,30 +8,55 @@ through `group_norm_act`) and `gn_act_bwd` the backward kernel
 with csrc/groupnorm.cu; `GroupNormAct` is the counterpart of the
 `custom_vjp` `group_norm_act`.
 
-What bounds it on an H100 is memory traffic: x is read and y written once,
-`2 * B*H*W*C * itemsize` bytes, against a few operations per element.  The
-design therefore reads whole NHWC rows with neighbouring threads (a thread
-owns one group within one row), cuts a batch element's rows into chunks so
-that enough blocks are in flight, and reduces in two stages (per-chunk mean
-and sum of squared differences, combined by the parallel-variance formula),
-because blocks run in no order.  The backward reads x and dy and writes dx
-once more, with the same chunks and the same two stages (per-chunk sums per
-channel, then dx).  See the source for details.
+What bounds it on an H100 is memory traffic: the forward must read x and
+write y once, `2 * B*H*W*C * itemsize` bytes, against a few operations per
+element; the backward reads x and dy and writes dx once.  The design keeps
+the TPU kernel's idea, one batch element's slab in fast memory: one
+thread-block cluster (up to 16 blocks, each able to read the others' shared
+memory) per batch element, each block copying its contiguous run of rows
+into shared memory where it fits, so every pass after the first reads
+shared memory (and streaming it through a ring of tiles there where it
+does not), and the blocks combining their statistics through the
+cluster's shared memory in rank order, all in one launch.  `geometry`
+chooses the cluster, the rows a block and how they are staged.  See the
+source for details.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from unet_tpu_torch.ops.kernels import _build
 
-# Blocks wanted in flight (about two per SM of an H100) and the fewest rows
-# worth a block of their own.
-_TARGET_BLOCKS = 264
-_MIN_ROWS_PER_CHUNK = 8
-_SMEM_LIMIT = 48 * 1024
+# What csrc/groupnorm.cu takes: at most 16 blocks a cluster, at most 512
+# threads a block, 256 in the backward at 8 values a thread (aiming at 256;
+# where a row has more vectors than that, a thread takes several), a ring
+# of 4 tiles of rows in shared memory.  An H100 has 132 SMs in 8
+# GPCs and lets a block use 227 KB of shared memory; of that, at most
+# 200 KB hold staged rows, and at most 100 KB leave room for a second block
+# on the SM (which the float32 backward, measured in utils/ab_trees.py's
+# runs, does better without).  A cluster runs within one GPC, and not every
+# GPC has 16 SMs enabled: at most 7 clusters of 16 one-block-an-SM blocks
+# run at once.  A block is not cut below 8 rows to fill the card, and a
+# staged tile is at least 8 KB (the ring's set-up costs more than a small
+# tile saves).
+_MAX_CLUSTER = 16
+_MAX_THREADS = 512
+_MAX_THREADS_BWD8 = 256
+_TARGET_THREADS = 256
+_SLOTS = 4
+_TILE_BYTES = 48 * 1024  # a streamed tile (x and dy together)
+_SMS = 132
+_SMEM_LIMIT = 227 * 1024
+_STAGE_LIMIT = 200 * 1024
+_SHARE_LIMIT = 100 * 1024
+_CLUSTERS_OF_16 = 7
+_MIN_TILE_BYTES = 8 * 1024
+_MIN_ROWS = 8
 
 
 def gn_act_fwd_plain(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
@@ -54,14 +79,135 @@ def gn_act_fwd_plain(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
     return z.to(x.dtype), mean, rstd
 
 
-def chunking(batch: int, rows: int):
-    """(nchunks, rows_per_chunk): how the H*W rows of one batch element are
-    cut into blocks so that about `_TARGET_BLOCKS` run at once and none is
+class Geometry(NamedTuple):
+    """How a call is cut for the kernel: one cluster of `cluster` blocks per
+    batch element, `rows_per_block` of its H*W rows a block (the last block
+    may have fewer, none has none), `threads` a block.  `staged`: each
+    block copies its rows (of x, and of dy in the backward) into shared
+    memory once, and they stay there; `streamed`: they do not fit, so every
+    pass streams them through a ring of 4 tiles of `tile_rows` rows in
+    shared memory; neither: every pass reads device memory.  `smem_bytes`:
+    the dynamic shared memory of a block."""
+    cluster: int
+    rows_per_block: int
+    tile_rows: int
+    staged: bool
+    streamed: bool
+    smem_bytes: int
+    threads: int
+
+
+def vec_width(C: int, itemsize: int) -> int:
+    """Channels a thread moves at once: the widest power of two that divides
+    C in at most 16 bytes."""
+    vec = 1
+    while 2 * vec * itemsize <= 16 and C % (2 * vec) == 0:
+        vec *= 2
+    return vec
+
+
+def max_threads(backward: bool, vec: int) -> int:
+    """The most threads a block may have."""
+    return _MAX_THREADS_BWD8 if backward and vec >= 8 else _MAX_THREADS
+
+
+def block_threads(backward: bool, C: int, vec: int) -> int:
+    """C / vec threads cover a row; a block holds as many whole rows as fit
+    in `_TARGET_THREADS` (at least one).  Where a row has more vectors than
+    the block's cap, each thread takes J of them, in ceil(C / vec / J)
+    threads."""
+    per_row = C // vec
+    if per_row < _TARGET_THREADS:
+        return _TARGET_THREADS // per_row * per_row
+    J = -(-per_row // max_threads(backward, vec))
+    return -(-per_row // J)
+
+
+def smem_bytes(backward: bool, cluster: int, rows_per_block: int,
+               tile_rows: int, C: int, G: int, vec: int,
+               itemsize: int) -> int:
+    """Dynamic shared memory of one block, as csrc/groupnorm.cu lays it out
+    (its launcher counts the same): the ring of rows where C fills whole
+    16-byte vectors (all of the block's rows, or 4 tiles), the float32 fold
+    and statistics arrays (in the forward, every block's statistics), then
+    one 8-byte barrier a ring slot."""
+    threads = block_threads(backward, C, vec)
+    slots = threads // min(C // vec, threads)
+    data = ((2 if backward else 1) * min(rows_per_block, _SLOTS * tile_rows)
+            * C * itemsize if vec * itemsize == 16 else 0)
+    floats = (2 * slots * C + 4 * C + 2 * G if backward
+              else slots * C + C + (4 + 2 * cluster) * G)
+    return -(-(data + 4 * floats) // 8) * 8 + 8 * _SLOTS
+
+
+def _splits(rows: int, cluster: int) -> bool:
+    """Whether `cluster` blocks of ceil(rows / cluster) rows leave none
     empty."""
-    want = max(1, -(-_TARGET_BLOCKS // batch))
-    most = max(1, rows // _MIN_ROWS_PER_CHUNK)
-    rows_per_chunk = -(-rows // min(want, most))
-    return -(-rows // rows_per_chunk), rows_per_chunk
+    return (cluster - 1) * -(-rows // cluster) < rows
+
+
+@functools.lru_cache(maxsize=None)
+def geometry(B: int, H: int, W: int, C: int, G: int, dtype: torch.dtype,
+             backward: bool) -> Geometry:
+    """The cut of a call on a (B, H, W, C) tensor: the smallest cluster in
+    which a block's rows take at most `_SHARE_LIMIT` bytes of its shared
+    memory (`_STAGE_LIMIT` for the float32 backward, and where that fails),
+    then doubled while B x cluster stays within the card's SMs, the blocks
+    keep `_MIN_ROWS` rows, and clusters of 16 stay within what runs at
+    once.  Where C fills whole 16-byte vectors and the rows fit in 16
+    blocks they are staged; where they do not fit they are streamed, in
+    tiles that leave room for the arrays; otherwise read from device
+    memory.  Raises ValueError for what the kernel does not take."""
+    rows, item = H * W, dtype.itemsize
+    vec = vec_width(C, item)
+    if B <= 0 or rows <= 0 or C <= 0 or G <= 0 or C % G:
+        raise ValueError(f"no GroupNorm of ({B}, {H}, {W}, {C}), G={G}")
+    if B > 65535:
+        raise ValueError(f"the kernel does not take B={B}")
+    row_bytes = (2 if backward else 1) * C * item
+
+    def tile(cluster, staged, streamed):
+        per = -(-rows // cluster)
+        if staged:
+            return min(per, max(-(-per // _SLOTS),
+                                -(-_MIN_TILE_BYTES // row_bytes)))
+        if not streamed:
+            return per
+        room = _SMEM_LIMIT - smem_bytes(backward, cluster, per, 0, C, G,
+                                        vec, item)  # the arrays alone
+        return min(per, max(1, min(_TILE_BYTES, room // _SLOTS) // row_bytes))
+
+    def smem(cluster, staged, streamed):
+        return smem_bytes(backward, cluster, -(-rows // cluster),
+                          tile(cluster, staged, streamed), C, G, vec, item)
+
+    def fits(cluster, limit):
+        return (-(-rows // cluster) * row_bytes <= limit
+                and smem(cluster, True, False) <= _SMEM_LIMIT)
+
+    def smallest(limit):
+        cluster = 1
+        while (not fits(cluster, limit) and cluster < _MAX_CLUSTER
+               and _splits(rows, 2 * cluster)):
+            cluster *= 2
+        return cluster if fits(cluster, limit) else None
+
+    ring = vec * item == 16
+    share = _STAGE_LIMIT if backward and item == 4 else _SHARE_LIMIT
+    cluster = ring and (smallest(share) or smallest(_STAGE_LIMIT))
+    staged = bool(cluster)
+    streamed, cluster = ring and not staged, cluster or 1
+    while (cluster < _MAX_CLUSTER and 2 * cluster * B <= _SMS
+           and rows >= 2 * cluster * _MIN_ROWS and _splits(rows, 2 * cluster)
+           and smem(2 * cluster, staged, streamed) <= _SMEM_LIMIT
+           and (2 * cluster < _MAX_CLUSTER or B <= _CLUSTERS_OF_16)):
+        cluster *= 2
+    if smem(cluster, staged, streamed) > _SMEM_LIMIT:
+        raise ValueError(f"the kernel does not take C={C}, G={G}")
+    return Geometry(cluster, -(-rows // cluster),
+                    tile(cluster, staged, streamed), staged, streamed,
+                    smem(cluster, staged, streamed),
+                    block_threads(backward, C, vec))
 
 
 def _check(x, gamma, beta, num_groups, act):
@@ -109,26 +255,19 @@ def gn_act_fwd(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
     _check_cuda(x, gamma, beta)
     B, H, W, C = x.shape
     G = num_groups
-    if G > 1024 or B > 65535 or (2 * G + 2 * C) * 4 > _SMEM_LIMIT:
-        raise ValueError(f"the kernel does not take B={B}, C={C}, G={G}")
-    nchunks, rows_per_chunk = chunking(B, H * W)
+    geo = geometry(B, H, W, C, G, x.dtype, False)
     y = torch.empty_like(x)
     mean = torch.empty((B, G), dtype=torch.float32, device=x.device)
     rstd = torch.empty((B, G), dtype=torch.float32, device=x.device)
-    # Scratch between the two stages.  It is dropped on return while the
-    # kernels may still run: the allocator hands a freed block only to later
-    # work of the same stream, which is ordered after them.
-    partials = torch.empty((B, nchunks, G, 2), dtype=torch.float32,
-                           device=x.device)
     if x.data_ptr() % 16 or y.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     fn = _launcher("unet_gn_act_fwd")
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                  y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                  partials.data_ptr(), B, H * W, C, G, eps,
-                  int(act == "silu"), int(x.dtype == torch.bfloat16),
-                  nchunks, rows_per_chunk,
+                  y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), B, H * W,
+                  C, G, eps, int(act == "silu"),
+                  int(x.dtype == torch.bfloat16), geo.cluster,
+                  geo.rows_per_block, geo.tile_rows,
                   torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "gn_act_fwd")
     gn_act_fwd.launches += 1
@@ -195,16 +334,11 @@ def gn_act_bwd(x, gamma, beta, mean, rstd, dy, num_groups=32, act="silu"):
         raise TypeError(f"dy must be {x.dtype} on {x.device}")
     if mean.dtype != torch.float32 or rstd.dtype != torch.float32:
         raise TypeError("mean and rstd must be float32")
-    if B > 65535:
-        raise ValueError(f"the kernel does not take B={B}")
     mean, rstd = mean.contiguous(), rstd.contiguous()
-    nchunks, rows_per_chunk = chunking(B, H * W)
+    geo = geometry(B, H, W, C, G, x.dtype, True)
     dx = torch.empty_like(x)
     dgamma_b = torch.empty((B, C), dtype=torch.float32, device=x.device)
     dbeta_b = torch.empty((B, C), dtype=torch.float32, device=x.device)
-    # Scratch between the two stages (see `gn_act_fwd` on its lifetime).
-    partials = torch.empty((B, nchunks, 2, C), dtype=torch.float32,
-                           device=x.device)
     if x.data_ptr() % 16 or dy.data_ptr() % 16 or dx.data_ptr() % 16:
         raise ValueError("x and dy must be 16-byte aligned")
     fn = _launcher("unet_gn_act_bwd")
@@ -212,8 +346,9 @@ def gn_act_bwd(x, gamma, beta, mean, rstd, dy, num_groups=32, act="silu"):
         code = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), dy.data_ptr(),
                   dx.data_ptr(), dgamma_b.data_ptr(), dbeta_b.data_ptr(),
-                  partials.data_ptr(), B, H * W, C, G, int(act == "silu"),
-                  int(x.dtype == torch.bfloat16), nchunks, rows_per_chunk,
+                  B, H * W, C, G, int(act == "silu"),
+                  int(x.dtype == torch.bfloat16), geo.cluster,
+                  geo.rows_per_block, geo.tile_rows,
                   torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "gn_act_bwd")
     gn_act_bwd.launches += 1
@@ -253,8 +388,8 @@ class GroupNormAct(torch.autograd.Function):
 
 
 _ARGTYPES = {
-    "unet_gn_act_fwd": "ppppppp" "iiii" "f" "iiii" "p",
-    "unet_gn_act_bwd": "pppppppppp" "iiii" "iiii" "p",
+    "unet_gn_act_fwd": "pppppp" "iiii" "f" "iiiii" "p",
+    "unet_gn_act_bwd": "ppppppppp" "iiii" "iiiii" "p",
 }
 
 

@@ -29,8 +29,8 @@ from unet_tpu_torch.training import trainer
 
 # The first family whose marker occurs in a device kernel's name takes it.
 FAMILIES = (
-    ("gn_act_bwd", ("gn_bwd_sums_kernel", "gn_bwd_apply_kernel")),
-    ("gn_act_fwd", ("gn_stats_kernel", "gn_apply_kernel")),
+    ("gn_act_bwd", ("gn_act_bwd_kernel",)),
+    ("gn_act_fwd", ("gn_act_fwd_kernel",)),
     ("qkv_attention_bwd", ("qkv_attention_bwd_dq_kernel",
                            "qkv_attention_bwd_dkv_kernel",
                            "qkv_attention_bwd_dq_mma_kernel",
