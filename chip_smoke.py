@@ -8,12 +8,14 @@ object per line:
 
   1. `device`: the card, its power limit, the torch/CUDA/nvcc versions, and
      the seconds the kernels took to build from unet_tpu_torch/csrc/, with
-     ptxas's registers of each kernel and the most bytes any kernel spills
-     (a spill, or a build log that names no kernel, fails the run).
+     ptxas's registers of each kernel instantiation and the most bytes any
+     kernel spills (a spill, a build log that names no kernel, or one that
+     lacks an attention kernel at a head size of `HEAD_SIZES` or a
+     tensor-core convolution, fails the run).
   2. `kernel_checks`: each hand-written kernel (GroupNorm and attention,
      forward and backward) against its plain PyTorch version on the card,
      float32 and bfloat16, at the shapes the U-Net gives it in sampling and
-     in training, with the kernel's, the plain version's and a library
+     in training (attention also at head sizes 16 and 64), with the kernel's, the plain version's and a library
      call's time and the least time the card could take.  Each is timed
      twice after warm-up: as it is called (CUDA events around a loop of
      calls) and on the device alone (the same calls replayed from a CUDA
@@ -46,18 +48,24 @@ object per line:
      are asserted; ms/step, images/s and peak memory reported.  A one-step
      untimed run of each kind goes first, and each kernel is held against
      its plain version at every distinct shape those steps hand it.
-  7. `conv_checks` and `conv`: the kernel-benchmark path.  The
+  7. `head_size`: the training and sampling CLIs at the default model with
+     64 channels a head: both refuse head size 48 on the card before they
+     build a model; 3 bfloat16 steps at B=32 with a checkpoint, then a DDIM-10
+     request at B=4 from it, with exact launch counts and finite losses.
+  8. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
-     scripts/conv_proto.py) is held against its plain version at the six
-     shapes of that script's bench and at ragged ones, float32 and bfloat16,
-     and a rerun must give the same bits (timed at the headline shape
-     only); then `unet_tpu_torch.scripts.conv_proto --bench`,
+     scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
+     and O are multiples of 8, else float32 FMAs, each case naming its
+     route) is held
+     against its plain version at the six shapes of that script's bench and
+     at ragged ones, float32 and bfloat16, and a rerun must give the same
+     bits (timed at the headline shape only); then `unet_tpu_torch.scripts.conv_proto --bench`,
      `bench_ops` and `block_timing` (forward and backward, `UnetConfig()`
      full width and depth, B=32) run in this process, with the convolution
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
-  8. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+  9. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
      convolution's: those of the `conv` phase); then the seconds the whole
      run took, the card's name and power limit, and the result line.
@@ -69,6 +77,7 @@ A failed build, launch or comparison raises, so the exit code is non-zero.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -100,6 +109,7 @@ from unet_tpu_torch.models import unet  # noqa: E402
 from unet_tpu_torch.ops import functional  # noqa: E402
 from unet_tpu_torch.ops.kernels import _build  # noqa: E402
 from unet_tpu_torch.ops.kernels import attention as attn_mod  # noqa: E402
+from unet_tpu_torch.ops.kernels import conv3x3 as conv_mod  # noqa: E402
 from unet_tpu_torch.ops.kernels import groupnorm as gn_mod  # noqa: E402
 from unet_tpu_torch.ops.kernels.attention import (  # noqa: E402
     qkv_attention_bwd, qkv_attention_bwd_plain, qkv_attention_fwd,
@@ -179,8 +189,12 @@ GN_SHAPES = [(8, 64, 64, 64), (8, 32, 32, 320), (8, 16, 16, 448),
              (2, 128, 128, 256), (2, 8, 8, 4160)]
 # Batches the requests give the model: DDPM at 4, DDIM at 8, guidance at 2 x 8.
 PATH_BATCHES = (4, 8, 16)
+# (B, T, C, NH): head size 32 (the default model's), then 16 and 64 (64 is
+# the published ADM ImageNet-64 setting, `--num_head_channels 64`) at the
+# model's attention widths and a ragged T.
 ATTN_SHAPES = [(8, 256, 192, 6), (8, 64, 256, 8), (4, 1024, 192, 6),
-               (2, 576, 64, 2), (2, 100, 64, 2)]  # (B, T, C, NH)
+               (2, 576, 64, 2), (2, 100, 64, 2), (8, 256, 192, 12),
+               (8, 256, 192, 3), (8, 64, 256, 4), (2, 100, 64, 4)]
 # The backward kernels at the trainer's batch (32, and 16 with microbatches):
 # the first and the widest concatenated GroupNorm inputs of each level, and
 # both attention resolutions; two small ragged shapes besides.  In float32,
@@ -195,17 +209,27 @@ GN_BWD_SHAPES = [(32, 64, 64, 64), (32, 64, 64, 128), (32, 32, 32, 320),
                  (3, 5, 7, 96), (32, 64, 64, 192), (32, 8, 8, 2048),
                  (2, 8, 8, 2080)]
 ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
-                   (2, 100, 64, 2)]
+                   (2, 100, 64, 2), (32, 256, 192, 12), (32, 256, 192, 3),
+                   (32, 64, 256, 4)]
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
-# ragged ones: odd sizes, a single pixel, and C below any tile width.
-CONV_SHAPES = [(conv_proto.bench_size(C), conv_proto.bench_size(C),
-                conv_proto.BATCH, C, O) for C, O in conv_proto.SHAPES] + [
-    (7, 5, 3, 24, 40), (1, 1, 1, 8, 8), (64, 64, 32, 3, 64)]
+# ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
+# columns), a single pixel, and C = 3, which is no multiple of 8 and so
+# takes the FMA kernel in bfloat16 too.  A literal, so that
+# utils/ab_trees.py can read it without importing this file.
+CONV_SHAPES = [(64, 64, 32, 64, 64), (64, 64, 32, 192, 64),
+               (64, 64, 32, 128, 64), (64, 64, 32, 64, 128),
+               (64, 64, 32, 128, 128), (32, 32, 32, 320, 128),
+               (7, 5, 3, 24, 40), (1, 1, 1, 8, 8), (64, 64, 32, 3, 64)]
 # The convolution against its plain version: one rounding of a float32 sum
 # in each, as GroupNorm.
 CONV_TOL = GN_TOL
-# The case the `kernels` line reports: conv_proto's and bench_ops's headline.
+# The case the `kernels` line reports: conv_proto's and bench_ops's headline
+# (check_conv also times the float32 case at its shape).
 CONV_HEADLINE = dict(shape=[64, 64, 32, 192, 64], dtype="torch.bfloat16")
+# The head size of the second training and sampling run (`drive_head_size`),
+# and one the kernels are not compiled for, which both CLIs must refuse on
+# the card before they build a model.
+OTHER_HEAD_SIZE, UNCOMPILED_HEAD_SIZE = 64, 48
 
 
 def emit(obj) -> None:
@@ -342,8 +366,9 @@ def check_attention(gen):
             bound_ms, bound_by = bound(4 * B * T * C * item,
                                        4 * B * NH * T * T * HS, dtype)
             cases.append(dict(
-                shape=[B, T, C, NH], dtype=str(dtype), max_abs_err=err,
-                tol=tol, err_beyond_one_bf16_step=beyond, out_rms=rms,
+                shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
+                max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
+                out_rms=rms,
                 **timings(
                     lambda: qkv_attention_fwd(qkv, NH),
                     lambda: qkv_attention_plain(qkv, NH),
@@ -463,8 +488,9 @@ def check_attention_bwd(gen):
             bound_ms, bound_by = bound(7 * B * T * C * item,
                                        10 * B * NH * T * T * HS, dtype)
             cases.append(dict(
-                shape=[B, T, C, NH], dtype=str(dtype), max_abs_err=err,
-                tol=tol, err_beyond_one_bf16_step=beyond, out_rms=rms,
+                shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
+                max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
+                out_rms=rms,
                 **timings(lambda: qkv_attention_bwd(qkv, dout, NH),
                           lambda: qkv_attention_bwd_plain(qkv, dout, NH),
                           library, stream),
@@ -588,6 +614,13 @@ def check_seen_shapes(seen, gen):
 
 KERNELS = (gn_act_fwd, gn_act_bwd, qkv_attention_fwd, qkv_attention_bwd,
            conv3x3_hwbc)
+# Instantiations the build log must list (`_build.kernel_instance` names):
+# every attention kernel at every head size, both tensor-core convolutions.
+REQUIRED_INSTANCES = [
+    f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
+    for k in ("fwd", "bwd_dq", "bwd_dkv", "fwd_mma", "bwd_dq_mma",
+              "bwd_dkv_mma")] + [
+    "conv3x3_hwbc_wgmma_kernel<64>", "conv3x3_hwbc_wgmma_kernel<128>"]
 
 
 def reset_counts() -> None:
@@ -912,16 +945,121 @@ def drive_train(tmp, totals, gen):
     return records, seen
 
 
+def drive_head_size(tmp, totals, gen):
+    """The training and sampling CLIs at `UnetConfig()` with
+    `OTHER_HEAD_SIZE` channels a head: both refuse `UNCOMPILED_HEAD_SIZE`
+    on the card before they build a model; then `cli.train.main` takes 3
+    bfloat16 steps at B=32 and saves a checkpoint, and `cli.generate.run`
+    answers one DDIM-10 request at B=4 from it.  Launch counts per step and
+    per model call are held exactly, the losses and images must be finite,
+    and each kernel is held against its plain version at every shape the
+    two runs hand it.  Adds the launches to `totals`."""
+    cfg = dataclasses.replace(UnetConfig(), num_head_channels=OTHER_HEAD_SIZE)
+    data = os.path.join(tmp, "train.bin")
+    pixels = np.random.default_rng(1).uniform(
+        -1, 1, (64, cfg.in_channels, cfg.image_size, cfg.image_size))
+    write_bin(data, pixels.astype(np.float32))
+    log = os.path.join(tmp, "log.txt")
+
+    def train_argv(head_size, *flags):
+        return ["--data_file", data, "--device", str(DEV), "--batch_size",
+                str(TRAIN_BATCH), "--num_head_channels", str(head_size),
+                "--compute_dtype", "bfloat16", "--output_dir",
+                os.path.join(tmp, "models"), "--log_file", log, *flags]
+
+    # an uncompiled head size is refused before any model exists
+    reset_counts()
+    refused = {}
+    try:
+        train_cli.main(train_argv(UNCOMPILED_HEAD_SIZE, "--iterations", "1"))
+    except SystemExit as e:
+        refused["train"] = str(e)
+    # generate reads the head size from the checkpoint: a small one will do
+    small = UnetConfig(model_channels=32, channel_mult=(1, 2), image_size=16,
+                       num_res_blocks=1, attention_ds=(2,),
+                       num_head_channels=UNCOMPILED_HEAD_SIZE)
+    ckpt_48 = os.path.join(tmp, "hs48.bin")
+    ckpt_io.save(ckpt_48, ckpt_io.Checkpoint(
+        params=unet.init(small, generator=torch.Generator().manual_seed(3),
+                         device="cpu"), cfg=small, batch_size=4))
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        try:
+            generate.run(generate.parse_args(
+                ["--model_filename", ckpt_48, "--device", "cuda"]))
+        except SystemExit:
+            refused["generate"] = err.getvalue().strip().splitlines()[-1]
+    if set(refused) != {"train", "generate"} or any(counts().values()):
+        raise AssertionError(f"head size {UNCOMPILED_HEAD_SIZE} on the card: "
+                             f"refused by {sorted(refused)}, {counts()}")
+
+    seen = new_seen()
+    t0 = time.perf_counter()
+    with recording(seen), contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(train_argv(
+            OTHER_HEAD_SIZE, "--iterations", "3", "--log_interval", "1",
+            "--save_interval", "3"))
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    got = counts()
+    want = {k: 3 * v for k, v in launches_per_step(cfg, False, 1).items()}
+    with open(log) as f:
+        lines = LOG_LINE.findall(f.read())
+    losses = [float(loss) for _, loss, _ in lines]
+    if (got != want or state.step != 3 or [int(s) for s, _, _ in lines]
+            != [1, 2, 3] or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"train at head size {OTHER_HEAD_SIZE}: "
+                             f"launches {got}, want {want}; log {lines}")
+    for k, v in got.items():
+        totals[k] += v
+    del state
+
+    path = os.path.join(tmp, "models", "model_3.bin")
+    if ckpt_io.read_config(path).num_head_channels != OTHER_HEAD_SIZE:
+        raise AssertionError("the checkpoint lost its head size")
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(seen):
+        images = generate.run(generate.parse_args(
+            ["--model_filename", path, "--device", "cuda", "--sampler",
+             "ddim", "--ddim_steps", "10", "--batch_size", "4",
+             "--compute_dtype", "bfloat16"]))
+    torch.cuda.synchronize()
+    sample_seconds = time.perf_counter() - t0
+    gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
+    got_sample = counts()
+    want_sample = dict(gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
+                       qkv_attention_fwd=10 * attn_per_fwd,
+                       qkv_attention_bwd=0, conv3x3_hwbc=0)
+    shape = (4, cfg.image_size, cfg.image_size, cfg.out_channels)
+    if got_sample != want_sample or images.shape != shape:
+        raise AssertionError(f"ddim10 at head size {OTHER_HEAD_SIZE}: "
+                             f"launches {got_sample}, images {images.shape}")
+    for k, v in got_sample.items():
+        totals[k] += v
+    heads = sorted({shape[2] // 3 // n for shape, n in seen["attn_fwd"]})
+    if heads != [OTHER_HEAD_SIZE]:
+        raise AssertionError(f"the runs' head sizes {heads}")
+    return dict(head_size=OTHER_HEAD_SIZE, refused=refused,
+                train=dict(batch=TRAIN_BATCH, steps=3, logged_losses=losses,
+                           seconds=train_seconds, launches=got),
+                sample=dict(request="ddim10_b4_bf16", shape=list(images.shape),
+                            seconds=sample_seconds, launches=got_sample,
+                            pixel_mean=float(images.mean())),
+                kernel_inputs=check_seen_shapes(seen, gen))
+
+
 def check_conv(gen):
-    """The convolution kernel against its plain version at `CONV_SHAPES`,
-    float32 and bfloat16, twice (the second call must give the same bits).
-    The plain version sums in float64, so `library_max_abs_err`, cuDNN's
-    distance from it (`F.conv2d` on the channels_last view of a (B, H, W, C)
-    copy of the input, as conv_proto's bench), shows the error of cuDNN's
-    own sum beside the kernel's.  Only the headline case, `CONV_HEADLINE`,
-    is timed (kernel, plain version and cuDNN alone, as called and on the
-    device alone); conv_proto's bench times the kernel and cuDNN at the
-    others."""
+    """The convolution kernels against their plain version at
+    `CONV_SHAPES`, float32 and bfloat16, twice (the second call must give
+    the same bits); each case records its `route` (the tensor-core kernel,
+    "wgmma", or the FMA kernel, "fma").  The plain version sums in float64, so
+    `library_max_abs_err`, cuDNN's distance from it (`F.conv2d` on the
+    channels_last view of a (B, H, W, C) copy of the input, as conv_proto's
+    bench), shows the error of cuDNN's own sum beside the kernel's.  Only
+    the headline shape, `CONV_HEADLINE`, is timed, in both types (kernel,
+    plain version and cuDNN alone, as called and on the device alone);
+    conv_proto's bench times the kernel and cuDNN at the others, and
+    utils/ab_trees.py times each case in turn."""
     cases = []
     for shape in CONV_SHAPES:
         H, W, B, C, O = shape
@@ -947,11 +1085,11 @@ def check_conv(gen):
             bound_ms, bound_by = bound(
                 (x.numel() + w.numel() + H * W * B * O + O) * item,
                 2 * H * W * B * O * 9 * C, dtype)
-            case = dict(shape=list(shape), dtype=str(dtype), max_abs_err=err,
+            case = dict(shape=list(shape), dtype=str(dtype),
+                        route=conv_mod.route(dtype, C, O), max_abs_err=err,
                         tol=CONV_TOL[dtype], library_max_abs_err=lib_err,
                         bound_ms=bound_ms, bound_by=bound_by)
-            if case["shape"] == CONV_HEADLINE["shape"] and (
-                    case["dtype"] == CONV_HEADLINE["dtype"]):
+            if case["shape"] == CONV_HEADLINE["shape"]:
                 case.update(timings(
                     lambda: conv3x3_hwbc(x, w, b),
                     lambda: conv3x3_hwbc_plain(x, w, b),
@@ -1030,15 +1168,26 @@ def main() -> None:
     nvcc = subprocess.run([_build.find_nvcc(), "--version"],
                           capture_output=True, text=True, check=True).stdout
     ptxas = _build.ptxas_summary(_build.build_log)
+    instances = {k["kernel"]: k["registers"]
+                 for k in _build.ptxas_instances(_build.build_log)}
     emit({"phase": "device", "kind": torch.cuda.get_device_name(0),
           "nvidia_smi_name_power_limit": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "nvcc": nvcc.strip().splitlines()[-2].strip(),
           "build_seconds": _build.build_seconds, "ptxas": ptxas,
+          "registers_by_instance": instances,
           "f32_precision": "highest (TF32 off)"})
     if not ptxas["kernels"] or ptxas["max_spill_bytes"]:
         raise AssertionError(f"no kernel in the build log, or a kernel "
                              f"spills registers: {ptxas}")
+    missing = [k for k in REQUIRED_INSTANCES if k not in instances]
+    if missing:
+        raise AssertionError(f"not in the build log: {missing}")
+    if CONV_SHAPES[:6] != [(conv_proto.bench_size(C), conv_proto.bench_size(C),
+                            conv_proto.BATCH, C, O)
+                           for C, O in conv_proto.SHAPES]:
+        raise AssertionError("CONV_SHAPES does not begin with conv_proto's "
+                             "bench shapes")
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     cases = {"gn_act_fwd": check_groupnorm(gen),
@@ -1066,6 +1215,11 @@ def main() -> None:
     emit({"phase": "train", "model": "UnetConfig() ImageNet-64, full depth",
           "kernel_inputs_of_the_steps": seen, "runs": runs,
           "launches_with_the_requests": dict(totals)})
+    with tempfile.TemporaryDirectory() as tmp:
+        other = drive_head_size(tmp, totals, gen)
+    emit({"phase": "head_size", "model": f"UnetConfig() ImageNet-64, full "
+          f"depth, num_head_channels={OTHER_HEAD_SIZE}", **other,
+          "launches_with_the_runs_before": dict(totals)})
 
     cases["conv3x3_hwbc"] = check_conv(gen)
     emit({"phase": "conv_checks", "conv3x3_hwbc": cases["conv3x3_hwbc"]})

@@ -16,6 +16,7 @@ products once, and may round on either side of a rounding point.
 
 import importlib.util
 import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +117,39 @@ def test_conv_proto_check_passes_on_the_cpu(capsys):
     assert result["device"] == "cpu" and result["bench"] == []
     assert result["correctness"]["max_abs_err"] < 1e-4
     assert "correctness (f32 8x8x4x64->64)" in capsys.readouterr().out
+
+
+def _source_rule():
+    """csrc/conv3x3.cu's `use_wgmma(is_bf16, C, O)` as a Python function."""
+    src = (ROOT / "unet_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
+    body = re.search(r"bool use_wgmma\(int is_bf16, int C, int O\) "
+                     r"\{\s*return ([^;]*);\s*\}", src).group(1)
+    expr = body.replace("&&", " and ").replace("||", " or ")
+    return lambda is_bf16, C, O: bool(eval(expr, {}, dict(
+        is_bf16=is_bf16, C=C, O=O)))
+
+
+def _chip_smoke_conv_shapes():
+    from unet_tpu_torch.utils.ab_trees import shape_lists
+    return [tuple(s) for s in shape_lists(str(ROOT / "chip_smoke.py"))[
+        "CONV_SHAPES"]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_mirrors_the_launchers_rule_at_the_chip_shapes(dtype):
+    """The wrapper's `route` is the launcher's `use_wgmma` at every shape
+    chip_smoke.py checks the kernels at: bfloat16 with C and O multiples of
+    8 on the tensor cores, float32 and C = 3 (the image's channels) on the
+    FMA kernel."""
+    rule = _source_rule()
+    shapes = _chip_smoke_conv_shapes()
+    assert len(shapes) == 9
+    routes = {}
+    for H, W, B, C, O in shapes:
+        routes[(C, O)] = port_conv.route(dtype, C, O)
+        assert (routes[(C, O)] == "wgmma") == rule(dtype == torch.bfloat16, C, O)
+    if dtype == torch.float32:
+        assert set(routes.values()) == {"fma"}
+    else:
+        assert routes.pop((3, 64)) == "fma"
+        assert set(routes.values()) == {"wgmma"}

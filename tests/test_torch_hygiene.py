@@ -230,3 +230,25 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("mangled, instance", [
+    ("_ZN45_GLOBAL__N__d44ee978_12_attention_cu_9f1402cf28qkv_attention_fwd"
+     "_mma_kernelILi64EEEvPK13__nv_bfloat16PS1_iif",
+     "qkv_attention_fwd_mma_kernel<64>"),
+    ("_ZN45_GLOBAL__N__564b41ec_12_groupnorm_cu_0b627da415gn_stats_kernelI13"
+     "__nv_bfloat16Li1EEEvPKT_Pfiiii", "gn_stats_kernel<__nv_bfloat16,1>"),
+    ("_ZN3abc8a_kernelIfEEvPf", "a_kernel<float>"),
+    ("_Z10foo_kernelPf", "foo_kernel"),
+    ("unet_kernel", "unet_kernel")])
+def test_kernel_instance_names_the_template_arguments(mangled, instance):
+    from unet_tpu_torch.ops.kernels import _build
+    assert _build.kernel_instance(mangled) == instance
+
+
+def test_ptxas_instances_lists_each_instantiation():
+    from unet_tpu_torch.ops.kernels import _build
+    assert _build.ptxas_instances(PTXAS_LOG) == [
+        {"kernel": "a_kernel<float>", "registers": 40, "spill_bytes": 0},
+        {"kernel": "a_kernel<double>", "registers": 255, "spill_bytes": 12},
+        {"kernel": "b_kernel", "registers": 16, "spill_bytes": 0}]

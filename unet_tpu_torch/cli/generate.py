@@ -23,6 +23,8 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
 from unet_tpu_torch.diffusion.sampler import (make_ddim_sampler, make_sampler,
                                               to_uint8)
 from unet_tpu_torch.io import checkpoint as ckpt_io
+from unet_tpu_torch.models import unet
+from unet_tpu_torch.ops.kernels import attention
 from unet_tpu_torch.utils.args import add_dict_to_argparser
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -70,6 +72,13 @@ def run(args: argparse.Namespace) -> np.ndarray:
     program as `parser.error` does."""
     error = _parser().error
     device = torch.device(args.device)
+    if device.type == "cuda":  # before any weights reach the device
+        cfg = ckpt_io.read_config(args.model_filename)
+        fault = attention.head_size_fault(unet.attention_widths(cfg),
+                                          cfg.num_head_channels)
+        if fault is not None:
+            error(f"{args.model_filename}: {fault} on --device "
+                  f"{args.device} (the CPU takes any head size)")
     ckpt = ckpt_io.load(args.model_filename, device=device)
     schedule = args.noise_schedule or ckpt.noise_schedule or "linear"
     diffusion = GaussianDiffusion.create(

@@ -37,6 +37,7 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
                                                named_beta_schedule)
 from unet_tpu_torch.io import checkpoint as ckpt_io
 from unet_tpu_torch.models import unet
+from unet_tpu_torch.ops.kernels import attention
 from unet_tpu_torch.training import trainer
 from unet_tpu_torch.utils.args import add_dict_to_argparser
 from unet_tpu_torch.utils.logger import Logger, TextLog
@@ -175,6 +176,13 @@ def _reject_bad_combos(args) -> None:
         f"--batch_size {args.batch_size}")
     bad(args.shard_index >= args.num_shards,
         "--shard_index must be < --num_shards")
+    if torch.device(args.device).type == "cuda":
+        fault = attention.head_size_fault(
+            unet.attention_widths(model_config_from_args(args)),
+            args.num_head_channels)
+        bad(fault is not None, f"{fault} on --device {args.device} "
+            f"(--num_head_channels {args.num_head_channels}, --num_channels "
+            f"{args.num_channels}; the CPU takes any head size)")
 
 
 def main(argv=None) -> trainer.TrainState:

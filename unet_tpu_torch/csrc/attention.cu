@@ -4,7 +4,7 @@
 // Forward.  Replaces the Pallas kernel `_fwd_kernel` of
 // unet_tpu/ops/pallas/attention.py:41 (launched by `_fwd_call`, reached
 // through `qkv_attention_fused`): qkv is (B, T, 3C) laid out [q | k | v],
-// each C split contiguously into (NH, HS = 32); per head qs = q * scale
+// each C split contiguously into (NH, HS); per head qs = q * scale
 // rounded to the input type, s = qs k^T in float32, a float32 softmax over
 // all keys, out = (p rounded to the input type) v accumulated in float32 and
 // written at column h * HS of (B, T, C).  No (B, NH, T, T) tensor reaches
@@ -43,9 +43,9 @@
 // bf16 tiles of 64 rows, copied with 16-byte `cp.async` into a two-tile ring
 // so that the next tile's copy overlaps this tile's products, and read as B
 // fragments with `ldmatrix` (`.trans` where the tile's rows are the product's
-// k index).  A tile row is 32 values padded to 40 (80 bytes), so the eight
-// rows one `ldmatrix` phase reads start in eight different 16-byte bank
-// groups: no bank conflicts.  Rows past T are zero-filled by the copy, and
+// k index).  A tile row is HS values padded to HS + 8, so the eight rows
+// one `ldmatrix` phase reads start in eight different 16-byte bank groups:
+// no bank conflicts.  Rows past T are zero-filled by the copy, and
 // their scores are -inf (keys) or their weights 0 (queries in the dk/dv
 // kernel); rows past T are never written.  The scores' accumulator fragment
 // (m16n8, float32) is exponentiated, rounded and packed in registers into
@@ -77,19 +77,37 @@
 // kernels without the _mma suffix).  One query (or key) per thread in
 // registers, the other side through shared memory in float32 tiles of 64
 // rows, and float32 FMAs: the JAX package's float32 path is
-// Precision.HIGHEST, which TF32 tensor cores would not match.
+// Precision.HIGHEST, which TF32 tensor cores would not match.  At HS = 64
+// a row is split over two neighbouring threads, 32 columns each, whose
+// partial dot products are added with one shuffle: the dk/dv kernel keeps
+// four row vectors (k, v, dk, dv) in registers, which at 64 columns a
+// thread would be 256 floats and spill.
+//
+// Head sizes.  Every kernel is a template on HS, compiled for HS = 16, 32
+// and 64 (`with_head_size`, the launchers' dispatch on C / NH); each is a
+// multiple of the mma's k-step of 16.  At HS = 16 a score's B fragment is
+// one `ldmatrix.x2`; at 64 the products take four k-steps, and a tile row
+// is 144 bytes (two 64-row tiles of k and v, 36 KB, stay static shared
+// memory).
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int HS = 32;  // head size the kernels are compiled for
-constexpr int QT = 64;  // float32: queries per block, one per thread
+constexpr int QT = 64;  // float32: queries per block
 constexpr int KT = 64;  // float32: keys per shared-memory tile
 constexpr int SG = 16;  // float32: scores held in registers between rescales
+
+// float32: the columns of a row one thread holds in registers, and the
+// threads that share a row (a row of HS = 64 is split over two threads, so
+// that no thread holds more than 32 columns of each of its row vectors).
+__host__ __device__ constexpr int fma_cols(int HS) { return HS < 32 ? HS : 32; }
+__host__ __device__ constexpr int fma_threads(int HS) { return QT * (HS / fma_cols(HS)); }
 
 __device__ __forceinline__ float4 ld4(const float* p) {
     return *reinterpret_cast<const float4*>(p);
@@ -99,12 +117,30 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d
     *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
 
+// The sum of a value over the P neighbouring lanes that share a row; each
+// lane gets the same sum (a + b and b + a are equal in IEEE arithmetic).
+template <int P> __device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+    for (int o = 1; o < P; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+    return x;
+}
+
+// The dot product of a thread's RC columns, in the forward's order of FMAs:
+// d = 0 .. RC-1.
+template <int RC> __device__ __forceinline__ float dot_cols(const float* a, const float* b) {
+    float dot = 0.f;
+#pragma unroll
+    for (int d = 0; d < RC; ++d) dot = fmaf(a[d], b[d], dot);
+    return dot;
+}
+
 // Fills the shared tiles with keys and values [k0, k0 + nk) of the head,
-// by a block of QT threads (a stride known to the compiler: the forward was
+// by a block of NT threads (a stride known to the compiler: the forward was
 // 20% slower with blockDim.x).
+template <int HS, int NT>
 __device__ __forceinline__ void load_kv_tile(const float* base, size_t row, int C, int k0, int nk,
                                              float (*k_s)[HS], float (*v_s)[HS]) {
-    for (int e = threadIdx.x * 4; e < nk * HS; e += QT * 4) {
+    for (int e = threadIdx.x * 4; e < nk * HS; e += NT * 4) {
         const int j = e / HS, d = e % HS;
         const float* kp = base + (size_t)(k0 + j) * row + C + d;
         *reinterpret_cast<float4*>(&k_s[j][d]) = ld4(kp);
@@ -112,42 +148,41 @@ __device__ __forceinline__ void load_kv_tile(const float* base, size_t row, int 
     }
 }
 
-__global__ void __launch_bounds__(QT)
+template <int HS>
+__global__ void __launch_bounds__(fma_threads(HS))
 qkv_attention_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int T_len, int C,
-                         int NH, float scale) {
+                         float scale) {
+    constexpr int RC = fma_cols(HS), P = HS / RC, NT = fma_threads(HS);
     __shared__ __align__(16) float k_s[KT][HS];
     __shared__ __align__(16) float v_s[KT][HS];
 
     const int q_tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int tid = threadIdx.x;
-    const int tq = q_tile * QT + tid;
+    const int c0 = threadIdx.x % P * RC;  // this thread's columns [c0, c0 + RC) of the row
+    const int tq = q_tile * QT + threadIdx.x / P;
     const bool q_valid = tq < T_len;
     const size_t row = (size_t)3 * C;
     const float* base = qkv + (size_t)b * T_len * row + (size_t)h * HS;
 
-    float q[HS], acc[HS];
+    // A row past the end takes row 0's q (its output is never written):
+    // with the load under a branch instead, ptxas spilled 8 bytes at HS =
+    // 16 and 64.
+    float q[RC], acc[RC];
+    const float* qp = base + (size_t)(q_valid ? tq : 0) * row + c0;
 #pragma unroll
-    for (int d = 0; d < HS; ++d) {
-        acc[d] = 0.f;
-        q[d] = 0.f;
-    }
-    if (q_valid) {
-        const float* qp = base + (size_t)tq * row;
-#pragma unroll
-        for (int d = 0; d < HS; d += 4) {
-            const float4 v = ld4(qp + d);
-            q[d] = v.x * scale;
-            q[d + 1] = v.y * scale;
-            q[d + 2] = v.z * scale;
-            q[d + 3] = v.w * scale;
-        }
+    for (int d = 0; d < RC; d += 4) {
+        const float4 v = ld4(qp + d);
+        q[d] = v.x * scale;
+        q[d + 1] = v.y * scale;
+        q[d + 2] = v.z * scale;
+        q[d + 3] = v.w * scale;
+        acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
     }
     float m = -INFINITY, l = 0.f;
 
     for (int k0 = 0; k0 < T_len; k0 += KT) {
         const int nk = min(KT, T_len - k0);
         __syncthreads();  // the previous tile has been consumed
-        load_kv_tile(base, row, C, k0, nk, k_s, v_s);
+        load_kv_tile<HS, NT>(base, row, C, k0, nk, k_s, v_s);
         __syncthreads();
 
         for (int j0 = 0; j0 < nk; j0 += SG) {
@@ -156,19 +191,19 @@ qkv_attention_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 #pragma unroll
             for (int jj = 0; jj < SG; ++jj) {
                 const int j = j0 + jj;
-                float dot = 0.f;
-                if (j < nk) {
-                    const float4* kr = reinterpret_cast<const float4*>(k_s[j]);
+                float dot = -INFINITY;
+                if (j < nk) {  // the same for every thread of the block
+                    const float4* kr = reinterpret_cast<const float4*>(k_s[j] + c0);
+                    dot = 0.f;
 #pragma unroll
-                    for (int d4 = 0; d4 < HS / 4; ++d4) {
+                    for (int d4 = 0; d4 < RC / 4; ++d4) {
                         const float4 kk = kr[d4];
                         dot = fmaf(q[4 * d4 + 0], kk.x, dot);
                         dot = fmaf(q[4 * d4 + 1], kk.y, dot);
                         dot = fmaf(q[4 * d4 + 2], kk.z, dot);
                         dot = fmaf(q[4 * d4 + 3], kk.w, dot);
                     }
-                } else {
-                    dot = -INFINITY;
+                    dot = row_sum<P>(dot);
                 }
                 s[jj] = dot;
                 smax = fmaxf(smax, dot);
@@ -178,16 +213,16 @@ qkv_attention_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out,
             const float corr = expf(m - m_new);  // 0 on the first group
             l *= corr;
 #pragma unroll
-            for (int d = 0; d < HS; ++d) acc[d] *= corr;
+            for (int d = 0; d < RC; ++d) acc[d] *= corr;
 #pragma unroll
             for (int jj = 0; jj < SG; ++jj) {
                 const int j = j0 + jj;
                 if (j < nk) {
                     const float p = expf(s[jj] - m_new);
                     l += p;
-                    const float4* vr = reinterpret_cast<const float4*>(v_s[j]);
+                    const float4* vr = reinterpret_cast<const float4*>(v_s[j] + c0);
 #pragma unroll
-                    for (int d4 = 0; d4 < HS / 4; ++d4) {
+                    for (int d4 = 0; d4 < RC / 4; ++d4) {
                         const float4 vv = vr[d4];
                         acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
                         acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
@@ -202,35 +237,29 @@ qkv_attention_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out,
 
     if (q_valid) {
         const float inv_l = 1.f / l;
-        float* op = out + ((size_t)b * T_len + tq) * C + (size_t)h * HS;
+        float* op = out + ((size_t)b * T_len + tq) * C + (size_t)h * HS + c0;
 #pragma unroll
-        for (int d = 0; d < HS; d += 4)
+        for (int d = 0; d < RC; d += 4)
             st4(op + d, acc[d] * inv_l, acc[d + 1] * inv_l, acc[d + 2] * inv_l,
                 acc[d + 3] * inv_l);
     }
 }
 
-
-__device__ __forceinline__ float dot_hs(const float* a, const float* b) {
-    // the forward's order of FMAs: d = 0 .. HS-1
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < HS; ++d) dot = fmaf(a[d], b[d], dot);
-    return dot;
-}
-
-// Loads row `tq` of the head's q (scaled as the forward does) and of dout
-// into registers; zeros for a row past the end.
+// Loads the thread's columns [c0, c0 + RC) of row `tq` of the head's q
+// (scaled as the forward does) and of dout into registers; zeros for a row
+// past the end.
+template <int HS>
 __device__ __forceinline__ void load_q_dout(const float* qkv, const float* dout, int b, int h,
-                                            int tq, int T_len, int C, float scale, float* q,
-                                            float* dob) {
+                                            int tq, int c0, int T_len, int C, float scale,
+                                            float* q, float* dob) {
+    constexpr int RC = fma_cols(HS);
 #pragma unroll
-    for (int d = 0; d < HS; ++d) q[d] = dob[d] = 0.f;
+    for (int d = 0; d < RC; ++d) q[d] = dob[d] = 0.f;
     if (tq >= T_len) return;
-    const float* qp = qkv + ((size_t)b * T_len + tq) * 3 * C + (size_t)h * HS;
-    const float* op = dout + ((size_t)b * T_len + tq) * C + (size_t)h * HS;
+    const float* qp = qkv + ((size_t)b * T_len + tq) * 3 * C + (size_t)h * HS + c0;
+    const float* op = dout + ((size_t)b * T_len + tq) * C + (size_t)h * HS + c0;
 #pragma unroll
-    for (int d = 0; d < HS; d += 4) {
+    for (int d = 0; d < RC; d += 4) {
         const float4 qv = ld4(qp + d), ov = ld4(op + d);
         q[d] = qv.x * scale;
         q[d + 1] = qv.y * scale;
@@ -243,26 +272,29 @@ __device__ __forceinline__ void load_q_dout(const float* qkv, const float* dout,
     }
 }
 
-__global__ void __launch_bounds__(QT)
+template <int HS>
+__global__ void __launch_bounds__(fma_threads(HS))
 qkv_attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                             float* __restrict__ dqkv, float* __restrict__ stats, int T_len, int C,
                             int NH, float scale) {
+    constexpr int RC = fma_cols(HS), P = HS / RC, NT = fma_threads(HS);
     __shared__ __align__(16) float k_s[KT][HS];
     __shared__ __align__(16) float v_s[KT][HS];
     const int h = blockIdx.y, b = blockIdx.z;
-    const int tq = blockIdx.x * QT + threadIdx.x;
+    const int c0 = threadIdx.x % P * RC;
+    const int tq = blockIdx.x * QT + threadIdx.x / P;
     const size_t row = (size_t)3 * C;
     const float* base = qkv + (size_t)b * T_len * row + (size_t)h * HS;
 
-    float q[HS], dob[HS];
-    load_q_dout(qkv, dout, b, h, tq, T_len, C, scale, q, dob);
+    float q[RC], dob[RC];
+    load_q_dout<HS>(qkv, dout, b, h, tq, c0, T_len, C, scale, q, dob);
 
     // Sweep 1: the row's maximum m, sum l and D * l, online.
     float m = -INFINITY, l = 0.f, dl = 0.f;
     for (int k0 = 0; k0 < T_len; k0 += KT) {
         const int nk = min(KT, T_len - k0);
         __syncthreads();  // the previous tile has been consumed
-        load_kv_tile(base, row, C, k0, nk, k_s, v_s);
+        load_kv_tile<HS, NT>(base, row, C, k0, nk, k_s, v_s);
         __syncthreads();
         for (int j0 = 0; j0 < nk; j0 += SG) {
             float s[SG], dp[SG];
@@ -270,8 +302,8 @@ qkv_attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restri
 #pragma unroll
             for (int jj = 0; jj < SG; ++jj) {
                 const int j = j0 + jj;
-                s[jj] = j < nk ? dot_hs(q, k_s[j]) : -INFINITY;
-                dp[jj] = j < nk ? dot_hs(dob, v_s[j]) : 0.f;
+                s[jj] = j < nk ? row_sum<P>(dot_cols<RC>(q, k_s[j] + c0)) : -INFINITY;
+                dp[jj] = j < nk ? row_sum<P>(dot_cols<RC>(dob, v_s[j] + c0)) : 0.f;
                 smax = fmaxf(smax, s[jj]);
             }
             const float m_new = fmaxf(m, smax);
@@ -293,20 +325,20 @@ qkv_attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restri
     const float D = dl * inv_l;
 
     // Sweep 2: dq = sum_j ds_j k_j.
-    float dq[HS];
+    float dq[RC];
 #pragma unroll
-    for (int d = 0; d < HS; ++d) dq[d] = 0.f;
+    for (int d = 0; d < RC; ++d) dq[d] = 0.f;
     for (int k0 = 0; k0 < T_len; k0 += KT) {
         const int nk = min(KT, T_len - k0);
         __syncthreads();
-        load_kv_tile(base, row, C, k0, nk, k_s, v_s);
+        load_kv_tile<HS, NT>(base, row, C, k0, nk, k_s, v_s);
         __syncthreads();
         for (int j = 0; j < nk; ++j) {
-            const float p = expf(dot_hs(q, k_s[j]) - m) * inv_l;
-            const float ds = p * (dot_hs(dob, v_s[j]) - D);
-            const float4* kr = reinterpret_cast<const float4*>(k_s[j]);
+            const float p = expf(row_sum<P>(dot_cols<RC>(q, k_s[j] + c0)) - m) * inv_l;
+            const float ds = p * (row_sum<P>(dot_cols<RC>(dob, v_s[j] + c0)) - D);
+            const float4* kr = reinterpret_cast<const float4*>(k_s[j] + c0);
 #pragma unroll
-            for (int d4 = 0; d4 < HS / 4; ++d4) {
+            for (int d4 = 0; d4 < RC / 4; ++d4) {
                 const float4 kk = kr[d4];
                 dq[4 * d4 + 0] = fmaf(ds, kk.x, dq[4 * d4 + 0]);
                 dq[4 * d4 + 1] = fmaf(ds, kk.y, dq[4 * d4 + 1]);
@@ -317,38 +349,43 @@ qkv_attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restri
     }
 
     if (tq < T_len) {
-        float* op = dqkv + ((size_t)b * T_len + tq) * row + (size_t)h * HS;
+        float* op = dqkv + ((size_t)b * T_len + tq) * row + (size_t)h * HS + c0;
 #pragma unroll
-        for (int d = 0; d < HS; d += 4)
+        for (int d = 0; d < RC; d += 4)
             st4(op + d, dq[d] * scale, dq[d + 1] * scale, dq[d + 2] * scale, dq[d + 3] * scale);
-        const size_t plane = (size_t)gridDim.z * NH * T_len;
-        const size_t at = ((size_t)b * NH + h) * T_len + tq;
-        stats[at] = m;
-        stats[plane + at] = inv_l;
-        stats[2 * plane + at] = D;
+        if (c0 == 0) {
+            const size_t plane = (size_t)gridDim.z * NH * T_len;
+            const size_t at = ((size_t)b * NH + h) * T_len + tq;
+            stats[at] = m;
+            stats[plane + at] = inv_l;
+            stats[2 * plane + at] = D;
+        }
     }
 }
 
-__global__ void __launch_bounds__(KT)
+template <int HS>
+__global__ void __launch_bounds__(fma_threads(HS))
 qkv_attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                              float* __restrict__ dqkv, const float* __restrict__ stats, int T_len,
                              int C, int NH, float scale) {
+    constexpr int RC = fma_cols(HS), P = HS / RC, NT = fma_threads(HS);
     __shared__ __align__(16) float q_s[QT][HS];
     __shared__ __align__(16) float o_s[QT][HS];
     __shared__ float m_s[QT], il_s[QT], d_s[QT];
     const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-    const int tk = blockIdx.x * KT + tid;
+    const int c0 = tid % P * RC;
+    const int tk = blockIdx.x * KT + tid / P;
     const size_t row = (size_t)3 * C;
     const size_t plane = (size_t)gridDim.z * NH * T_len;
     const float* st = stats + ((size_t)b * NH + h) * T_len;
 
-    float k[HS], v[HS], dk[HS], dv[HS];
+    float k[RC], v[RC], dk[RC], dv[RC];
 #pragma unroll
-    for (int d = 0; d < HS; ++d) k[d] = v[d] = dk[d] = dv[d] = 0.f;
+    for (int d = 0; d < RC; ++d) k[d] = v[d] = dk[d] = dv[d] = 0.f;
     if (tk < T_len) {
-        const float* kp = qkv + ((size_t)b * T_len + tk) * row + C + (size_t)h * HS;
+        const float* kp = qkv + ((size_t)b * T_len + tk) * row + C + (size_t)h * HS + c0;
 #pragma unroll
-        for (int d = 0; d < HS; d += 4) {
+        for (int d = 0; d < RC; d += 4) {
             const float4 kv = ld4(kp + d), vv = ld4(kp + C + d);
             k[d] = kv.x;
             k[d + 1] = kv.y;
@@ -364,26 +401,26 @@ qkv_attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restr
     for (int q0 = 0; q0 < T_len; q0 += QT) {
         const int nq = min(QT, T_len - q0);
         __syncthreads();  // the previous tile has been consumed
-        for (int e = tid * 4; e < nq * HS; e += KT * 4) {
+        for (int e = tid * 4; e < nq * HS; e += NT * 4) {
             const int i = e / HS, d = e % HS;
             const size_t tok = (size_t)b * T_len + q0 + i;
             const float4 qv = ld4(qkv + tok * row + h * HS + d);
             st4(&q_s[i][d], qv.x * scale, qv.y * scale, qv.z * scale, qv.w * scale);
             *reinterpret_cast<float4*>(&o_s[i][d]) = ld4(dout + tok * C + h * HS + d);
         }
-        for (int i = tid; i < nq; i += KT) {
+        for (int i = tid; i < nq; i += NT) {
             m_s[i] = st[q0 + i];
             il_s[i] = st[plane + q0 + i];
             d_s[i] = st[2 * plane + q0 + i];
         }
         __syncthreads();
         for (int i = 0; i < nq; ++i) {
-            const float p = expf(dot_hs(q_s[i], k) - m_s[i]) * il_s[i];
-            const float ds = p * (dot_hs(o_s[i], v) - d_s[i]);
-            const float4* qr = reinterpret_cast<const float4*>(q_s[i]);
-            const float4* orow = reinterpret_cast<const float4*>(o_s[i]);
+            const float p = expf(row_sum<P>(dot_cols<RC>(q_s[i] + c0, k)) - m_s[i]) * il_s[i];
+            const float ds = p * (row_sum<P>(dot_cols<RC>(o_s[i] + c0, v)) - d_s[i]);
+            const float4* qr = reinterpret_cast<const float4*>(q_s[i] + c0);
+            const float4* orow = reinterpret_cast<const float4*>(o_s[i] + c0);
 #pragma unroll
-            for (int d4 = 0; d4 < HS / 4; ++d4) {
+            for (int d4 = 0; d4 < RC / 4; ++d4) {
                 const float4 qq = qr[d4], oo = orow[d4];
                 dk[4 * d4 + 0] = fmaf(ds, qq.x, dk[4 * d4 + 0]);
                 dk[4 * d4 + 1] = fmaf(ds, qq.y, dk[4 * d4 + 1]);
@@ -398,9 +435,9 @@ qkv_attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restr
     }
 
     if (tk < T_len) {
-        float* kp = dqkv + ((size_t)b * T_len + tk) * row + C + (size_t)h * HS;
+        float* kp = dqkv + ((size_t)b * T_len + tk) * row + C + (size_t)h * HS + c0;
 #pragma unroll
-        for (int d = 0; d < HS; d += 4) {
+        for (int d = 0; d < RC; d += 4) {
             st4(kp + d, dk[d], dk[d + 1], dk[d + 2], dk[d + 3]);
             st4(kp + C + d, dv[d], dv[d + 1], dv[d + 2], dv[d + 3]);
         }
@@ -416,8 +453,12 @@ constexpr int WARPS = 4;                     // warps of a block, 16 rows each
 constexpr int THREADS = WARPS * 32;
 constexpr int TILE = WARPS * 16;             // a block's rows, and the rows of a shared tile
 constexpr int STAGES = 2;                    // tiles in the cp.async ring
-constexpr int LD = HS + 8;                   // a tile row: 32 values + 8 of padding
 constexpr float LOG2E = 1.4426950408889634f;
+
+// A shared tile row: HS values + 8 of padding (LD<HS> in all), so that the
+// eight rows one `ldmatrix` phase reads start in eight different 16-byte
+// bank groups (rows of 48, 80 and 144 bytes at HS = 16, 32, 64).
+template <int HS> constexpr int LD = HS + 8;
 
 // 2^x by the special-function unit (`ex2.approx.ftz`): relative error about
 // 2^-22, results below 2^-126 flushed to 0.  On the card it gave the same
@@ -429,73 +470,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
     return y;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared memory, asynchronously; zeros if !valid.
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0)
-                 : "memory");
-}
-
-// 4 bytes from global to shared memory, asynchronously; zeros if !valid.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until the oldest tile of the ring has landed: with one group of
-// copies committed per tile, STAGES - 1 newer groups may stay in flight.
-__device__ __forceinline__ void cp_async_wait_ring() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 1) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
-// l % 8 of matrix l / 8, and receives in r[i] the two values of matrix i at
-// row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (transposed with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p))
-                 : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(smem_addr(p))
-                 : "memory");
-}
-
-// c += a b for a 16x16 bf16 A fragment and a 16x8 B fragment (b0, b1).
-// Lane l = 4 g + t holds A at rows g, g + 8 and columns 2t, 2t + 1, 2t + 8,
-// 2t + 9 (a0: (g, 2t), a1: (g + 8, 2t), a2: (g, 2t + 8), a3: (g + 8, 2t + 8),
-// two values each), B at rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of
-// column g, and C at rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two floats rounded to bf16, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copies rows [r0, r0 + TILE) of one head's 32 columns (row r at src + r *
+// Copies rows [r0, r0 + TILE) of one head's HS columns (row r at src + r *
 // stride) into a padded tile; rows at or past n are zero-filled.
-__device__ __forceinline__ void tile_async(bf16 (*dst)[LD], const bf16* src, size_t stride,
+template <int HS>
+__device__ __forceinline__ void tile_async(bf16 (*dst)[LD<HS>], const bf16* src, size_t stride,
                                            int r0, int n) {
 #pragma unroll
     for (int e = threadIdx.x; e < TILE * HS / 8; e += THREADS) {
@@ -506,26 +484,27 @@ __device__ __forceinline__ void tile_async(bf16 (*dst)[LD], const bf16* src, siz
 }
 
 // Keys and values [k0, k0 + TILE) of the head whose q starts at q_head.
-__device__ __forceinline__ void kv_tile_async(bf16 (*k_s)[LD], bf16 (*v_s)[LD],
+template <int HS>
+__device__ __forceinline__ void kv_tile_async(bf16 (*k_s)[LD<HS>], bf16 (*v_s)[LD<HS>],
                                               const bf16* q_head, int C, size_t stride, int k0,
                                               int T_len) {
-    tile_async(k_s, q_head + C, stride, k0, T_len);
-    tile_async(v_s, q_head + 2 * C, stride, k0, T_len);
+    tile_async<HS>(k_s, q_head + C, stride, k0, T_len);
+    tile_async<HS>(v_s, q_head + 2 * C, stride, k0, T_len);
 }
 
 // The A fragments of the warp's 16 rows (lane 4g + t: rows `row` = first +
-// g and row + 8) over the head's 32 columns, in two k-steps of 16, read
+// g and row + 8) over the head's HS columns, in HS / 16 k-steps of 16, read
 // straight from device memory; rows at or past n are zero.  With SCALE each
 // value is multiplied by `scale` and rounded to bf16 (qs).
-template <bool SCALE>
-__device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], const bf16* src, size_t stride,
-                                        int row, int n, float scale) {
+template <int HS, bool SCALE>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[HS / 16][4], const bf16* src,
+                                        size_t stride, int row, int n, float scale) {
     const int t = threadIdx.x & 3;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
         const int r = row + 8 * i;
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
+        for (int ks = 0; ks < HS / 16; ++ks) {
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
                 uint32_t v = 0;
@@ -547,30 +526,41 @@ __device__ __forceinline__ void a_frags(uint32_t (&a)[2][4], const bf16* src, si
 
 // acc[j] = a b_j^T for the eight n-tiles j of a 64-row tile whose rows are
 // the product's n index (b_j: rows 8j .. 8j + 7): scores from k or qs, dp
-// from v or dout.
-__device__ __forceinline__ void rows_product(float (&acc)[8][4], const uint32_t (&a)[2][4],
-                                             const bf16 (*tile)[LD]) {
+// from v or dout.  The HS / 16 k-steps are summed in order.
+template <int HS>
+__device__ __forceinline__ void rows_product(float (&acc)[8][4], const uint32_t (&a)[HS / 16][4],
+                                             const bf16 (*tile)[LD<HS>]) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-        uint32_t b[4];
-        ldsm_x4(b, &tile[8 * j + (lane & 7)][(lane >> 3) * 8]);
         acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-        mma_bf16(acc[j], a[0], b[0], b[1]);
-        mma_bf16(acc[j], a[1], b[2], b[3]);
+        if constexpr (HS == 16) {
+            uint32_t b[2];
+            ldsm_x2(b, &tile[8 * j + (lane & 7)][((lane >> 3) & 1) * 8]);
+            mma_bf16(acc[j], a[0], b[0], b[1]);
+        } else {
+#pragma unroll
+            for (int c = 0; c < HS / 32; ++c) {
+                uint32_t b[4];
+                ldsm_x4(b, &tile[8 * j + (lane & 7)][32 * c + (lane >> 3) * 8]);
+                mma_bf16(acc[j], a[2 * c], b[0], b[1]);
+                mma_bf16(acc[j], a[2 * c + 1], b[2], b[3]);
+            }
+        }
     }
 }
 
 // acc += p tile for the packed A fragments p (four k-steps of 16 tile rows)
 // and a 64-row tile whose rows are the product's k index: out += p v,
 // dq += ds k, dv += p^T dout, dk += ds^T qs.
-__device__ __forceinline__ void cols_product(float (&acc)[4][4], const uint32_t (&p)[4][4],
-                                             const bf16 (*tile)[LD]) {
+template <int HS>
+__device__ __forceinline__ void cols_product(float (&acc)[HS / 8][4], const uint32_t (&p)[4][4],
+                                             const bf16 (*tile)[LD<HS>]) {
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
-        for (int pp = 0; pp < 2; ++pp) {
+        for (int pp = 0; pp < HS / 16; ++pp) {
             uint32_t b[4];
             ldsm_x4_trans(b, &tile[16 * kk + (lane & 7) + (lane & 8)][16 * pp + (lane >> 4) * 8]);
             mma_bf16(acc[2 * pp], p[kk], b[0], b[1]);
@@ -597,11 +587,13 @@ __device__ __forceinline__ float quad_sum(float x) {
     return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Writes the warp's 16 x 32 float32 accumulator times `mul`, rounded to
+// Writes the warp's 16 x HS float32 accumulator times `mul`, rounded to
 // bf16, to rows `row` and row + 8 (lane 4g + t: row = first + g) of dst
 // (row r at dst + r * stride); rows at or past n are skipped.
+template <int HS>
 __device__ __forceinline__ void store_rows(bf16* dst, size_t stride, int row, int n,
-                                           const float (&acc)[4][4], float mul0, float mul1) {
+                                           const float (&acc)[HS / 8][4], float mul0,
+                                           float mul1) {
     const int t = threadIdx.x & 3;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -609,18 +601,19 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t stride, int row, in
         if (r >= n) continue;
         const float mul = i ? mul1 : mul0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < HS / 8; ++j)
             *reinterpret_cast<uint32_t*>(dst + (size_t)r * stride + 8 * j + 2 * t) =
                 pack_bf16(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
     }
 }
 
 // Forward: one block per (batch, head, TILE queries).
+template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T_len,
                              int C, float scale) {
-    __shared__ __align__(128) bf16 k_s[STAGES][TILE][LD];
-    __shared__ __align__(128) bf16 v_s[STAGES][TILE][LD];
+    __shared__ __align__(128) bf16 k_s[STAGES][TILE][LD<HS>];
+    __shared__ __align__(128) bf16 v_s[STAGES][TILE][LD<HS>];
     const int h = blockIdx.y, b = blockIdx.z;
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
@@ -630,26 +623,26 @@ qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ou
 
     for (int it = 0; it < STAGES - 1; ++it) {
         if (it < ntiles)
-            kv_tile_async(k_s[it], v_s[it], q_head, C, stride, it * TILE, T_len);
+            kv_tile_async<HS>(k_s[it], v_s[it], q_head, C, stride, it * TILE, T_len);
         cp_async_commit();
     }
 
-    uint32_t qf[2][4];
-    a_frags<true>(qf, q_head, stride, row, T_len, scale);
-    float o[4][4] = {};
+    uint32_t qf[HS / 16][4];
+    a_frags<HS, true>(qf, q_head, stride, row, T_len, scale);
+    float o[HS / 8][4] = {};
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     for (int it = 0; it < ntiles; ++it) {
         const int buf = it % STAGES, ahead = it + STAGES - 1;
         if (ahead < ntiles)
-            kv_tile_async(k_s[ahead % STAGES], v_s[ahead % STAGES], q_head, C, stride,
-                                   ahead * TILE, T_len);
+            kv_tile_async<HS>(k_s[ahead % STAGES], v_s[ahead % STAGES], q_head, C, stride,
+                              ahead * TILE, T_len);
         cp_async_commit();
-        cp_async_wait_ring();
+        cp_async_wait<STAGES - 1>();
         __syncthreads();
 
         float s[8][4];
-        rows_product(s, qf, k_s[buf]);
+        rows_product<HS>(s, qf, k_s[buf]);
         const int k0 = it * TILE;
         if (k0 + TILE > T_len) {  // the ragged last tile
 #pragma unroll
@@ -673,7 +666,7 @@ qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ou
             mL[i] = mx[i] * LOG2E;
             l[i] *= corr;
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
+            for (int j = 0; j < HS / 8; ++j) {
                 o[j][2 * i] *= corr;
                 o[j][2 * i + 1] *= corr;
             }
@@ -689,24 +682,25 @@ qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ou
             l[1] += p2 + p3;
             pack_a(pf, j, p0, p1, p2, p3);
         }
-        cols_product(o, pf, v_s[buf]);
+        cols_product<HS>(o, pf, v_s[buf]);
         __syncthreads();  // the tile has been consumed before it is refilled
     }
 
-    store_rows(out + (size_t)b * T_len * C + (size_t)h * HS, C, row, T_len, o,
-               1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
+    store_rows<HS>(out + (size_t)b * T_len * C + (size_t)h * HS, C, row, T_len, o,
+                   1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
 }
 
 // Backward, kernel 1: one block per (batch, head, TILE queries).  Two
 // sweeps over the key tiles, one pipeline: the first takes each row's m, l
 // and D = sum p dp / l online, the second recomputes p and ds and
 // accumulates dq.  Writes dq and the rows' m, 1 / l and D.
+template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                                 bf16* __restrict__ dqkv, float* __restrict__ stats, int T_len,
                                 int C, int NH, float scale) {
-    __shared__ __align__(128) bf16 k_s[STAGES][TILE][LD];
-    __shared__ __align__(128) bf16 v_s[STAGES][TILE][LD];
+    __shared__ __align__(128) bf16 k_s[STAGES][TILE][LD<HS>];
+    __shared__ __align__(128) bf16 v_s[STAGES][TILE][LD<HS>];
     const int h = blockIdx.y, b = blockIdx.z;
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
@@ -717,29 +711,29 @@ qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __rest
 
     for (int it = 0; it < STAGES - 1; ++it) {  // iteration it sweeps tile it % ntiles
         if (it < 2 * ntiles)
-            kv_tile_async(k_s[it], v_s[it], q_head, C, stride, it % ntiles * TILE, T_len);
+            kv_tile_async<HS>(k_s[it], v_s[it], q_head, C, stride, it % ntiles * TILE, T_len);
         cp_async_commit();
     }
 
-    uint32_t qf[2][4], of[2][4];
-    a_frags<true>(qf, q_head, stride, row, T_len, scale);
-    a_frags<false>(of, o_head, C, row, T_len, 0.f);
+    uint32_t qf[HS / 16][4], of[HS / 16][4];
+    a_frags<HS, true>(qf, q_head, stride, row, T_len, scale);
+    a_frags<HS, false>(of, o_head, C, row, T_len, 0.f);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
     float mL[2], inv_l[2], D[2];
-    float dq[4][4] = {};
+    float dq[HS / 8][4] = {};
 
     for (int it = 0; it < 2 * ntiles; ++it) {
         const int buf = it % STAGES, tile = it % ntiles, ahead = it + STAGES - 1;
         if (ahead < 2 * ntiles)
-            kv_tile_async(k_s[ahead % STAGES], v_s[ahead % STAGES], q_head, C, stride,
-                                   ahead % ntiles * TILE, T_len);
+            kv_tile_async<HS>(k_s[ahead % STAGES], v_s[ahead % STAGES], q_head, C, stride,
+                              ahead % ntiles * TILE, T_len);
         cp_async_commit();
-        cp_async_wait_ring();
+        cp_async_wait<STAGES - 1>();
         __syncthreads();
 
         float s[8][4], dp[8][4];
-        rows_product(s, qf, k_s[buf]);
-        rows_product(dp, of, v_s[buf]);
+        rows_product<HS>(s, qf, k_s[buf]);
+        rows_product<HS>(dp, of, v_s[buf]);
         const int k0 = tile * TILE;
         if (k0 + TILE > T_len) {
 #pragma unroll
@@ -792,13 +786,13 @@ qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __rest
                 }
                 pack_a(dsf, j, ds[0], ds[1], ds[2], ds[3]);
             }
-            cols_product(dq, dsf, k_s[buf]);
+            cols_product<HS>(dq, dsf, k_s[buf]);
         }
         __syncthreads();
     }
 
-    store_rows(dqkv + (size_t)b * T_len * stride + (size_t)h * HS, stride, row, T_len, dq, scale,
-               scale);
+    store_rows<HS>(dqkv + (size_t)b * T_len * stride + (size_t)h * HS, stride, row, T_len, dq,
+                   scale, scale);
     if (t == 0) {
         const size_t plane = (size_t)gridDim.z * NH * T_len;
         float* st = stats + ((size_t)b * NH + h) * T_len;
@@ -816,12 +810,13 @@ qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __rest
 // Stages query tile [q0, q0 + TILE) for the dk/dv kernel: q (scaled once
 // it has arrived), dout, and the rows' m, 1 / l and D (rows from `st`, the
 // three planes `plane` apart); rows at or past T_len are zero-filled.
-__device__ __forceinline__ void q_tile_async(bf16 (*q_s)[LD], bf16 (*o_s)[LD],
+template <int HS>
+__device__ __forceinline__ void q_tile_async(bf16 (*q_s)[LD<HS>], bf16 (*o_s)[LD<HS>],
                                              float (*st_s)[TILE], const bf16* q_head,
                                              const bf16* o_head, const float* st, size_t stride,
                                              int C, size_t plane, int q0, int T_len) {
-    tile_async(q_s, q_head, stride, q0, T_len);
-    tile_async(o_s, o_head, C, q0, T_len);
+    tile_async<HS>(q_s, q_head, stride, q0, T_len);
+    tile_async<HS>(o_s, o_head, C, q0, T_len);
     for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
         const int k = e / TILE, i = e % TILE;
         const bool valid = q0 + i < T_len;
@@ -833,12 +828,13 @@ __device__ __forceinline__ void q_tile_async(bf16 (*q_s)[LD], bf16 (*o_s)[LD],
 // over the query tiles (qs, dout and the rows' m, 1 / l, D), recomputes s^T,
 // dp^T, p^T and ds^T with the keys as rows, and accumulates dv += p^T dout
 // and dk += ds^T qs.
+template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                                  bf16* __restrict__ dqkv, const float* __restrict__ stats,
                                  int T_len, int C, int NH, float scale) {
-    __shared__ __align__(128) bf16 q_s[STAGES][TILE][LD];
-    __shared__ __align__(128) bf16 o_s[STAGES][TILE][LD];
+    __shared__ __align__(128) bf16 q_s[STAGES][TILE][LD<HS>];
+    __shared__ __align__(128) bf16 o_s[STAGES][TILE][LD<HS>];
     __shared__ __align__(16) float st_s[STAGES][3][TILE];  // m, 1 / l, D of the tile's queries
     const int h = blockIdx.y, b = blockIdx.z;
     const int lane = threadIdx.x & 31, t = lane & 3;
@@ -852,23 +848,23 @@ qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __res
 
     for (int it = 0; it < STAGES - 1; ++it) {
         if (it < ntiles)
-            q_tile_async(q_s[it], o_s[it], st_s[it], q_head, o_head, st, stride, C, plane,
-                                  it * TILE, T_len);
+            q_tile_async<HS>(q_s[it], o_s[it], st_s[it], q_head, o_head, st, stride, C, plane,
+                             it * TILE, T_len);
         cp_async_commit();
     }
 
-    uint32_t kf[2][4], vf[2][4];
-    a_frags<false>(kf, q_head + C, stride, row, T_len, 0.f);
-    a_frags<false>(vf, q_head + 2 * C, stride, row, T_len, 0.f);
-    float dk[4][4] = {}, dv[4][4] = {};
+    uint32_t kf[HS / 16][4], vf[HS / 16][4];
+    a_frags<HS, false>(kf, q_head + C, stride, row, T_len, 0.f);
+    a_frags<HS, false>(vf, q_head + 2 * C, stride, row, T_len, 0.f);
+    float dk[HS / 8][4] = {}, dv[HS / 8][4] = {};
 
     for (int it = 0; it < ntiles; ++it) {
         const int buf = it % STAGES, q0 = it * TILE, ahead = it + STAGES - 1;
         if (ahead < ntiles)
-            q_tile_async(q_s[ahead % STAGES], o_s[ahead % STAGES], st_s[ahead % STAGES],
-                                  q_head, o_head, st, stride, C, plane, ahead * TILE, T_len);
+            q_tile_async<HS>(q_s[ahead % STAGES], o_s[ahead % STAGES], st_s[ahead % STAGES],
+                             q_head, o_head, st, stride, C, plane, ahead * TILE, T_len);
         cp_async_commit();
-        cp_async_wait_ring();
+        cp_async_wait<STAGES - 1>();
         // qs = round(q * scale), once per staged value: each thread scales
         // the 16-byte pieces it copied itself, which the wait made visible
         // to it; the barrier then shows them to the block.
@@ -887,8 +883,8 @@ qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __res
         __syncthreads();
 
         float s[8][4], dp[8][4];
-        rows_product(s, kf, q_s[buf]);
-        rows_product(dp, vf, o_s[buf]);
+        rows_product<HS>(s, kf, q_s[buf]);
+        rows_product<HS>(dp, vf, o_s[buf]);
         uint32_t pf[4][4], dsf[4][4];
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
@@ -910,71 +906,94 @@ qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __res
             pack_a(pf, j, p[0], p[1], p[2], p[3]);
             pack_a(dsf, j, ds[0], ds[1], ds[2], ds[3]);
         }
-        cols_product(dv, pf, o_s[buf]);
-        cols_product(dk, dsf, q_s[buf]);
+        cols_product<HS>(dv, pf, o_s[buf]);
+        cols_product<HS>(dk, dsf, q_s[buf]);
         __syncthreads();
     }
 
     bf16* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * HS;
-    store_rows(k_out, stride, row, T_len, dk, 1.f, 1.f);
-    store_rows(k_out + C, stride, row, T_len, dv, 1.f, 1.f);
+    store_rows<HS>(k_out, stride, row, T_len, dk, 1.f, 1.f);
+    store_rows<HS>(k_out + C, stride, row, T_len, dv, 1.f, 1.f);
 }
 
+// Calls f(std::integral_constant<int, HS>()) for the head size HS = hs if
+// the kernels are compiled for it; cudaErrorInvalidValue otherwise.  These
+// cases are the head sizes the kernels take (ops/kernels/attention.py's
+// HEAD_SIZES): each a multiple of the mma's k-step of 16.
+template <class F>
+int with_head_size(int hs, F&& f) {
+    switch (hs) {
+        case 16: return f(std::integral_constant<int, 16>());
+        case 32: return f(std::integral_constant<int, 32>());
+        case 64: return f(std::integral_constant<int, 64>());
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// A head size the kernels are not compiled for is refused by
+// `with_head_size`.
 bool bad_shape(int B, int T_len, int C, int NH) {
-    return B <= 0 || T_len <= 0 || NH <= 0 || C != NH * HS || B > 65535 || NH > 65535;
+    return B <= 0 || T_len <= 0 || NH <= 0 || C % NH != 0 || B > 65535 || NH > 65535;
 }
 
 }  // namespace
 
 // qkv: (B, T, 3C) contiguous, out: (B, T, C) contiguous, both 16-byte
-// aligned, C == NH * 32, B and NH at most 65535; scale is 1 / sqrt(32), given
-// by the caller so that it is the same float the plain version multiplies by.
-// Returns the CUDA error code of the launch (0 = success).
+// aligned, C == NH * HS with HS one of the compiled head sizes (16, 32, 64),
+// B and NH at most 65535; scale is 1 / sqrt(HS), given by the caller so that
+// it is the same float the plain version multiplies by.  Returns the CUDA
+// error code of the launch (0 = success).
 extern "C" int unet_qkv_attention_fwd(const void* qkv, void* out, int B, int T_len, int C,
                                       int NH, float scale, int is_bf16, cudaStream_t stream) {
     if (bad_shape(B, T_len, C, NH)) return (int)cudaErrorInvalidValue;
-    if (is_bf16) {
-        const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
-        qkv_attention_fwd_mma_kernel<<<grid, THREADS, 0, stream>>>(
-            static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T_len, C, scale);
-    } else {
-        const dim3 grid((T_len + QT - 1) / QT, NH, B);
-        qkv_attention_fwd_kernel<<<grid, QT, 0, stream>>>(
-            static_cast<const float*>(qkv), static_cast<float*>(out), T_len, C, NH, scale);
-    }
-    return (int)cudaGetLastError();
+    return with_head_size(C / NH, [&](auto hs) {
+        constexpr int HS = decltype(hs)::value;
+        if (is_bf16) {
+            const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
+            qkv_attention_fwd_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
+                static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T_len, C, scale);
+        } else {
+            const dim3 grid((T_len + QT - 1) / QT, NH, B);
+            qkv_attention_fwd_kernel<HS><<<grid, fma_threads(HS), 0, stream>>>(
+                static_cast<const float*>(qkv), static_cast<float*>(out), T_len, C, scale);
+        }
+        return (int)cudaGetLastError();
+    });
 }
 
 // qkv, dqkv: (B, T, 3C), dout: (B, T, C), all contiguous and 16-byte
 // aligned, of one type; stats: (3, B, NH, T) float32 scratch (the rows' m,
-// 1/l and D, written by the first kernel and read by the second).  C == NH *
-// 32, B and NH at most 65535; scale as for the forward.  Returns the CUDA
-// error code of the launches (0 = success).
+// 1/l and D, written by the first kernel and read by the second).  C, NH,
+// B and scale as for the forward.  Returns the CUDA error code of the
+// launches (0 = success).
 extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* dqkv,
                                       float* stats, int B, int T_len, int C, int NH, float scale,
                                       int is_bf16, cudaStream_t stream) {
     if (bad_shape(B, T_len, C, NH)) return (int)cudaErrorInvalidValue;
-    cudaError_t err;
-    if (is_bf16) {
-        const bf16* x = static_cast<const bf16*>(qkv);
-        const bf16* dy = static_cast<const bf16*>(dout);
-        bf16* dx = static_cast<bf16*>(dqkv);
-        const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
-        qkv_attention_bwd_dq_mma_kernel<<<grid, THREADS, 0, stream>>>(x, dy, dx, stats, T_len, C,
-                                                                     NH, scale);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        qkv_attention_bwd_dkv_mma_kernel<<<grid, THREADS, 0, stream>>>(x, dy, dx, stats, T_len,
-                                                                      C, NH, scale);
-    } else {
-        const float* x = static_cast<const float*>(qkv);
-        const float* dy = static_cast<const float*>(dout);
-        float* dx = static_cast<float*>(dqkv);
-        const dim3 grid_q((T_len + QT - 1) / QT, NH, B), grid_k((T_len + KT - 1) / KT, NH, B);
-        qkv_attention_bwd_dq_kernel<<<grid_q, QT, 0, stream>>>(x, dy, dx, stats, T_len, C, NH,
-                                                               scale);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-        qkv_attention_bwd_dkv_kernel<<<grid_k, KT, 0, stream>>>(x, dy, dx, stats, T_len, C, NH,
-                                                                scale);
-    }
-    return (int)cudaGetLastError();
+    return with_head_size(C / NH, [&](auto hs) {
+        constexpr int HS = decltype(hs)::value;
+        cudaError_t err;
+        if (is_bf16) {
+            const bf16* x = static_cast<const bf16*>(qkv);
+            const bf16* dy = static_cast<const bf16*>(dout);
+            bf16* dx = static_cast<bf16*>(dqkv);
+            const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
+            qkv_attention_bwd_dq_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
+                x, dy, dx, stats, T_len, C, NH, scale);
+            if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+            qkv_attention_bwd_dkv_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
+                x, dy, dx, stats, T_len, C, NH, scale);
+        } else {
+            const float* x = static_cast<const float*>(qkv);
+            const float* dy = static_cast<const float*>(dout);
+            float* dx = static_cast<float*>(dqkv);
+            const dim3 grid_q((T_len + QT - 1) / QT, NH, B), grid_k((T_len + KT - 1) / KT, NH, B);
+            qkv_attention_bwd_dq_kernel<HS><<<grid_q, fma_threads(HS), 0, stream>>>(
+                x, dy, dx, stats, T_len, C, NH, scale);
+            if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+            qkv_attention_bwd_dkv_kernel<HS><<<grid_k, fma_threads(HS), 0, stream>>>(
+                x, dy, dx, stats, T_len, C, NH, scale);
+        }
+        return (int)cudaGetLastError();
+    });
 }

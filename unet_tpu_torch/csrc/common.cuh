@@ -1,7 +1,10 @@
 // Shared helpers of the hand-written kernels: element conversions between
-// the storage type (float or bf16) and the float the arithmetic runs in,
-// and an aligned vector type for wide loads and stores.
+// the storage type (float or bf16) and the float the arithmetic runs in, an
+// aligned vector type for wide loads and stores, and the tensor-core building
+// blocks of the bfloat16 kernels.
 #pragma once
+
+#include <stdint.h>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -28,3 +31,84 @@ template <typename T> __device__ __forceinline__ float round_to(float v) {
 template <typename T, int V> struct alignas(sizeof(T) * V) Vec {
     T v[V];
 };
+
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks shared by the bfloat16 kernels (attention.cu,
+// conv3x3.cu): asynchronous copies into shared memory, `ldmatrix` and the
+// `mma.sync.m16n8k16` product on bf16 operands with float32 accumulators.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, asynchronously, bypassing L1;
+// zeros if !valid (then `src` is not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously; zeros if !valid.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the groups committed by this thread are still in
+// flight: with one group per stage of a ring of S stages, N = S - 1 (or
+// S - 2 where the next stage is issued after the wait) leaves the newer
+// stages copying while the oldest is read.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and receives in r[i] the two values of matrix i at
+// row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (transposed with .trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p))
+                 : "memory");
+}
+
+// Two 8x8 matrices: lanes 0-15 give the row addresses (lane l: row l % 8 of
+// matrix l / 8), the other lanes' addresses are not read.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(r[0]), "=r"(r[1])
+                 : "r"(smem_addr(p))
+                 : "memory");
+}
+
+// c += a b for a 16x16 bf16 A fragment and a 16x8 B fragment (b0, b1).
+// Lane l = 4 g + t holds A at rows g, g + 8 and columns 2t, 2t + 1, 2t + 8,
+// 2t + 9 (a0: (g, 2t), a1: (g + 8, 2t), a2: (g, 2t + 8), a3: (g + 8, 2t + 8),
+// two values each), B at rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of
+// column g, and C at rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+}

@@ -18,7 +18,35 @@
 // itemsize bytes: at the U-Net's shapes (C 64..320, O 64..128, B = 32) the
 // operations set the bound, 10..40 us on the bf16 tensor cores.
 //
-// Design.  A block computes a BM x BN tile of the output.  For each tap and
+// Two kernels; the launcher picks one by a plain rule (`use_wgmma`,
+// mirrored by ops/kernels/conv3x3.py::route).
+//
+// bfloat16 with C and O multiples of 8: conv3x3_hwbc_wgmma_kernel, on the
+// tensor cores with Hopper's warpgroup products.  In the (H, W, B, C)
+// layout a tap (dy, dx) shifts the whole A operand by a constant (dy W + dx)
+// B rows, so the A tile of a block (128 consecutive output rows) for one
+// tap and one chunk of 64 channels is 128 consecutive input rows of 128
+// bytes: eight 16-byte pieces each, copied by `cp.async` whose source size
+// is 0 (a zero fill) where the row's pixel leaves the image for this tap
+// (each thread keeps a 9-bit mask of the taps its rows may take) or the
+// channel passes C.  The W tile (64 rows of the (9C, O) matrix x 64 or 128
+// output channels) is copied the same way, zero past C and past O.  Both
+// land in the 128-byte swizzled layout that `wgmma` reads from shared
+// memory (piece c of row r at r * 128 + ((c ^ r % 8) << 4)): A K-major, W
+// N-major (the instruction's transposed B, in 64-column atoms), so neither
+// needs a transpose.  A ring of three stages in dynamic shared memory keeps
+// the next stage's copies in flight while one stage is multiplied and the
+// products of the previous one finish (`wgmma.wait_group 1`); one barrier
+// per stage.  Each of the block's two warpgroups issues four
+// `wgmma.m64nBNk16` (BN = 64 when O <= 64, else 128) a stage into a
+// float32 accumulator of 64 rows x BN that starts at the bias; the products
+// run over the taps and channels in one fixed order, are rounded to bf16
+// once, and leave through shared memory as whole 16-byte row pieces.  No
+// split-K and no atomics, so a rerun gives the same bits.
+//
+// float32, and bfloat16 with a ragged C or O (C = 3 at the U-Net's first
+// convolution): conv3x3_hwbc_kernel, the plain implicit GEMM with float32
+// FMAs.  A block computes a BM x BN tile of the output.  For each tap and
 // each chunk of BK input channels it gathers the A tile (BM rows x BK
 // channels, zero-filled at the padding and past C) and the matching W tile
 // (BK x BN) into shared memory, converted to float32; each thread then keeps
@@ -28,15 +56,17 @@
 // kernel adds one matrix product per tap row); with one running sum of all
 // 9C products the float32 error at C = 192 exceeded the 2e-5 bar, with the
 // partials it stays within 4e-6 of a float64 sum (NVIDIA H100 80GB HBM3,
-// 700 W; PERF.md).  Any H, W, B, C, O is taken: rows past M, channels
-// past C and outputs past O are masked.  Every output is summed by one
-// thread in one fixed order (bias, then tap by tap, channel by channel), with
-// no atomics, so a rerun gives the same bits.  Offsets are 64-bit: the
-// U-Net's largest input is 42 M elements and M*C*9 exceeds 2^31 elsewhere.
-// Tensor-core products (mma.sync, wgmma) and TMA staging are left for a
-// later change.
+// 700 W; PERF.md).  Every output is summed by one thread in one fixed
+// order (bias, then tap by tap, channel by channel), with no atomics.
+//
+// Both take any H, W, B: rows past M are masked, and offsets are 64-bit
+// (the U-Net's largest input is 42 M elements and M*C*9 exceeds 2^31
+// elsewhere).  The card's times of both are in PERF.md.
 
 #include <stdint.h>
+
+#include <mutex>
+#include <set>
 
 #include "common.cuh"
 
@@ -163,10 +193,293 @@ conv3x3_hwbc_kernel(const T* __restrict__ x, const T* __restrict__ w,
     }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on the tensor cores.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int WG_GROUPS = 2;   // warpgroups per block, 64 output rows each
+constexpr int WG_BM = 64 * WG_GROUPS;
+constexpr int WG_THREADS = 128 * WG_GROUPS;
+constexpr int WG_BK = 64;      // input channels per stage: one 128-byte row
+constexpr int WG_STAGES = 3;   // slots in the cp.async ring
+constexpr int WG_AHEAD = 1;    // stages copied ahead of the one multiplied
+constexpr int A_BYTES = WG_BM * WG_BK * 2;  // one A slot
+// The copies of stage kit + WG_AHEAD refill the slot of stage kit - 2, whose
+// products the wait at the end of iteration kit - 1 has finished.
+static_assert(WG_STAGES == WG_AHEAD + 2, "ring depth");
+
+// Dynamic shared memory of one block: the ring of A slots and W slots
+// (WG_BK x BN: 8 or 16 KB), 1024-byte aligned for the 128-byte swizzle, and
+// the slack that aligns its start.
+template <int BN> __host__ __device__ constexpr size_t wg_smem_bytes() {
+    return (size_t)WG_STAGES * (A_BYTES + WG_BK * BN * 2) + 1024;
+}
+
+// A shared-memory matrix descriptor of `wgmma` for a tile in the 128-byte
+// swizzled layout: rows of 128 bytes, 16-byte chunk c of row r at r * 128 +
+// ((c ^ r % 8) << 4), 8-row groups 1024 bytes apart (SBO); LBO is the
+// distance between 64-column atoms of an N-major operand.
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes) {
+    return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16 |
+           (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+// The byte offset of 16-byte chunk c of row r in the swizzled layout.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+    return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// d += a b over k = 16 for a 64-row A (K-major) and an N-column B (N-major),
+// both in shared memory; d is the warpgroup's 64 x N float32 accumulator.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+            "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+            "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+            "+f"(d[31])
+          : "l"(a), "l"(b)
+          : "memory");
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 1;\n}\n"
+          : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+            "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+            "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+            "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+            "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+            "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+            "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+            "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+            "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+            "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+            "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+          : "l"(a), "l"(b)
+          : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Makes this thread's shared-memory writes (cp.async) visible to `wgmma`,
+// which reads through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int BN>
+__global__ void __launch_bounds__(WG_THREADS)
+conv3x3_hwbc_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                          const float* __restrict__ bias, bf16* __restrict__ out, int H, int W,
+                          int B, int C, int O) {
+    constexpr int W_BYTES = WG_BK * BN * 2;
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    unsigned char* a_ring = smem;                          // slot s at s * A_BYTES
+    unsigned char* w_ring = smem + WG_STAGES * A_BYTES;    // slot s at s * W_BYTES
+
+    const int tid = threadIdx.x, lane = tid & 31, wg = tid >> 7, warp = (tid >> 5) & 3;
+    const int64_t M = (int64_t)H * W * B;
+    const int64_t m0 = (int64_t)blockIdx.x * WG_BM;
+    const int n0 = blockIdx.y * BN;
+
+    // This thread's share of an A stage: 16-byte chunk `ac` (channels 8 ac
+    // .. 8 ac + 7 of the stage) of rows ar + A_STEP i, read from x_row +
+    // A_STEP i C plus the tap's shift.  Bit `tap` of taps_ok[i] says whether
+    // the tap's input pixel lies in the image (none for a row past M).
+    constexpr int A_STEP = WG_THREADS / 8, A_ITERS = WG_BM / A_STEP;
+    const int ac = tid & 7, ar = tid >> 3;
+    const bf16* x_row = x + (m0 + ar) * C + ac * 8;
+    uint32_t taps_ok[A_ITERS];
+#pragma unroll
+    for (int i = 0; i < A_ITERS; ++i) {
+        const int64_t m = m0 + ar + A_STEP * i;
+        uint32_t ok = 0;
+        if (m < M) {
+            const int64_t p = m / B;
+            const int wq = (int)(p % W), hq = (int)(p / W);
+#pragma unroll
+            for (int tap = 0; tap < 9; ++tap) {
+                const int h = hq + tap / 3 - 1, wp = wq + tap % 3 - 1;
+                if (h >= 0 && h < H && wp >= 0 && wp < W) ok |= 1u << tap;
+            }
+        }
+        taps_ok[i] = ok;
+    }
+    // ... and of a W stage (WG_BK rows of the (9C, O) matrix x BN columns, as
+    // BN / 64 atoms of 64 columns): chunk `wc` (8 columns) of rows wr + k_step j.
+    constexpr int W_CHUNKS = BN / 8, W_STEP = WG_THREADS / W_CHUNKS, W_ITERS = WG_BK / W_STEP;
+    static_assert(WG_BM % A_STEP == 0 && WG_BK % W_STEP == 0, "staging shapes");
+    const int wc = tid % W_CHUNKS, wr = tid / W_CHUNKS;
+    const bool w_col_ok = n0 + wc * 8 < O;
+    const bf16* w_row = w + (int64_t)wr * O + n0 + wc * 8;
+    const uint32_t w_atom = (uint32_t)(wc / 8) * (WG_BK * 128);
+
+    const int chunks = (C + WG_BK - 1) / WG_BK;
+    const int kiters = 9 * chunks;  // tap-major: tap, then chunk of WG_BK channels
+
+    // Issues the copies of k-iteration `kit` into ring slot `slot`: for tap
+    // (dy, dx) the A tile is WG_BM contiguous rows of x shifted by (dy W +
+    // dx) B rows, zero where the pixel leaves the image or the channel
+    // passes C; the W tile is rows tap C + c0 .. of the (9C, O) matrix,
+    // zero past C and past O.  Both land in the swizzled layout.
+    auto load_stage = [&](int slot, int kit) {
+        const int tap = kit / chunks, c0 = (kit - tap * chunks) * WG_BK;
+        const bf16* xa = x_row + ((int64_t)(tap / 3 - 1) * W + (tap % 3 - 1)) * B * C + c0;
+        const bool c_ok = c0 + ac * 8 < C;
+        unsigned char* a = a_ring + slot * A_BYTES;
+#pragma unroll
+        for (int i = 0; i < A_ITERS; ++i) {
+            const bool valid = c_ok && ((taps_ok[i] >> tap) & 1u);
+            cp_async16(a + swizzled(ar + A_STEP * i, ac),
+                       valid ? xa + (int64_t)A_STEP * i * C : x, valid);
+        }
+        const bf16* wa = w_row + ((int64_t)tap * C + c0) * O;
+        unsigned char* wt = w_ring + slot * W_BYTES + w_atom;
+#pragma unroll
+        for (int j = 0; j < W_ITERS; ++j) {
+            const int k = wr + j * W_STEP;
+            const bool valid = w_col_ok && c0 + k < C;
+            cp_async16(wt + swizzled(k, wc % 8), valid ? wa + (int64_t)j * W_STEP * O : w, valid);
+        }
+    };
+
+    // The warpgroup's 64 x BN accumulator starts at the bias: lane 4g + t
+    // of warp q holds rows 16 q + g and + 8, columns 8 j + 2t and + 1.
+    float acc[BN / 2];
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+        const int col = n0 + j * 8 + 2 * (lane & 3);
+        acc[4 * j] = acc[4 * j + 2] = col < O ? bias[col] : 0.f;
+        acc[4 * j + 1] = acc[4 * j + 3] = col + 1 < O ? bias[col + 1] : 0.f;
+    }
+
+#pragma unroll
+    for (int s = 0; s < WG_AHEAD; ++s) {
+        if (s < kiters) load_stage(s, s);
+        cp_async_commit();
+    }
+    for (int kit = 0; kit < kiters; ++kit) {
+        // Stage kit has landed; after the barrier every warpgroup is also
+        // done with the products of stage kit - 2, whose slot the next
+        // copies refill.
+        cp_async_wait<WG_AHEAD - 1>();
+        fence_proxy_async();
+        __syncthreads();
+        const int next = kit + WG_AHEAD;
+        if (next < kiters) load_stage(next % WG_STAGES, next);
+        cp_async_commit();
+
+        const int slot = kit % WG_STAGES;
+        const unsigned char* a = a_ring + slot * A_BYTES + wg * 64 * 128;
+        const unsigned char* b = w_ring + slot * W_BYTES;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < WG_BK / 16; ++kk)
+            wgmma_bf16<BN>(acc, wgmma_desc(a + kk * 32, 16),
+                           wgmma_desc(b + kk * 16 * 128, WG_BK * 128));
+        wgmma_commit();
+        wgmma_wait<1>();  // the products of stage kit - 1 are done
+    }
+    wgmma_wait<0>();
+    cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
+    __syncthreads();     // every warpgroup is done with the ring, which now holds the output
+
+    // The output tile through shared memory, so that every store to device
+    // memory is a whole 16-byte piece of a row.
+    constexpr int OL = BN + 8;
+    bf16 (*o_s)[OL] = reinterpret_cast<bf16 (*)[OL]>(smem);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = wg * 64 + warp * 16 + (lane >> 2) + 8 * i;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+            *reinterpret_cast<uint32_t*>(&o_s[r][j * 8 + 2 * (lane & 3)]) =
+                pack_bf16(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+    __syncthreads();
+    for (int e = tid; e < WG_BM * (BN / 8); e += WG_THREADS) {
+        const int r = e / (BN / 8), c = e % (BN / 8) * 8;
+        const int64_t m = m0 + r;
+        if (m < M && n0 + c < O)  // O % 8 == 0: the whole piece
+            *reinterpret_cast<uint4*>(out + m * O + n0 + c) =
+                *reinterpret_cast<const uint4*>(&o_s[r][c]);
+    }
+}
+
+// Before a tensor-core kernel's first launch on a device: allow it the
+// dynamic shared memory its ring needs (beyond the default 48 KB).
+template <int BN>
+cudaError_t prepare_wgmma() {
+    static std::mutex mutex;
+    static std::set<int> prepared;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    std::lock_guard<std::mutex> lock(mutex);
+    if (!prepared.count(device)) {
+        err = cudaFuncSetAttribute(conv3x3_hwbc_wgmma_kernel<BN>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)wg_smem_bytes<BN>());
+        if (err != cudaSuccess) return err;
+        prepared.insert(device);
+    }
+    return cudaSuccess;
+}
+
+template <int BN>
+int launch_wgmma(const void* x, const void* w, const float* bias, void* out, int H, int W, int B,
+                 int C, int O, int64_t M, cudaStream_t stream) {
+    const int64_t blocks_m = (M + WG_BM - 1) / WG_BM;
+    const int blocks_n = (O + BN - 1) / BN;
+    if (blocks_m > INT32_MAX || blocks_n > 65535) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = prepare_wgmma<BN>();
+    if (err != cudaSuccess) return (int)err;
+    conv3x3_hwbc_wgmma_kernel<BN><<<dim3((unsigned)blocks_m, blocks_n), WG_THREADS,
+                                    wg_smem_bytes<BN>(), stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), bias, static_cast<bf16*>(out),
+        H, W, B, C, O);
+    return (int)cudaGetLastError();
+}
+
+// Which kernel a call goes to (ops/kernels/conv3x3.py::route mirrors it):
+// the tensor-core kernel takes bfloat16 with C and O multiples of 8, so
+// that every A and W row is whole 16-byte pieces for cp.async; float32
+// (whose 2e-5 bar bf16 products cannot meet) and a ragged C or O go to the
+// FMA kernel.
+bool use_wgmma(int is_bf16, int C, int O) { return is_bf16 && C % 8 == 0 && O % 8 == 0; }
+
 }  // namespace
 
 // x: (H, W, B, C) contiguous; w: (3, 3, C, O) contiguous, of x's type;
-// bias: (O,) float32; out: (H, W, B, O) contiguous, of x's type.  H*W*B / 128
+// bias: (O,) float32; out: (H, W, B, O) contiguous, of x's type; on the
+// tensor-core route (`use_wgmma`) x, w and out 16-byte aligned.  H*W*B / 128
 // blocks at most 2^31 - 1, O / 64 at most 65535.  Returns the CUDA error code
 // of the launch (0 = success).
 extern "C" int unet_conv3x3_hwbc(const void* x, const void* w, const float* bias, void* out,
@@ -174,6 +487,10 @@ extern "C" int unet_conv3x3_hwbc(const void* x, const void* w, const float* bias
                                  cudaStream_t stream) {
     if (H <= 0 || W <= 0 || B <= 0 || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
     const int64_t M = (int64_t)H * W * B;
+    if (use_wgmma(is_bf16, C, O)) {
+        return O > 64 ? launch_wgmma<128>(x, w, bias, out, H, W, B, C, O, M, stream)
+                      : launch_wgmma<64>(x, w, bias, out, H, W, B, C, O, M, stream);
+    }
     const int64_t blocks_m = (M + BM - 1) / BM;
     const int blocks_n = (O + BN - 1) / BN;
     if (blocks_m > INT32_MAX || blocks_n > 65535) return (int)cudaErrorInvalidValue;

@@ -237,6 +237,32 @@ def save(path: str, ckpt: Checkpoint) -> None:
         pass  # e.g. directories not fsync-able on this filesystem
 
 
+def _read_header(f, path: str) -> np.ndarray:
+    header = np.frombuffer(f.read(HEADER_INTS * 4), dtype=np.int32)
+    if header.size != HEADER_INTS or header[0] != MAGIC:
+        raise ValueError(f"bad magic or short header in {path}")
+    return header
+
+
+def _config_from_header(header: np.ndarray) -> UnetConfig:
+    if header[12] == EXT_MAGIC:
+        return _arch_from_header(header)
+    # a file without the marker records only the basic sizes; the rest is
+    # the default architecture
+    return UnetConfig(in_channels=int(header[2]),
+                      model_channels=int(header[3]),
+                      out_channels=int(header[4]),
+                      image_size=int(header[5]),
+                      max_period=int(header[7]))
+
+
+def read_config(path: str) -> UnetConfig:
+    """The architecture a `.bin` checkpoint's header records, read without
+    its weights (what `load` builds with cfg=None)."""
+    with open(path, "rb") as f:
+        return _config_from_header(_read_header(f, path))
+
+
 def load(path: str, cfg: Optional[UnetConfig] = None,
          num_classes: Optional[int] = None, device="cuda") -> Checkpoint:
     """Load a `.bin` checkpoint written by this package, the JAX package or
@@ -247,23 +273,10 @@ def load(path: str, cfg: Optional[UnetConfig] = None,
             f"{path}: torch state_dict checkpoints are not ported yet; "
             "convert to .bin with the JAX package")
     with open(path, "rb") as f:
-        header = np.frombuffer(f.read(HEADER_INTS * 4), dtype=np.int32)
-        if header.size != HEADER_INTS or header[0] != MAGIC:
-            raise ValueError(f"bad magic or short header in {path}")
+        header = _read_header(f, path)
         is_ext = header[12] == EXT_MAGIC
         if cfg is None:
-            if is_ext:
-                cfg = _arch_from_header(header)
-            else:
-                # a file without the marker records only the basic sizes;
-                # the rest is the default architecture
-                cfg = UnetConfig(
-                    in_channels=int(header[2]),
-                    model_channels=int(header[3]),
-                    out_channels=int(header[4]),
-                    image_size=int(header[5]),
-                    max_period=int(header[7]),
-                )
+            cfg = _config_from_header(header)
         if num_classes is None and is_ext and header[37] > 0:
             num_classes = int(header[37])
         n = num_params(cfg, num_classes)

@@ -78,6 +78,13 @@ def build_plan(cfg: UnetConfig) -> UnetPlan:
     return UnetPlan(tuple(input_blocks), middle, tuple(output_blocks), ch)
 
 
+def attention_widths(cfg: UnetConfig) -> List[int]:
+    """The channel width of every attention layer of the plan, in order."""
+    plan = build_plan(cfg)
+    return [layer[1] for group in plan.input_blocks + (plan.middle,)
+            + plan.output_blocks for layer in group if layer[0] == "attn"]
+
+
 def fwd_flops(cfg: UnetConfig, batch_size: int = 1) -> int:
     """Analytic forward matmul/conv FLOPs (2 * MACs) for one batch: convs,
     linears and attention dots along the plan `UNet.forward` executes."""

@@ -144,6 +144,48 @@ def kernel_name(mangled: str) -> str:
     return mangled[start:start + length]
 
 
+def kernel_instance(mangled: str) -> str:
+    """A kernel's name with its template arguments, `name<16>` or
+    `name<__nv_bfloat16,1>`, from its mangled name; `kernel_name` where it
+    is no template."""
+    name = kernel_name(mangled)
+    at = mangled.find(name)
+    rest = mangled[at + len(name):] if at >= 0 else ""
+    if not rest.startswith("I"):
+        return name
+    args, pos = [], 1
+    while pos < len(rest) and rest[pos] != "E":
+        if rest[pos] == "L":  # a literal: L <type letter> <value> E
+            end = rest.find("E", pos)
+            if end < 0:
+                return name
+            args.append(rest[pos + 2:end])
+            pos = end + 1
+        elif rest[pos].isdigit():  # a type by name: <length> <name>
+            digits = re.match(r"\d+", rest[pos:])
+            start = pos + digits.end()
+            args.append(rest[start:start + int(digits.group())])
+            pos = start + int(digits.group())
+        else:  # a builtin type
+            args.append({"f": "float", "d": "double"}.get(rest[pos], rest[pos]))
+            pos += 1
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_instances(log: str) -> list:
+    """Each compiled kernel's `kernel_instance` name, registers and spilled
+    bytes (stores and loads, the larger), in the build's order, from what
+    `nvcc -Xptxas -v` printed."""
+    out = []
+    for entry in log.split("Compiling entry function '")[1:]:
+        used = re.search(r"Used (\d+) registers", entry)
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill", entry)]
+        out.append({"kernel": kernel_instance(entry.split("'", 1)[0]),
+                    "registers": int(used.group(1)) if used else None,
+                    "spill_bytes": max(spills, default=0)})
+    return out
+
+
 def ptxas_summary(log: str) -> dict:
     """Each kernel's registers (a list: one entry per instantiation, in the
     build's order) and the most bytes any kernel spills, from what `nvcc

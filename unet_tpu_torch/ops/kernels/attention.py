@@ -19,9 +19,10 @@ In bfloat16 every product is a tensor-core `mma.sync` on bf16 tiles that
 `cp.async` stages in shared memory, a warp owning 16 query (or key) rows,
 four warps (64 rows) a block, with an online softmax in registers; the
 scores never reach device memory and any T is taken (the ragged tile is
-masked).  float32 keeps FMA kernels with one row per thread (the JAX
-package's float32 path is full float32, which TF32 tensor cores would not
-match).
+masked).  float32 keeps FMA kernels with one row per thread, two at head
+size 64 (the JAX package's float32 path is full float32, which TF32 tensor
+cores would not match).  The kernels are compiled for the head sizes in
+`HEAD_SIZES`; the plain version takes any.
 
 The backward recomputes the scores from qkv in two kernels that need no
 order between blocks: one for dq and the rows' softmax statistics (two
@@ -37,7 +38,24 @@ import torch
 
 from unet_tpu_torch.ops.kernels import _build
 
-HEAD_SIZE = 32  # the head size csrc/attention.cu is compiled for
+# The head sizes csrc/attention.cu is compiled for (`with_head_size` there).
+HEAD_SIZES = (16, 32, 64)
+
+
+def head_size_fault(widths, head_size):
+    """Why the kernels cannot run attention at these channel widths with
+    `head_size` channels a head (the model's `num_head_channels`), or None
+    if they can: each width must split into heads of exactly `head_size`,
+    one of `HEAD_SIZES`.  The CLIs ask this before they build a model on a
+    CUDA device; on the CPU the plain version takes any head size."""
+    if head_size not in HEAD_SIZES:
+        return (f"the attention kernels take head sizes {HEAD_SIZES}, "
+                f"not {head_size}")
+    for width in sorted(set(widths)):
+        if width % head_size:
+            return (f"head size {head_size} does not divide the attention "
+                    f"width {width}")
+    return None
 
 
 def qkv_attention_plain(qkv, num_heads):
@@ -76,8 +94,8 @@ def _check_cuda(qkv, num_heads):
         raise ValueError("qkv must be contiguous")
     B, T, C3 = qkv.shape
     C = C3 // 3
-    if C // num_heads != HEAD_SIZE:
-        raise ValueError(f"the kernel takes head size {HEAD_SIZE}, got "
+    if C // num_heads not in HEAD_SIZES:
+        raise ValueError(f"the kernel takes head sizes {HEAD_SIZES}, got "
                          f"{C // num_heads} (C={C}, {num_heads} heads)")
     if B == 0 or T == 0:
         raise ValueError(f"empty input {tuple(qkv.shape)}")
@@ -89,8 +107,8 @@ def qkv_attention_fwd(qkv, num_heads):
     """Multi-head attention over qkv (B, T, 3C) -> (B, T, C).
 
     A CUDA tensor goes to the hand-written kernel (float32 or bfloat16,
-    contiguous, head size 32) or raises; only a CPU tensor takes the plain
-    version."""
+    contiguous, a head size of `HEAD_SIZES`) or raises; only a CPU tensor
+    takes the plain version."""
     _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads)
@@ -103,7 +121,7 @@ def qkv_attention_fwd(qkv, num_heads):
     fn = _launcher("unet_qkv_attention_fwd")
     with torch.cuda.device(qkv.device):
         code = fn(qkv.data_ptr(), out.data_ptr(), B, T, C, num_heads,
-                  1.0 / math.sqrt(HEAD_SIZE),
+                  1.0 / math.sqrt(C // num_heads),
                   int(qkv.dtype == torch.bfloat16),
                   torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "qkv_attention_fwd")
@@ -174,7 +192,7 @@ def qkv_attention_bwd(qkv, dout, num_heads):
     with torch.cuda.device(qkv.device):
         code = fn(qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
                   stats.data_ptr(), B, T, C, num_heads,
-                  1.0 / math.sqrt(HEAD_SIZE),
+                  1.0 / math.sqrt(C // num_heads),
                   int(qkv.dtype == torch.bfloat16),
                   torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "qkv_attention_bwd")

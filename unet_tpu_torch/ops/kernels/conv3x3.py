@@ -16,8 +16,15 @@ has this one: inputs that require grad are refused.
 
 What bounds it on an H100: `2 * H*W*B * O * 9C` operations against about
 `(|x| + |w| + |out|) * itemsize` bytes, so the operations at every shape of
-the U-Net.  The kernel is a plain implicit GEMM with float32 FMAs (see the
-source); it is far from that bound, which needs the tensor cores.
+the U-Net.  Two kernels share the launcher; `route` says which a call takes
+(the launcher's `use_wgmma` is the same rule).  bfloat16 with C and O
+multiples of 8 runs on the tensor cores: `wgmma` (two warpgroups a block)
+on bf16 tiles of 128 rows x 64 channels of the shifted input and 64 x 64
+(or 128) of the weights, staged by 16-byte `cp.async` in the swizzled
+layout `wgmma` reads through a ring of three stages, with the padding's rows
+zero-filled by the copy.  float32, and a C or O that is not a multiple of
+8, take the implicit GEMM with float32 FMAs.  The card's times of both are
+in PERF.md.
 """
 
 from __future__ import annotations
@@ -73,13 +80,22 @@ def _check_cuda(x):
         raise ValueError(f"the kernel does not take {tuple(x.shape)}")
 
 
+def route(dtype, C, O):
+    """"wgmma" where a call of this type and widths runs on the tensor cores,
+    "fma" where it takes the float32 FMA kernel: the launcher's rule
+    (csrc/conv3x3.cu `use_wgmma`), which needs 16-byte rows of x and w."""
+    return ("wgmma" if dtype == torch.bfloat16 and C % 8 == 0 and O % 8 == 0
+            else "fma")
+
+
 def conv3x3_hwbc(x, w, b):
     """3x3 SAME convolution of x (H, W, B, C) with w (3, 3, C, O) plus b
     (O,); returns (H, W, B, O) in x's type.  w is rounded to x's type and
     the bias widened to float32 before the products, as in the TPU kernel.
 
-    A CUDA tensor goes to the hand-written kernel (x float32 or bfloat16,
-    contiguous) or raises; only a CPU tensor takes the plain version."""
+    A CUDA tensor goes to the hand-written kernels (x float32 or bfloat16,
+    contiguous; on the tensor-core route of `route` 16-byte aligned) or
+    raises; only a CPU tensor takes the plain version."""
     _check(x, w, b)
     if x.device.type == "cpu":
         return conv3x3_hwbc_plain(x, w, b)
@@ -89,6 +105,9 @@ def conv3x3_hwbc(x, w, b):
     wk = w.to(x.dtype).contiguous()
     bk = b.float().contiguous()
     out = torch.empty((H, W, B, O), dtype=x.dtype, device=x.device)
+    if route(x.dtype, C, O) == "wgmma" and (x.data_ptr() % 16
+                                          or wk.data_ptr() % 16):
+        raise ValueError("x and w must be 16-byte aligned")
     fn = _launcher()
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), wk.data_ptr(), bk.data_ptr(), out.data_ptr(),

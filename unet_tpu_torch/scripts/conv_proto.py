@@ -6,9 +6,10 @@ scripts/conv_proto.py).
 
 The JAX script asked whether a Pallas kernel could beat XLA's convolutions
 at the model's shapes, and recorded that it could not.  Here the kernel is
-`ops.kernels.conv3x3.conv3x3_hwbc` (csrc/conv3x3.cu: a plain implicit GEMM
-with float32 FMAs, no tensor cores), and the yardstick is cuDNN through
-`F.conv2d`, which the model itself uses.
+`ops.kernels.conv3x3.conv3x3_hwbc` (csrc/conv3x3.cu: an implicit GEMM, in
+bfloat16 on the tensor cores with `wgmma` on tiles that `cp.async` stages,
+in float32 on FMAs), and the yardstick is cuDNN through `F.conv2d`,
+which the model itself uses.
 
 The check: the kernel against its plain version on one (8, 8, 4, 64 -> 64)
 float32 case, max abs error under 1e-4.  The bench: for each (C, O) pair,
@@ -21,10 +22,11 @@ PyTorch's CPU convolution), of cuDNN with the two transposes between the
 transposes)`), and the least time the card could take.
 
 What it measured on an NVIDIA H100 80GB HBM3 (power limit 700.00 W),
-bfloat16: the kernel ran at 15.1-16.5 TF/s (0.59 ms at 64->64, 1.91 ms at
-192->64), 10-21x the time of cuDNN alone (0.058-0.122 ms); the two
-transposes took cuDNN to 1.6-1.9x its own time; the bound is 0.010-0.039
-ms.  Every shape is in PERF.md.
+bfloat16: the kernel ran at 171-326 TF/s (0.057 ms at 64->64, 0.128 ms at
+192->64), 0.78-1.20x the time of cuDNN alone (0.057-0.125 ms; less at
+64->64, 64->128 and 128->128) and less than cuDNN with the two transposes
+(0.104-0.215 ms) at all six shapes; the bound is 0.010-0.039 ms.  Every
+shape is in PERF.md.
 """
 
 from __future__ import annotations

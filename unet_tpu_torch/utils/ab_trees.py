@@ -8,8 +8,10 @@ unpacked with `git archive` into a directory that `.gitignore` lists).
 Each turn starts one child process in the tree it names, which imports that
 tree's `chip_smoke.py` (so its package and its kernels, built from its own
 sources), sets the shape lists that the checks read (`GN_SHAPES`,
-`GN_BWD_SHAPES`, `ATTN_SHAPES`, `ATTN_BWD_SHAPES`) to those of the
-current directory's `chip_smoke.py`, and runs the named check functions.
+`GN_BWD_SHAPES`, `ATTN_SHAPES`, `ATTN_BWD_SHAPES`, `CONV_SHAPES`) to those
+of the current directory's `chip_smoke.py`, and runs the named check
+functions.  `check_conv` times only the case `CONV_HEADLINE` names, so for
+it the child names each (shape, type) in turn and keeps that case.
 So both trees are timed at the same shapes, on the same card, in the
 order given (old, new, new, old evens out drift).  Prints one JSON object
 per turn, then one summary: per case the fastest device-alone time
@@ -26,7 +28,8 @@ import os
 import subprocess
 import sys
 
-SHAPE_LISTS = ("GN_SHAPES", "GN_BWD_SHAPES", "ATTN_SHAPES", "ATTN_BWD_SHAPES")
+SHAPE_LISTS = ("GN_SHAPES", "GN_BWD_SHAPES", "ATTN_SHAPES", "ATTN_BWD_SHAPES",
+               "CONV_SHAPES")
 
 _CHILD = r"""
 import json, sys, torch
@@ -37,7 +40,21 @@ for name, value in lists.items():
 c.functional.set_f32_precision("highest")
 c._build.load()
 gen = torch.Generator(device=c.DEV).manual_seed(0)
-out = {name: getattr(c, name)(gen) for name in checks}
+
+
+def conv_cases():
+    cases = []
+    for shape in lists["CONV_SHAPES"]:
+        for dtype in ("torch.float32", "torch.bfloat16"):
+            c.CONV_SHAPES = [tuple(shape)]
+            c.CONV_HEADLINE = dict(shape=list(shape), dtype=dtype)
+            cases += [k for k in c.check_conv(gen)
+                      if k["dtype"] == dtype and "kernel_graph_ms" in k]
+    return cases
+
+
+out = {name: conv_cases() if name == "check_conv" else getattr(c, name)(gen)
+       for name in checks}
 print(json.dumps(out))
 """
 
