@@ -22,7 +22,9 @@ object per line:
      graph).  Every repetition reads the same input, so the cache is warm.
      Each GroupNorm and attention kernel runs twice at every case and must
      give the same bits again; a GroupNorm case records its cluster size
-     and whether its blocks staged their rows in shared memory.
+     and whether its blocks staged their rows in shared memory, an
+     attention case its route (bf16 `mma.sync`, or float32 as three TF32
+     products).
   3. `forward`: one U-Net forward at each batch the requests below give the
      model (4, 8 and the doubled 16 of classifier-free guidance), the module
      on the kernels against the same module on the plain versions, and the
@@ -367,8 +369,8 @@ def check_attention(gen):
                                        4 * B * NH * T * T * HS, dtype)
             cases.append(dict(
                 shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
-                max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
-                out_rms=rms,
+                route=attn_mod.route(dtype), max_abs_err=err, tol=tol,
+                err_beyond_one_bf16_step=beyond, out_rms=rms,
                 **timings(
                     lambda: qkv_attention_fwd(qkv, NH),
                     lambda: qkv_attention_plain(qkv, NH),
@@ -489,8 +491,8 @@ def check_attention_bwd(gen):
                                        10 * B * NH * T * T * HS, dtype)
             cases.append(dict(
                 shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
-                max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
-                out_rms=rms,
+                route=attn_mod.route(dtype), max_abs_err=err, tol=tol,
+                err_beyond_one_bf16_step=beyond, out_rms=rms,
                 **timings(lambda: qkv_attention_bwd(qkv, dout, NH),
                           lambda: qkv_attention_bwd_plain(qkv, dout, NH),
                           library, stream),
@@ -618,8 +620,8 @@ KERNELS = (gn_act_fwd, gn_act_bwd, qkv_attention_fwd, qkv_attention_bwd,
 # every attention kernel at every head size, both tensor-core convolutions.
 REQUIRED_INSTANCES = [
     f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
-    for k in ("fwd", "bwd_dq", "bwd_dkv", "fwd_mma", "bwd_dq_mma",
-              "bwd_dkv_mma")] + [
+    for k in ("fwd_tf32", "bwd_dq_tf32", "bwd_dkv_tf32", "fwd_mma",
+              "bwd_dq_mma", "bwd_dkv_mma")] + [
     "conv3x3_hwbc_wgmma_kernel<64>", "conv3x3_hwbc_wgmma_kernel<128>"]
 
 

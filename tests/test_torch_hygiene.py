@@ -236,6 +236,9 @@ def test_chip_smoke_refuses_to_run_without_a_gpu():
     ("_ZN45_GLOBAL__N__d44ee978_12_attention_cu_9f1402cf28qkv_attention_fwd"
      "_mma_kernelILi64EEEvPK13__nv_bfloat16PS1_iif",
      "qkv_attention_fwd_mma_kernel<64>"),
+    ("_ZN45_GLOBAL__N__d44ee978_12_attention_cu_9f1402cf33qkv_attention_bwd"
+     "_dkv_tf32_kernelILi16EEEvPKfS2_PfS2_iiif",
+     "qkv_attention_bwd_dkv_tf32_kernel<16>"),
     ("_ZN45_GLOBAL__N__564b41ec_12_groupnorm_cu_0b627da415gn_stats_kernelI13"
      "__nv_bfloat16Li1EEEvPKT_Pfiiii", "gn_stats_kernel<__nv_bfloat16,1>"),
     ("_ZN3abc8a_kernelIfEEvPf", "a_kernel<float>"),

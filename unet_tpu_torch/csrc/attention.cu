@@ -1,5 +1,6 @@
 // Non-causal multi-head attention straight from the packed QKV: forward and
-// backward, with bfloat16 on the tensor cores and float32 on FMAs.
+// backward on the tensor cores, bfloat16 as bf16 products and float32 as
+// three TF32 products each (3xTF32).
 //
 // Forward.  Replaces the Pallas kernel `_fwd_kernel` of
 // unet_tpu/ops/pallas/attention.py:41 (launched by `_fwd_call`, reached
@@ -29,7 +30,9 @@
 // does 10 * B*NH*T*T*HS.  In bfloat16 that is T/2 (forward) and 5T/7
 // (backward) operations a byte against the card's 295 (989 TFLOP/s over
 // 3.35 TB/s): at the U-Net's T = 64 and 256 device memory bounds both, and
-// only the benchmark's T = 1024 is bound by the tensor cores.
+// only the benchmark's T = 1024 is bound by the tensor cores.  In float32
+// (4-byte values) it is T/4 and 5T/14 against 49 (3xTF32's 165 TFLOP/s):
+// device memory bounds T = 64, the operations T = 256 and up.
 //
 // bfloat16 design (the *_mma_kernel kernels).  Every product is a
 // tensor-core `mma.sync.m16n8k16` on bf16 operands with a float32
@@ -67,382 +70,57 @@
 // where the dq kernel computed s = qs k^T with the queries as rows; both
 // then take p = 2^(fmaf(s, log2 e, -m log2 e)) * (1 / l) from the same
 // stored m and 1 / l.  The 32 products of each score are the same exact bf16
-// products, summed in two k-steps of 16 in the same order, but the PTX ISA
-// does not promise that one k-step sums its 16 products in an order that is
-// independent of the operand they come from; so p in the two kernels is
-// equal in value up to that order, and bit-equal only where the hardware
-// makes it so.  Not measured; the tolerances do not depend on it.
+// products, summed in two k-steps of 16 in the same order (in float32: the
+// three exact TF32 products of each of HS / 8 k-steps of 8, in the same
+// order), but the PTX ISA does not promise that one k-step sums its
+// products in an order that is independent of the operand they come from;
+// so p in the two kernels is equal in value up to that order, and
+// bit-equal only where the hardware makes it so.  Not measured; the
+// tolerances do not depend on it.
 //
-// float32 design (qkv_attention_fwd_kernel and the two qkv_attention_bwd_*
-// kernels without the _mma suffix).  One query (or key) per thread in
-// registers, the other side through shared memory in float32 tiles of 64
-// rows, and float32 FMAs: the JAX package's float32 path is
-// Precision.HIGHEST, which TF32 tensor cores would not match.  At HS = 64
-// a row is split over two neighbouring threads, 32 columns each, whose
-// partial dot products are added with one shuffle: the dk/dv kernel keeps
-// four row vectors (k, v, dk, dv) in registers, which at 64 columns a
-// thread would be 256 floats and spill.
+// float32 design (the *_tf32_kernel kernels).  The JAX package's float32
+// path is full float32 (Precision.HIGHEST), held to 2e-5: one TF32 product
+// (a 10-bit mantissa) misses that by about 20x, three keep it (common.cuh):
+// each operand x is split into hi = tf32(x) and lo = tf32(x - hi), and a b
+// is taken as a_hi b_lo + a_lo b_hi + a_hi b_hi by `mma.sync.m16n8k8` on
+// TF32 operands with a float32 accumulator, which leaves out a_lo b_lo (at
+// most 2^-22 of the product).  What is left is mostly the tensor core's own
+// summation, which truncates: on the card the kernels are within 8e-6 of
+// the plain versions at every shape chip_smoke.py checks (the FMA kernels
+// they replace: 2.5e-6; an emulation with rounded float32 sums, 1.3e-6:
+// tests/test_torch_tf32.py).  Three products at 495 TFLOP/s is 165, 2.5x
+// the card's float32 FMAs.  Blocks, warps, rings and the online softmax are
+// the bfloat16 kernels'.  The k-step is 8.  The warp's own rows stay floats
+// in registers, split where they enter a product.  The other side passes
+// through float32 tiles of 64 rows (HS + 4 floats a row, two rings of 68 KB
+// of dynamic shared memory at HS = 64), split as it is read: by `ldmatrix`
+// where the tile's rows are the product's n index (a float moves as two
+// 16-bit halves), by 32-bit loads where they are its k index
+// (`ldmatrix.trans` would cut floats in half).  The scores' accumulator
+// holds columns 2t, 2t + 1 of its n-tile where the m16n8k8 A fragment holds
+// k = t, t + 4, so the next product takes its k index in that order (k = t
+// as row 2t, k = t + 4 as row 2t + 1) in A and B alike: p and ds become A
+// fragments in registers with no shuffle.  At HS = 64 the backward kernels
+// take a tile's scores half at a time (registers).
 //
 // Head sizes.  Every kernel is a template on HS, compiled for HS = 16, 32
 // and 64 (`with_head_size`, the launchers' dispatch on C / NH); each is a
-// multiple of the mma's k-step of 16.  At HS = 16 a score's B fragment is
-// one `ldmatrix.x2`; at 64 the products take four k-steps, and a tile row
-// is 144 bytes (two 64-row tiles of k and v, 36 KB, stay static shared
-// memory).
+// multiple of the bf16 mma's k-step of 16.  In bfloat16, at HS = 16 a
+// score's B fragment is one `ldmatrix.x2`; at 64 the products take four
+// k-steps, and a tile row is 144 bytes (two 64-row tiles of k and v, 36 KB,
+// stay static shared memory).
 
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int QT = 64;  // float32: queries per block
-constexpr int KT = 64;  // float32: keys per shared-memory tile
-constexpr int SG = 16;  // float32: scores held in registers between rescales
-
-// float32: the columns of a row one thread holds in registers, and the
-// threads that share a row (a row of HS = 64 is split over two threads, so
-// that no thread holds more than 32 columns of each of its row vectors).
-__host__ __device__ constexpr int fma_cols(int HS) { return HS < 32 ? HS : 32; }
-__host__ __device__ constexpr int fma_threads(int HS) { return QT * (HS / fma_cols(HS)); }
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
-    *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-// The sum of a value over the P neighbouring lanes that share a row; each
-// lane gets the same sum (a + b and b + a are equal in IEEE arithmetic).
-template <int P> __device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-    for (int o = 1; o < P; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-}
-
-// The dot product of a thread's RC columns, in the forward's order of FMAs:
-// d = 0 .. RC-1.
-template <int RC> __device__ __forceinline__ float dot_cols(const float* a, const float* b) {
-    float dot = 0.f;
-#pragma unroll
-    for (int d = 0; d < RC; ++d) dot = fmaf(a[d], b[d], dot);
-    return dot;
-}
-
-// Fills the shared tiles with keys and values [k0, k0 + nk) of the head,
-// by a block of NT threads (a stride known to the compiler: the forward was
-// 20% slower with blockDim.x).
-template <int HS, int NT>
-__device__ __forceinline__ void load_kv_tile(const float* base, size_t row, int C, int k0, int nk,
-                                             float (*k_s)[HS], float (*v_s)[HS]) {
-    for (int e = threadIdx.x * 4; e < nk * HS; e += NT * 4) {
-        const int j = e / HS, d = e % HS;
-        const float* kp = base + (size_t)(k0 + j) * row + C + d;
-        *reinterpret_cast<float4*>(&k_s[j][d]) = ld4(kp);
-        *reinterpret_cast<float4*>(&v_s[j][d]) = ld4(kp + C);
-    }
-}
-
-template <int HS>
-__global__ void __launch_bounds__(fma_threads(HS))
-qkv_attention_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int T_len, int C,
-                         float scale) {
-    constexpr int RC = fma_cols(HS), P = HS / RC, NT = fma_threads(HS);
-    __shared__ __align__(16) float k_s[KT][HS];
-    __shared__ __align__(16) float v_s[KT][HS];
-
-    const int q_tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-    const int c0 = threadIdx.x % P * RC;  // this thread's columns [c0, c0 + RC) of the row
-    const int tq = q_tile * QT + threadIdx.x / P;
-    const bool q_valid = tq < T_len;
-    const size_t row = (size_t)3 * C;
-    const float* base = qkv + (size_t)b * T_len * row + (size_t)h * HS;
-
-    // A row past the end takes row 0's q (its output is never written):
-    // with the load under a branch instead, ptxas spilled 8 bytes at HS =
-    // 16 and 64.
-    float q[RC], acc[RC];
-    const float* qp = base + (size_t)(q_valid ? tq : 0) * row + c0;
-#pragma unroll
-    for (int d = 0; d < RC; d += 4) {
-        const float4 v = ld4(qp + d);
-        q[d] = v.x * scale;
-        q[d + 1] = v.y * scale;
-        q[d + 2] = v.z * scale;
-        q[d + 3] = v.w * scale;
-        acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-    }
-    float m = -INFINITY, l = 0.f;
-
-    for (int k0 = 0; k0 < T_len; k0 += KT) {
-        const int nk = min(KT, T_len - k0);
-        __syncthreads();  // the previous tile has been consumed
-        load_kv_tile<HS, NT>(base, row, C, k0, nk, k_s, v_s);
-        __syncthreads();
-
-        for (int j0 = 0; j0 < nk; j0 += SG) {
-            float s[SG];
-            float smax = -INFINITY;
-#pragma unroll
-            for (int jj = 0; jj < SG; ++jj) {
-                const int j = j0 + jj;
-                float dot = -INFINITY;
-                if (j < nk) {  // the same for every thread of the block
-                    const float4* kr = reinterpret_cast<const float4*>(k_s[j] + c0);
-                    dot = 0.f;
-#pragma unroll
-                    for (int d4 = 0; d4 < RC / 4; ++d4) {
-                        const float4 kk = kr[d4];
-                        dot = fmaf(q[4 * d4 + 0], kk.x, dot);
-                        dot = fmaf(q[4 * d4 + 1], kk.y, dot);
-                        dot = fmaf(q[4 * d4 + 2], kk.z, dot);
-                        dot = fmaf(q[4 * d4 + 3], kk.w, dot);
-                    }
-                    dot = row_sum<P>(dot);
-                }
-                s[jj] = dot;
-                smax = fmaxf(smax, dot);
-            }
-            // j0 < nk, so the group holds at least one finite score
-            const float m_new = fmaxf(m, smax);
-            const float corr = expf(m - m_new);  // 0 on the first group
-            l *= corr;
-#pragma unroll
-            for (int d = 0; d < RC; ++d) acc[d] *= corr;
-#pragma unroll
-            for (int jj = 0; jj < SG; ++jj) {
-                const int j = j0 + jj;
-                if (j < nk) {
-                    const float p = expf(s[jj] - m_new);
-                    l += p;
-                    const float4* vr = reinterpret_cast<const float4*>(v_s[j] + c0);
-#pragma unroll
-                    for (int d4 = 0; d4 < RC / 4; ++d4) {
-                        const float4 vv = vr[d4];
-                        acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
-                        acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-                        acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-                        acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-                    }
-                }
-            }
-            m = m_new;
-        }
-    }
-
-    if (q_valid) {
-        const float inv_l = 1.f / l;
-        float* op = out + ((size_t)b * T_len + tq) * C + (size_t)h * HS + c0;
-#pragma unroll
-        for (int d = 0; d < RC; d += 4)
-            st4(op + d, acc[d] * inv_l, acc[d + 1] * inv_l, acc[d + 2] * inv_l,
-                acc[d + 3] * inv_l);
-    }
-}
-
-// Loads the thread's columns [c0, c0 + RC) of row `tq` of the head's q
-// (scaled as the forward does) and of dout into registers; zeros for a row
-// past the end.
-template <int HS>
-__device__ __forceinline__ void load_q_dout(const float* qkv, const float* dout, int b, int h,
-                                            int tq, int c0, int T_len, int C, float scale,
-                                            float* q, float* dob) {
-    constexpr int RC = fma_cols(HS);
-#pragma unroll
-    for (int d = 0; d < RC; ++d) q[d] = dob[d] = 0.f;
-    if (tq >= T_len) return;
-    const float* qp = qkv + ((size_t)b * T_len + tq) * 3 * C + (size_t)h * HS + c0;
-    const float* op = dout + ((size_t)b * T_len + tq) * C + (size_t)h * HS + c0;
-#pragma unroll
-    for (int d = 0; d < RC; d += 4) {
-        const float4 qv = ld4(qp + d), ov = ld4(op + d);
-        q[d] = qv.x * scale;
-        q[d + 1] = qv.y * scale;
-        q[d + 2] = qv.z * scale;
-        q[d + 3] = qv.w * scale;
-        dob[d] = ov.x;
-        dob[d + 1] = ov.y;
-        dob[d + 2] = ov.z;
-        dob[d + 3] = ov.w;
-    }
-}
-
-template <int HS>
-__global__ void __launch_bounds__(fma_threads(HS))
-qkv_attention_bwd_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                            float* __restrict__ dqkv, float* __restrict__ stats, int T_len, int C,
-                            int NH, float scale) {
-    constexpr int RC = fma_cols(HS), P = HS / RC, NT = fma_threads(HS);
-    __shared__ __align__(16) float k_s[KT][HS];
-    __shared__ __align__(16) float v_s[KT][HS];
-    const int h = blockIdx.y, b = blockIdx.z;
-    const int c0 = threadIdx.x % P * RC;
-    const int tq = blockIdx.x * QT + threadIdx.x / P;
-    const size_t row = (size_t)3 * C;
-    const float* base = qkv + (size_t)b * T_len * row + (size_t)h * HS;
-
-    float q[RC], dob[RC];
-    load_q_dout<HS>(qkv, dout, b, h, tq, c0, T_len, C, scale, q, dob);
-
-    // Sweep 1: the row's maximum m, sum l and D * l, online.
-    float m = -INFINITY, l = 0.f, dl = 0.f;
-    for (int k0 = 0; k0 < T_len; k0 += KT) {
-        const int nk = min(KT, T_len - k0);
-        __syncthreads();  // the previous tile has been consumed
-        load_kv_tile<HS, NT>(base, row, C, k0, nk, k_s, v_s);
-        __syncthreads();
-        for (int j0 = 0; j0 < nk; j0 += SG) {
-            float s[SG], dp[SG];
-            float smax = -INFINITY;
-#pragma unroll
-            for (int jj = 0; jj < SG; ++jj) {
-                const int j = j0 + jj;
-                s[jj] = j < nk ? row_sum<P>(dot_cols<RC>(q, k_s[j] + c0)) : -INFINITY;
-                dp[jj] = j < nk ? row_sum<P>(dot_cols<RC>(dob, v_s[j] + c0)) : 0.f;
-                smax = fmaxf(smax, s[jj]);
-            }
-            const float m_new = fmaxf(m, smax);
-            const float corr = expf(m - m_new);  // 0 on the first group
-            l *= corr;
-            dl *= corr;
-#pragma unroll
-            for (int jj = 0; jj < SG; ++jj) {
-                if (j0 + jj < nk) {
-                    const float p = expf(s[jj] - m_new);
-                    l += p;
-                    dl = fmaf(p, dp[jj], dl);
-                }
-            }
-            m = m_new;
-        }
-    }
-    const float inv_l = 1.f / l;
-    const float D = dl * inv_l;
-
-    // Sweep 2: dq = sum_j ds_j k_j.
-    float dq[RC];
-#pragma unroll
-    for (int d = 0; d < RC; ++d) dq[d] = 0.f;
-    for (int k0 = 0; k0 < T_len; k0 += KT) {
-        const int nk = min(KT, T_len - k0);
-        __syncthreads();
-        load_kv_tile<HS, NT>(base, row, C, k0, nk, k_s, v_s);
-        __syncthreads();
-        for (int j = 0; j < nk; ++j) {
-            const float p = expf(row_sum<P>(dot_cols<RC>(q, k_s[j] + c0)) - m) * inv_l;
-            const float ds = p * (row_sum<P>(dot_cols<RC>(dob, v_s[j] + c0)) - D);
-            const float4* kr = reinterpret_cast<const float4*>(k_s[j] + c0);
-#pragma unroll
-            for (int d4 = 0; d4 < RC / 4; ++d4) {
-                const float4 kk = kr[d4];
-                dq[4 * d4 + 0] = fmaf(ds, kk.x, dq[4 * d4 + 0]);
-                dq[4 * d4 + 1] = fmaf(ds, kk.y, dq[4 * d4 + 1]);
-                dq[4 * d4 + 2] = fmaf(ds, kk.z, dq[4 * d4 + 2]);
-                dq[4 * d4 + 3] = fmaf(ds, kk.w, dq[4 * d4 + 3]);
-            }
-        }
-    }
-
-    if (tq < T_len) {
-        float* op = dqkv + ((size_t)b * T_len + tq) * row + (size_t)h * HS + c0;
-#pragma unroll
-        for (int d = 0; d < RC; d += 4)
-            st4(op + d, dq[d] * scale, dq[d + 1] * scale, dq[d + 2] * scale, dq[d + 3] * scale);
-        if (c0 == 0) {
-            const size_t plane = (size_t)gridDim.z * NH * T_len;
-            const size_t at = ((size_t)b * NH + h) * T_len + tq;
-            stats[at] = m;
-            stats[plane + at] = inv_l;
-            stats[2 * plane + at] = D;
-        }
-    }
-}
-
-template <int HS>
-__global__ void __launch_bounds__(fma_threads(HS))
-qkv_attention_bwd_dkv_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
-                             float* __restrict__ dqkv, const float* __restrict__ stats, int T_len,
-                             int C, int NH, float scale) {
-    constexpr int RC = fma_cols(HS), P = HS / RC, NT = fma_threads(HS);
-    __shared__ __align__(16) float q_s[QT][HS];
-    __shared__ __align__(16) float o_s[QT][HS];
-    __shared__ float m_s[QT], il_s[QT], d_s[QT];
-    const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-    const int c0 = tid % P * RC;
-    const int tk = blockIdx.x * KT + tid / P;
-    const size_t row = (size_t)3 * C;
-    const size_t plane = (size_t)gridDim.z * NH * T_len;
-    const float* st = stats + ((size_t)b * NH + h) * T_len;
-
-    float k[RC], v[RC], dk[RC], dv[RC];
-#pragma unroll
-    for (int d = 0; d < RC; ++d) k[d] = v[d] = dk[d] = dv[d] = 0.f;
-    if (tk < T_len) {
-        const float* kp = qkv + ((size_t)b * T_len + tk) * row + C + (size_t)h * HS + c0;
-#pragma unroll
-        for (int d = 0; d < RC; d += 4) {
-            const float4 kv = ld4(kp + d), vv = ld4(kp + C + d);
-            k[d] = kv.x;
-            k[d + 1] = kv.y;
-            k[d + 2] = kv.z;
-            k[d + 3] = kv.w;
-            v[d] = vv.x;
-            v[d + 1] = vv.y;
-            v[d + 2] = vv.z;
-            v[d + 3] = vv.w;
-        }
-    }
-
-    for (int q0 = 0; q0 < T_len; q0 += QT) {
-        const int nq = min(QT, T_len - q0);
-        __syncthreads();  // the previous tile has been consumed
-        for (int e = tid * 4; e < nq * HS; e += NT * 4) {
-            const int i = e / HS, d = e % HS;
-            const size_t tok = (size_t)b * T_len + q0 + i;
-            const float4 qv = ld4(qkv + tok * row + h * HS + d);
-            st4(&q_s[i][d], qv.x * scale, qv.y * scale, qv.z * scale, qv.w * scale);
-            *reinterpret_cast<float4*>(&o_s[i][d]) = ld4(dout + tok * C + h * HS + d);
-        }
-        for (int i = tid; i < nq; i += NT) {
-            m_s[i] = st[q0 + i];
-            il_s[i] = st[plane + q0 + i];
-            d_s[i] = st[2 * plane + q0 + i];
-        }
-        __syncthreads();
-        for (int i = 0; i < nq; ++i) {
-            const float p = expf(row_sum<P>(dot_cols<RC>(q_s[i] + c0, k)) - m_s[i]) * il_s[i];
-            const float ds = p * (row_sum<P>(dot_cols<RC>(o_s[i] + c0, v)) - d_s[i]);
-            const float4* qr = reinterpret_cast<const float4*>(q_s[i] + c0);
-            const float4* orow = reinterpret_cast<const float4*>(o_s[i] + c0);
-#pragma unroll
-            for (int d4 = 0; d4 < RC / 4; ++d4) {
-                const float4 qq = qr[d4], oo = orow[d4];
-                dk[4 * d4 + 0] = fmaf(ds, qq.x, dk[4 * d4 + 0]);
-                dk[4 * d4 + 1] = fmaf(ds, qq.y, dk[4 * d4 + 1]);
-                dk[4 * d4 + 2] = fmaf(ds, qq.z, dk[4 * d4 + 2]);
-                dk[4 * d4 + 3] = fmaf(ds, qq.w, dk[4 * d4 + 3]);
-                dv[4 * d4 + 0] = fmaf(p, oo.x, dv[4 * d4 + 0]);
-                dv[4 * d4 + 1] = fmaf(p, oo.y, dv[4 * d4 + 1]);
-                dv[4 * d4 + 2] = fmaf(p, oo.z, dv[4 * d4 + 2]);
-                dv[4 * d4 + 3] = fmaf(p, oo.w, dv[4 * d4 + 3]);
-            }
-        }
-    }
-
-    if (tk < T_len) {
-        float* kp = dqkv + ((size_t)b * T_len + tk) * row + C + (size_t)h * HS + c0;
-#pragma unroll
-        for (int d = 0; d < RC; d += 4) {
-            st4(kp + d, dk[d], dk[d + 1], dk[d + 2], dk[d + 3]);
-            st4(kp + C + d, dv[d], dv[d + 1], dv[d + 2], dv[d + 3]);
-        }
-    }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores.
@@ -916,6 +594,474 @@ qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __res
     store_rows<HS>(k_out + C, stride, row, T_len, dv, 1.f, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores, in 3xTF32 (common.cuh: `split_tf32`,
+// `mma_3xtf32`).  The blocks, warps, rings and the online softmax are the
+// bfloat16 kernels'; what differs is the k-step of 8, the float32 tiles,
+// and that each operand is split into a TF32 pair where it enters a product.
+
+// A float32 tile row: HS values + 4 of padding (LDF<HS> in all).  A row is
+// 16 bytes past a multiple of 128 at HS = 32 and 64 (80 bytes at HS = 16),
+// so the eight rows one `ldmatrix` phase reads start in eight different
+// 16-byte bank groups; and rows two apart are 8 banks apart, so the reads
+// of `cols_step_f32` (lane 4g + t: rows 2t and 2t + 1, column g) fall in
+// banks 8t + g.  Both without conflicts.
+template <int HS> constexpr int LDF = HS + 4;
+
+// Dynamic shared memory: the two rings of tiles (k and v, or qs and dout)
+// and, in the dk/dv kernel, the query tiles' m, 1 / l and D.  At HS = 64 the
+// rings alone are 68 KB, past the 48 KB a launch gets without asking.
+template <int HS>
+constexpr int F32_RING_BYTES = 2 * STAGES * TILE * LDF<HS> * (int)sizeof(float);
+template <int HS>
+constexpr int F32_DKV_BYTES = F32_RING_BYTES<HS> + STAGES * 3 * TILE * (int)sizeof(float);
+
+// The backward kernels take a tile's scores in groups of GROUP<HS> n-tiles
+// of 8: at HS = 64 half a tile, so that the dk/dv kernel's four row vectors
+// (k, v, dk, dv: 128 registers a thread) and the group's s and dp fit.
+template <int HS> constexpr int GROUP = HS < 64 ? 8 : 4;
+
+// Copies rows [r0, r0 + TILE) of one head's HS columns (row r at src + r *
+// stride) into a padded float32 tile; rows at or past n are zero-filled.
+template <int HS>
+__device__ __forceinline__ void tile_async_f32(float (*dst)[LDF<HS>], const float* src,
+                                               size_t stride, int r0, int n) {
+#pragma unroll
+    for (int e = threadIdx.x; e < TILE * HS / 4; e += THREADS) {
+        const int r = e / (HS / 4), c = e % (HS / 4) * 4;
+        const bool valid = r0 + r < n;
+        cp_async16(&dst[r][c], src + (size_t)(valid ? r0 + r : 0) * stride + c, valid);
+    }
+}
+
+// The A fragments of the warp's 16 rows (lane 4g + t: rows `row` = first +
+// g and row + 8) over the head's HS columns, in HS / 8 k-steps of 8, as
+// floats times `mul`, read straight from device memory; rows at or past n
+// are zero.  Each k-step is split into its TF32 pair where it is used.
+template <int HS>
+__device__ __forceinline__ void a_frags_f32(float (&a)[HS / 8][4], const float* src,
+                                            size_t stride, int row, int n, float mul) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = row + 8 * i;
+        const float* p = src + (size_t)(r < n ? r : 0) * stride + t;
+#pragma unroll
+        for (int ks = 0; ks < HS / 8; ++ks)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+                a[ks][i + 2 * half] = r < n ? p[8 * ks + 4 * half] * mul : 0.f;
+    }
+}
+
+// The warp's own k-step a, split into its TF32 pair.  The values do not
+// change from tile to tile, so the compiler would hoist the split out of the
+// loop over the tiles and keep the pairs of all HS / 8 k-steps in registers:
+// at HS = 64 the backward kernels spilled, and at every head size the
+// forward was slower (PERF.md, the float32 attention findings).  An empty
+// `asm volatile` on each value keeps its split in the loop.
+__device__ __forceinline__ void split_a(const float (&a)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        float x = a[e];
+        asm volatile("" : "+f"(x));
+        split_tf32(x, hi[e], lo[e]);
+    }
+}
+
+// acc[j] = a b_{j0 + j}^T for NJ n-tiles of a 64-row tile whose rows are the
+// product's n index (b_j: rows 8j .. 8j + 7): scores from k or qs, dp from v
+// or dout.  Each k-step of a is split once; one `ldmatrix.x4` gives the B
+// fragments of two n-tiles (on rows of floats it hands lane 4g + t the
+// float at column t of row g of each 8 x 4 matrix: a float is two adjacent
+// 16-bit halves).  The HS / 8 k-steps are summed in order.
+template <int HS, int NJ>
+__device__ __forceinline__ void rows_product_f32(float (&acc)[NJ][4], const float (&a)[HS / 8][4],
+                                                 const float (*tile)[LDF<HS>], int j0) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < HS / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        split_a(a[ks], ah, al);
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+            uint32_t b[4];
+            ldsm_x4(b, &tile[8 * (j0 + j) + (lane & 7) + (lane >> 4) * 8]
+                            [8 * ks + ((lane >> 3) & 1) * 4]);
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj) {
+                uint32_t bh[2], bl[2];
+                split_tf32(__uint_as_float(b[2 * jj]), bh[0], bl[0]);
+                split_tf32(__uint_as_float(b[2 * jj + 1]), bh[1], bl[1]);
+                mma_3xtf32(acc[j + jj], ah, al, bh, bl);
+            }
+        }
+    }
+}
+
+// acc += c tile[8kk .. 8kk + 7] for one k-step of 8 tile rows, where c is
+// the accumulator fragment of n-tile kk of the product before (p or ds;
+// lane 4g + t: rows g, g + 8, columns 2t, 2t + 1) and the tile's rows are
+// this product's k index: out += p v, dq += ds k, dv += p^T dout, dk += ds^T
+// qs.  The k index is taken in the order the fragment holds it, k = t as
+// tile row 8kk + 2t and k = t + 4 as row 8kk + 2t + 1, in A (c0, c2 and c1,
+// c3) and in B alike: c becomes the A fragment with no shuffle.  B is read
+// with plain 32-bit loads (`ldmatrix.trans` moves 16-bit elements only).
+template <int HS>
+__device__ __forceinline__ void cols_step_f32(float (&acc)[HS / 8][4], const float (&c)[4],
+                                              const float (*tile)[LDF<HS>], int kk) {
+    const int lane = threadIdx.x & 31;
+    uint32_t ah[4], al[4];
+    split_tf32(c[0], ah[0], al[0]);
+    split_tf32(c[2], ah[1], al[1]);
+    split_tf32(c[1], ah[2], al[2]);
+    split_tf32(c[3], ah[3], al[3]);
+    const float* r = &tile[8 * kk + 2 * (lane & 3)][lane >> 2];
+#pragma unroll
+    for (int n = 0; n < HS / 8; ++n) {
+        uint32_t bh[2], bl[2];
+        split_tf32(r[8 * n], bh[0], bl[0]);
+        split_tf32(r[LDF<HS> + 8 * n], bh[1], bl[1]);
+        mma_3xtf32(acc[n], ah, al, bh, bl);
+    }
+}
+
+// Scores of keys at or past T_len set to -inf, in NJ n-tiles whose first
+// key is k0 (lane 4g + t: keys k0 + 8j + 2t and k0 + 8j + 2t + 1).
+template <int NJ>
+__device__ __forceinline__ void mask_keys(float (&s)[NJ][4], int k0, int T_len) {
+    if (k0 + 8 * NJ <= T_len) return;
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * j + 2 * t + (e & 1) >= T_len) s[j][e] = -INFINITY;
+}
+
+// Writes the warp's 16 x HS float32 accumulator times `mul` to rows `row`
+// and row + 8 (lane 4g + t: row = first + g) of dst (row r at dst + r *
+// stride); rows at or past n are skipped.
+template <int HS>
+__device__ __forceinline__ void store_rows_f32(float* dst, size_t stride, int row, int n,
+                                               const float (&acc)[HS / 8][4], float mul0,
+                                               float mul1) {
+    const int t = threadIdx.x & 3;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int r = row + 8 * i;
+        if (r >= n) continue;
+        const float mul = i ? mul1 : mul0;
+#pragma unroll
+        for (int j = 0; j < HS / 8; ++j)
+            *reinterpret_cast<float2*>(dst + (size_t)r * stride + 8 * j + 2 * t) =
+                make_float2(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
+    }
+}
+
+// The two rings of float32 tiles in dynamic shared memory.
+template <int HS> using F32Ring = float (*)[TILE][LDF<HS>];
+
+// Forward: one block per (batch, head, TILE queries), as the bfloat16
+// kernel, with p kept in float32 and split before p v.
+template <int HS>
+__global__ void __launch_bounds__(THREADS)
+qkv_attention_fwd_tf32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int T_len,
+                              int C, float scale) {
+    extern __shared__ __align__(128) float smem_f32[];
+    const F32Ring<HS> k_s = reinterpret_cast<F32Ring<HS>>(smem_f32);
+    const F32Ring<HS> v_s = k_s + STAGES;
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int lane = threadIdx.x & 31;
+    const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const size_t stride = (size_t)3 * C;
+    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
+    const int ntiles = (T_len + TILE - 1) / TILE;
+
+    for (int it = 0; it < STAGES - 1; ++it) {
+        if (it < ntiles) {
+            tile_async_f32<HS>(k_s[it], q_head + C, stride, it * TILE, T_len);
+            tile_async_f32<HS>(v_s[it], q_head + 2 * C, stride, it * TILE, T_len);
+        }
+        cp_async_commit();
+    }
+
+    float qf[HS / 8][4];
+    a_frags_f32<HS>(qf, q_head, stride, row, T_len, scale);
+    float o[HS / 8][4] = {};
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int it = 0; it < ntiles; ++it) {
+        const int buf = it % STAGES, ahead = it + STAGES - 1;
+        if (ahead < ntiles) {
+            tile_async_f32<HS>(k_s[ahead % STAGES], q_head + C, stride, ahead * TILE, T_len);
+            tile_async_f32<HS>(v_s[ahead % STAGES], q_head + 2 * C, stride, ahead * TILE, T_len);
+        }
+        cp_async_commit();
+        cp_async_wait<STAGES - 1>();
+        __syncthreads();
+
+        float s[8][4];
+        rows_product_f32<HS, 8>(s, qf, k_s[buf], 0);
+        mask_keys<8>(s, it * TILE, T_len);
+        float mx[2] = {m[0], m[1]};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+            mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+        }
+        float mL[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            mx[i] = quad_max(mx[i]);  // finite: key 0 of the first tile is real
+            const float corr = exp2_approx((m[i] - mx[i]) * LOG2E);  // 0 on the first tile
+            m[i] = mx[i];
+            mL[i] = mx[i] * LOG2E;
+            l[i] *= corr;
+#pragma unroll
+            for (int j = 0; j < HS / 8; ++j) {
+                o[j][2 * i] *= corr;
+                o[j][2 * i + 1] *= corr;
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                s[j][e] = exp2_approx(fmaf(s[j][e], LOG2E, -mL[e >> 1]));  // p
+                l[e >> 1] += s[j][e];
+            }
+            cols_step_f32<HS>(o, s[j], v_s[buf], j);
+        }
+        __syncthreads();  // the tile has been consumed before it is refilled
+    }
+
+    store_rows_f32<HS>(out + (size_t)b * T_len * C + (size_t)h * HS, C, row, T_len, o,
+                       1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
+}
+
+// Backward, kernel 1: one block per (batch, head, TILE queries), as the
+// bfloat16 kernel (two sweeps over the key tiles, one pipeline), each tile
+// taken in groups of GROUP<HS> n-tiles: the first sweep takes each row's m,
+// l and D = sum p dp / l online, group by group; the second recomputes p and
+// ds = p (dp - D) in float32 and accumulates dq.  Writes dq and the rows'
+// m, 1 / l and D.
+template <int HS>
+__global__ void __launch_bounds__(THREADS)
+qkv_attention_bwd_dq_tf32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                                 float* __restrict__ dqkv, float* __restrict__ stats, int T_len,
+                                 int C, int NH, float scale) {
+    constexpr int G = GROUP<HS>;
+    extern __shared__ __align__(128) float smem_f32[];
+    const F32Ring<HS> k_s = reinterpret_cast<F32Ring<HS>>(smem_f32);
+    const F32Ring<HS> v_s = k_s + STAGES;
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const size_t stride = (size_t)3 * C;
+    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
+    const float* o_head = dout + (size_t)b * T_len * C + (size_t)h * HS;
+    const int ntiles = (T_len + TILE - 1) / TILE;
+
+    for (int it = 0; it < STAGES - 1; ++it) {  // iteration it sweeps tile it % ntiles
+        if (it < 2 * ntiles) {
+            tile_async_f32<HS>(k_s[it], q_head + C, stride, it % ntiles * TILE, T_len);
+            tile_async_f32<HS>(v_s[it], q_head + 2 * C, stride, it % ntiles * TILE, T_len);
+        }
+        cp_async_commit();
+    }
+
+    float qf[HS / 8][4], of[HS / 8][4];
+    a_frags_f32<HS>(qf, q_head, stride, row, T_len, scale);
+    a_frags_f32<HS>(of, o_head, C, row, T_len, 1.f);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
+    float mL[2], inv_l[2], D[2];
+    float dq[HS / 8][4] = {};
+
+    for (int it = 0; it < 2 * ntiles; ++it) {
+        const int buf = it % STAGES, tile = it % ntiles, ahead = it + STAGES - 1;
+        if (ahead < 2 * ntiles) {
+            const int k0 = ahead % ntiles * TILE;
+            tile_async_f32<HS>(k_s[ahead % STAGES], q_head + C, stride, k0, T_len);
+            tile_async_f32<HS>(v_s[ahead % STAGES], q_head + 2 * C, stride, k0, T_len);
+        }
+        cp_async_commit();
+        cp_async_wait<STAGES - 1>();
+        __syncthreads();
+
+#pragma unroll 1
+        for (int j0 = 0; j0 < 8; j0 += G) {
+            float s[G][4], dp[G][4];
+            rows_product_f32<HS, G>(s, qf, k_s[buf], j0);
+            rows_product_f32<HS, G>(dp, of, v_s[buf], j0);
+            mask_keys<G>(s, tile * TILE + 8 * j0, T_len);
+            if (it < ntiles) {  // sweep 1
+                float mx[2] = {m[0], m[1]};
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+                    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+                    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+                }
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                    // finite once key 0 has been seen: a group wholly past
+                    // T_len keeps m, and its corr is 1
+                    mx[i] = quad_max(mx[i]);
+                    const float corr = exp2_approx((m[i] - mx[i]) * LOG2E);
+                    m[i] = mx[i];
+                    mL[i] = mx[i] * LOG2E;
+                    l[i] *= corr;
+                    dl[i] *= corr;
+                }
+#pragma unroll
+                for (int j = 0; j < G; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const float p = exp2_approx(fmaf(s[j][e], LOG2E, -mL[e >> 1]));
+                        l[e >> 1] += p;
+                        dl[e >> 1] = fmaf(p, dp[j][e], dl[e >> 1]);
+                    }
+            } else {  // sweep 2
+#pragma unroll
+                for (int j = 0; j < G; ++j) {
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int i = e >> 1;
+                        const float p = exp2_approx(fmaf(s[j][e], LOG2E, -mL[i])) * inv_l[i];
+                        s[j][e] = p * (dp[j][e] - D[i]);  // ds
+                    }
+                    cols_step_f32<HS>(dq, s[j], k_s[buf], j0 + j);
+                }
+            }
+        }
+        if (it == ntiles - 1) {  // the rows' statistics, for sweep 2
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                inv_l[i] = 1.f / quad_sum(l[i]);
+                D[i] = quad_sum(dl[i]) * inv_l[i];
+            }
+        }
+        __syncthreads();
+    }
+
+    store_rows_f32<HS>(dqkv + (size_t)b * T_len * stride + (size_t)h * HS, stride, row, T_len, dq,
+                       scale, scale);
+    if (t == 0) {
+        const size_t plane = (size_t)gridDim.z * NH * T_len;
+        float* st = stats + ((size_t)b * NH + h) * T_len;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            const int r = row + 8 * i;
+            if (r >= T_len) continue;
+            st[r] = m[i];
+            st[plane + r] = inv_l[i];
+            st[2 * plane + r] = D[i];
+        }
+    }
+}
+
+// Backward, kernel 2: one block per (batch, head, TILE keys), as the
+// bfloat16 kernel (a sweep over the query tiles, keys as the mma's rows),
+// each tile taken in groups of GROUP<HS> n-tiles of queries: s^T and dp^T
+// for the group, then for each n-tile p^T and ds^T in float32 and their
+// products dv += p^T dout, dk += ds^T qs.
+template <int HS>
+__global__ void __launch_bounds__(THREADS)
+qkv_attention_bwd_dkv_tf32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
+                                  float* __restrict__ dqkv, const float* __restrict__ stats,
+                                  int T_len, int C, int NH, float scale) {
+    constexpr int G = GROUP<HS>;
+    extern __shared__ __align__(128) float smem_f32[];
+    const F32Ring<HS> q_s = reinterpret_cast<F32Ring<HS>>(smem_f32);
+    const F32Ring<HS> o_s = q_s + STAGES;
+    float (*st_s)[3][TILE] = reinterpret_cast<float (*)[3][TILE]>(o_s + STAGES);  // m, 1 / l, D
+    const int h = blockIdx.y, b = blockIdx.z;
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    const size_t stride = (size_t)3 * C;
+    const size_t plane = (size_t)gridDim.z * NH * T_len;
+    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
+    const float* o_head = dout + (size_t)b * T_len * C + (size_t)h * HS;
+    const float* st = stats + ((size_t)b * NH + h) * T_len;
+    const int ntiles = (T_len + TILE - 1) / TILE;
+
+    // Query tile [q0, q0 + TILE): q, dout and the rows' m, 1 / l and D; rows
+    // at or past T_len zero-filled.
+    auto stage = [&](int buf, int q0) {
+        tile_async_f32<HS>(q_s[buf], q_head, stride, q0, T_len);
+        tile_async_f32<HS>(o_s[buf], o_head, C, q0, T_len);
+        for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
+            const int k = e / TILE, i = e % TILE;
+            const bool valid = q0 + i < T_len;
+            cp_async4(&st_s[buf][k][i], st + k * plane + (valid ? q0 + i : 0), valid);
+        }
+    };
+    for (int it = 0; it < STAGES - 1; ++it) {
+        if (it < ntiles) stage(it, it * TILE);
+        cp_async_commit();
+    }
+
+    float kf[HS / 8][4], vf[HS / 8][4];
+    a_frags_f32<HS>(kf, q_head + C, stride, row, T_len, 1.f);
+    a_frags_f32<HS>(vf, q_head + 2 * C, stride, row, T_len, 1.f);
+    float dk[HS / 8][4] = {}, dv[HS / 8][4] = {};
+
+    for (int it = 0; it < ntiles; ++it) {
+        const int buf = it % STAGES, q0 = it * TILE, ahead = it + STAGES - 1;
+        if (ahead < ntiles) stage(ahead % STAGES, ahead * TILE);
+        cp_async_commit();
+        cp_async_wait<STAGES - 1>();
+        // qs = q * scale, once per staged value: each thread scales the
+        // 16-byte pieces it copied itself, which the wait made visible to
+        // it; the barrier then shows them to the block.
+#pragma unroll
+        for (int e = threadIdx.x; e < TILE * HS / 4; e += THREADS) {
+            float4* piece = reinterpret_cast<float4*>(&q_s[buf][e / (HS / 4)][e % (HS / 4) * 4]);
+            float4 v = *piece;
+            v.x *= scale;
+            v.y *= scale;
+            v.z *= scale;
+            v.w *= scale;
+            *piece = v;
+        }
+        __syncthreads();
+
+#pragma unroll 1
+        for (int j0 = 0; j0 < 8; j0 += G) {
+            float s[G][4], dp[G][4];
+            rows_product_f32<HS, G>(s, kf, q_s[buf], j0);
+            rows_product_f32<HS, G>(dp, vf, o_s[buf], j0);
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+                const int c = 8 * (j0 + j) + 2 * t;  // the tile's query columns c, c + 1
+                const float2 mm = *reinterpret_cast<const float2*>(&st_s[buf][0][c]);
+                const float2 il = *reinterpret_cast<const float2*>(&st_s[buf][1][c]);
+                const float2 dd = *reinterpret_cast<const float2*>(&st_s[buf][2][c]);
+                const float mLc[2] = {mm.x * LOG2E, mm.y * LOG2E};
+                const float ilc[2] = {il.x, il.y}, ddc[2] = {dd.x, dd.y};
+                float p[4], ds[4];
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int k = e & 1;
+                    p[e] = q0 + c + k < T_len
+                               ? exp2_approx(fmaf(s[j][e], LOG2E, -mLc[k])) * ilc[k]
+                               : 0.f;
+                    ds[e] = p[e] * (dp[j][e] - ddc[k]);
+                }
+                cols_step_f32<HS>(dv, p, o_s[buf], j0 + j);
+                cols_step_f32<HS>(dk, ds, q_s[buf], j0 + j);
+            }
+        }
+        __syncthreads();
+    }
+
+    float* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * HS;
+    store_rows_f32<HS>(k_out, stride, row, T_len, dk, 1.f, 1.f);
+    store_rows_f32<HS>(k_out + C, stride, row, T_len, dv, 1.f, 1.f);
+}
+
 // Calls f(std::integral_constant<int, HS>()) for the head size HS = hs if
 // the kernels are compiled for it; cudaErrorInvalidValue otherwise.  These
 // cases are the head sizes the kernels take (ops/kernels/attention.py's
@@ -936,6 +1082,25 @@ bool bad_shape(int B, int T_len, int C, int NH) {
     return B <= 0 || T_len <= 0 || NH <= 0 || C % NH != 0 || B > 65535 || NH > 65535;
 }
 
+// The kernels, per device, whose dynamic shared memory limit is set.
+std::mutex g_mutex;
+std::set<std::pair<int, const void*>> g_prepared;
+
+// Before a kernel's first launch on a device: allow it `bytes` of dynamic
+// shared memory (beyond the 48 KB a launch may take without asking).
+template <typename... Params>
+cudaError_t allow_smem(void (*kernel)(Params...), int bytes) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    const std::pair<int, const void*> key(device, reinterpret_cast<const void*>(kernel));
+    std::lock_guard<std::mutex> lock(g_mutex);
+    if (g_prepared.count(key)) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess) g_prepared.insert(key);
+    return err;
+}
+
 }  // namespace
 
 // qkv: (B, T, 3C) contiguous, out: (B, T, C) contiguous, both 16-byte
@@ -953,8 +1118,11 @@ extern "C" int unet_qkv_attention_fwd(const void* qkv, void* out, int B, int T_l
             qkv_attention_fwd_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
                 static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T_len, C, scale);
         } else {
-            const dim3 grid((T_len + QT - 1) / QT, NH, B);
-            qkv_attention_fwd_kernel<HS><<<grid, fma_threads(HS), 0, stream>>>(
+            const cudaError_t err =
+                allow_smem(qkv_attention_fwd_tf32_kernel<HS>, F32_RING_BYTES<HS>);
+            if (err != cudaSuccess) return (int)err;
+            const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
+            qkv_attention_fwd_tf32_kernel<HS><<<grid, THREADS, F32_RING_BYTES<HS>, stream>>>(
                 static_cast<const float*>(qkv), static_cast<float*>(out), T_len, C, scale);
         }
         return (int)cudaGetLastError();
@@ -974,10 +1142,10 @@ extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* d
         constexpr int HS = decltype(hs)::value;
         cudaError_t err;
         if (is_bf16) {
+            const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
             const bf16* x = static_cast<const bf16*>(qkv);
             const bf16* dy = static_cast<const bf16*>(dout);
             bf16* dx = static_cast<bf16*>(dqkv);
-            const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
             qkv_attention_bwd_dq_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
                 x, dy, dx, stats, T_len, C, NH, scale);
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -987,11 +1155,16 @@ extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* d
             const float* x = static_cast<const float*>(qkv);
             const float* dy = static_cast<const float*>(dout);
             float* dx = static_cast<float*>(dqkv);
-            const dim3 grid_q((T_len + QT - 1) / QT, NH, B), grid_k((T_len + KT - 1) / KT, NH, B);
-            qkv_attention_bwd_dq_kernel<HS><<<grid_q, fma_threads(HS), 0, stream>>>(
+            if ((err = allow_smem(qkv_attention_bwd_dq_tf32_kernel<HS>, F32_RING_BYTES<HS>)) !=
+                    cudaSuccess ||
+                (err = allow_smem(qkv_attention_bwd_dkv_tf32_kernel<HS>, F32_DKV_BYTES<HS>)) !=
+                    cudaSuccess)
+                return (int)err;
+            const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
+            qkv_attention_bwd_dq_tf32_kernel<HS><<<grid, THREADS, F32_RING_BYTES<HS>, stream>>>(
                 x, dy, dx, stats, T_len, C, NH, scale);
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-            qkv_attention_bwd_dkv_kernel<HS><<<grid_k, fma_threads(HS), 0, stream>>>(
+            qkv_attention_bwd_dkv_tf32_kernel<HS><<<grid, THREADS, F32_DKV_BYTES<HS>, stream>>>(
                 x, dy, dx, stats, T_len, C, NH, scale);
         }
         return (int)cudaGetLastError();

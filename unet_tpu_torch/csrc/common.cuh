@@ -1,7 +1,8 @@
 // Shared helpers of the hand-written kernels: element conversions between
 // the storage type (float or bf16) and the float the arithmetic runs in, an
-// aligned vector type for wide loads and stores, and the tensor-core building
-// blocks of the bfloat16 kernels.
+// aligned vector type for wide loads and stores, the tensor-core building
+// blocks of the bfloat16 kernels, and the 3xTF32 ones of the float32
+// attention kernels.
 #pragma once
 
 #include <stdint.h>
@@ -111,4 +112,50 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32: a float32 product on the TF32 tensor cores.  x = hi + lo + r with
+// hi = tf32(x) and lo = tf32(x - hi) (each rounded to nearest, ties away
+// from zero), so |r| <= 2^-22 |x|; a b is taken as a_hi b_lo + a_lo b_hi +
+// a_hi b_hi, each product exact in the tensor core and summed into a
+// float32 accumulator, which leaves out a_lo b_lo (at most 2^-22 |a b|) and
+// the r terms.  The tensor core truncates its sums where IEEE float32
+// rounds them: on the card that, not the split, is most of the error left.
+
+// x rounded to TF32 as `cvt.rna.tf32.f32` rounds it (to nearest, ties away
+// from zero; the low 13 bits zero), by integer arithmetic on its bits: half
+// a TF32 step added to the magnitude, then the low bits cleared.  The same
+// bits as the instruction for every finite x, in two integer operations; on
+// the card the instruction made the attention kernels slower and took more
+// registers (PERF.md, the float32 attention findings).
+__device__ __forceinline__ uint32_t cvt_tf32(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+    hi = cvt_tf32(x);
+    lo = cvt_tf32(x - __uint_as_float(hi));
+}
+
+// c += a b for a 16x8 TF32 A fragment and an 8x8 B fragment (b0, b1).
+// Lane l = 4 g + t holds A at (g, t) (a0), (g + 8, t) (a1), (g, t + 4) (a2),
+// (g + 8, t + 4) (a3), B at rows t (b0) and t + 4 (b1) of column g, and C
+// as `mma_bf16` does: rows g (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32 from the split fragments: the two small products
+// first, then the large one.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+    mma_tf32(c, a_hi, b_lo[0], b_lo[1]);
+    mma_tf32(c, a_lo, b_hi[0], b_hi[1]);
+    mma_tf32(c, a_hi, b_hi[0], b_hi[1]);
 }

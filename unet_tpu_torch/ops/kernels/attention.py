@@ -14,15 +14,20 @@ What bounds it on an H100: the forward moves `4 * B*T*C * itemsize` bytes
 and does `4 * B*NH*T*T*HS` operations, the backward `7 * B*T*C * itemsize`
 and `10 * B*NH*T*T*HS`; in bfloat16 that is T/2 and 5T/7 operations a
 byte, below the card's 295 at the U-Net's T = 64 and 256, so device memory
-bounds both there.
-In bfloat16 every product is a tensor-core `mma.sync` on bf16 tiles that
-`cp.async` stages in shared memory, a warp owning 16 query (or key) rows,
-four warps (64 rows) a block, with an online softmax in registers; the
-scores never reach device memory and any T is taken (the ragged tile is
-masked).  float32 keeps FMA kernels with one row per thread, two at head
-size 64 (the JAX package's float32 path is full float32, which TF32 tensor
-cores would not match).  The kernels are compiled for the head sizes in
-`HEAD_SIZES`; the plain version takes any.
+bounds both there.  In float32 (4-byte values) it is T/4 and 5T/14
+against 49 for 3xTF32 (165 TFLOP/s), the card's fastest product that keeps
+the float32 bar: device memory bounds T = 64, the operations T = 256.
+Every product is a tensor-core `mma.sync` (`route`): bf16 tiles in
+bfloat16; in float32 three TF32 products per product (3xTF32: each operand
+split into a TF32 pair hi + lo, a b taken as a_hi b_lo + a_lo b_hi + a_hi
+b_hi, which leaves out about 2^-22 of each product and so keeps the 2e-5
+float32 bar, where one TF32 product misses it by about 20x; see
+tests/test_torch_tf32.py).  A warp owns 16 query (or key) rows, four warps
+(64 rows) a block; the other side is staged in shared memory by
+`cp.async`, with an online softmax in registers; the scores never reach
+device memory and any T is taken (the ragged tile is masked).  The kernels
+are compiled for the head sizes in `HEAD_SIZES`; the plain version takes
+any.
 
 The backward recomputes the scores from qkv in two kernels that need no
 order between blocks: one for dq and the rows' softmax statistics (two
@@ -56,6 +61,13 @@ def head_size_fault(widths, head_size):
             return (f"head size {head_size} does not divide the attention "
                     f"width {width}")
     return None
+
+
+def route(dtype):
+    """The tensor-core route the launchers take for a call of this type:
+    "bf16" (`mma.sync` on bf16 operands) or "3xtf32" (float32 as three TF32
+    products; csrc/attention.cu's `*_tf32_kernel`s)."""
+    return "bf16" if dtype == torch.bfloat16 else "3xtf32"
 
 
 def qkv_attention_plain(qkv, num_heads):

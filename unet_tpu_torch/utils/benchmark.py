@@ -25,8 +25,11 @@ import numpy as np
 import torch
 
 # Published peaks of one H100 SXM (dense): device memory and arithmetic.
+# float32: 3xTF32 (three TF32 tensor-core products per float32 product, 495
+# TFLOP/s / 3), the fastest product on the card that keeps the repo's
+# float32 bars (tests/test_torch_tf32.py: one TF32 product does not).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 
 
 def _cuda_device(out):

@@ -31,11 +31,11 @@ from unet_tpu_torch.training import trainer
 FAMILIES = (
     ("gn_act_bwd", ("gn_act_bwd_kernel",)),
     ("gn_act_fwd", ("gn_act_fwd_kernel",)),
-    ("qkv_attention_bwd", ("qkv_attention_bwd_dq_kernel",
-                           "qkv_attention_bwd_dkv_kernel",
+    ("qkv_attention_bwd", ("qkv_attention_bwd_dq_tf32_kernel",
+                           "qkv_attention_bwd_dkv_tf32_kernel",
                            "qkv_attention_bwd_dq_mma_kernel",
                            "qkv_attention_bwd_dkv_mma_kernel")),
-    ("qkv_attention_fwd", ("qkv_attention_fwd_kernel",
+    ("qkv_attention_fwd", ("qkv_attention_fwd_tf32_kernel",
                            "qkv_attention_fwd_mma_kernel")),
     ("cudnn_layout_change", ("nhwcToNchw", "nchwToNhwc")),
     ("convolution_backward", ("dgrad", "wgrad", "convolveNd_wgrad",
