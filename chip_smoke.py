@@ -34,27 +34,54 @@ object per line:
      then sampled through `cli.generate.run` (DDIM in bfloat16 and float32,
      class-conditional DDIM with classifier-free guidance) and through
      `make_sampler` (the DDPM chain), with the kernels' launch counts held
-     against model calls x launches per forward.  A short untimed request of
-     each kind goes first, and each kernel is held against its plain version
-     at every distinct shape those requests hand it.
+     against model calls x launches per forward.  On the card each chain is
+     the replays of one captured sampler step (`utils/graphs.py`); each
+     request runs again with every step eager (`eager_steps`), its seconds
+     and images/s beside the captured ones (`eager_*`), its counts held
+     the same way; `captured_against_eager`: a DDIM-50 float32 chain from
+     one start, captured against eager, within the forward's 2e-3 (and
+     whether the bits are equal).  A short untimed request of each kind goes
+     first, and each kernel is held against its plain version at every
+     distinct shape those requests hand it (at warm-up and capture).
   5. `train_step`: one float32 training step of the default model at B=32,
      its loss and every gradient on the kernels against the same step on the
      plain versions; then ten `step_with` steps on one fixed batch, whose
      loss must fall.
-  6. `train`: the training CLI (`cli.train.main`) on a `.bin` of seeded
+  6. `graphs`: the captured train step (`trainer.make_multi_step`) at
+     B=32.  `f32_step`: one float32 step captured against the same step run
+     eagerly, loss within 1e-5 relative and parameters and moments within
+     1e-3, beside how far a second eager run falls from the first;
+     `flat_against_tree_f32`: `make_flat_multi_step` against
+     `make_multi_step` for three float32 steps, losses within 1e-5 and
+     parameters within 1e-3; `captured_steps`: for each configuration of
+     the `train` phase, the device time of one replay of its step (the
+     device time per step that the `train` phase's idle shares use), the
+     launches the graph holds, and for bfloat16 the ten losses of a
+     captured chunk against ten eager steps, one replay profiled with
+     `torch.profiler` (its GroupNorm and attention kernels must be the
+     launches the graph holds); `flat_against_tree_replay_ms`: the device
+     time of a flat and a tree step, float32 and bfloat16.
+  7. `train`: the training CLI (`cli.train.main`) on a `.bin` of seeded
      images written by the port's `write_bin`, the default model at full
      width and depth, B=32: bfloat16 for 20 steps with a checkpoint at step
-     20 and a resume from it to step 30; float32 for 10 steps; bfloat16 with
-     remat and microbatches of 16 for 4 steps.  Finite losses, the log
-     lines, the checkpoints' steps and the kernels' launch counts per step
-     are asserted; ms/step, images/s and peak memory reported.  A one-step
-     untimed run of each kind goes first, and each kernel is held against
-     its plain version at every distinct shape those steps hand it.
-  7. `head_size`: the training and sampling CLIs at the default model with
+     20 and a resume from it to step 40; float32 for 10 steps; bfloat16 with
+     remat and microbatches of 16 for 4 steps; all on the chunked path
+     (captured, uint8 input: the log must say so); then the same bfloat16,
+     float32 and remat runs on the per-step path (`*steps`: the same log
+     interval, a `--save_interval` that is no multiple of it).  Finite losses, the log lines, the checkpoints' steps and
+     the kernels' launch counts per step are asserted; ms/step, images/s,
+     peak memory (allocated and reserved), the device's ms per step and the
+     idle share (1 - device ms / ms per step) reported for each;
+     `bf16_chunked_against_per_step`: the two bfloat16 runs' logged mean
+     losses.
+     A two-step untimed chunk of each kind goes first, and each kernel is
+     held against its plain version at every distinct shape those steps
+     hand it.
+  8. `head_size`: the training and sampling CLIs at the default model with
      64 channels a head: both refuse head size 48 on the card before they
      build a model; 3 bfloat16 steps at B=32 with a checkpoint, then a DDIM-10
      request at B=4 from it, with exact launch counts and finite losses.
-  8. `conv_checks` and `conv`: the kernel-benchmark path.  The
+  9. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
      and O are multiples of 8, else float32 FMAs, each case naming its
@@ -67,7 +94,7 @@ object per line:
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
-  9. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+ 10. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
      convolution's: those of the `conv` phase); then the seconds the whole
      run took, the card's name and power limit, and the result line.
@@ -79,7 +106,9 @@ A failed build, launch or comparison raises, so the exit code is non-zero.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -105,7 +134,8 @@ from unet_tpu_torch.config import TrainConfig, UnetConfig  # noqa: E402
 from unet_tpu_torch.data.dataset import write_bin  # noqa: E402
 from unet_tpu_torch.diffusion.gaussian import (  # noqa: E402
     GaussianDiffusion, named_beta_schedule)
-from unet_tpu_torch.diffusion.sampler import make_sampler, to_uint8  # noqa: E402
+from unet_tpu_torch.diffusion.sampler import (  # noqa: E402
+    ddim_sample, make_sampler, to_uint8)
 from unet_tpu_torch.io import checkpoint as ckpt_io  # noqa: E402
 from unet_tpu_torch.models import unet  # noqa: E402
 from unet_tpu_torch.ops import functional  # noqa: E402
@@ -123,6 +153,7 @@ from unet_tpu_torch.ops.kernels.groupnorm import (  # noqa: E402
 from unet_tpu_torch.scripts import bench_ops, block_timing  # noqa: E402
 from unet_tpu_torch.scripts import conv_proto  # noqa: E402
 from unet_tpu_torch.training import trainer  # noqa: E402
+from unet_tpu_torch.utils import graphs  # noqa: E402
 from unet_tpu_torch.utils.benchmark import (  # noqa: E402
     bound, device_line, graph_ms)
 
@@ -614,8 +645,6 @@ def check_seen_shapes(seen, gen):
                 worst_max_abs_err=worst)
 
 
-KERNELS = (gn_act_fwd, gn_act_bwd, qkv_attention_fwd, qkv_attention_bwd,
-           conv3x3_hwbc)
 # Instantiations the build log must list (`_build.kernel_instance` names):
 # every attention kernel at every head size, both tensor-core convolutions.
 REQUIRED_INSTANCES = [
@@ -626,12 +655,91 @@ REQUIRED_INSTANCES = [
 
 
 def reset_counts() -> None:
-    for fn in KERNELS:
+    for fn in graphs.COUNTED:
         fn.launches = 0
 
 
-def counts() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+counts = graphs.launch_counts
+
+
+class EagerGraph:
+    """Stands in for `graphs.Graph` inside `eager_steps()`: runs the step
+    eagerly on every call, as the port ran every step before it captured
+    them (the comparison side of the captured paths only)."""
+
+    def __init__(self, fn, device):
+        self.fn = fn
+        self.held = {}
+
+    def __call__(self):
+        self.fn()
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Within the block the train chunks and sampler chains run every step
+    eagerly on the card instead of replaying a captured one."""
+    saved = graphs.Graph
+    graphs.Graph = EagerGraph
+    try:
+        yield
+    finally:
+        graphs.Graph = saved
+
+
+def free_graphs() -> None:
+    """Give the memory of graphs no longer referenced back to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def replay_ms(graph, reps=10) -> float:
+    """Device time of one replay of a `graphs.Graph`: `reps` replays
+    queued back to back between CUDA events (their counts are not
+    touched)."""
+    graph.graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+# A substring of the name of each kernel a wrapper launches, as the profiler
+# reports it: the attention backward launches two, dq then dk/dv.
+PROFILED = {"gn_act_fwd": ("gn_act_fwd_kernel",),
+            "gn_act_bwd": ("gn_act_bwd_kernel",),
+            "qkv_attention_fwd": ("qkv_attention_fwd_",),
+            "qkv_attention_bwd": ("qkv_attention_bwd_dq_",
+                                  "qkv_attention_bwd_dkv_")}
+
+
+def profile_replay(graph) -> dict:
+    """`torch.profiler` over one replay: the kernels it ran on the card,
+    their device time, and the hand-written ones by wrapper, which must be
+    what the graph says it holds."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = {}
+    for name, parts in PROFILED.items():
+        per_part = [sum(part in e.name for e in kernels) for part in parts]
+        if len(set(per_part)) != 1 or per_part[0] != graph.held[name]:
+            raise AssertionError(f"profiled replay: {name} ran {per_part} "
+                                 f"kernels, the graph holds "
+                                 f"{graph.held[name]}")
+        seen[name] = per_part[0]
+    return dict(kernels=len(kernels), hand_written=seen, held=graph.held,
+                device_ms=sum(e.time_range.elapsed_us() for e in kernels)
+                / 1e3)
 
 
 def launches_per_forward(cfg):
@@ -705,8 +813,9 @@ def check_forward(model, gen):
 
 def drive_path(tmp, totals, gen):
     """The port's main path at the default model; returns the request
-    records and the check of the kernels at the shapes the requests give
-    them, and adds the kernels' launches to `totals`."""
+    records, the check of the kernels at the shapes the requests give them
+    and the captured DDIM-50 chain against the eager one, and adds the
+    kernels' launches of the captured requests to `totals`."""
     cfg = UnetConfig()
     gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
     if (gn_per_fwd, attn_per_fwd) != (56, 11):
@@ -768,8 +877,7 @@ def drive_path(tmp, totals, gen):
     if seen["batches"] != sorted(PATH_BATCHES):
         raise AssertionError(f"the requests ran at batches {seen['batches']}")
 
-    records = []
-    for name, batch, model_calls, request in requests:
+    def run_request(name, batch, model_calls, request):
         torch.cuda.synchronize()
         reset_counts()
         t0 = time.perf_counter()
@@ -791,15 +899,52 @@ def drive_path(tmp, totals, gen):
             raise AssertionError(
                 f"{name}: {gn_n} GroupNorm and {attn_n} attention launches "
                 f"for {model_calls} model calls")
+        return images, seconds, gn_n, attn_n
+
+    records = []
+    for name, batch, model_calls, request in requests:
+        images, seconds, gn_n, attn_n = run_request(name, batch, model_calls,
+                                                    request)
         totals["gn_act_fwd"] += gn_n
         totals["qkv_attention_fwd"] += attn_n
+        # the same request with every step of the chain run eagerly
+        with eager_steps():
+            eager_images, eager_seconds, _, _ = run_request(
+                name, batch, model_calls, request)
+        free_graphs()
         records.append(dict(
             request=name, shape=list(images.shape), dtype=str(images.dtype),
             finite=True, model_calls=model_calls, seconds=seconds,
             images_per_s=batch / seconds, gn_act_fwd_launches=gn_n,
             qkv_attention_fwd_launches=attn_n,
-            pixel_mean=float(images.mean())))
-    return records, seen
+            pixel_mean=float(images.mean()), eager_seconds=eager_seconds,
+            eager_images_per_s=batch / eager_seconds,
+            eager_images_equal=bool(np.array_equal(images, eager_images))))
+    return records, seen, check_captured_chain(files["uncond"], gen)
+
+
+def check_captured_chain(path, gen):
+    """The captured DDIM-50 chain against the same chain run eagerly, float32,
+    B=8, from one start: within the forward's bar."""
+    cfg = UnetConfig()
+    ckpt = ckpt_io.load(path, device=DEV)
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule(ckpt.noise_schedule, cfg.max_period), device=DEV)
+    x_init = torch.randn((8, cfg.image_size, cfg.image_size, cfg.in_channels),
+                         generator=gen, device=DEV)
+
+    def chain():
+        return ddim_sample(ckpt.params, cfg, diffusion, num_steps=50,
+                           batch_size=8, x_init=x_init)
+
+    captured = chain()
+    with eager_steps():
+        eager = chain()
+    err = compare(captured, eager, dict(atol=FORWARD_ATOL, rtol=0.0),
+                  "captured DDIM-50 f32 against the eager chain")
+    free_graphs()
+    return dict(chain="ddim50_b8_f32", atol=FORWARD_ATOL, max_abs_err=err,
+                bits_equal=bool(torch.equal(captured, eager)))
 
 
 def check_train_step(gen):
@@ -846,13 +991,174 @@ def check_train_step(gen):
                 grad_max_abs=grad_max, ten_step_losses=losses)
 
 
+# The training configurations of the `train` phase, as `TrainConfig`s: the
+# chunked path's step of each is captured in the `graphs` phase.
+TRAIN_CONFIGS = {
+    "bf16": dict(compute_dtype="bfloat16", ema_rate=0.999),
+    "f32": dict(compute_dtype="float32"),
+    "remat": dict(compute_dtype="bfloat16", remat=True,
+                  microbatch=TRAIN_BATCH // 2)}
+STEP_LOSS_RTOL = 1e-5        # one captured f32 step against the eager one
+STEP_STATE_ATOL = 1e-3       # its parameters and moments
+FLAT_LOSS_RTOL = 1e-5        # the flat f32 chunk against the tree one
+FLAT_PARAM_ATOL = 1e-3
+# bfloat16, ten captured steps on uint8 input against ten eager steps on the
+# stored float32 batches: the rebuilt input is within 1 ulp of the stored
+# one, and the card's convolution backward does not repeat its bits from
+# run to run even eagerly, so the trajectories part by bfloat16 roundings.
+BF16_LOSS_RTOL = 1e-2
+
+
+def state_tensors(state):
+    return list(state.params.parameters()) + state.m + state.v
+
+
+def drive_graphs(gen):
+    """The captured train steps on the card, `UnetConfig()` at B=32:
+
+    * one float32 step captured against the same step run eagerly, from the
+      same state, batch, t and noise (the graph's first call runs eagerly,
+      so the second step is the captured one), and a second eager run
+      beside them: how far two eager runs fall apart;
+    * `make_flat_multi_step` against the tree `make_multi_step`, three
+      float32 steps on one chunk from one state, compared name by name, and
+      the device time of one replay of each, float32 and bfloat16 (no
+      EMA);
+    * for each configuration of `TRAIN_CONFIGS`, the chunked path's step
+      (`make_multi_step`, uint8 input) over a chunk of ten seeded batches:
+      the device time of one replay (CUDA events around back-to-back
+      replays); for bf16 the ten losses against ten eager `train_step`s on
+      the float32 batches, and one replay profiled, whose hand-written
+      kernels must be the launches the graph holds."""
+    cfg = UnetConfig()
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    out = {}
+
+    def model(seed):
+        return unet.init(cfg, generator=torch.Generator().manual_seed(seed),
+                         device=DEV)
+
+    # one f32 step, captured against eager
+    tc = TrainConfig(batch_size=TRAIN_BATCH, lr=1e-3)
+    captured = trainer.init_state(model(2))
+    eager = [trainer.init_state(copy.deepcopy(captured.params))
+             for _ in range(2)]
+    multi = trainer.make_multi_step(cfg, tc, diffusion, DEV)
+    _, step_with = trainer.make_train_step(cfg, tc, diffusion, DEV)
+    losses = []
+    for _ in range(2):
+        batch = torch.rand(shape, generator=gen, device=DEV) * 2 - 1
+        t = torch.randint(0, cfg.max_period, (TRAIN_BATCH,), generator=gen,
+                          device=DEV)
+        noise = torch.randn(shape, generator=gen, device=DEV)
+        losses.append([multi.step_with(captured, batch, t, noise)[1].item()]
+                      + [step_with(s, batch, t, noise)[1].item()
+                         for s in eager])
+    rel = abs(losses[1][0] - losses[1][1]) / abs(losses[1][1])
+    err = max(compare(a, b, dict(atol=STEP_STATE_ATOL, rtol=0.0),
+                      f"captured f32 step, state tensor {i}")
+              for i, (a, b) in enumerate(zip(state_tensors(captured),
+                                             state_tensors(eager[0]))))
+    floor = max((a - b).abs().max().item() for a, b in
+                zip(state_tensors(eager[1]), state_tensors(eager[0])))
+    if not rel <= STEP_LOSS_RTOL:
+        raise AssertionError(f"captured f32 step: loss {losses[1]}")
+    out["f32_step"] = dict(
+        losses_captured_eager_eager=losses, loss_rel_err=rel,
+        loss_rtol=STEP_LOSS_RTOL, state_max_abs_err=err,
+        state_atol=STEP_STATE_ATOL, eager_against_eager_max_abs_err=floor,
+        bits_equal=all(torch.equal(a, b) for a, b in zip(
+            state_tensors(captured), state_tensors(eager[0]))),
+        held=multi.graph.held)
+    del multi, captured, eager
+    free_graphs()
+
+    # flat against tree, three f32 steps on one chunk
+    pixels = torch.randint(0, 256, (10,) + shape, generator=gen, device=DEV,
+                           dtype=torch.uint8)
+    stored = pixels.float() / 127.5 - 1.0
+    tree = trainer.init_state(model(3), seed=5)
+    flat, unravel = trainer.flatten_state(copy.deepcopy(tree.params), seed=5)
+    tree_multi = trainer.make_multi_step(cfg, tc, diffusion, DEV)
+    flat_multi = trainer.make_flat_multi_step(cfg, tc, unravel, diffusion,
+                                              DEV)
+    tree_losses = tree_multi(tree, stored[:3])[1].tolist()
+    flat_losses = flat_multi(flat, stored[:3])[1].tolist()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(flat_losses, tree_losses))
+    params = dict(tree.params.named_parameters())
+    err = max(compare(view, params[name], dict(atol=FLAT_PARAM_ATOL,
+                                                rtol=0.0), f"flat {name}")
+              for name, view in unravel(flat.flat.detach()).items())
+    if not rel <= FLAT_LOSS_RTOL:
+        raise AssertionError(f"flat chunk: losses {flat_losses} against "
+                             f"{tree_losses}")
+    out["flat_against_tree_f32"] = dict(
+        steps=3, flat_losses=flat_losses, tree_losses=tree_losses,
+        loss_rel_err=rel, loss_rtol=FLAT_LOSS_RTOL, param_max_abs_err=err,
+        param_atol=FLAT_PARAM_ATOL)
+    # the device time of one step either way, f32 and bf16, no EMA
+    replays = {"f32": dict(tree_ms=replay_ms(tree_multi.graph),
+                           flat_ms=replay_ms(flat_multi.graph))}
+    del tree_multi, flat_multi, tree, flat, unravel
+    free_graphs()
+    tc16 = TrainConfig(batch_size=TRAIN_BATCH, lr=1e-3,
+                       compute_dtype="bfloat16")
+    tree = trainer.init_state(model(3), seed=5)
+    flat, unravel = trainer.flatten_state(copy.deepcopy(tree.params), seed=5)
+    tree_multi = trainer.make_multi_step(cfg, tc16, diffusion, DEV)
+    flat_multi = trainer.make_flat_multi_step(cfg, tc16, unravel, diffusion,
+                                              DEV)
+    tree_multi(tree, stored[:2])
+    flat_multi(flat, stored[:2])
+    replays["bf16"] = dict(tree_ms=replay_ms(tree_multi.graph),
+                           flat_ms=replay_ms(flat_multi.graph))
+    out["flat_against_tree_replay_ms"] = replays
+    del tree_multi, flat_multi, tree, flat, unravel
+    free_graphs()
+
+    # each training configuration's captured step
+    steps = {}
+    for name, fields in TRAIN_CONFIGS.items():
+        tc = TrainConfig(batch_size=TRAIN_BATCH, **fields)
+        state = trainer.init_state(model(0), ema_rate=tc.ema_rate)
+        start = copy.deepcopy(state) if name == "bf16" else None
+        multi = trainer.make_multi_step(cfg, tc, diffusion, DEV,
+                                        input_u8=True)
+        got = multi(state, pixels)[1].tolist()
+        record = dict(replay_ms=replay_ms(multi.graph), held=multi.graph.held)
+        if name == "bf16":
+            train_step, _ = trainer.make_train_step(cfg, tc, diffusion, DEV)
+            want = [train_step(start, b)[1].item() for b in stored]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            if not (all(map(math.isfinite, got)) and rel <= BF16_LOSS_RTOL):
+                raise AssertionError(f"bf16 captured losses {got} against "
+                                     f"eager {want}")
+            record.update(captured_losses=got, eager_losses=want,
+                          loss_max_rel_diff=rel, loss_rtol=BF16_LOSS_RTOL,
+                          profiled_replay=profile_replay(multi.graph))
+            del start
+        steps[name] = record
+        del multi, state
+        free_graphs()
+    out["captured_steps"] = steps
+    return out
+
+
 LOG_LINE = re.compile(r"step (\d+): loss (\S+) \(([0-9.]+) ms/step\)")
 
 
-def drive_train(tmp, totals, gen):
+def drive_train(tmp, totals, gen, step_ms):
     """The training CLI at the default model, full width and depth, B=32:
     returns the run records and the check of the kernels at the shapes the
-    trainer's first steps give them, and adds the launches to `totals`."""
+    trainer's first steps give them, and adds the launches of the chunked
+    runs to `totals`.  Each configuration runs on the chunked path (the
+    uint8 encoding must be logged) and again on the per-step path (a
+    `--save_interval` that is no multiple of the log interval); `step_ms`
+    is the device time of each
+    configuration's step (`drive_graphs`), from which each run's idle
+    share follows."""
     cfg = UnetConfig()
     rng = np.random.default_rng(0)
     data = os.path.join(tmp, "train.bin")
@@ -872,49 +1178,69 @@ def drive_train(tmp, totals, gen):
         with open(log) as f:
             return state, f.read(), out.getvalue()
 
-    # One untimed step of each kind first: cuDNN's and cuBLAS's set-up, and
-    # the shapes the trainer hands the kernels.
+    # One untimed chunk of two steps of each kind first (an eager step and a
+    # captured one): cuDNN's and cuBLAS's set-up, and the shapes the trainer
+    # hands the kernels at warm-up and capture.
     seen = new_seen()
     with recording(seen):
         for flags in (["--compute_dtype", "bfloat16"],
                       ["--compute_dtype", "float32"],
                       ["--compute_dtype", "bfloat16", "--remat", "true",
                        "--microbatch", str(TRAIN_BATCH // 2)]):
-            run("warm", "--iterations", "1", "--log_interval", "1",
+            run("warm", "--iterations", "2", "--log_interval", "2",
                 "--save_interval", "0", *flags)
+            free_graphs()
     seen = check_seen_shapes(seen, gen)
     if seen["batches"] != [TRAIN_BATCH // 2, TRAIN_BATCH]:
         raise AssertionError(f"the trainer ran at batches {seen['batches']}")
 
     bf16 = ["--compute_dtype", "bfloat16", "--ema_rate", "0.999"]
+    f32 = ["--compute_dtype", "float32"]
+    remat = ["--compute_dtype", "bfloat16", "--remat", "true",
+             "--microbatch", str(TRAIN_BATCH // 2)]
+    # (name, configuration, first step, last step, flags).  The `*steps`
+    # runs log at the same interval, but their --save_interval is no
+    # multiple of it (and past their last step), which sends them down the
+    # per-step path, as the JAX CLI would send them.
     runs = [
-        ("bf16", 0, 20, False, 1, [*bf16, "--iterations", "20",
-                                   "--log_interval", "10",
-                                   "--save_interval", "20"]),
-        ("bf16_resume", 20, 30, False, 1, [
-            *bf16, "--iterations", "30", "--log_interval", "10",
-            "--save_interval", "10", "--model_weights",
+        ("bf16", "bf16", 0, 20, [*bf16, "--iterations", "20",
+                                 "--log_interval", "10",
+                                 "--save_interval", "20"]),
+        ("bf16_resume", "bf16", 20, 40, [
+            *bf16, "--iterations", "40", "--log_interval", "10",
+            "--save_interval", "20", "--model_weights",
             os.path.join(tmp, "bf16", "model_20.bin")]),
-        ("f32", 0, 10, False, 1, ["--compute_dtype", "float32",
-                                  "--iterations", "10", "--log_interval",
-                                  "5", "--save_interval", "0"]),
-        ("remat", 0, 4, True, 2, ["--compute_dtype", "bfloat16", "--remat",
-                                  "true", "--microbatch",
-                                  str(TRAIN_BATCH // 2),
-                                  "--iterations", "4", "--log_interval", "2",
+        ("bf16steps", "bf16", 0, 20, [*bf16, "--iterations", "20",
+                                      "--log_interval", "10",
+                                      "--save_interval", "25"]),
+        ("f32", "f32", 0, 10, [*f32, "--iterations", "10", "--log_interval",
+                               "5", "--save_interval", "0"]),
+        ("f32steps", "f32", 0, 10, [*f32, "--iterations", "10",
+                                    "--log_interval", "5",
+                                    "--save_interval", "11"]),
+        ("remat", "remat", 0, 4, [*remat, "--iterations", "4",
+                                  "--log_interval", "2",
                                   "--save_interval", "0"]),
+        ("rematsteps", "remat", 0, 4, [*remat, "--iterations", "4",
+                                       "--log_interval", "2",
+                                       "--save_interval", "5"]),
     ]
     records = []
-    for name, first, last, remat, micro, flags in runs:
+    for name, config, first, last, flags in runs:
+        remat_on, micro = config == "remat", 2 if config == "remat" else 1
+        per_step = name.endswith("steps")
         reset_counts()
         t0 = time.perf_counter()
         state, log, out = run(name, *flags)
         seconds = time.perf_counter() - t0
         got = counts()
         want = {k: (last - first) * v
-                for k, v in launches_per_step(cfg, remat, micro).items()}
+                for k, v in launches_per_step(cfg, remat_on, micro).items()}
         if got != want:
             raise AssertionError(f"train {name}: launches {got}, want {want}")
+        if ("H2D encoding: uint8" in log) == per_step:
+            raise AssertionError(f"train {name}: the encoding line, or its "
+                                 f"absence, is wrong: {log[:200]}")
         lines = LOG_LINE.findall(log)
         steps = [int(s) for s, _, _ in lines]
         losses = [float(loss) for _, loss, _ in lines]
@@ -924,7 +1250,7 @@ def drive_train(tmp, totals, gen):
             raise AssertionError(f"train {name}: log lines {lines}")
         if state.step != last:
             raise AssertionError(f"train {name}: ended at step {state.step}")
-        if name.startswith("bf16"):
+        if name.startswith("bf16") and not per_step:
             path = os.path.join(tmp, "bf16", f"model_{last}.bin")
             if f"saved {path}" not in log:
                 raise AssertionError(f"train {name}: no checkpoint line")
@@ -932,19 +1258,31 @@ def drive_train(tmp, totals, gen):
                 raise AssertionError(f"train {name}: checkpoint step")
         if name == "bf16_resume" and "loaded" not in out:
             raise AssertionError("train bf16_resume: did not load")
-        for k, v in got.items():
-            totals[k] += v
+        if not per_step:
+            for k, v in got.items():
+                totals[k] += v
         ms = float(lines[-1][2])  # the last interval: warm
         records.append(dict(
-            run=name, steps=f"{first}->{last}", remat=remat,
-            microbatches=micro, batch=TRAIN_BATCH, logged_losses=losses,
-            ms_per_step_last_interval=ms,
+            run=name, path="per-step" if per_step else "chunked (captured)",
+            steps=f"{first}->{last}", remat=remat_on, microbatches=micro,
+            batch=TRAIN_BATCH, logged_losses=losses, ms_per_step=ms,
             images_per_s=TRAIN_BATCH / ms * 1e3,
+            device_ms_per_step=step_ms[config],
+            idle_share=1.0 - step_ms[config] / ms,
             peak_mib=trainer.device_peak_memory_mib(DEV),
+            peak_reserved_mib=torch.cuda.max_memory_reserved(DEV) / 2 ** 20,
             seconds=seconds, launches=got,
-            launches_per_step=launches_per_step(cfg, remat, micro)))
+            launches_per_step=launches_per_step(cfg, remat_on, micro)))
         del state
-    return records, seen
+        free_graphs()
+    by_name = {r["run"]: r for r in records}
+    chunked, per_step = (by_name[n]["logged_losses"]
+                         for n in ("bf16", "bf16steps"))
+    agreement = dict(
+        chunked=chunked, per_step=per_step,
+        max_rel_diff=max(abs(a - b) / abs(b)
+                         for a, b in zip(chunked, per_step)))
+    return records, seen, agreement
 
 
 def drive_head_size(tmp, totals, gen):
@@ -1203,19 +1541,25 @@ def main() -> None:
     emit({"phase": "forward", **check_forward(model, gen)})
     del model
 
-    totals = {fn.__name__: 0 for fn in KERNELS}
+    totals = {name: 0 for name in counts()}
     with tempfile.TemporaryDirectory() as tmp:
-        records, seen = drive_path(tmp, totals, gen)
+        records, seen, chain = drive_path(tmp, totals, gen)
     emit({"phase": "path", "model": "UnetConfig() ImageNet-64, full depth",
           "kernel_inputs_of_the_requests": seen, "requests": records,
-          "launches": dict(totals)})
+          "captured_against_eager": chain, "launches": dict(totals)})
 
     emit({"phase": "train_step", "model": "UnetConfig(), float32 highest",
           **check_train_step(gen)})
+    captured = drive_graphs(gen)
+    emit({"phase": "graphs", "model": "UnetConfig() ImageNet-64, full depth, "
+          f"B={TRAIN_BATCH}", **captured})
     with tempfile.TemporaryDirectory() as tmp:
-        runs, seen = drive_train(tmp, totals, gen)
+        runs, seen, agreement = drive_train(
+            tmp, totals, gen, {name: step["replay_ms"] for name, step in
+                               captured["captured_steps"].items()})
     emit({"phase": "train", "model": "UnetConfig() ImageNet-64, full depth",
           "kernel_inputs_of_the_steps": seen, "runs": runs,
+          "bf16_chunked_against_per_step": agreement,
           "launches_with_the_requests": dict(totals)})
     with tempfile.TemporaryDirectory() as tmp:
         other = drive_head_size(tmp, totals, gen)

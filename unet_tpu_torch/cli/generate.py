@@ -6,9 +6,11 @@ python -m unet_tpu_torch.cli.generate --model_filename models/model.bin \
     [--device cuda]
 
 Loads a .bin checkpoint (written by this package or the JAX package) and
-runs the DDPM or DDIM sampler on `--device`.  `main` is parse -> `run` ->
-save; `run` returns the images, so a caller without an image library can
-drive the whole path.
+runs the DDPM or DDIM sampler on `--device`: on a CUDA device the chain is
+the replays of one captured sampler step (`diffusion/sampler.py`), on the
+CPU the same step runs eagerly.  `main` is parse -> `run` -> save; `run`
+returns the images, so a caller without an image library can drive the
+whole path.
 """
 
 from __future__ import annotations

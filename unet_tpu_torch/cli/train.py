@@ -13,12 +13,25 @@ same numbers as a key-value table (and a CSV file under `--csv_log_dir`), a
 full checkpoint `output_dir/model_<step>.bin` every `--save_interval`.
 `--init_model_only` writes the initial checkpoint and exits.
 
-The step loop never waits for the device within a log interval: the
-losses stay on the device and are read once per interval.  Flags of paths
-that later slices port raise `NotImplementedError` at a non-default value,
-naming their `ROADMAP.md` item.  `--native_loader` is accepted and the
-batches come from `data.dataset.data_loader`, which gives the same batches
-as the JAX package's native loaders.
+Where the JAX package's CLI scans a log interval of steps into one
+program, this one does too, under the same condition (`--log_interval` > 1,
+an interval that divides `--iterations`, `--save_interval` and the step it
+starts from, and none of `--log_norms`, `--host_rng`, `--class_cond`): each
+interval is a chunk of `log_interval` batches for `trainer.make_multi_step`,
+which on a CUDA device replays one captured step over it.  The first chunk
+is probed: where every value is u / 127.5 - 1 of a uint8 u (every `.bin`
+written from pixels) the chunks go to the device as uint8 and the step
+rebuilds the float32 values there, and the log says which encoding it
+took.  Each chunk is staged in pinned host memory and copied on a side
+stream while the device runs the chunk before it.  Other runs take one
+eager step per batch (`trainer.make_train_step`).
+
+The loop never waits for the device within a log interval: the losses stay
+on the device and are read once per interval.  Flags of paths that later
+slices port raise `NotImplementedError` at a non-default value, naming their
+`ROADMAP.md` item.  `--native_loader` is accepted and the batches come from
+`data.dataset.data_loader`, which gives the same batches as the JAX
+package's native loaders.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from unet_tpu_torch.config import TrainConfig, UnetConfig
@@ -185,6 +199,74 @@ def _reject_bad_combos(args) -> None:
             f"{args.num_channels}; the CPU takes any head size)")
 
 
+def _chunked(args, tc: TrainConfig, start_step: int) -> bool:
+    """Whether the run takes the chunked path: the JAX CLI's condition
+    (unet_tpu/cli/train.py, single device)."""
+    return (not args.host_rng and not args.log_norms and not args.class_cond
+            and tc.log_interval > 1
+            and tc.save_interval % tc.log_interval == 0
+            and start_step % tc.log_interval == 0
+            and tc.iterations % tc.log_interval == 0)
+
+
+def _as_uint8(chunk: np.ndarray):
+    """The uint8 pixels u with u / 127.5 - 1 == chunk exactly, or None."""
+    u8 = np.round((chunk + 1.0) * 127.5).astype(np.uint8)
+    if np.array_equal(u8.astype(np.float32) / 127.5 - 1.0, chunk):
+        return u8
+    return None
+
+
+class _ChunkStager:
+    """Chunks to the device while it runs the chunk before.  On a CUDA
+    device each chunk is written into pinned host memory and copied from
+    there without blocking, on a side stream, into whichever of two device
+    buffers the running chunk does not read; `put` returns that buffer once
+    the current stream is ordered after the copy.  On the CPU a chunk is
+    used as it is."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.host = None
+        self.dev = []
+        self.turn = 0
+        self.copied = None
+        self.freed = [None, None]
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def put(self, chunk: np.ndarray) -> torch.Tensor:
+        if self.stream is None:
+            return torch.from_numpy(chunk)
+        if self.host is None or self.host.shape != chunk.shape \
+                or self.host.numpy().dtype != chunk.dtype:
+            self.host = torch.from_numpy(chunk).pin_memory()
+            self.dev = [torch.empty_like(self.host, device=self.device)
+                        for _ in range(2)]
+        else:
+            self.copied.synchronize()  # the last copy out of `host` is done
+            self.host.numpy()[...] = chunk
+        j, self.turn = self.turn, 1 - self.turn
+        with torch.cuda.stream(self.stream):
+            if self.freed[j] is not None:
+                self.stream.wait_event(self.freed[j])
+            self.dev[j].copy_(self.host, non_blocking=True)
+            self.copied = torch.cuda.Event()
+            self.copied.record(self.stream)
+        current = torch.cuda.current_stream(self.device)
+        current.wait_event(self.copied)
+        return self.dev[j]
+
+    def release(self, buf: torch.Tensor) -> None:
+        """The work queued so far on the current stream is the last to read
+        `buf` (a buffer `put` returned)."""
+        if self.stream is not None:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+            self.freed[next(j for j, d in enumerate(self.dev)
+                            if d is buf)] = event
+
+
 def main(argv=None) -> trainer.TrainState:
     """Train as the flags say; returns the final state (None with
     --init_model_only)."""
@@ -267,9 +349,10 @@ def main(argv=None) -> trainer.TrainState:
     diffusion = GaussianDiffusion.create(
         named_beta_schedule(args.noise_schedule, cfg.max_period),
         device=device)
+    chunked = _chunked(args, tc, start_step)
     if args.log_norms:
         step_fn = trainer.make_train_step_aux(cfg, tc, diffusion, device)
-    else:
+    elif not chunked:
         step_fn, _ = trainer.make_train_step(cfg, tc, diffusion, device)
     hdr = dataset.BinDataset(args.data_file)
     if ((hdr.height, hdr.width, hdr.channels)
@@ -294,23 +377,57 @@ def main(argv=None) -> trainer.TrainState:
     os.makedirs(args.output_dir, exist_ok=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    multi = None  # the chunked path's step, built on the first chunk
+    stager = _ChunkStager(device)
+
+    def next_chunk() -> torch.Tensor:
+        """The next `log_interval` batches, on the device, in the encoding
+        the first chunk's probe chose."""
+        nonlocal multi
+        chunk = np.stack([next(loader) for _ in range(tc.log_interval)])
+        u8 = _as_uint8(chunk)
+        if multi is None:
+            multi = trainer.make_multi_step(cfg, tc, diffusion, device,
+                                            input_u8=u8 is not None)
+            text_log.log(
+                "H2D encoding: uint8 (byte-derived dataset; f32 rebuilt on "
+                "the device within 1 ulp)" if multi.input_u8 else
+                "H2D encoding: float32 (the data is not u/127.5 - 1 of "
+                "uint8 pixels u)")
+        if multi.input_u8:
+            if u8 is None:
+                raise SystemExit("train: a chunk past the first is not "
+                                 "uint8-derived, as the first one was")
+            return stager.put(u8)
+        return stager.put(chunk)
+
     pending = []  # this interval's losses, still on the device
     t_flush = time.perf_counter()
     it = start_step
+    batches = next_chunk() if chunked else None
     while it < tc.iterations:
-        batch = torch.from_numpy(next(loader)).to(device)
-        if args.log_norms:
-            state, aux = step_fn(state, batch)
-            pending.append(aux["loss"])
-            kv_log.logkv_mean("grad_norm_mean", float(aux["grad_norm"]))
-            kv_log.logkv("grad_norm", float(aux["grad_norm"]))
-            kv_log.logkv_mean("param_norm", float(aux["param_norm"]))
+        if chunked:
+            state, losses = multi(state, batches)
+            stager.release(batches)
+            # stage the next chunk while the device runs this one
+            batches = (next_chunk() if it + tc.log_interval < tc.iterations
+                       else None)
+            pending.append(losses)
+            it += tc.log_interval
         else:
-            state, loss = step_fn(state, batch)
-            pending.append(loss)
-        it += 1
+            batch = torch.from_numpy(next(loader)).to(device)
+            if args.log_norms:
+                state, aux = step_fn(state, batch)
+                pending.append(aux["loss"][None])
+                kv_log.logkv_mean("grad_norm_mean", float(aux["grad_norm"]))
+                kv_log.logkv("grad_norm", float(aux["grad_norm"]))
+                kv_log.logkv_mean("param_norm", float(aux["param_norm"]))
+            else:
+                state, loss = step_fn(state, batch)
+                pending.append(loss[None])
+            it += 1
         if it % tc.log_interval == 0:
-            for loss in torch.stack(pending).tolist():  # waits for the card
+            for loss in torch.cat(pending).tolist():  # waits for the card
                 counter.add(loss)
             pending.clear()
             dt = (time.perf_counter() - t_flush) / tc.log_interval

@@ -7,13 +7,22 @@ DDPM math:
   sigma_t = sqrt((1-abar[t-2])/(1-abar[t-1]) * beta[t-1]);
   x_{t-1} = mu_t + sigma_t * N(0,1)      (noise added at every step).
 
-The JAX package runs the chain as one compiled loop; here it is a Python
-loop under `torch.no_grad()` that never waits for the device: the per-step
-scalars come from the numpy schedule tables, float32 as the JAX package
-computes them, and nothing is read back until the caller takes the images.
+The JAX package runs the chain as one compiled loop.  Here one step of the
+chain is a function of tensors that stay put: the image x, the injected
+noise z, a step counter i on the device, and per-step tables on the device
+(the timestep and the step's coefficients, float32 from the numpy schedule
+tables as the JAX package computes them, indexed by i, which the step
+advances).  On a CUDA device that step is captured into a CUDA graph and
+the chain is its replays (`utils/graphs.py`: the first step runs eagerly,
+the second is captured); on the CPU the same step runs eagerly.  Nothing
+is read back until the caller takes the images.
+
 Where the JAX functions take a PRNG key, these take a `torch.Generator` on
-the model's device; the two frameworks draw different numbers, so parity
-tests feed `x_init` and `noise`.
+the model's device.  The noise of a step is drawn before its replay, outside
+the graph, into z (`z.normal_(generator=...)`, the numbers `torch.randn`
+draws), so a chain draws the same numbers from the same generator whether
+it is captured or not.  The two frameworks draw different numbers, so
+parity tests feed `x_init` and `noise`.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 
 from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from unet_tpu_torch.utils import graphs
 
 
 def make_model_fn(cfg: UnetConfig, *, compute_dtype=torch.float32,
@@ -58,10 +68,62 @@ def make_model_fn(cfg: UnetConfig, *, compute_dtype=torch.float32,
 
 def _start(model, cfg, generator, batch_size, x_init):
     if x_init is not None:
-        return x_init.to(device=model.device, dtype=torch.float32)
+        return x_init.to(device=model.device, dtype=torch.float32).clone()
     return torch.randn((batch_size, cfg.image_size, cfg.image_size,
                         cfg.in_channels), generator=generator,
                        device=model.device)
+
+
+def _run_chain(step, z, n, draws, generator, noise) -> None:
+    """Runs `step` n times (captured and replayed on a CUDA device).  Before
+    step k, where `draws[k]`, z gets that step's noise: `noise[k]` when
+    given, else a draw from `generator`."""
+    if noise is not None:
+        noise = noise.to(device=z.device, dtype=torch.float32)
+    chain = graphs.Graph(step, z.device)
+    for k in range(n):
+        if draws[k]:
+            if noise is None:
+                z.normal_(generator=generator)
+            else:
+                z.copy_(noise[k])
+        chain()
+
+
+class _StepTables:
+    """Per-step tables on the device and the step counter that indexes
+    them, both read and advanced on the device: `at(name)` is the (1,)
+    entry of the current step, `at.advance()` moves to the next.  (An
+    index that is a 0-dim tensor would be read back to the host.)"""
+
+    def __init__(self, device, **columns):
+        self.columns = {k: torch.as_tensor(np.asarray(v, np.float32),
+                                           device=device)
+                        for k, v in columns.items()}
+        self.i = torch.zeros((1,), dtype=torch.long, device=device)
+
+    def __call__(self, name: str) -> torch.Tensor:
+        return self.columns[name].index_select(0, self.i)
+
+    def advance(self) -> None:
+        self.i.add_(1)
+
+
+def ddpm_tables(diffusion: GaussianDiffusion, n: int) -> dict:
+    """The timestep and the coefficients of the ancestral chain's first n
+    steps (t = T-1, T-2, ...), float32 numpy columns: the scalars the JAX
+    package's loop computes at each step."""
+    f32 = np.float32
+    t = diffusion.num_timesteps - 1 - np.arange(n)
+    beta_t = diffusion.betas[t - 1]
+    alpha_t = diffusion.alphas_cumprod[t - 1]
+    alpha_t_1 = diffusion.alphas_cumprod[t - 2]
+    return dict(
+        t=t.astype(f32),
+        c_eps=beta_t / np.sqrt(f32(1.0) - alpha_t),
+        c_mu=f32(1.0) / np.sqrt(f32(1.0) - beta_t),
+        sigma=np.sqrt((f32(1.0) - alpha_t_1) / (f32(1.0) - alpha_t)
+                      * beta_t))
 
 
 @torch.no_grad()
@@ -79,8 +141,6 @@ def ddpm_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
     drawing it from `generator`, and `x_init` the start: the cross-framework
     parity hooks."""
     T = diffusion.num_timesteps
-    f32 = np.float32
-    betas, abar = diffusion.betas, diffusion.alphas_cumprod
     net = model.to_compute(compute_dtype)
     x = _start(net, cfg, generator, batch_size, x_init)
     if model_fn is None:
@@ -89,18 +149,15 @@ def ddpm_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
     n = T - 2 if num_steps is None else min(num_steps, T - 2)
     if noise is not None and noise.shape[0] < n:
         raise ValueError(f"noise has {noise.shape[0]} steps, chain needs {n}")
-    for i in range(n):
-        t = T - 1 - i  # t runs T-1, T-2, ..., 2
-        eps = model_fn(net, x, torch.full((x.shape[0],), float(t),
-                                          device=x.device))
-        beta_t, alpha_t, alpha_t_1 = betas[t - 1], abar[t - 1], abar[t - 2]
-        c_eps = beta_t / np.sqrt(f32(1.0) - alpha_t)
-        c_mu = f32(1.0) / np.sqrt(f32(1.0) - beta_t)
-        sigma = np.sqrt((f32(1.0) - alpha_t_1) / (f32(1.0) - alpha_t)
-                        * beta_t)
-        z = (torch.randn(x.shape, generator=generator, device=x.device)
-             if noise is None else noise[i].to(x.device))
-        x = (x - float(c_eps) * eps) * float(c_mu) + float(sigma) * z
+    at = _StepTables(x.device, **ddpm_tables(diffusion, n))
+    z = torch.zeros_like(x)
+
+    def step():
+        eps = model_fn(net, x, at("t").expand(x.shape[0]))
+        x.copy_((x - at("c_eps") * eps) * at("c_mu") + at("sigma") * z)
+        at.advance()
+
+    _run_chain(step, z, n, [True] * n, generator, noise)
     return x
 
 
@@ -113,6 +170,33 @@ def make_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion, *,
         model, cfg, diffusion, generator, num_steps=num_steps,
         batch_size=batch_size, compute_dtype=compute_dtype,
         y=y, guidance_scale=guidance_scale)
+
+
+def ddim_tables(diffusion: GaussianDiffusion, num_steps: int,
+                eta: float = 0.0) -> dict:
+    """The timesteps and coefficients of a DDIM chain of `num_steps` (fewer
+    where the rounded linspace repeats a step), float32 numpy columns: the
+    scalars the JAX package's loop computes at each step (see
+    `ddim_sample`)."""
+    T = diffusion.num_timesteps
+    if not 1 <= num_steps <= T - 1:
+        raise ValueError(f"num_steps must be in [1, {T - 1}], got {num_steps}")
+    f32 = np.float32
+    abar = diffusion.alphas_cumprod
+    ts = np.unique(np.linspace(1, T - 1, num_steps)
+                   .round().astype(np.int64))[::-1]
+    a_cur = abar[ts - 1]
+    a_prev = np.concatenate([abar[ts[1:] - 1], [1.0]])
+    sigma = (eta * np.sqrt((1.0 - a_prev) / (1.0 - a_cur))
+             * np.sqrt(np.maximum(1.0 - a_cur / a_prev, 0.0)))
+    a_t, a_p, sg = (a.astype(f32) for a in (a_cur, a_prev, sigma))
+    return dict(
+        t=ts.astype(f32),
+        c_eps=np.sqrt(f32(1.0) - a_t),
+        c_x0=f32(1.0) / np.sqrt(a_t),
+        c_prev=np.sqrt(a_p),
+        c_dir=np.sqrt(np.maximum(f32(1.0) - a_p - sg * sg, f32(0.0))),
+        sigma=sg)
 
 
 @torch.no_grad()
@@ -133,41 +217,33 @@ def ddim_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
            + sigma N(0,1)
 
     with abar_prev = 1 at the final step, so eta=0 is deterministic given
-    x_init.  `noise` (n_steps, B, H, W, C) supplies the injected noise, a
-    parity hook like ddpm_sample's."""
-    T = diffusion.num_timesteps
-    if not 1 <= num_steps <= T - 1:
-        raise ValueError(f"num_steps must be in [1, {T - 1}], got {num_steps}")
-    f32 = np.float32
-    abar = diffusion.alphas_cumprod
-    ts = np.unique(np.linspace(1, T - 1, num_steps)
-                   .round().astype(np.int64))[::-1]
-    a_cur = abar[ts - 1]
-    a_prev = np.concatenate([abar[ts[1:] - 1], [1.0]])
-    sigma = (eta * np.sqrt((1.0 - a_prev) / (1.0 - a_cur))
-             * np.sqrt(np.maximum(1.0 - a_cur / a_prev, 0.0)))
-    a_cur, a_prev, sigma = (a.astype(f32) for a in (a_cur, a_prev, sigma))
-
+    x_init.  A step whose sigma is 0 draws no noise.  `noise` (n_steps, B,
+    H, W, C) supplies the injected noise, a parity hook like
+    ddpm_sample's."""
+    columns = ddim_tables(diffusion, num_steps, eta)
+    n = len(columns["t"])
+    draws = list(columns["sigma"] != 0.0)
     net = model.to_compute(compute_dtype)
     x = _start(net, cfg, generator, batch_size, x_init)
     if model_fn is None:
         model_fn = make_model_fn(cfg, compute_dtype=compute_dtype, y=y,
                                  guidance_scale=guidance_scale)
-    if noise is not None and noise.shape[0] < len(ts):
-        raise ValueError(
-            f"noise has {noise.shape[0]} steps, chain needs {len(ts)}")
-    for i in range(len(ts)):
-        eps = model_fn(net, x, torch.full((x.shape[0],), float(ts[i]),
-                                          device=x.device))
-        a_t, a_p, sg = a_cur[i], a_prev[i], sigma[i]
-        c_x0 = f32(1.0) / np.sqrt(a_t)
-        x0 = (x - float(np.sqrt(f32(1.0) - a_t)) * eps) * float(c_x0)
-        c_dir = np.sqrt(np.maximum(f32(1.0) - a_p - sg * sg, f32(0.0)))
-        x = float(np.sqrt(a_p)) * x0 + float(c_dir) * eps
-        if sg != 0.0:
-            z = (torch.randn(x.shape, generator=generator, device=x.device)
-                 if noise is None else noise[i].to(x.device))
-            x = x + float(sg) * z
+    if noise is not None and noise.shape[0] < n:
+        raise ValueError(f"noise has {noise.shape[0]} steps, chain needs {n}")
+    at = _StepTables(x.device, **columns)
+    z = torch.zeros_like(x)
+
+    def step():
+        eps = model_fn(net, x, at("t").expand(x.shape[0]))
+        x0 = (x - at("c_eps") * eps) * at("c_x0")
+        x_next = at("c_prev") * x0 + at("c_dir") * eps
+        if any(draws):
+            # + 0 * z at a step that draws nothing: x_next, exactly
+            x_next = x_next + at("sigma") * z
+        x.copy_(x_next)
+        at.advance()
+
+    _run_chain(step, z, n, draws, generator, noise)
     return x
 
 

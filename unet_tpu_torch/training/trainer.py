@@ -2,12 +2,18 @@
 
 One step is: timesteps and noise from the step's generator -> q_sample ->
 U-Net forward (the hand-written GroupNorm and attention kernels) -> MSE ->
-backward (their backward kernels) -> AdamW -> EMA.  The JAX package compiles
-it into one program with donated state; here it runs eagerly, and the
-parameters (an `nn.Module` of float32 master parameters), the AdamW moments
-and the EMA are updated in place, so `step_with` returns the state object it
-was given, changed.  Nothing in a step waits for the device; the caller
-reads the loss when it needs it.
+backward (their backward kernels) -> AdamW -> EMA.  The parameters (an
+`nn.Module` of float32 master parameters), the AdamW moments and the EMA are
+updated in place, so a step returns the state object it was given, changed.
+Nothing in a step waits for the device; the caller reads the loss when it
+needs it.
+
+`make_train_step` runs a step eagerly, op by op.  `make_multi_step` and
+`make_flat_multi_step` are the JAX package's one-program chunk of K steps:
+on a CUDA device one step is captured into a CUDA graph and replayed K
+times (`utils/graphs.py`), on the CPU the same code runs eagerly.  The flat
+variant keeps the master parameters and both moments as three flat float32
+vectors (`FlatState`) and calls the model through views of them.
 
 The random stream is a pure function of (seed, step): each step draws its
 timesteps, then its noise, then the label dropout from a `torch.Generator`
@@ -22,7 +28,8 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import List, Optional
+import math
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ from unet_tpu_torch.io import checkpoint as ckpt_io
 from unet_tpu_torch.models import unet
 from unet_tpu_torch.ops import functional as F
 from unet_tpu_torch.training import optim
+from unet_tpu_torch.utils import graphs
 
 
 @dataclasses.dataclass
@@ -118,28 +126,36 @@ def _ema_step(ema: Optional[unet.UNet], params: unet.UNet,
 
 
 def make_loss_fn(cfg: UnetConfig, diffusion: GaussianDiffusion,
-                 compute_dtype=torch.float32, remat: bool = False):
+                 compute_dtype=torch.float32, remat: bool = False,
+                 apply=unet.apply):
     """`loss_fn(model, x_start, t, noise, y=None)`: the MSE between the
-    model's prediction at x_t = q_sample(x_start, t, noise) and the noise."""
+    model's prediction at x_t = q_sample(x_start, t, noise) and the noise.
+    `apply` calls the model (`unet.apply`; `Unravel.apply` for a flat
+    vector of its parameters)."""
     def loss_fn(model, x_start, t, noise, y=None):
         x_t = diffusion.q_sample(x_start, t, noise)
-        pred = unet.apply(model, x_t.to(compute_dtype), t, y,
-                          compute_dtype=compute_dtype, remat=remat)
+        pred = apply(model, x_t.to(compute_dtype), t, y,
+                     compute_dtype=compute_dtype, remat=remat)
         return F.mse_loss(pred, noise)
     return loss_fn
 
 
-def _make_grad_fn(loss_fn, tc: TrainConfig):
+def _parameters(model) -> List[torch.Tensor]:
+    return list(model.parameters())
+
+
+def _make_grad_fn(loss_fn, tc: TrainConfig, leaves=_parameters):
     """`grad_fn(model, batch, t, noise, y=None) -> (loss, grads)`: the loss
-    (a float32 0-dim tensor, detached) and one float32 gradient per
-    parameter, in `model.parameters()` order.
+    (a float32 0-dim tensor, detached) and one float32 gradient per tensor
+    of `leaves(model)` (the parameters, in `model.parameters()` order; for
+    a flat vector, the vector).
 
     With 0 < tc.microbatch < batch the batch runs as consecutive
     microbatches of that size, gradients summed in float32 and the loss and
     the sum scaled by 1/n: the mean of the microbatch means, which is the
     full batch's mean, at microbatch/B of the activation memory."""
     def value_and_grad(model, batch, t, noise, y):
-        params = list(model.parameters())
+        params = leaves(model)
         loss = loss_fn(model, batch, t, noise, y)
         grads = torch.autograd.grad(loss, params)
         return loss.detach(), [g.float() for g in grads]
@@ -180,7 +196,8 @@ def _drop_labels(y, generator: torch.Generator, rate: float):
     return torch.where(drop, torch.full_like(y, -1), y)
 
 
-def _setup(cfg: UnetConfig, tc: TrainConfig, diffusion, device):
+def _setup(cfg: UnetConfig, tc: TrainConfig, diffusion, device,
+           apply=unet.apply, leaves=_parameters):
     """(device, diffusion, grad_fn) of a step function: the linear schedule
     when no diffusion is given."""
     device = torch.device(device)
@@ -188,8 +205,15 @@ def _setup(cfg: UnetConfig, tc: TrainConfig, diffusion, device):
         diffusion = GaussianDiffusion.create(
             named_beta_schedule("linear", cfg.max_period), device=device)
     grad_fn = _make_grad_fn(
-        make_loss_fn(cfg, diffusion, tc.compute_torch_dtype, tc.remat), tc)
+        make_loss_fn(cfg, diffusion, tc.compute_torch_dtype, tc.remat,
+                     apply), tc, leaves)
     return device, diffusion, grad_fn
+
+
+def _adamw_params(tc: TrainConfig) -> optim.AdamWParams:
+    return optim.AdamWParams(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
+                             eps=tc.eps, weight_decay=tc.weight_decay,
+                             anneal_steps=tc.lr_anneal_steps)
 
 
 def _to_device(a, device, dtype=None):
@@ -205,14 +229,11 @@ def _draws(state: TrainState, batch, num_timesteps: int, device):
     return gen, t, torch.randn(batch.shape, generator=gen, device=device)
 
 
-def _update(state: TrainState, grads, tc: TrainConfig) -> None:
-    """AdamW on the parameters with the 1-based step count, then the EMA."""
-    hp = optim.AdamWParams(lr=tc.lr, beta1=tc.beta1, beta2=tc.beta2,
-                           eps=tc.eps, weight_decay=tc.weight_decay,
-                           anneal_steps=tc.lr_anneal_steps)
-    state.step += 1
+def _update(state: TrainState, grads, step, tc: TrainConfig) -> None:
+    """AdamW on the parameters with the 1-based step count `step` (an int
+    or a 0-dim tensor on the device), then the EMA."""
     optim.adamw_update(list(state.params.parameters()), grads, state.m,
-                       state.v, state.step, hp)
+                       state.v, step, _adamw_params(tc))
     _ema_step(state.ema, state.params, tc.ema_rate)
 
 
@@ -236,7 +257,8 @@ def make_train_step(cfg: UnetConfig, tc: TrainConfig,
                                                      torch.float32)
         y = None if y is None else _to_device(y, device, torch.long)
         loss, grads = grad_fn(state.params, batch, t, noise, y)
-        _update(state, grads, tc)
+        state.step += 1
+        _update(state, grads, state.step, tc)
         return state, loss
 
     def train_step(state: TrainState, batch, y=None):
@@ -249,22 +271,226 @@ def make_train_step(cfg: UnetConfig, tc: TrainConfig,
     return train_step, step_with
 
 
+def from_uint8(pixels: torch.Tensor) -> torch.Tensor:
+    """float32 u / 127.5 - 1 of uint8 pixels u: the values a `.bin`
+    written from them stores (within 1 ulp on a CUDA device, which
+    multiplies by the reciprocal; exactly on the CPU)."""
+    return pixels.to(torch.float32) / 127.5 - 1.0
+
+
+class MultiStep:
+    """K train steps as K replays of one captured step (`utils/graphs.py`):
+    on a CUDA device the first step ever runs eagerly (the warm-up), the
+    second is captured, and every step after that is a replay; on the CPU
+    every step runs eagerly.  Returned by `make_multi_step` and
+    `make_flat_multi_step`.
+
+    * `multi(state, batches) -> (state, losses)`: K steps over batches
+      (K, B, H, W, C) (uint8 pixels where `make_multi_step` was given
+      `input_u8`), the K losses in one (K,) float32 tensor on the device;
+    * `multi.step_with(state, batch, t, noise) -> (state, loss)`: one
+      step with its timesteps and noise given (the parity hook).
+
+    Each step's timesteps and noise are drawn outside the graph, from the
+    step's generator (`step_generator`), as `make_train_step`'s
+    `train_step` draws them, and copied into the graph's input tensors:
+    the random stream stays a pure function of (seed, step) on both paths.
+    The graph reads the parameters, moments and EMA of the state it was
+    captured with, in place; a call with another state, or another batch
+    shape or type, captures again.  `graph` is the current `graphs.Graph`
+    (its `held` counts the kernels one step launches)."""
+
+    def __init__(self, device, diffusion, grad_fn, update, tensors,
+                 input_u8: bool):
+        self.device, self.diffusion = device, diffusion
+        self._grad_fn, self._update, self._tensors = grad_fn, update, tensors
+        self.input_u8 = input_u8
+        self.graph = None
+        self._bound = None
+
+    def _bind(self, state, shape, dtype) -> None:
+        """The graph and its input tensors for this state and batch."""
+        key = (id(state), tuple(t.data_ptr() for t in self._tensors(state)),
+               shape, dtype)
+        if key == self._bound:
+            return
+        self.graph = None  # frees the old graph's memory pool
+        dev = self.device
+        self._batch = torch.zeros(shape, dtype=dtype, device=dev)
+        self._t = torch.zeros(shape[:1], dtype=torch.long, device=dev)
+        self._noise = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self._step = torch.zeros((), dtype=torch.float32, device=dev)
+        self._loss = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def step():
+            batch = self._batch
+            if self.input_u8:
+                batch = from_uint8(batch)
+            loss, grads = self._grad_fn(state, batch, self._t, self._noise)
+            self._step.add_(1.0)
+            self._update(state, grads, self._step)
+            self._loss.copy_(loss)
+
+        self.graph = graphs.Graph(step, dev)
+        self._bound = key
+
+    def _run(self, state, batch, t, noise) -> None:
+        self._batch.copy_(batch)
+        self._t.copy_(t)
+        self._noise.copy_(noise)
+        self.graph()
+        state.step += 1
+
+    def __call__(self, state, batches):
+        batches = _to_device(batches, self.device)
+        self._bind(state, tuple(batches.shape[1:]), batches.dtype)
+        self._step.fill_(state.step)
+        losses = torch.empty(batches.shape[0], dtype=torch.float32,
+                             device=self.device)
+        for i, batch in enumerate(batches):
+            _, t, noise = _draws(state, batch, self.diffusion.num_timesteps,
+                                 self.device)
+            self._run(state, batch, t, noise)
+            losses[i] = self._loss
+        return state, losses
+
+    def step_with(self, state, batch, t, noise):
+        batch = _to_device(batch, self.device)
+        self._bind(state, tuple(batch.shape), batch.dtype)
+        self._step.fill_(state.step)
+        self._run(state, batch, _to_device(t, self.device),
+                  _to_device(noise, self.device, torch.float32))
+        return state, self._loss.clone()
+
+
+def _tree_tensors(state: TrainState) -> List[torch.Tensor]:
+    ema = [] if state.ema is None else list(state.ema.parameters())
+    return list(state.params.parameters()) + state.m + state.v + ema
+
+
 def make_multi_step(cfg: UnetConfig, tc: TrainConfig,
                     diffusion: Optional[GaussianDiffusion] = None,
-                    device="cuda"):
-    """Returns `multi_step(state, batches) -> (state, losses)`: K train
-    steps over batches (K, B, H, W, C), the K losses as one (K,) tensor.
-    The JAX package scans them in one program; here it is a loop."""
-    train_step, _ = make_train_step(cfg, tc, diffusion, device)
+                    device="cuda", input_u8: bool = False) -> MultiStep:
+    """K train steps of a `TrainState` in one call (see `MultiStep`): the
+    JAX package's one-program scan, with the same AdamW, EMA, microbatches
+    and remat as `make_train_step`, whose steps it equals.
 
-    def multi_step(state: TrainState, batches):
-        losses = []
-        for batch in batches:
-            state, loss = train_step(state, batch)
-            losses.append(loss)
-        return state, torch.stack(losses)
+    input_u8=True takes the batches as uint8 pixels u and computes
+    u / 127.5 - 1 on the device, at a quarter of the bytes to copy there.
+    For a `.bin` that stores exactly that expression of uint8 pixels (every
+    one `data.dataset.write_bin` writes from them) the result is the
+    stored float32 within 1 ulp (on a CUDA device the division is a
+    multiplication by the reciprocal; on the CPU it is exact).  The
+    training CLI probes its first chunk for exactly that before it asks
+    for it."""
+    device, diffusion, grad_fn = _setup(cfg, tc, diffusion, device)
+    return MultiStep(
+        device, diffusion,
+        lambda state, batch, t, noise: grad_fn(state.params, batch, t,
+                                               noise),
+        lambda state, grads, step: _update(state, grads, step, tc),
+        _tree_tensors, input_u8)
 
-    return multi_step
+
+# ---------------------------------------------------------------------------
+# Flat master parameters: the parameters and the AdamW moments each one
+# contiguous float32 vector (the reference's arena layout).  The model is
+# called through views of it; in bfloat16 the whole vector is cast once.
+
+
+@dataclasses.dataclass
+class FlatState:
+    flat: torch.Tensor         # float32 (n,) master parameters, `Unravel`
+    #                            order; requires grad (the step's leaf)
+    m: torch.Tensor            # float32 (n,) AdamW moments
+    v: torch.Tensor
+    step: int                  # number of completed optimizer steps
+    seed: int                  # base seed of the random stream
+
+
+def _channels_last(p: torch.Tensor) -> bool:
+    return (p.dim() == 4 and not p.is_contiguous()
+            and p.is_contiguous(memory_format=torch.channels_last))
+
+
+class Unravel:
+    """The parameters of `model` as views of one flat vector, in
+    `unet.param_order` (the `.bin` file's order), each parameter's elements
+    in its memory order: a convolution kernel kept channels_last (see
+    `models.blocks.Conv2d`) as (O, kh, kw, I), so that its view has the
+    module's strides.
+
+    * `unravel(flat) -> {name: view}`, the names of `named_parameters()`;
+    * `unravel.flatten(model)`: the vector of a model's parameters;
+    * `unravel.apply(flat, x, t, y=None, *, compute_dtype, remat)`:
+      `unet.apply` with the parameters of `flat`, cast to `compute_dtype`
+      with one cast of the whole vector, inside the autograd graph, so the
+      gradient comes back as one vector in `flat`'s type."""
+
+    def __init__(self, model: unet.UNet):
+        self.model = model
+        self.names, self.shapes, self.layouts = [], [], []
+        for path, _ in unet.param_order(model.cfg, model.num_classes):
+            p = unet.get_param(model, path)
+            self.names.append(".".join(str(k) for k in path))
+            self.shapes.append(tuple(p.shape))
+            self.layouts.append(_channels_last(p))
+        self.sizes = [math.prod(s) for s in self.shapes]
+
+    def flatten(self, model: unet.UNet) -> torch.Tensor:
+        params = dict(model.named_parameters())
+        return torch.cat([
+            (params[n].detach().permute(0, 2, 3, 1) if cl
+             else params[n].detach()).reshape(-1).float()
+            for n, cl in zip(self.names, self.layouts)])
+
+    def __call__(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, shape, cl, piece in zip(self.names, self.shapes,
+                                          self.layouts,
+                                          torch.split(flat, self.sizes)):
+            if cl:
+                o, i, kh, kw = shape
+                out[name] = piece.view(o, kh, kw, i).permute(0, 3, 1, 2)
+            else:
+                out[name] = piece.view(shape)
+        return out
+
+    def apply(self, flat, x, t, y=None, *, compute_dtype=None,
+              remat: bool = False):
+        if compute_dtype is not None and compute_dtype != flat.dtype:
+            flat = flat.to(compute_dtype)
+        return torch.func.functional_call(self.model, self(flat), (x, t, y),
+                                          {"remat": remat})
+
+
+def flatten_state(params: unet.UNet, *, seed: int = 0, step: int = 0):
+    """(FlatState, Unravel) of a model: its parameters copied into one
+    float32 vector, zero moments."""
+    unravel = Unravel(params)
+    flat = unravel.flatten(params).requires_grad_()
+    return FlatState(flat=flat, m=torch.zeros_like(flat.detach()),
+                     v=torch.zeros_like(flat.detach()), step=step,
+                     seed=seed), unravel
+
+
+def make_flat_multi_step(cfg: UnetConfig, tc: TrainConfig, unravel: Unravel,
+                         diffusion: Optional[GaussianDiffusion] = None,
+                         device="cuda") -> MultiStep:
+    """K train steps of a `FlatState` in one call (see `MultiStep`): the
+    gradient as one flat vector, AdamW over the whole vector at once
+    (`optim.adamw_update_flat`), microbatches honoured; no EMA, as the JAX
+    package's `make_flat_multi_step`."""
+    device, diffusion, grad_fn = _setup(cfg, tc, diffusion, device,
+                                        apply=unravel.apply,
+                                        leaves=lambda flat: [flat])
+    hp = _adamw_params(tc)
+    return MultiStep(
+        device, diffusion,
+        lambda state, batch, t, noise: grad_fn(state.flat, batch, t, noise),
+        lambda state, grads, step: optim.adamw_update_flat(
+            state.flat, grads[0], state.m, state.v, step, hp),
+        lambda state: [state.flat, state.m, state.v], False)
 
 
 def tree_sq_norm(tensors) -> torch.Tensor:
@@ -288,7 +514,8 @@ def make_train_step_aux(cfg: UnetConfig, tc: TrainConfig,
         aux = {"loss": loss, "grad_norm": tree_sq_norm(grads),
                "param_norm": tree_sq_norm(
                    p.detach() for p in state.params.parameters())}
-        _update(state, grads, tc)
+        state.step += 1
+        _update(state, grads, state.step, tc)
         return state, aux
 
     return train_step
