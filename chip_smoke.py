@@ -81,7 +81,29 @@ object per line:
      64 channels a head: both refuse head size 48 on the card before they
      build a model; 3 bfloat16 steps at B=32 with a checkpoint, then a DDIM-10
      request at B=4 from it, with exact launch counts and finite losses.
-  9. `conv_checks` and `conv`: the kernel-benchmark path.  The
+  9. `cli`: the rest of the one-card training CLI at the default model,
+     full width and depth, B=32.  The data path: bfloat16 with the EMA,
+     50 chunked steps at a log interval of 10, with `--native_loader` true
+     and false, each sequential and with `--randomize`; for each, over
+     the intervals past the capture that stage a chunk (the 2nd to the
+     4th): ms/step, the idle share, the host's ms to assemble and stage a
+     chunk (`chunk_host_ms` of the CSV log) and its ms in the call that
+     queues a chunk's steps; the first staged chunks of the two loaders
+     must be byte-equal.  `--host_rng`: 4 float32 per-step
+     steps saved at 2, and a resume from 2 to 4: the same 625-word blob
+     (also that of four steps' draws from the seed) and losses within
+     1e-5.  The SIGTERM save: `python -m unet_tpu_torch.cli.train` in a
+     child process, chunked, gets SIGTERM after its first log line and must
+     exit 0, log "caught signal 15 at step N" and leave only
+     `model_N.bin`; `--auto_resume` must then resume from it to step N+10.
+     Class-conditional training: 3 bfloat16 steps of `make_train_step`
+     with 10 classes and label dropout 0.1 on seeded labels, then a CFG
+     DDIM-10 request from its checkpoint (the image-directory decode needs
+     Pillow, which the card's machine lacks: the CPU tests run it).  A
+     `.pt` state_dict of the default model served by `cli.generate.run`
+     (DDIM-10, B=4) must give the images of the `.bin` of the same weights.
+     Launch counts are held exactly for the runs in this process.
+ 10. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
      and O are multiples of 8, else float32 FMAs, each case naming its
@@ -94,7 +116,7 @@ object per line:
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
- 10. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+ 11. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
      convolution's: those of the `conv` phase); then the seconds the whole
      run took, the card's name and power limit, and the result line.
@@ -114,6 +136,7 @@ import json
 import math
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -154,6 +177,7 @@ from unet_tpu_torch.scripts import bench_ops, block_timing  # noqa: E402
 from unet_tpu_torch.scripts import conv_proto  # noqa: E402
 from unet_tpu_torch.training import trainer  # noqa: E402
 from unet_tpu_torch.utils import graphs  # noqa: E402
+from unet_tpu_torch.utils.native import TorchRng  # noqa: E402
 from unet_tpu_torch.utils.benchmark import (  # noqa: E402
     bound, device_line, graph_ms)
 
@@ -1388,6 +1412,357 @@ def drive_head_size(tmp, totals, gen):
                 kernel_inputs=check_seen_shapes(seen, gen))
 
 
+# The `cli` phase.  Data path: 50 steps at a log interval of 10; the
+# intervals between the first (warm-up and capture) and the last (which
+# stages no chunk) are read: each stages a chunk while the card runs one.
+CLI_DATA_STEPS, CLI_DATA_INTERVAL = 50, 10
+# --host_rng, float32 per-step: the resumed run's losses against the
+# straight run's, as a captured float32 step against an eager one.
+HOST_RNG_LOSS_RTOL = STEP_LOSS_RTOL
+
+
+@contextlib.contextmanager
+def first_chunk_kept(kept):
+    """Within the block, the first chunk a `cli.train` run stages is copied
+    into `kept` (an empty list), as the pinned host buffer held it when its
+    copy to the card was queued."""
+    real = train_cli._ChunkStager.send
+
+    def send(self):
+        if not kept:
+            kept.append(self.host.numpy().copy())
+        return real(self)
+
+    train_cli._ChunkStager.send = send
+    try:
+        yield
+    finally:
+        train_cli._ChunkStager.send = real
+
+
+@contextlib.contextmanager
+def enqueue_timed(seconds):
+    """Within the block, the host's seconds in each call of a train chunk
+    (`MultiStep.__call__`: the draws and the replays queued) are appended
+    to `seconds`."""
+    real = trainer.MultiStep.__call__
+
+    def call(self, state, batches):
+        t0 = time.perf_counter()
+        out = real(self, state, batches)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    trainer.MultiStep.__call__ = call
+    try:
+        yield
+    finally:
+        trainer.MultiStep.__call__ = real
+
+
+def read_csv(directory):
+    """The rows of the one CSV file `Logger` wrote under `directory`."""
+    (name,) = os.listdir(directory)
+    with open(os.path.join(directory, name)) as f:
+        keys, *rows = [line.rstrip("\n").split(",") for line in f]
+    return [dict(zip(keys, row)) for row in rows]
+
+
+def torch_state_dict(model, cfg):
+    """`model`'s weights as the guided-diffusion torch model's state_dict
+    holds them: in `param_order`, an attention projection as a Conv1d's
+    (O, I, 1), on the CPU."""
+    out = {}
+    for path, kind in unet.param_order(cfg, model.num_classes):
+        w = unet.get_param(model, path).detach().cpu()
+        out[".".join(map(str, path))] = w[..., None] if kind == "conv1d" \
+            else w
+    return out
+
+
+def drive_cli(tmp, totals, step_ms):
+    """The rest of the one-card training CLI at `UnetConfig()`, full width
+    and depth, B=32: the data path (the native loaders against
+    `data_loader`, sequential and `--randomize`, the first staged chunks
+    byte-equal), `--host_rng` with a resume, the SIGTERM save and
+    `--auto_resume` in a child process, class-conditional training and a
+    CFG request from its checkpoint, and a `.pt` state_dict served as the
+    `.bin` of the same weights is.  Launch counts are held exactly where
+    the run is in this process, and added to `totals`."""
+    cfg = UnetConfig()
+    per_step = launches_per_step(cfg, False, 1)
+    gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
+    per_request = dict(gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
+                       qkv_attention_fwd=10 * attn_per_fwd,
+                       qkv_attention_bwd=0, conv3x3_hwbc=0)
+    rng = np.random.default_rng(2)
+    data = os.path.join(tmp, "train.bin")
+    write_bin(data, rng.integers(0, 256, (256, cfg.in_channels,
+                                          cfg.image_size, cfg.image_size),
+                                 dtype=np.uint8).astype(np.float32)
+              / 127.5 - 1.0)
+
+    def counted(name, want):
+        got = counts()
+        if got != want:
+            raise AssertionError(f"cli {name}: launches {got}, want {want}")
+        for k, v in got.items():
+            totals[k] += v
+        return got
+
+    def train(name, *flags):
+        log = os.path.join(tmp, f"{name}.txt")
+        argv = ["--data_file", data, "--device", str(DEV), "--batch_size",
+                str(TRAIN_BATCH), "--output_dir", os.path.join(tmp, name),
+                "--log_file", log, *flags]
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            state = train_cli.main(argv)
+        torch.cuda.synchronize()
+        with open(log) as f:
+            return state, f.read(), out.getvalue()
+
+    # --- the data path ---
+    data_runs, first_chunks = [], {}
+    for randomize in ("false", "true"):
+        for native_loader in ("true", "false"):
+            name = f"data_native_{native_loader}_randomize_{randomize}"
+            csv_dir = os.path.join(tmp, name + "_csv")
+            kept, enqueue = [], []
+            reset_counts()
+            t0 = time.perf_counter()
+            with first_chunk_kept(kept), enqueue_timed(enqueue):
+                state, log, _ = train(
+                    name, "--compute_dtype", "bfloat16", "--ema_rate",
+                    "0.999", "--iterations", str(CLI_DATA_STEPS),
+                    "--log_interval", str(CLI_DATA_INTERVAL),
+                    "--save_interval", "0", "--native_loader", native_loader,
+                    "--randomize", randomize, "--csv_log_dir", csv_dir)
+            seconds = time.perf_counter() - t0
+            launches = counted(name, {k: CLI_DATA_STEPS * v
+                                      for k, v in per_step.items()})
+            lines = LOG_LINE.findall(log)
+            if ("H2D encoding: uint8" not in log or state.step
+                    != CLI_DATA_STEPS or [int(s) for s, _, _ in lines]
+                    != list(range(CLI_DATA_INTERVAL, CLI_DATA_STEPS + 1,
+                                  CLI_DATA_INTERVAL))
+                    or not all(math.isfinite(float(v)) for _, v, _ in lines)):
+                raise AssertionError(f"cli {name}: log {log[:400]}")
+            rows = read_csv(csv_dir)
+            # the warm intervals that stage a chunk while the card runs one
+            ms = float(np.mean([float(m) for _, _, m in lines[1:-1]]))
+            host_ms = float(np.mean([float(r["chunk_host_ms"])
+                                     for r in rows[1:-1]]))
+            first_chunks[(randomize, native_loader)] = kept[0]
+            data_runs.append(dict(
+                run=name, native_loader=native_loader == "true",
+                randomize=randomize == "true", batch=TRAIN_BATCH,
+                steps=CLI_DATA_STEPS, log_interval=CLI_DATA_INTERVAL,
+                ms_per_step=ms, images_per_s=TRAIN_BATCH / ms * 1e3,
+                ms_per_step_by_interval=[float(m) for _, _, m in lines],
+                device_ms_per_step=step_ms["bf16"],
+                idle_share=1.0 - step_ms["bf16"] / ms,
+                host_ms_per_chunk=host_ms,
+                host_ms_per_chunk_by_interval=[
+                    float(r["chunk_host_ms"]) if r["chunk_host_ms"] else None
+                    for r in rows],
+                enqueue_host_ms_per_chunk=float(np.mean(enqueue[1:])) * 1e3,
+                enqueue_host_ms_by_chunk=[t * 1e3 for t in enqueue],
+                logged_losses=[float(v) for _, v, _ in lines],
+                seconds=seconds, launches=launches))
+            del state
+            free_graphs()
+    for randomize in ("false", "true"):
+        a, b = (first_chunks[(randomize, n)] for n in ("true", "false"))
+        if a.dtype != np.uint8 or a.shape != (
+                CLI_DATA_INTERVAL, TRAIN_BATCH, cfg.image_size,
+                cfg.image_size, cfg.in_channels) or not np.array_equal(a, b):
+            raise AssertionError(f"cli: the native loader's first chunk is "
+                                 f"not data_loader's (randomize {randomize})")
+    if np.array_equal(first_chunks[("false", "true")],
+                      first_chunks[("true", "true")]):
+        raise AssertionError("cli: --randomize staged the sequential chunk")
+
+    # --- --host_rng: 4 per-step float32 steps saved at 2, and a resume ---
+    hr_flags = ("--compute_dtype", "float32", "--host_rng", "true",
+                "--iterations", "4", "--log_interval", "1",
+                "--save_interval", "2")
+    reset_counts()
+    _, straight_log, _ = train("host_rng", *hr_flags)
+    counted("host_rng", {k: 4 * v for k, v in per_step.items()})
+    reset_counts()
+    _, resumed_log, out = train(
+        "host_rng_resume", *hr_flags, "--model_weights",
+        os.path.join(tmp, "host_rng", "model_2.bin"))
+    counted("host_rng_resume", {k: 2 * v for k, v in per_step.items()})
+    blobs = [ckpt_io.load(os.path.join(tmp, d, "model_4.bin"),
+                          device=DEV).host_rng_state
+             for d in ("host_rng", "host_rng_resume")]
+    drawn = TorchRng(0)  # four steps' draws from the seed
+    for _ in range(4):
+        drawn.timesteps(TRAIN_BATCH, cfg.max_period)
+        drawn.normal((TRAIN_BATCH, cfg.in_channels, cfg.image_size,
+                      cfg.image_size))
+    straight = [float(v) for _, v, _ in LOG_LINE.findall(straight_log)]
+    resumed = [float(v) for _, v, _ in LOG_LINE.findall(resumed_log)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[2:]))
+    if ("loaded" not in out or len(straight) != 4 or len(resumed) != 2
+            or not all(map(math.isfinite, straight))
+            or not rel <= HOST_RNG_LOSS_RTOL
+            or not np.array_equal(blobs[0], blobs[1])
+            or not np.array_equal(blobs[0], drawn.get_state())):
+        raise AssertionError(f"cli host_rng: losses {straight} / {resumed}, "
+                             f"blobs equal {np.array_equal(*blobs)}")
+    host_rng = dict(dtype="float32", steps="4 straight; 2 + resume to 4",
+                    losses=straight, resumed_losses=resumed,
+                    loss_max_rel_diff=rel, loss_rtol=HOST_RNG_LOSS_RTOL,
+                    blob_words=int(blobs[0].size), blobs_equal=True,
+                    blob_is_four_steps_of_draws=True)
+
+    # --- SIGTERM and --auto_resume, in a child process on the card ---
+    root = os.path.dirname(os.path.abspath(__file__))
+    models = os.path.join(tmp, "preempt")
+    child_log = os.path.join(tmp, "preempt.txt")
+    child_argv = [sys.executable, "-m", "unet_tpu_torch.cli.train",
+                  "--data_file", data, "--device", str(DEV),
+                  "--batch_size", str(TRAIN_BATCH), "--compute_dtype",
+                  "bfloat16", "--log_interval", "5", "--output_dir", models,
+                  "--log_file", child_log]
+
+    def child(out_name, *flags):
+        # the child's output goes to a file (never a pipe nobody reads)
+        with open(os.path.join(tmp, out_name), "w") as f:
+            return subprocess.Popen(child_argv + list(flags), cwd=root,
+                                    stdout=f, stderr=subprocess.STDOUT)
+
+    t0 = time.perf_counter()
+    proc = child("preempt.out", "--iterations", "100000",
+                 "--save_interval", "0")
+    try:
+        deadline = time.time() + 300
+        while not (os.path.exists(child_log)
+                   and "step 5:" in open(child_log).read()):
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError(
+                    "cli preempt: no log line: "
+                    + open(os.path.join(tmp, "preempt.out")).read()[-2000:])
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    preempt_log = open(child_log).read()
+    caught = re.search(r"caught signal 15 at step (\d+)", preempt_log)
+    stopped = int(caught.group(1)) if caught else -1
+    if (code != 0 or not caught
+            or sorted(os.listdir(models)) != [f"model_{stopped}.bin"]):
+        raise AssertionError(f"cli preempt: exit {code}, {preempt_log[-500:]}"
+                             f", files {sorted(os.listdir(models))}")
+    if ckpt_io.load(os.path.join(models, f"model_{stopped}.bin"),
+                    device=DEV).step != stopped:
+        raise AssertionError("cli preempt: the checkpoint's step")
+    preempt_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = child("resume.out", "--iterations", str(stopped + 10),
+                 "--save_interval", "5", "--auto_resume", "true")
+    try:
+        code = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    resume_out = open(os.path.join(tmp, "resume.out")).read()
+    resume_log = open(child_log).read()
+    path = os.path.join(models, f"model_{stopped}.bin")
+    if (code != 0 or f"auto-resume: {path}" not in resume_out
+            or f"(step {stopped})" not in resume_out
+            or f"step {stopped + 10}: loss" not in resume_log
+            or not os.path.exists(os.path.join(
+                models, f"model_{stopped + 10}.bin"))):
+        raise AssertionError(f"cli auto_resume: exit {code}, "
+                             f"{resume_out[-1500:]}")
+    preempt = dict(signal="SIGTERM", stopped_at=stopped, exit_code=0,
+                   files_after_signal=[f"model_{stopped}.bin"],
+                   resumed_to=stopped + 10, seconds=preempt_seconds,
+                   resume_seconds=time.perf_counter() - t0,
+                   logged=[line for line in preempt_log.splitlines()
+                           if "caught signal" in line])
+
+    # --- class-conditional training, then a CFG request from it ---
+    num_classes = 10
+    tc = TrainConfig(batch_size=TRAIN_BATCH, compute_dtype="bfloat16",
+                     label_dropout=0.1)
+    state = trainer.init_state(unet.init(
+        cfg, num_classes, generator=torch.Generator().manual_seed(5),
+        device=DEV), seed=5)
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    train_step, _ = trainer.make_train_step(cfg, tc, diffusion, DEV)
+    rng = np.random.default_rng(5)
+    batches = rng.uniform(-1, 1, (3, TRAIN_BATCH, cfg.image_size,
+                                  cfg.image_size, cfg.in_channels)
+                          ).astype(np.float32)
+    labels = rng.integers(0, num_classes, (3, TRAIN_BATCH)).astype(np.int32)
+    reset_counts()
+    losses = []
+    for batch, y in zip(batches, labels):
+        state, loss = train_step(state, batch, y)
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    counted("class_cond", {k: 3 * v for k, v in per_step.items()})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"cli class_cond: losses {losses}")
+    cond = os.path.join(tmp, "cond.bin")
+    ckpt_io.save(cond, trainer.to_checkpoint(state, cfg,
+                                             batch_size=TRAIN_BATCH))
+    del state
+    reset_counts()
+    t0 = time.perf_counter()
+    images = generate.run(generate.parse_args(
+        ["--model_filename", cond, "--device", "cuda", "--sampler", "ddim",
+         "--ddim_steps", "10", "--batch_size", "4", "--compute_dtype",
+         "bfloat16", "--class_label", "3", "--guidance_scale", "3.0"]))
+    cfg_seconds = time.perf_counter() - t0
+    counted("class_cond cfg_ddim10", per_request)
+    if images.shape != (4, cfg.image_size, cfg.image_size, cfg.out_channels):
+        raise AssertionError(f"cli class_cond: images {images.shape}")
+    class_cond = dict(num_classes=num_classes, label_dropout=0.1,
+                      batch=TRAIN_BATCH, steps=3, losses=losses,
+                      request="cfg_ddim10_b4_bf16 label 3 guidance 3.0",
+                      request_seconds=cfg_seconds,
+                      pixel_mean=float(images.mean()),
+                      data_dir="not run on the card (no Pillow there)")
+
+    # --- a .pt state_dict served as the .bin of the same weights ---
+    model = unet.init(cfg, generator=torch.Generator().manual_seed(6),
+                      device=DEV)
+    files = {"pt": os.path.join(tmp, "weights.pt"),
+             "bin": os.path.join(tmp, "weights.bin")}
+    torch.save(torch_state_dict(model, cfg), files["pt"])
+    ckpt_io.save(files["bin"], ckpt_io.Checkpoint(params=model, cfg=cfg,
+                                                  batch_size=4))
+    del model
+    served, seconds = {}, {}
+    for kind, path in files.items():
+        reset_counts()
+        t0 = time.perf_counter()
+        served[kind] = generate.run(generate.parse_args(
+            ["--model_filename", path, "--device", "cuda", "--sampler",
+             "ddim", "--ddim_steps", "10", "--batch_size", "4",
+             "--compute_dtype", "bfloat16", "--seed", "7"]))
+        seconds[kind] = time.perf_counter() - t0
+        counted(f"serve {kind}", per_request)
+    if not np.array_equal(served["pt"], served["bin"]):
+        raise AssertionError("cli: the .pt served other images than the .bin")
+    pt = dict(request="ddim10_b4_bf16", images_equal_to_bin=True,
+              seconds=seconds, pixel_mean=float(served["pt"].mean()))
+    free_graphs()
+    return dict(data_path=data_runs, first_chunks_byte_equal=True,
+                host_rng=host_rng, preempt=preempt, class_cond=class_cond,
+                torch_pt=pt)
+
+
 def check_conv(gen):
     """The convolution kernels against their plain version at
     `CONV_SHAPES`, float32 and bfloat16, twice (the second call must give
@@ -1565,6 +1940,15 @@ def main() -> None:
         other = drive_head_size(tmp, totals, gen)
     emit({"phase": "head_size", "model": f"UnetConfig() ImageNet-64, full "
           f"depth, num_head_channels={OTHER_HEAD_SIZE}", **other,
+          "launches_with_the_runs_before": dict(totals)})
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rest = drive_cli(tmp, totals, {name: step["replay_ms"] for name, step
+                                       in captured["captured_steps"].items()})
+    emit({"phase": "cli", "model": "UnetConfig() ImageNet-64, full depth",
+          **rest, "seconds": time.perf_counter() - t0,
           "launches_with_the_runs_before": dict(totals)})
 
     cases["conv3x3_hwbc"] = check_conv(gen)

@@ -134,7 +134,9 @@ def test_load_refuses_bad_files(tmp_path):
         f.write(_read(good)[:-8])
     with pytest.raises(ValueError, match="truncated"):
         port_ckpt.load(path, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # a .pt goes to load_torch_pt, which wants a state_dict
+    torch.save([1, 2], str(tmp_path / "model.pt"))
+    with pytest.raises(ValueError, match="expected a state_dict"):
         port_ckpt.load(str(tmp_path / "model.pt"), device="cpu")
     with pytest.raises(ValueError, match="AdamW moment"):
         port_ckpt.save(path, port_ckpt.Checkpoint(

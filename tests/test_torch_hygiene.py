@@ -33,7 +33,9 @@ def test_port_files_were_found():
             "unet_tpu_torch/utils/benchmark.py",
             "unet_tpu_torch/scripts/conv_proto.py",
             "unet_tpu_torch/scripts/bench_ops.py",
-            "unet_tpu_torch/scripts/block_timing.py"} <= names
+            "unet_tpu_torch/scripts/block_timing.py",
+            "unet_tpu_torch/utils/native.py",
+            "unet_tpu_torch/cli/prepare_data.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -64,7 +66,9 @@ for p in sorted(root.rglob('*.py')):
         mod = mod[:-9]
     importlib.import_module(mod)
 from unet_tpu_torch.ops.kernels import _build
-assert _build._lib is None
+from unet_tpu_torch.utils import native
+assert _build._lib is None and native._lib is None
+assert 'PIL' not in sys.modules
 assert not [m for m in sys.modules if m.split('.')[0] in ('triton', 'unet_tpu')]
 print('ok')
 """
@@ -73,6 +77,31 @@ print('ok')
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_host_library_is_built_from_the_ports_own_source():
+    """host.cpp lives in the port and names nothing of the JAX package: no
+    `unet_tpu` module or path, no `native/` directory, no JAX."""
+    from unet_tpu_torch.utils import native
+    assert native.SOURCE == ROOT / "unet_tpu_torch" / "native" / "host.cpp"
+    text = native.SOURCE.read_text()
+    assert not re.search(r"\bunet_tpu\b(?!_torch)|\bnative/|\bjax", text)
+    assert "#include <Python.h>" not in text
+    assert "-ffp-contract=off" in native.CXX_FLAGS
+    assert native.BUILD_DIR == ROOT / "unet_tpu_torch" / "build"
+
+
+@pytest.mark.parametrize("name", ["utils/native.py", "cli/train.py",
+                                  "ops/kernels/_build.py"])
+def test_no_handler_swallows_a_build_or_load_failure(name):
+    """Every `except` in the modules that build and load the libraries, or
+    choose the loader, raises again: no fallback to the plain loader or a
+    missing library."""
+    tree = ast.parse((ROOT / "unet_tpu_torch" / name).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ExceptHandler):
+            assert any(isinstance(n, ast.Raise) for n in ast.walk(node)), (
+                name, node.lineno)
 
 
 def test_build_step_raises_without_nvcc(monkeypatch, tmp_path):

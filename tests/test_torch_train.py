@@ -340,18 +340,26 @@ def test_cli_init_model_only_and_log_norms(data_file, capsys):
 
 @pytest.mark.parametrize("flags,item", [
     (["--num_devices", "2"], 8), (["--fsdp", "true"], 8),
-    (["--tensor_parallel", "2"], 8), (["--coordinator_address", "h:1"], 8),
-    (["--class_cond", "true"], 4), (["--host_rng", "true"], 5),
-    (["--auto_resume", "true"], 6)])
+    (["--tensor_parallel", "2"], 8), (["--coordinator_address", "h:1"], 8)])
 def test_cli_flags_of_later_slices_raise(data_file, flags, item):
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         port_cli.main(_cli_flags(data_file, "x", *flags))
 
 
-@pytest.mark.parametrize("flags", [["--microbatch", "3"],
-                                   ["--ema_rate", "1.5"],
-                                   ["--compute_dtype", "float16"],
-                                   ["--label_dropout", "0.1"]])
+@pytest.mark.parametrize("flags", [
+    ["--microbatch", "3"], ["--ema_rate", "1.5"],
+    ["--compute_dtype", "float16"], ["--label_dropout", "0.1"],
+    # (the flags above hold --shuffle true: each case below reaches the
+    # rule it is named after, "--shuffle false" where another would fire)
+    ["--host_rng", "true", "--microbatch", "1"],
+    ["--host_rng", "true", "--log_norms", "true"],
+    ["--host_rng", "true", "--class_cond", "true", "--data_dir", "d",
+     "--shuffle", "false"],
+    ["--log_norms", "true", "--class_cond", "true", "--data_dir", "d",
+     "--shuffle", "false"],
+    ["--class_cond", "true"],
+    ["--data_dir", "d"],
+    ["--data_dir", "d", "--shuffle", "false", "--num_shards", "2"]])
 def test_cli_bad_combos_exit(data_file, flags):
     with pytest.raises(SystemExit):
         port_cli.main(_cli_flags(data_file, "x", *flags))

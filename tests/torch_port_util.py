@@ -64,3 +64,19 @@ def j2n(a) -> np.ndarray:
     """A JAX array as float32/float64 numpy (bfloat16 widened)."""
     a = np.asarray(a)
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def jax_native_library(build_dir):
+    """The JAX package's host library (unet_tpu/utils/native.py), built into
+    `build_dir` when this process has not loaded it yet: its own place,
+    inside the JAX package, may be half written by another test process
+    building it at the same time."""
+    from unet_tpu.utils import native as jax_native
+    if jax_native._lib is None:
+        saved = jax_native._SO_PATH
+        jax_native._SO_PATH = str(build_dir / "_native.so")
+        try:
+            jax_native.load_library()
+        finally:
+            jax_native._SO_PATH = saved
+    return jax_native._lib

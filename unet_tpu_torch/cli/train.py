@@ -3,35 +3,45 @@ the same flags, plus `--device`).
 
 python -m unet_tpu_torch.cli.train --data_file data/train.bin \\
     [--batch_size 32] [--iterations N] [--compute_dtype bfloat16] \\
-    [--model_weights models/model_N.bin] [--device cuda]
+    [--model_weights models/model_N.bin | --auto_resume true] [--device cuda]
 
 A fresh init (from `--seed`) or `--model_weights` (parameters, AdamW
-moments, step, seed, EMA and loader cursor: a resumed run continues the
-original's trajectory), then the step loop over the `.bin` stream: a text
-log line every `--log_interval` steps ("step N: loss L (X ms/step)") and the
-same numbers as a key-value table (and a CSV file under `--csv_log_dir`), a
-full checkpoint `output_dir/model_<step>.bin` every `--save_interval`.
-`--init_model_only` writes the initial checkpoint and exits.
+moments, step, seed, EMA, loader cursor and, with `--host_rng`, the host
+generator's state: a resumed run continues the original's trajectory;
+`--auto_resume` takes the newest `model_<step>.bin` in `--output_dir`),
+then the step loop over the `.bin` stream (`--data_file`) or over a
+directory of images (`--data_dir`, whose file-name prefixes are the class
+labels under `--class_cond`): a text log line every `--log_interval` steps
+("step N: loss L (X ms/step)") and the same numbers as a key-value table
+(and a CSV file under `--csv_log_dir`), a full checkpoint
+`output_dir/model_<step>.bin` every `--save_interval`.  `--init_model_only`
+writes the initial checkpoint and exits.  SIGTERM or SIGINT lets the step
+or chunk in flight finish, saves `model_<step>.bin`, logs "caught signal
+..." and returns (exit status 0); a second signal kills at once.
 
-Where the JAX package's CLI scans a log interval of steps into one
-program, this one does too, under the same condition (`--log_interval` > 1,
-an interval that divides `--iterations`, `--save_interval` and the step it
-starts from, and none of `--log_norms`, `--host_rng`, `--class_cond`): each
-interval is a chunk of `log_interval` batches for `trainer.make_multi_step`,
-which on a CUDA device replays one captured step over it.  The first chunk
-is probed: where every value is u / 127.5 - 1 of a uint8 u (every `.bin`
-written from pixels) the chunks go to the device as uint8 and the step
-rebuilds the float32 values there, and the log says which encoding it
-took.  Each chunk is staged in pinned host memory and copied on a side
-stream while the device runs the chunk before it.  Other runs take one
-eager step per batch (`trainer.make_train_step`).
+A `.bin` stream is read by the host library's prefetching loaders
+(`utils/native.py`; `--native_loader false`: `data.dataset.data_loader`,
+which gives the same bytes).  Where the JAX package's CLI scans a log
+interval of steps into one program, this one does too, under the same
+condition (`--log_interval` > 1, an interval that divides `--iterations`,
+`--save_interval` and the step it starts from, and none of `--log_norms`,
+`--host_rng`, `--class_cond`): each interval is a chunk of `log_interval`
+batches for `trainer.make_multi_step`, which on a CUDA device replays one
+captured step over it.  The first chunk is probed: where every value is
+u / 127.5 - 1 of a uint8 u (every `.bin` written from pixels) the chunks go
+to the device as uint8 and the step rebuilds the float32 values there, and
+the log says which encoding it took.  Each chunk is staged in pinned host
+memory (the native loaders write its rows there themselves) and copied on
+a side stream while the device runs the chunk before it; the host's
+milliseconds for a chunk are logged as `chunk_host_ms`.  Other runs take
+one eager step per batch (`trainer.make_train_step`; with `--host_rng`,
+its `step_with` on timesteps and noise drawn from torch's MT19937 stream on
+the host, the JAX package's draws).
 
 The loop never waits for the device within a log interval: the losses stay
-on the device and are read once per interval.  Flags of paths that later
-slices port raise `NotImplementedError` at a non-default value, naming their
-`ROADMAP.md` item.  `--native_loader` is accepted and the batches come from
-`data.dataset.data_loader`, which gives the same batches as the JAX
-package's native loaders.
+on the device and are read once per interval.  The multi-device flags
+raise `NotImplementedError` at a non-default value, naming their
+`ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -39,6 +49,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import re
+import signal
 import sys
 import time
 
@@ -54,6 +66,7 @@ from unet_tpu_torch.models import unet
 from unet_tpu_torch.ops.kernels import attention
 from unet_tpu_torch.training import trainer
 from unet_tpu_torch.utils.args import add_dict_to_argparser
+from unet_tpu_torch.utils import native
 from unet_tpu_torch.utils.logger import Logger, TextLog
 
 
@@ -73,7 +86,9 @@ def defaults() -> dict:
         num_classes=10,
         use_scale_shift_norm=False,
         randomize=False,               # shuffle + p=0.5 flip
-        data_dir="",                   # directory of images instead of a .bin
+        data_dir="",                   # directory of images instead of a
+        #                                .bin (needs Pillow; required for
+        #                                --class_cond labels)
         diffusion_steps=1000,
         noise_schedule="linear",
         lr=1e-4,
@@ -82,7 +97,9 @@ def defaults() -> dict:
         #                            many steps
         microbatch=0,              # >0 runs microbatches of this size with
         #                            averaged grads (full-batch math)
-        label_dropout=0.0,         # classifier-free-guidance training
+        label_dropout=0.0,         # classifier-free-guidance training:
+        #                            per-example probability of the null
+        #                            label; needs --class_cond
         ema_rate=0.0,              # >0 keeps a float32 parameter EMA and
         #                            saves it in checkpoints
         batch_size=32,
@@ -96,7 +113,9 @@ def defaults() -> dict:
         remat=False,
         shuffle=False,
         flip=False,                # p=0.5 horizontal flip augmentation
-        host_rng=False,
+        host_rng=False,            # timesteps and noise from torch's
+        #                            MT19937 stream on the host (the JAX
+        #                            package's draws), per-step path
         log_norms=False,           # grad/param norms + peak memory
         num_devices=0,             # 0 = all visible devices; the port
         #                            trains on one
@@ -108,8 +127,12 @@ def defaults() -> dict:
         coordinator_address="",
         num_processes=0,
         process_id=-1,
-        auto_resume=False,
-        native_loader=True,        # accepted; batches come from data_loader
+        auto_resume=False,         # resume from the newest model_*.bin in
+        #                            --output_dir if there is one (pairs
+        #                            with the SIGTERM save)
+        native_loader=True,        # .bin streams through the host
+        #                            library's prefetch thread (false:
+        #                            data_loader; the same bytes)
         output_dir="models",
         csv_log_dir="",
         device="cuda",             # where the model trains
@@ -151,10 +174,6 @@ _LATER = (
     ("--coordinator_address", lambda a: bool(a.coordinator_address), 8),
     ("--num_processes", lambda a: a.num_processes not in (0, 1), 8),
     ("--process_id", lambda a: a.process_id not in (-1, 0), 8),
-    ("--data_dir", lambda a: bool(a.data_dir), 4),
-    ("--class_cond", lambda a: a.class_cond, 4),
-    ("--host_rng", lambda a: a.host_rng, 5),
-    ("--auto_resume", lambda a: a.auto_resume, 6),
 )
 
 
@@ -188,6 +207,22 @@ def _reject_bad_combos(args) -> None:
     bad(args.microbatch > 0 and args.batch_size % args.microbatch != 0,
         f"--microbatch {args.microbatch} does not divide "
         f"--batch_size {args.batch_size}")
+    bad(args.microbatch > 0 and args.host_rng,
+        "--microbatch and --host_rng cannot be combined")
+    bad(args.host_rng and args.log_norms,
+        "--host_rng and --log_norms cannot be combined")
+    bad(args.host_rng and args.class_cond,
+        "--host_rng and --class_cond cannot be combined")
+    bad(args.log_norms and args.class_cond,
+        "--log_norms and --class_cond cannot be combined")
+    bad(args.class_cond and not args.data_dir,
+        "--class_cond needs --data_dir (labels come from image file-name "
+        "prefixes)")
+    bad(args.data_dir and args.shuffle,
+        "--shuffle applies to .bin streams; use --randomize with "
+        "--data_dir")
+    bad(args.num_shards > 1 and args.data_dir,
+        "--num_shards applies to .bin streams")
     bad(args.shard_index >= args.num_shards,
         "--shard_index must be < --num_shards")
     if torch.device(args.device).type == "cuda":
@@ -219,11 +254,11 @@ def _as_uint8(chunk: np.ndarray):
 
 class _ChunkStager:
     """Chunks to the device while it runs the chunk before.  On a CUDA
-    device each chunk is written into pinned host memory and copied from
-    there without blocking, on a side stream, into whichever of two device
-    buffers the running chunk does not read; `put` returns that buffer once
-    the current stream is ordered after the copy.  On the CPU a chunk is
-    used as it is."""
+    device each chunk is written into one pinned host buffer (`buffer`, by
+    the caller or by `put`) and copied from there without blocking, on a
+    side stream, into whichever of two device buffers the running chunk
+    does not read; `send` returns that buffer once the current stream is
+    ordered after the copy.  On the CPU a chunk is used as it is."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -235,17 +270,29 @@ class _ChunkStager:
         self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
                        else None)
 
-    def put(self, chunk: np.ndarray) -> torch.Tensor:
+    def buffer(self, shape, dtype) -> np.ndarray:
+        """The host array the next chunk is to be written into.  On a CUDA
+        device: the pinned buffer, once the last copy out of it is done
+        (the copy runs asynchronously, so no row may be written before)."""
+        dtype = np.dtype(dtype)
         if self.stream is None:
-            return torch.from_numpy(chunk)
-        if self.host is None or self.host.shape != chunk.shape \
-                or self.host.numpy().dtype != chunk.dtype:
-            self.host = torch.from_numpy(chunk).pin_memory()
+            self.host = np.empty(shape, dtype)
+            return self.host
+        if (self.host is None or tuple(self.host.shape) != tuple(shape)
+                or self.host.numpy().dtype != dtype):
+            self.host = torch.from_numpy(np.empty(shape, dtype)).pin_memory()
             self.dev = [torch.empty_like(self.host, device=self.device)
                         for _ in range(2)]
-        else:
-            self.copied.synchronize()  # the last copy out of `host` is done
-            self.host.numpy()[...] = chunk
+            self.copied = None
+            self.freed = [None, None]
+        elif self.copied is not None:
+            self.copied.synchronize()
+        return self.host.numpy()
+
+    def send(self) -> torch.Tensor:
+        """The chunk written into `buffer()`, on the device."""
+        if self.stream is None:
+            return torch.from_numpy(self.host)
         j, self.turn = self.turn, 1 - self.turn
         with torch.cuda.stream(self.stream):
             if self.freed[j] is not None:
@@ -257,14 +304,64 @@ class _ChunkStager:
         current.wait_event(self.copied)
         return self.dev[j]
 
+    def put(self, chunk: np.ndarray) -> torch.Tensor:
+        """`chunk` on the device (copied into the pinned buffer first)."""
+        if self.stream is None:
+            self.host = chunk
+        else:
+            self.buffer(chunk.shape, chunk.dtype)[...] = chunk
+        return self.send()
+
     def release(self, buf: torch.Tensor) -> None:
         """The work queued so far on the current stream is the last to read
-        `buf` (a buffer `put` returned)."""
+        `buf` (a buffer `send` returned)."""
         if self.stream is not None:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))
             self.freed[next(j for j, d in enumerate(self.dev)
                             if d is buf)] = event
+
+
+def _newest_checkpoint(output_dir: str):
+    """The `model_<step>.bin` in `output_dir` with the largest step, or
+    None."""
+    steps = []
+    if os.path.isdir(output_dir):
+        for name in os.listdir(output_dir):
+            m = re.fullmatch(r"model_(\d+)\.bin", name)
+            if m:
+                steps.append(int(m.group(1)))
+    if not steps:
+        return None
+    return os.path.join(output_dir, f"model_{max(steps)}.bin")
+
+
+def _loader(args, tc: TrainConfig, seed: int, start_step: int):
+    """(batch iterator, the native loader behind it or None), as the JAX
+    CLI chooses them: a directory of images; a plain sequential `.bin`
+    stream through `NativeLoader`; shuffle, flip or shards through
+    `NativeAugmentedLoader`; `data_loader` with `--native_loader false`.
+    Every one starts `start_step` batches into its stream."""
+    flip = args.flip or args.randomize
+    if args.data_dir:
+        return dataset.image_dir_loader(
+            args.data_dir, tc.batch_size, size=args.image_size,
+            class_cond=args.class_cond, randomize=args.randomize, seed=seed,
+            skip_batches=start_step), None
+    if not args.native_loader:
+        return dataset.data_loader(
+            args.data_file, tc.batch_size, shuffle=tc.shuffle, flip=flip,
+            seed=seed, skip_batches=start_step, num_shards=args.num_shards,
+            shard_index=args.shard_index), None
+    if not tc.shuffle and not flip and args.num_shards == 1:
+        loader = native.NativeLoader(args.data_file, tc.batch_size,
+                                     skip_batches=start_step)
+    else:
+        loader = native.NativeAugmentedLoader(
+            args.data_file, tc.batch_size, shuffle=tc.shuffle, flip=flip,
+            seed=seed, num_shards=args.num_shards,
+            shard_index=args.shard_index, skip_batches=start_step)
+    return iter(loader), loader
 
 
 def main(argv=None) -> trainer.TrainState:
@@ -273,12 +370,18 @@ def main(argv=None) -> trainer.TrainState:
     args = create_argparser().parse_args(argv)
     _reject_not_ported(args)
     _reject_bad_combos(args)  # before any work happens
-    if not args.init_model_only and not os.path.exists(args.data_file):
+    if args.auto_resume and not args.model_weights:
+        newest = _newest_checkpoint(args.output_dir)
+        if newest is not None:
+            args.model_weights = newest
+            print(f"auto-resume: {newest}")
+    if (not args.init_model_only and not args.data_dir
+            and not os.path.exists(args.data_file)):
         raise SystemExit(f"train: data file not found: {args.data_file} "
-                         "(write one with data.dataset.write_bin)")
+                         "(write one with unet_tpu_torch.cli.prepare_data)")
     device = torch.device(args.device)
     cfg = model_config_from_args(args)
-    num_classes = None
+    num_classes = args.num_classes if args.class_cond else None
     tc = TrainConfig(batch_size=args.batch_size, lr=args.lr,
                      weight_decay=args.weight_decay,
                      lr_anneal_steps=args.lr_anneal_steps,
@@ -344,6 +447,11 @@ def main(argv=None) -> trainer.TrainState:
     else:
         state = trainer.init_state(params, seed=seed, ema_rate=tc.ema_rate)
     start_step = state.step
+    host_rng = None
+    if args.host_rng:
+        host_rng = native.TorchRng(seed)
+        if ckpt is not None and ckpt.host_rng_state is not None:
+            host_rng.set_state(ckpt.host_rng_state)
 
     # --- data + step function ---
     diffusion = GaussianDiffusion.create(
@@ -353,22 +461,20 @@ def main(argv=None) -> trainer.TrainState:
     if args.log_norms:
         step_fn = trainer.make_train_step_aux(cfg, tc, diffusion, device)
     elif not chunked:
-        step_fn, _ = trainer.make_train_step(cfg, tc, diffusion, device)
-    hdr = dataset.BinDataset(args.data_file)
-    if ((hdr.height, hdr.width, hdr.channels)
-            != (cfg.image_size, cfg.image_size, cfg.in_channels)):
-        raise SystemExit(
-            f"train: {args.data_file} holds "
-            f"{hdr.height}x{hdr.width}x{hdr.channels} images but the "
-            f"model is configured for {cfg.image_size}x"
-            f"{cfg.image_size}x{cfg.in_channels} — pass --image_size "
-            f"{hdr.height} (and matching arch flags)")
-    loader = dataset.data_loader(args.data_file, tc.batch_size,
-                                 shuffle=tc.shuffle,
-                                 flip=args.flip or args.randomize,
-                                 seed=seed, skip_batches=start_step,
-                                 num_shards=args.num_shards,
-                                 shard_index=args.shard_index)
+        step_fn, step_with = trainer.make_train_step(cfg, tc, diffusion,
+                                                     device)
+    if not args.data_dir:
+        hdr = dataset.BinDataset(args.data_file)
+        if ((hdr.height, hdr.width, hdr.channels)
+                != (cfg.image_size, cfg.image_size, cfg.in_channels)):
+            raise SystemExit(
+                f"train: {args.data_file} holds "
+                f"{hdr.height}x{hdr.width}x{hdr.channels} images but the "
+                f"model is configured for {cfg.image_size}x"
+                f"{cfg.image_size}x{cfg.in_channels} — pass --image_size "
+                f"{hdr.height} (and matching arch flags) or rebuild the "
+                "dataset with prepare_data --size")
+    loader, native_loader = _loader(args, tc, seed, start_step)
 
     # --- loop ---
     text_log = TextLog(args.log_file)
@@ -379,76 +485,147 @@ def main(argv=None) -> trainer.TrainState:
         torch.cuda.reset_peak_memory_stats(device)
     multi = None  # the chunked path's step, built on the first chunk
     stager = _ChunkStager(device)
+    chunk_shape = (tc.log_interval, tc.batch_size, cfg.image_size,
+                   cfg.image_size, cfg.in_channels)
 
     def next_chunk() -> torch.Tensor:
         """The next `log_interval` batches, on the device, in the encoding
-        the first chunk's probe chose."""
+        the first chunk's probe chose.  Past the first chunk a native
+        loader writes the rows straight into the staging buffer (uint8 in
+        one pass: round((v + 1) * 127.5), so later chunks are not probed
+        again, as in the JAX CLI)."""
         nonlocal multi
-        chunk = np.stack([next(loader) for _ in range(tc.log_interval)])
-        u8 = _as_uint8(chunk)
-        if multi is None:
-            multi = trainer.make_multi_step(cfg, tc, diffusion, device,
-                                            input_u8=u8 is not None)
-            text_log.log(
-                "H2D encoding: uint8 (byte-derived dataset; f32 rebuilt on "
-                "the device within 1 ulp)" if multi.input_u8 else
-                "H2D encoding: float32 (the data is not u/127.5 - 1 of "
-                "uint8 pixels u)")
-        if multi.input_u8:
-            if u8 is None:
+        t0 = time.perf_counter()
+        if native_loader is not None and multi is not None:
+            buf = stager.buffer(chunk_shape, np.uint8 if multi.input_u8
+                                else np.float32)
+            for rows in buf:
+                native_loader.next_into(rows)
+            batches = stager.send()
+        else:
+            if native_loader is not None:
+                chunk = np.empty(chunk_shape, np.float32)
+                for rows in chunk:
+                    native_loader.next_into(rows)
+            else:
+                chunk = np.stack([next(loader)
+                                  for _ in range(tc.log_interval)])
+            u8 = _as_uint8(chunk)
+            if multi is None:
+                multi = trainer.make_multi_step(cfg, tc, diffusion, device,
+                                                input_u8=u8 is not None)
+                text_log.log(
+                    "H2D encoding: uint8 (byte-derived dataset; f32 rebuilt "
+                    "on the device within 1 ulp)" if multi.input_u8 else
+                    "H2D encoding: float32 (the data is not u/127.5 - 1 of "
+                    "uint8 pixels u)")
+            if multi.input_u8 and u8 is None:
                 raise SystemExit("train: a chunk past the first is not "
                                  "uint8-derived, as the first one was")
-            return stager.put(u8)
-        return stager.put(chunk)
+            batches = stager.put(u8 if multi.input_u8 else chunk)
+        kv_log.logkv_mean("chunk_host_ms", (time.perf_counter() - t0) * 1e3)
+        return batches
 
-    pending = []  # this interval's losses, still on the device
-    t_flush = time.perf_counter()
-    it = start_step
-    batches = next_chunk() if chunked else None
-    while it < tc.iterations:
-        if chunked:
-            state, losses = multi(state, batches)
-            stager.release(batches)
-            # stage the next chunk while the device runs this one
-            batches = (next_chunk() if it + tc.log_interval < tc.iterations
-                       else None)
-            pending.append(losses)
-            it += tc.log_interval
-        else:
-            batch = torch.from_numpy(next(loader)).to(device)
-            if args.log_norms:
-                state, aux = step_fn(state, batch)
-                pending.append(aux["loss"][None])
-                kv_log.logkv_mean("grad_norm_mean", float(aux["grad_norm"]))
-                kv_log.logkv("grad_norm", float(aux["grad_norm"]))
-                kv_log.logkv_mean("param_norm", float(aux["param_norm"]))
-            else:
-                state, loss = step_fn(state, batch)
+    def save(it: int) -> str:
+        path = os.path.join(args.output_dir, f"model_{it}.bin")
+        ckpt_io.save(path, trainer.to_checkpoint(
+            state, cfg, batch_size=tc.batch_size, loader_pos=it,
+            ema_rate=tc.ema_rate, noise_schedule=args.noise_schedule,
+            host_rng_state=(host_rng.get_state() if host_rng is not None
+                            else None)))
+        text_log.log(f"saved {path}")
+        return path
+
+    # SIGTERM / SIGINT: the handler only notes the signal; the loop saves
+    # after the step or chunk in flight and returns.  A second signal kills
+    # at once (the handler puts the default back).
+    caught = []
+
+    def graceful(signum, frame):
+        caught.append(signum)
+        signal.signal(signum, signal.SIG_DFL)
+
+    previous = {sig: signal.signal(sig, graceful)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        pending = []  # this interval's losses, still on the device
+        t_flush = time.perf_counter()
+        it = start_step
+        batches = next_chunk() if chunked else None
+        while it < tc.iterations:
+            if chunked:
+                state, losses = multi(state, batches)
+                stager.release(batches)
+                # stage the next chunk while the device runs this one (not
+                # on the way out: a resume rebuilds the cursor from the step)
+                batches = (next_chunk()
+                           if it + tc.log_interval < tc.iterations
+                           and not caught else None)
+                pending.append(losses)
+                it += tc.log_interval
+            elif host_rng is not None:
+                # the JAX CLI's draws: timesteps floor(u * T), then the noise
+                # in torch's NCHW element order, laid out NHWC
+                batch = next(loader)
+                B = batch.shape[0]
+                t = host_rng.timesteps(B, cfg.max_period)
+                noise = np.ascontiguousarray(host_rng.normal(
+                    (B, cfg.in_channels, cfg.image_size, cfg.image_size)
+                ).transpose(0, 2, 3, 1))
+                state, loss = step_with(state, batch, t, noise)
                 pending.append(loss[None])
-            it += 1
-        if it % tc.log_interval == 0:
-            for loss in torch.cat(pending).tolist():  # waits for the card
-                counter.add(loss)
-            pending.clear()
-            dt = (time.perf_counter() - t_flush) / tc.log_interval
-            mean_loss = counter.mean_and_reset()
-            text_log.log(f"step {it}: loss {mean_loss:.6f} "
-                         f"({dt * 1e3:.2f} ms/step)")
-            kv_log.logkv("step", it)
-            kv_log.logkv("loss", mean_loss)
-            kv_log.logkv("ms_per_step", dt * 1e3)
-            if args.log_norms:
-                peak = trainer.device_peak_memory_mib(device)
-                if peak is not None:
-                    kv_log.logkv("peak_mem_MiB", round(peak, 1))
-            kv_log.dumpkvs()
-            t_flush = time.perf_counter()
-        if tc.save_interval > 0 and it % tc.save_interval == 0:
-            path = os.path.join(args.output_dir, f"model_{it}.bin")
-            ckpt_io.save(path, trainer.to_checkpoint(
-                state, cfg, batch_size=tc.batch_size, loader_pos=it,
-                ema_rate=tc.ema_rate, noise_schedule=args.noise_schedule))
-            text_log.log(f"saved {path}")
+                it += 1
+            elif args.class_cond:
+                batch, labels = next(loader)
+                state, loss = step_fn(state, batch, labels)
+                pending.append(loss[None])
+                it += 1
+            else:
+                batch = torch.from_numpy(next(loader)).to(device)
+                if args.log_norms:
+                    state, aux = step_fn(state, batch)
+                    pending.append(aux["loss"][None])
+                    kv_log.logkv_mean("grad_norm_mean",
+                                      float(aux["grad_norm"]))
+                    kv_log.logkv("grad_norm", float(aux["grad_norm"]))
+                    kv_log.logkv_mean("param_norm", float(aux["param_norm"]))
+                else:
+                    state, loss = step_fn(state, batch)
+                    pending.append(loss[None])
+                it += 1
+            if it % tc.log_interval == 0:
+                for loss in torch.cat(pending).tolist():  # waits for the card
+                    counter.add(loss)
+                pending.clear()
+                dt = (time.perf_counter() - t_flush) / tc.log_interval
+                mean_loss = counter.mean_and_reset()
+                text_log.log(f"step {it}: loss {mean_loss:.6f} "
+                             f"({dt * 1e3:.2f} ms/step)")
+                kv_log.logkv("step", it)
+                kv_log.logkv("loss", mean_loss)
+                kv_log.logkv("ms_per_step", dt * 1e3)
+                if args.log_norms:
+                    peak = trainer.device_peak_memory_mib(device)
+                    if peak is not None:
+                        kv_log.logkv("peak_mem_MiB", round(peak, 1))
+                kv_log.dumpkvs()
+                t_flush = time.perf_counter()
+            path = None
+            if tc.save_interval > 0 and it % tc.save_interval == 0:
+                path = save(it)
+            if caught:
+                path = path or save(it)
+                text_log.log(f"caught signal {caught[0]} at step {it}; "
+                             "checkpoint saved, exiting (resume with "
+                             f"--model_weights {path} or --auto_resume "
+                             "true)")
+                return state
+    finally:
+        # main() runs in-process in tests: the caller's handlers come back
+        # even when the loop raises
+        for sig, handler in previous.items():
+            if handler is not None:  # None: installed from C code
+                signal.signal(sig, handler)
     return state
 
 

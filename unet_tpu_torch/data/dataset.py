@@ -1,6 +1,7 @@
-"""Binary image dataset (.bin, magic 20240620): writer, reader and loader
+"""Binary image dataset (.bin, magic 20240620): writer, reader and loaders
 (port of unet_tpu/data/dataset.py, which is numpy only; this is the port's
-own copy of `write_bin`, `BinDataset` and `data_loader`).
+own copy of `write_bin`, `images_to_bin`, `BinDataset`, `data_loader` and
+`image_dir_loader`).
 
 File contract: 256-int32 header [magic, n_imgs, C, H, W] followed by n_imgs
 float32 images, CHW, values in [-1, 1].
@@ -9,11 +10,13 @@ The reader memory-maps the file and serves NHWC batches; the CHW->HWC
 transpose happens on the host at batch-assembly time.  The loader's draws
 from its numpy generator are the JAX package's, in the same order, so both
 packages see bit-identical batch streams, resumed ones included.
-`images_to_bin` and `image_dir_loader` need Pillow and are not ported yet.
+`images_to_bin` and `image_dir_loader` decode image files with Pillow,
+imported inside them: nothing else here needs it.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterator
 
 import numpy as np
@@ -30,6 +33,51 @@ def write_bin(path: str, images: np.ndarray) -> None:
     with open(path, "wb") as f:
         f.write(header.tobytes())
         f.write(np.ascontiguousarray(images, dtype=np.float32).tobytes())
+
+
+def _load_image(path: str, size: int) -> np.ndarray:
+    """One image file as (size, size, 3) float32 in [-1, 1], HWC: RGB, a
+    non-square or mis-sized image centre-cropped to a square and resized
+    bicubically to `size`."""
+    from PIL import Image  # only the image-file paths need Pillow
+
+    img = Image.open(path).convert("RGB")
+    if img.size != (size, size):
+        side = min(img.size)
+        left = (img.width - side) // 2
+        top = (img.height - side) // 2
+        img = img.crop((left, top, left + side, top + side))
+        img = img.resize((size, size), Image.BICUBIC)
+    return np.asarray(img).astype(np.float32) / 127.5 - 1.0
+
+
+def images_to_bin(image_dir: str, out_path: str, *, size: int = 64) -> int:
+    """A directory of images (searched recursively, in sorted order) ->
+    .bin of (n, 3, size, size); returns the number of images written."""
+    files = _list_images(image_dir)
+    header = np.zeros(HEADER_INTS, dtype=np.int32)
+    header[0], header[1] = MAGIC, len(files)
+    header[2], header[3], header[4] = 3, size, size
+    with open(out_path, "wb") as f:
+        f.write(header.tobytes())
+        for fname in files:
+            f.write(_load_image(fname, size).transpose(2, 0, 1)
+                    .astype(np.float32).tobytes())
+    return len(files)
+
+
+def _list_images(data_dir: str):
+    """The jpg/jpeg/png/gif files under `data_dir`, directories entered in
+    sorted order."""
+    exts = {"jpg", "jpeg", "png", "gif"}
+    results = []
+    for entry in sorted(os.listdir(data_dir)):
+        full = os.path.join(data_dir, entry)
+        if os.path.isdir(full):
+            results.extend(_list_images(full))
+        elif "." in entry and entry.rsplit(".", 1)[-1].lower() in exts:
+            results.append(full)
+    return results
 
 
 class BinDataset:
@@ -133,3 +181,57 @@ def data_loader(path: str, batch_size: int, *, shuffle: bool = False,
                 pos = 0
             yield maybe_flip(ds.batch_nhwc(idx[pos:pos + batch_size]))
             pos += batch_size
+
+
+def image_dir_loader(data_dir: str, batch_size: int, *, size: int = 64,
+                     class_cond: bool = False, randomize: bool = False,
+                     seed: int = 0, skip_batches: int = 0) -> Iterator:
+    """Infinite NHWC batch iterator straight over a directory of images:
+    with `randomize`, a permutation per epoch and a p=0.5 horizontal flip
+    per image; with `class_cond`, (batch, labels) tuples, an image's label
+    being the index of its file-name prefix before '_' among the sorted
+    prefixes.
+
+    skip_batches=N fast-forwards past the first N batches without decoding
+    an image: cursor arithmetic and a replay of the draws (one permutation
+    per epoch, one flip draw per image), so a resumed run sees the stream
+    the original would have from step N on."""
+    files = _list_images(data_dir)
+    if not files:
+        raise ValueError(f"no images under {data_dir}")
+    if len(files) < batch_size:
+        # the epoch loop below would yield nothing, for ever
+        raise ValueError(f"{data_dir} has {len(files)} images < batch_size "
+                         f"{batch_size}; an epoch needs one full batch")
+    labels = None
+    if class_cond:
+        names = [os.path.basename(p).split("_")[0] for p in files]
+        class_of = {x: i for i, x in enumerate(sorted(set(names)))}
+        labels = np.asarray([class_of[x] for x in names], np.int32)
+    rng = np.random.default_rng(seed)
+
+    def load(idx):
+        arr = _load_image(files[idx], size)
+        if randomize and rng.random() < 0.5:
+            arr = arr[:, ::-1]
+        return arr  # HWC
+
+    n = len(files)
+    per_epoch = max(len(range(0, n - batch_size + 1, batch_size)), 1)
+    if randomize:  # replay the draws of the skipped prefix
+        for _ in range(skip_batches // per_epoch):
+            rng.permutation(n)
+            rng.random(per_epoch * batch_size)
+    start = skip_batches % per_epoch
+    while True:
+        order = rng.permutation(n) if randomize else np.arange(n)
+        if randomize and start:
+            rng.random(start * batch_size)
+        for i in range(start * batch_size, n - batch_size + 1, batch_size):
+            idx = order[i:i + batch_size]
+            batch = np.stack([load(j) for j in idx])
+            if class_cond:
+                yield batch, labels[idx]
+            else:
+                yield batch
+        start = 0

@@ -30,8 +30,8 @@ io/convert.py does the same for a JAX pytree).  Parameters and the EMA load
 as `UNet` modules on `device`; in a `Checkpoint` the AdamW moments are flat
 float32 numpy vectors in file order (`flatten_tensors` / `unflatten_like`
 convert them to and from one tensor per parameter; the trainer's
-`to_checkpoint` / `from_checkpoint` use them).  `load_torch_pt` is not
-ported yet.
+`to_checkpoint` / `from_checkpoint` use them).  `load` also takes a torch
+`.pt`/`.pth` state_dict (`load_torch_pt`).
 """
 
 from __future__ import annotations
@@ -256,22 +256,66 @@ def _config_from_header(header: np.ndarray) -> UnetConfig:
                       max_period=int(header[7]))
 
 
+def _is_torch_pt(path: str) -> bool:
+    return path.endswith((".pt", ".pth"))
+
+
 def read_config(path: str) -> UnetConfig:
-    """The architecture a `.bin` checkpoint's header records, read without
-    its weights (what `load` builds with cfg=None)."""
+    """The architecture `load` builds with cfg=None, read without the
+    weights: a `.bin` checkpoint's header, or `UnetConfig()` for a `.pt`."""
+    if _is_torch_pt(path):
+        return UnetConfig()
     with open(path, "rb") as f:
         return _config_from_header(_read_header(f, path))
+
+
+def load_torch_pt(path: str, cfg: Optional[UnetConfig] = None,
+                  num_classes: Optional[int] = None,
+                  device="cuda") -> Checkpoint:
+    """Load a torch `.pt`/`.pth` state_dict of the guided-diffusion-style
+    model (`UnetConfig()` when cfg is None): its tensors, in the dict's
+    order, are the parameters in `param_order`, in that model's shapes (an
+    attention projection is a Conv1d's (O, I, 1)); a `torch.compile`
+    model's `_orig_mod.` key prefix changes nothing.  The order is checked, not
+    trusted: every tensor must have the shape of the parameter at its place,
+    and the count must match, or the load raises."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(state, dict):
+        raise ValueError(f"{path}: expected a state_dict")
+    if cfg is None:
+        cfg = UnetConfig()
+    tensors = [(k, v) for k, v in state.items() if isinstance(v, torch.Tensor)]
+    order = unet.param_order(cfg, num_classes)
+    if len(tensors) != len(order):
+        raise ValueError(
+            f"{path}: state_dict has {len(tensors)} tensors, model expects "
+            f"{len(order)} parameters")
+    shapes = _shape_model(cfg, num_classes)
+    chunks = []
+    for (key, v), (param_path, kind) in zip(tensors, order):
+        expect = tuple(unet.get_param(shapes, param_path).shape)
+        if kind == "conv1d":  # the torch model's Conv1d(kernel 1): (O, I, 1)
+            expect += (1,)
+        if tuple(v.shape) != expect:
+            raise ValueError(
+                f"{path}: tensor '{key}' has shape {tuple(v.shape)}, "
+                f"expected {expect} for parameter "
+                f"{'.'.join(map(str, param_path))} — state_dict order does "
+                f"not match named_parameters() order")
+        chunks.append(v.detach().float().reshape(-1))
+    flat = torch.cat(chunks).numpy()
+    return Checkpoint(params=unflatten_params(flat, cfg, num_classes, device),
+                      cfg=cfg, batch_size=0, noise_schedule=None)
 
 
 def load(path: str, cfg: Optional[UnetConfig] = None,
          num_classes: Optional[int] = None, device="cuda") -> Checkpoint:
     """Load a `.bin` checkpoint written by this package, the JAX package or
-    the guided-diffusion-style CUDA/torch trainers the format comes from.
-    With cfg=None the architecture comes from the header."""
-    if path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{path}: torch state_dict checkpoints are not ported yet; "
-            "convert to .bin with the JAX package")
+    the guided-diffusion-style CUDA/torch trainers the format comes from
+    (with cfg=None the architecture comes from the header), or a torch
+    `.pt`/`.pth` state_dict (`load_torch_pt`)."""
+    if _is_torch_pt(path):
+        return load_torch_pt(path, cfg, num_classes, device)
     with open(path, "rb") as f:
         header = _read_header(f, path)
         is_ext = header[12] == EXT_MAGIC

@@ -86,16 +86,18 @@ def init_state(params: unet.UNet, *, seed: int = 0, step: int = 0,
 
 def to_checkpoint(state: TrainState, cfg: UnetConfig, *, batch_size: int,
                   loader_pos: int = 0, ema_rate: float = 0.0,
-                  noise_schedule: Optional[str] = "linear"
+                  noise_schedule: Optional[str] = "linear",
+                  host_rng_state: Optional[np.ndarray] = None
                   ) -> ckpt_io.Checkpoint:
     """The `Checkpoint` of a training state: parameters, AdamW moments,
-    step, seed and EMA, with the loader's cursor and the run's settings."""
+    step, seed and EMA, with the loader's cursor, the run's settings and,
+    for a `--host_rng` run, the host generator's 625-word state."""
     return ckpt_io.Checkpoint(
         params=state.params, cfg=cfg, batch_size=batch_size, step=state.step,
         adam_m=ckpt_io.flatten_tensors(state.m),
         adam_v=ckpt_io.flatten_tensors(state.v), rng_seed=state.seed,
-        loader_pos=loader_pos, ema=state.ema, ema_rate=ema_rate,
-        noise_schedule=noise_schedule)
+        loader_pos=loader_pos, host_rng_state=host_rng_state, ema=state.ema,
+        ema_rate=ema_rate, noise_schedule=noise_schedule)
 
 
 def from_checkpoint(ckpt: ckpt_io.Checkpoint, *, seed: int = 0,
