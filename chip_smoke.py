@@ -103,7 +103,17 @@ object per line:
      `.pt` state_dict of the default model served by `cli.generate.run`
      (DDIM-10, B=4) must give the images of the `.bin` of the same weights.
      Launch counts are held exactly for the runs in this process.
- 10. `conv_checks` and `conv`: the kernel-benchmark path.  The
+ 10. `parallel`: the data-parallel tier (`unet_tpu_torch/parallel/`) over a
+     process group of one rank (NCCL; the machine has one card), the
+     default model at B=32 a rank: the captured DP and FSDP steps against
+     the one-device flat step, the same bits after 3 bfloat16 and 2
+     float32 steps (cuDNN held to its deterministic algorithms on both
+     sides); a DDIM-10 B=8 request through `make_parallel_sampler`, the
+     one-device chain's bits; `cli.train --num_devices 0` as the one rank
+     of a `--coordinator_address` group, 20 chunked bfloat16 steps with the
+     EMA and rank 0's checkpoint, beside the one-device run: ms/step, idle
+     share, losses.  Launch counts held exactly.
+ 11. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
      and O are multiples of 8, else float32 FMAs, each case naming its
@@ -116,7 +126,7 @@ object per line:
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
- 11. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+ 12. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
      convolution's: those of the `conv` phase); then the seconds the whole
      run took, the card's name and power limit, and the result line.
@@ -158,7 +168,7 @@ from unet_tpu_torch.data.dataset import write_bin  # noqa: E402
 from unet_tpu_torch.diffusion.gaussian import (  # noqa: E402
     GaussianDiffusion, named_beta_schedule)
 from unet_tpu_torch.diffusion.sampler import (  # noqa: E402
-    ddim_sample, make_sampler, to_uint8)
+    ddim_sample, make_parallel_sampler, make_sampler, to_uint8)
 from unet_tpu_torch.io import checkpoint as ckpt_io  # noqa: E402
 from unet_tpu_torch.models import unet  # noqa: E402
 from unet_tpu_torch.ops import functional  # noqa: E402
@@ -173,6 +183,8 @@ from unet_tpu_torch.ops.kernels.conv3x3 import (  # noqa: E402
     conv3x3_hwbc, conv3x3_hwbc_plain)
 from unet_tpu_torch.ops.kernels.groupnorm import (  # noqa: E402
     gn_act_bwd, gn_act_bwd_plain, gn_act_fwd, gn_act_fwd_plain)
+from unet_tpu_torch.parallel import distributed  # noqa: E402
+from unet_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from unet_tpu_torch.scripts import bench_ops, block_timing  # noqa: E402
 from unet_tpu_torch.scripts import conv_proto  # noqa: E402
 from unet_tpu_torch.training import trainer  # noqa: E402
@@ -1763,6 +1775,219 @@ def drive_cli(tmp, totals, step_ms):
                 torch_pt=pt)
 
 
+# The steps of the bit-for-bit comparison of the `parallel` phase: (name,
+# compute type, steps).
+PARALLEL_BITS = (("bf16", "bfloat16", 3), ("f32", "float32", 2))
+PARALLEL_CLI_STEPS = 20
+
+
+def drive_parallel(tmp, totals, step_ms):
+    """The data-parallel tier on the card, `UnetConfig()` at B=32 a rank,
+    over a process group of one rank (NCCL; the machine has one card):
+
+    * the DP and the FSDP step of `make_parallel_train_step`, captured with
+      their collectives, against the one-device flat step
+      (`make_flat_multi_step`) from the same model, seed and uint8 batches:
+      the losses, parameters and moments must be the same bits after 3
+      bfloat16 steps and after 2 float32 steps (cuDNN held to its
+      deterministic algorithms on both sides, since its convolution
+      backward does not otherwise repeat its bits); each step's device time
+      from its graph's replays;
+    * a DDIM-10 B=8 bfloat16 request through `make_parallel_sampler`
+      (gathered) against `ddim_sample` from the same generator: the same
+      bits;
+    * `cli.train` with `--num_devices 0` as the one rank of a
+      `--coordinator_address` group, 20 chunked bfloat16 steps with the
+      EMA and rank 0's checkpoint at step 20, beside the same run on the
+      one-device path: ms/step and the idle share of each (device ms of
+      the step's replay over ms/step), their logged losses.
+    Launch counts are held exactly against launches per step (or per model
+    call) times the steps, and added to `totals`."""
+    cfg = UnetConfig()
+    per_step = launches_per_step(cfg, False, 1)
+    gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    pixels = torch.randint(0, 256, (3,) + shape, generator=gen, device=DEV,
+                           dtype=torch.uint8)
+    out = {}
+
+    def counted(name, want):
+        torch.cuda.synchronize()
+        got = counts()
+        if got != want:
+            raise AssertionError(f"parallel {name}: launches {got}, want "
+                                 f"{want}")
+        for k, v in got.items():
+            totals[k] += v
+        return got
+
+    def model():
+        return unet.init(cfg, generator=torch.Generator().manual_seed(4),
+                         device=DEV)
+
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, DEV,
+                           timeout_s=120)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = pmesh.make_mesh()
+        steps_record = {}
+        for name, dtype, steps in PARALLEL_BITS:
+            tc = TrainConfig(batch_size=TRAIN_BATCH, lr=1e-3,
+                             compute_dtype=dtype)
+            net = model()
+            flat, unravel = trainer.flatten_state(net, seed=6)
+            one = trainer.make_flat_multi_step(cfg, tc, unravel, diffusion,
+                                               DEV)
+            batches = pixels[:steps].float() / 127.5 - 1.0
+            reset_counts()
+            want = one(flat, batches)[1].tolist()
+            want_launches = {k: steps * v for k, v in per_step.items()}
+            counted(f"one-device {name}", want_launches)
+            record = dict(steps=steps, one_device_losses=want)
+            for mode in ("dp", "fsdp"):
+                step = pmesh.make_parallel_train_step(
+                    cfg, tc, mesh, diffusion, fsdp=mode == "fsdp",
+                    example_params=net)
+                state = pmesh.init_state(unravel, net, mesh,
+                                         fsdp=mode == "fsdp", seed=6)
+                reset_counts()
+                got = step(state, batches)[1].tolist()
+                counted(f"{mode} {name}", want_launches)
+                pairs = ((state.flat, flat.flat), (state.m, flat.m),
+                         (state.v, flat.v))
+                diff = max((a.detach() - b.detach()).abs().max().item()
+                           for a, b in pairs)
+                if got != want or diff != 0.0:
+                    raise AssertionError(
+                        f"parallel {mode} {name}: losses {got} against the "
+                        f"one-device {want}, state max abs diff {diff}")
+                record[mode] = dict(losses=got, bits_equal=True,
+                                    replay_ms=replay_ms(step.graph),
+                                    held=step.graph.held,
+                                    resident=dict(
+                                        flat=state.flat.numel(),
+                                        master=state.master.numel(),
+                                        m=state.m.numel()))
+                del step, state
+                free_graphs()
+            # (the replays step the state on: timed after the comparisons)
+            record["one_device_replay_ms"] = replay_ms(one.graph)
+            steps_record[name] = record
+            del one, flat, unravel, net
+            free_graphs()
+        out["steps_against_one_device"] = steps_record
+
+        # the device time of the CLI's step below (DP, bf16 + EMA)
+        tc = TrainConfig(batch_size=TRAIN_BATCH, **TRAIN_CONFIGS["bf16"])
+        net = model()
+        step = pmesh.make_parallel_train_step(cfg, tc, mesh, diffusion,
+                                              example_params=net,
+                                              input_u8=True)
+        state = pmesh.init_state(trainer.Unravel(net), net, mesh,
+                                 ema_rate=tc.ema_rate)
+        reset_counts()
+        step(state, pixels)
+        counted("dp bf16 + EMA", {k: 3 * v for k, v in per_step.items()})
+        dp_ema_ms = replay_ms(step.graph)
+        del step, state
+        free_graphs()
+
+        # a DDIM-10 request, parallel against one device
+        chains = {}
+        for kind in ("one_device", "parallel"):
+            reset_counts()
+            t0 = time.perf_counter()
+            g = torch.Generator(device=DEV).manual_seed(11)
+            if kind == "one_device":
+                images = ddim_sample(net, cfg, diffusion, g, num_steps=10,
+                                     batch_size=8,
+                                     compute_dtype=torch.bfloat16)
+            else:
+                images = make_parallel_sampler(
+                    cfg, diffusion, mesh, batch_size=8,
+                    compute_dtype=torch.bfloat16, sampler="ddim",
+                    num_steps=10, gather=True)(net, g)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counted(f"ddim10 {kind}", dict(
+                gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
+                qkv_attention_fwd=10 * attn_per_fwd, qkv_attention_bwd=0,
+                conv3x3_hwbc=0))
+            chains[kind] = (images, seconds)
+            free_graphs()
+        if not torch.equal(chains["parallel"][0], chains["one_device"][0]):
+            raise AssertionError("parallel DDIM-10: not the one-device bits")
+        out["ddim10_b8_bf16"] = dict(
+            bits_equal=True, shape=list(chains["parallel"][0].shape),
+            seconds={k: v[1] for k, v in chains.items()})
+        del net
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        distributed.shutdown()
+
+    # the CLI: one rank of a --coordinator_address group, and one device
+    rng = np.random.default_rng(4)
+    data = os.path.join(tmp, "train.bin")
+    write_bin(data, rng.integers(0, 256, (256, cfg.in_channels,
+                                          cfg.image_size, cfg.image_size),
+                                 dtype=np.uint8).astype(np.float32)
+              / 127.5 - 1.0)
+    runs = {}
+    for kind in ("parallel", "one_device"):
+        flags = ["--data_file", data, "--device", str(DEV), "--batch_size",
+                 str(TRAIN_BATCH), "--compute_dtype", "bfloat16",
+                 "--ema_rate", "0.999", "--iterations",
+                 str(PARALLEL_CLI_STEPS), "--log_interval", "10",
+                 "--save_interval", str(PARALLEL_CLI_STEPS), "--output_dir",
+                 os.path.join(tmp, kind), "--log_file",
+                 os.path.join(tmp, f"{kind}.txt")]
+        if kind == "parallel":
+            flags += ["--num_devices", "0", "--coordinator_address",
+                      f"localhost:{distributed.free_port()}",
+                      "--num_processes", "1", "--process_id", "0"]
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            state = train_cli.main(flags)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counted(f"cli {kind}", {k: PARALLEL_CLI_STEPS * v
+                                      for k, v in per_step.items()})
+        with open(os.path.join(tmp, f"{kind}.txt")) as f:
+            log = f.read()
+        lines = LOG_LINE.findall(log)
+        path = os.path.join(tmp, kind, f"model_{PARALLEL_CLI_STEPS}.bin")
+        if ([int(s) for s, _, _ in lines] != [10, 20] or state.step != 20
+                or ckpt_io.load(path, device=DEV).step != 20
+                or os.listdir(os.path.join(tmp, kind))
+                != [f"model_{PARALLEL_CLI_STEPS}.bin"]
+                or "H2D encoding: uint8" not in log):
+            raise AssertionError(f"parallel cli {kind}: {log}")
+        if kind == "parallel" and "data parallel: 1 rank(s)" not in (
+                printed.getvalue()):
+            raise AssertionError("parallel cli: not the parallel path")
+        ms = float(lines[-1][2])
+        device_ms = dp_ema_ms if kind == "parallel" else step_ms["bf16"]
+        runs[kind] = dict(
+            logged_losses=[float(v) for _, v, _ in lines], ms_per_step=ms,
+            images_per_s=TRAIN_BATCH / ms * 1e3, device_ms_per_step=device_ms,
+            idle_share=1.0 - device_ms / ms, seconds=seconds, launches=got,
+            peak_mib=trainer.device_peak_memory_mib(DEV))
+        del state
+        free_graphs()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        runs["parallel"]["logged_losses"], runs["one_device"]["logged_losses"]))
+    if not rel <= BF16_LOSS_RTOL:
+        raise AssertionError(f"parallel cli: losses {runs} part by {rel}")
+    out["cli_bf16_ema"] = dict(runs=runs, loss_max_rel_diff=rel,
+                               loss_rtol=BF16_LOSS_RTOL)
+    return out
+
+
 def check_conv(gen):
     """The convolution kernels against their plain version at
     `CONV_SHAPES`, float32 and bfloat16, twice (the second call must give
@@ -1949,6 +2174,16 @@ def main() -> None:
                                        in captured["captured_steps"].items()})
     emit({"phase": "cli", "model": "UnetConfig() ImageNet-64, full depth",
           **rest, "seconds": time.perf_counter() - t0,
+          "launches_with_the_runs_before": dict(totals)})
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        par = drive_parallel(tmp, totals, {name: step["replay_ms"] for name,
+                                           step in captured["captured_steps"]
+                                           .items()})
+    emit({"phase": "parallel", "model": "UnetConfig() ImageNet-64, full "
+          f"depth, B={TRAIN_BATCH} a rank, 1 rank (NCCL)", **par,
+          "seconds": time.perf_counter() - t0,
           "launches_with_the_runs_before": dict(totals)})
 
     cases["conv3x3_hwbc"] = check_conv(gen)

@@ -35,7 +35,10 @@ def test_port_files_were_found():
             "unet_tpu_torch/scripts/bench_ops.py",
             "unet_tpu_torch/scripts/block_timing.py",
             "unet_tpu_torch/utils/native.py",
-            "unet_tpu_torch/cli/prepare_data.py"} <= names
+            "unet_tpu_torch/cli/prepare_data.py",
+            "unet_tpu_torch/parallel/__init__.py",
+            "unet_tpu_torch/parallel/distributed.py",
+            "unet_tpu_torch/parallel/mesh.py"} <= names
 
 
 @pytest.mark.parametrize(
@@ -92,16 +95,33 @@ def test_host_library_is_built_from_the_ports_own_source():
 
 
 @pytest.mark.parametrize("name", ["utils/native.py", "cli/train.py",
-                                  "ops/kernels/_build.py"])
+                                  "ops/kernels/_build.py",
+                                  "parallel/distributed.py",
+                                  "parallel/mesh.py"])
 def test_no_handler_swallows_a_build_or_load_failure(name):
-    """Every `except` in the modules that build and load the libraries, or
-    choose the loader, raises again: no fallback to the plain loader or a
-    missing library."""
+    """Every `except` in the modules that build and load the libraries,
+    choose the loader, or join and run the ranks, raises again: no
+    fallback to the plain loader, a missing library, another backend or
+    fewer ranks."""
     tree = ast.parse((ROOT / "unet_tpu_torch" / name).read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.ExceptHandler):
             assert any(isinstance(n, ast.Raise) for n in ast.walk(node)), (
                 name, node.lineno)
+
+
+@pytest.mark.parametrize("device,kind", [
+    ("cuda", "nccl"), ("cuda:1", "nccl"), ("cpu", "gloo")])
+def test_a_cuda_device_always_gets_nccl(device, kind):
+    """The process group's backend follows the device, with no switch and
+    no fallback; a device with no backend raises."""
+    from unet_tpu_torch.parallel import distributed
+    assert distributed.backend(device) == kind
+    with pytest.raises(ValueError, match="no process-group backend"):
+        distributed.backend("meta")
+    source = (ROOT / "unet_tpu_torch" / "parallel" / "distributed.py"
+              ).read_text()
+    assert source.count('"gloo"') == 1  # in `backend` alone
 
 
 def test_build_step_raises_without_nvcc(monkeypatch, tmp_path):

@@ -5,6 +5,10 @@ both sides as numpy arrays; everything runs on the CPU, where the port's
 kernel wrappers take their plain versions.
 """
 
+import os
+import subprocess
+import time
+
 import numpy as np
 import torch
 
@@ -14,6 +18,11 @@ from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.io import checkpoint as port_ckpt
 from unet_tpu_torch.io import convert
 from unet_tpu_torch.models import unet as port_unet
+from unet_tpu_torch.parallel import distributed
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# Each multi-process run of the tests, start to end, in seconds.
+RANKS_LIMIT_S = 120
 
 # Smaller than conftest.SMALL_CFG so the JAX side traces in about a second:
 # two levels, one res block each, attention at ds 2 (C=64, two heads).
@@ -80,3 +89,33 @@ def jax_native_library(build_dir):
         finally:
             jax_native._SO_PATH = saved
     return jax_native._lib
+
+
+def run_ranks(argvs, logs, limit_s=RANKS_LIMIT_S, tries=3, env=None):
+    """Start one process per argv (`argvs(port)` gives them, for a free
+    localhost port), each writing its output to its log file (never a
+    pipe), from the repository's root, and wait for all of them within
+    `limit_s` seconds; a rendezvous that found its port taken is tried
+    again on another.  No process outlives the call.  Returns (exit codes,
+    the logs' text)."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", **(env or {}))
+    for _ in range(tries):
+        procs = []
+        try:
+            for argv, log in zip(argvs(distributed.free_port()), logs):
+                with open(log, "wb") as f:
+                    procs.append(subprocess.Popen(
+                        argv, cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+                        stdin=subprocess.DEVNULL, env=env))
+            deadline = time.monotonic() + limit_s
+            codes = [p.wait(timeout=max(deadline - time.monotonic(), 0.1))
+                     for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        text = "".join(open(log, errors="replace").read() for log in logs)
+        if "EADDRINUSE" not in text:
+            break
+    return codes, text

@@ -1,9 +1,10 @@
-"""Training CLI (port of the single-device path of unet_tpu/cli/train.py;
-the same flags, plus `--device`).
+"""Training CLI (port of unet_tpu/cli/train.py; the same flags, plus
+`--device`).
 
 python -m unet_tpu_torch.cli.train --data_file data/train.bin \\
     [--batch_size 32] [--iterations N] [--compute_dtype bfloat16] \\
     [--model_weights models/model_N.bin | --auto_resume true] [--device cuda]
+    [--num_devices N [--fsdp true]]
 
 A fresh init (from `--seed`) or `--model_weights` (parameters, AdamW
 moments, step, seed, EMA, loader cursor and, with `--host_rng`, the host
@@ -39,9 +40,27 @@ its `step_with` on timesteps and noise drawn from torch's MT19937 stream on
 the host, the JAX package's draws).
 
 The loop never waits for the device within a log interval: the losses stay
-on the device and are read once per interval.  The multi-device flags
-raise `NotImplementedError` at a non-default value, naming their
-`ROADMAP.md` item.
+on the device and are read once per interval.
+
+Data parallel (`parallel/`): one process per device.  `--num_devices N`
+(0: every card `--device cuda` shows; the CPU is one device) with N > 1
+makes this command a launcher of N ranks of itself on this machine
+(`distributed.launch`), rank r on card r (or on the CPU, over gloo);
+`--coordinator_address host:port --num_processes N --process_id r` makes
+this process rank r of N, on any machine, on `--device` (`cuda`: card r
+modulo the cards it shows).  `--batch_size` and `--microbatch` are per
+rank; the global batch is N times `--batch_size`.  Each rank reads its
+shard of the stream (rows r, r + N, ... of every global batch of the
+one-process run; `--data_dir` only for one command) and trains the flat
+state of `parallel/mesh.py`, DP or with `--fsdp` ZeRO-3, on the chunked
+path (captured with its collectives) or one step per call; the run is the
+one-process run at the global batch.  Rank 0 writes the log and the
+checkpoints, every rank joins their gather; `--auto_resume` resumes where
+rank 0 says.  SIGTERM to the one command is passed to every rank, which
+agree once per step or chunk whether any caught it, and all stop at one
+step; `--coordinator_address` processes do not catch it.  The model axis
+(`--tensor_parallel`, `--spatial_parallel`) raises `NotImplementedError`,
+naming its `ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -64,6 +83,8 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
 from unet_tpu_torch.io import checkpoint as ckpt_io
 from unet_tpu_torch.models import unet
 from unet_tpu_torch.ops.kernels import attention
+from unet_tpu_torch.parallel import distributed
+from unet_tpu_torch.parallel import mesh as pmesh
 from unet_tpu_torch.training import trainer
 from unet_tpu_torch.utils.args import add_dict_to_argparser
 from unet_tpu_torch.utils import native
@@ -117,14 +138,19 @@ def defaults() -> dict:
         #                            MT19937 stream on the host (the JAX
         #                            package's draws), per-step path
         log_norms=False,           # grad/param norms + peak memory
-        num_devices=0,             # 0 = all visible devices; the port
-        #                            trains on one
-        fsdp=False,
+        num_devices=0,             # 0 = all visible devices of --device (a
+        #                            CPU is one); N > 1: N ranks, one per
+        #                            device, data parallel
+        fsdp=False,                # shard the parameters, AdamW moments
+        #                            and EMA over the ranks (ZeRO-3;
+        #                            parallel/mesh.py)
         tensor_parallel=1,
         spatial_parallel=1,
         num_shards=1,              # dataloader shards; this process reads
         shard_index=0,             # shard shard_index of num_shards
-        coordinator_address="",
+        coordinator_address="",    # host:port of rank 0's rendezvous: this
+        #                            process is rank --process_id of
+        #                            --num_processes, one device each
         num_processes=0,
         process_id=-1,
         auto_resume=False,         # resume from the newest model_*.bin in
@@ -167,13 +193,8 @@ def model_config_from_args(args) -> UnetConfig:
 
 # Flags of paths not ported yet: (flag, is it set?, ROADMAP.md item).
 _LATER = (
-    ("--num_devices", lambda a: a.num_devices > 1, 8),
-    ("--fsdp", lambda a: a.fsdp, 8),
-    ("--tensor_parallel", lambda a: a.tensor_parallel != 1, 8),
-    ("--spatial_parallel", lambda a: a.spatial_parallel != 1, 8),
-    ("--coordinator_address", lambda a: bool(a.coordinator_address), 8),
-    ("--num_processes", lambda a: a.num_processes not in (0, 1), 8),
-    ("--process_id", lambda a: a.process_id not in (-1, 0), 8),
+    ("--tensor_parallel", lambda a: a.tensor_parallel != 1, "8b"),
+    ("--spatial_parallel", lambda a: a.spatial_parallel != 1, "8b"),
 )
 
 
@@ -185,8 +206,33 @@ def _reject_not_ported(args) -> None:
                 f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def _reject_bad_combos(args) -> None:
-    """Error loudly instead of silently ignoring flags."""
+def _visible_devices(args) -> int:
+    """What --num_devices 0 means: the cards this machine shows for a CUDA
+    --device without an index, else 1 (one card, or the CPU)."""
+    device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        return max(torch.cuda.device_count(), 1)
+    return 1
+
+
+def _num_ranks(args) -> int:
+    """The data axis: --num_devices, or with 0 all visible devices; the
+    auto default drops to one device for --host_rng and --log_norms, as
+    the JAX CLI's does."""
+    if args.num_devices:
+        return args.num_devices
+    if args.host_rng or args.log_norms:
+        return 1
+    return _visible_devices(args)
+
+
+def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
+                       ) -> None:
+    """Error loudly instead of silently ignoring flags.  `ranks` is the
+    data axis; `multiproc`, a run of --coordinator_address processes.  An
+    EXPLICIT --num_devices > 1 conflicts with single-device-only features;
+    the auto default (--num_devices 0) quietly drops to one device for
+    them."""
     def bad(cond, msg):
         if cond:
             raise SystemExit(f"train: {msg}")
@@ -225,7 +271,55 @@ def _reject_bad_combos(args) -> None:
         "--num_shards applies to .bin streams")
     bad(args.shard_index >= args.num_shards,
         "--shard_index must be < --num_shards")
-    if torch.device(args.device).type == "cuda":
+    # the data axis (the JAX CLI's rules, the model axis left out)
+    bad(args.num_devices < 0, "--num_devices must be >= 0 (0 = all)")
+    for flag in ("host_rng", "log_norms"):
+        bad(args.num_devices > 1 and getattr(args, flag),
+            f"--{flag} is only wired for single-device runs "
+            "(--num_devices 1)")
+    if args.fsdp:
+        bad(ranks < 2, "--fsdp needs >= 2 devices on the data axis")
+        for flag in ("host_rng", "log_norms"):
+            bad(getattr(args, flag),
+                f"--{flag} is only wired for single-device runs")
+    device = torch.device(args.device)
+    if ranks > 1 and not multiproc:
+        bad(device.index is not None,
+            f"--num_devices {ranks} takes --device cuda or cpu without an "
+            f"index (rank r trains on card r); got --device {args.device}")
+        bad(device.type == "cuda" and ranks > torch.cuda.device_count(),
+            f"--num_devices {ranks} but this machine shows "
+            f"{torch.cuda.device_count()} CUDA devices")
+    bad(not args.coordinator_address
+        and (args.num_processes not in (0, 1)
+             or args.process_id not in (-1, 0)),
+        "--num_processes and --process_id need --coordinator_address")
+    if multiproc:
+        nproc = args.num_processes
+        bad(nproc < 1 or not 0 <= args.process_id < nproc,
+            "--coordinator_address needs --num_processes N and "
+            "--process_id in [0, N) (the port infers neither)")
+        for flag in ("host_rng", "log_norms", "class_cond"):
+            # class_cond stays single-process: labels come from --data_dir
+            # (rejected below for multi-process .bin streams)
+            bad(getattr(args, flag),
+                f"--{flag} is only wired for single-process runs")
+        bad(args.data_dir,
+            "--data_dir has no shard support; multi-process runs need a "
+            ".bin stream (each process reads its own shard)")
+        bad(args.num_devices == 1,
+            "--num_devices 1 conflicts with --coordinator_address")
+        bad(args.num_devices not in (0, nproc),
+            f"--num_devices {args.num_devices} would build a mesh over a "
+            "subset of the global device set and exclude some processes' "
+            "chips; omit it (0 = all) in multi-process runs")
+        bad(args.num_shards != 1
+            and (args.num_shards != nproc
+                 or args.shard_index != args.process_id),
+            "--num_shards is assigned per process automatically in "
+            "multi-process runs; leave it at 1 (explicit sharding "
+            "requires --shard_index <rank>, distinct per process)")
+    if device.type == "cuda":
         fault = attention.head_size_fault(
             unet.attention_widths(model_config_from_args(args)),
             args.num_head_channels)
@@ -322,32 +416,39 @@ class _ChunkStager:
                             if d is buf)] = event
 
 
+def _step_of(path: str):
+    """The step of a `model_<step>.bin` path, or None."""
+    m = re.fullmatch(r"model_(\d+)\.bin", os.path.basename(path))
+    return int(m.group(1)) if m else None
+
+
 def _newest_checkpoint(output_dir: str):
     """The `model_<step>.bin` in `output_dir` with the largest step, or
     None."""
     steps = []
     if os.path.isdir(output_dir):
-        for name in os.listdir(output_dir):
-            m = re.fullmatch(r"model_(\d+)\.bin", name)
-            if m:
-                steps.append(int(m.group(1)))
+        steps = [s for s in map(_step_of, os.listdir(output_dir))
+                 if s is not None]
     if not steps:
         return None
     return os.path.join(output_dir, f"model_{max(steps)}.bin")
 
 
-def _loader(args, tc: TrainConfig, seed: int, start_step: int):
+def _loader(args, tc: TrainConfig, seed: int, start_step: int,
+            rank: int = 0, world: int = 1):
     """(batch iterator, the native loader behind it or None), as the JAX
-    CLI chooses them: a directory of images; a plain sequential `.bin`
-    stream through `NativeLoader`; shuffle, flip or shards through
-    `NativeAugmentedLoader`; `data_loader` with `--native_loader false`.
-    Every one starts `start_step` batches into its stream."""
+    CLI chooses them: a directory of images (rows rank, rank + world, ...
+    of each global batch); a plain sequential `.bin` stream through
+    `NativeLoader`; shuffle, flip or shards through `NativeAugmentedLoader`;
+    `data_loader` with `--native_loader false`.  Every one starts
+    `start_step` batches into its stream."""
     flip = args.flip or args.randomize
     if args.data_dir:
         return dataset.image_dir_loader(
             args.data_dir, tc.batch_size, size=args.image_size,
             class_cond=args.class_cond, randomize=args.randomize, seed=seed,
-            skip_batches=start_step), None
+            skip_batches=start_step, num_shards=world,
+            shard_index=rank), None
     if not args.native_loader:
         return dataset.data_loader(
             args.data_file, tc.batch_size, shuffle=tc.shuffle, flip=flip,
@@ -364,22 +465,77 @@ def _loader(args, tc: TrainConfig, seed: int, start_step: int):
     return iter(loader), loader
 
 
-def main(argv=None) -> trainer.TrainState:
+def main(argv=None):
     """Train as the flags say; returns the final state (None with
-    --init_model_only)."""
+    --init_model_only, and in the command that launched --num_devices N
+    ranks).  A rank of a data-parallel run returns its
+    `parallel.mesh.ParallelState`."""
     args = create_argparser().parse_args(argv)
     _reject_not_ported(args)
-    _reject_bad_combos(args)  # before any work happens
+    launched = distributed.launched()
+    multiproc = bool(args.coordinator_address)
+    if launched is None and not multiproc:
+        ranks = _num_ranks(args)
+        _reject_bad_combos(args, ranks)  # before any work happens
+        if args.num_devices == 0:
+            print(f"--num_devices 0: {ranks} visible device(s) of --device "
+                  f"{args.device}")
+        if ranks > 1:
+            distributed.launch(
+                [sys.executable, "-m", "unet_tpu_torch.cli.train",
+                 *(sys.argv[1:] if argv is None else argv)], ranks)
+            return None
+        return _train(args, argv)
+    if launched is not None:
+        address, world, rank = launched
+        _reject_bad_combos(args, world)
+    else:
+        address, world, rank = (args.coordinator_address,
+                                args.num_processes, args.process_id)
+        _reject_bad_combos(args, args.num_devices or world, multiproc=True)
+    device = distributed.initialize(address, world, rank, args.device)
+    try:
+        return _train(args, argv, device=device, rank=rank, world=world,
+                      multiproc=multiproc)
+    finally:
+        distributed.shutdown()
+
+
+def _train(args, argv, device=None, rank: int = 0, world: int = 1,
+           multiproc: bool = False):
+    """The run of one process: the one-device path without a process group
+    (`device` None), else rank `rank` of `world` (`parallel/mesh.py`)."""
+    parallel = device is not None
+    main_proc = rank == 0
+    if parallel:
+        if multiproc:
+            # each process streams its own interleaved shard of the dataset
+            args.num_shards, args.shard_index = world, rank
+        else:
+            # shard shard_index of num_shards, split again over the ranks:
+            # rank r reads rows r, r + world, ... of that shard's batches
+            args.shard_index += args.num_shards * rank
+            args.num_shards *= world
+    else:
+        device = torch.device(args.device)
     if args.auto_resume and not args.model_weights:
-        newest = _newest_checkpoint(args.output_dir)
+        newest = _newest_checkpoint(args.output_dir) if main_proc else None
+        if parallel:
+            # ranks must agree on the resume point, and only rank 0 writes
+            # checkpoints: rank 0 decides, everyone follows (a rank whose
+            # filesystem lacks the file then fails at load)
+            step = distributed.broadcast_int(
+                -1 if newest is None else _step_of(newest))
+            newest = (None if step < 0 else
+                      os.path.join(args.output_dir, f"model_{step}.bin"))
         if newest is not None:
             args.model_weights = newest
-            print(f"auto-resume: {newest}")
+            if main_proc:
+                print(f"auto-resume: {newest}")
     if (not args.init_model_only and not args.data_dir
             and not os.path.exists(args.data_file)):
         raise SystemExit(f"train: data file not found: {args.data_file} "
                          "(write one with unet_tpu_torch.cli.prepare_data)")
-    device = torch.device(args.device)
     cfg = model_config_from_args(args)
     num_classes = args.num_classes if args.class_cond else None
     tc = TrainConfig(batch_size=args.batch_size, lr=args.lr,
@@ -436,10 +592,11 @@ def main(argv=None) -> trainer.TrainState:
               f"{ckpt_io.num_params(cfg, num_classes):,} params)")
 
     if args.init_model_only:
-        ckpt_io.save(args.init_model_filename, ckpt_io.Checkpoint(
-            params=params, cfg=cfg, batch_size=tc.batch_size,
-            noise_schedule=args.noise_schedule))
-        print(f"wrote init checkpoint to {args.init_model_filename}")
+        if main_proc:
+            ckpt_io.save(args.init_model_filename, ckpt_io.Checkpoint(
+                params=params, cfg=cfg, batch_size=tc.batch_size,
+                noise_schedule=args.noise_schedule))
+            print(f"wrote init checkpoint to {args.init_model_filename}")
         return None
 
     if ckpt is not None:
@@ -458,7 +615,35 @@ def main(argv=None) -> trainer.TrainState:
         named_beta_schedule(args.noise_schedule, cfg.max_period),
         device=device)
     chunked = _chunked(args, tc, start_step)
-    if args.log_norms:
+    mesh = unravel = None
+    if parallel:
+        # the flat state of this rank; the tree state goes
+        mesh = pmesh.make_mesh()
+        unravel = trainer.Unravel(params)
+        state = pmesh.init_state(
+            unravel, state.params, mesh, fsdp=args.fsdp,
+            ema_rate=tc.ema_rate, seed=state.seed, step=state.step,
+            m=state.m, v=state.v, ema=state.ema)
+        if main_proc:
+            print(f"data parallel: {world} rank(s) x batch {tc.batch_size} "
+                  f"= global batch {world * tc.batch_size}")
+            if args.fsdp:
+                print(f"param sharding: "
+                      f"{pmesh.shard_fraction(state.placement):.1%} of "
+                      f"elements sharded (fsdp)")
+
+    def make_step(input_u8: bool):
+        if parallel:
+            return pmesh.make_parallel_train_step(
+                cfg, tc, mesh, diffusion, fsdp=args.fsdp,
+                class_cond=args.class_cond, example_params=params,
+                input_u8=input_u8)
+        return trainer.make_multi_step(cfg, tc, diffusion, device,
+                                       input_u8=input_u8)
+
+    if parallel and not chunked:
+        step_fn = make_step(False)
+    elif args.log_norms:
         step_fn = trainer.make_train_step_aux(cfg, tc, diffusion, device)
     elif not chunked:
         step_fn, step_with = trainer.make_train_step(cfg, tc, diffusion,
@@ -474,11 +659,13 @@ def main(argv=None) -> trainer.TrainState:
                 f"{cfg.image_size}x{cfg.in_channels} — pass --image_size "
                 f"{hdr.height} (and matching arch flags) or rebuild the "
                 "dataset with prepare_data --size")
-    loader, native_loader = _loader(args, tc, seed, start_step)
+    loader, native_loader = _loader(args, tc, seed, start_step, rank, world)
 
     # --- loop ---
-    text_log = TextLog(args.log_file)
-    kv_log = Logger(args.csv_log_dir or None)
+    # rank 0 owns the log files and the checkpoint writes; the other ranks
+    # print to their own standard output only
+    text_log = TextLog(args.log_file if main_proc else None)
+    kv_log = Logger((args.csv_log_dir or None) if main_proc else None)
     counter = trainer.LossCounter()
     os.makedirs(args.output_dir, exist_ok=True)
     if device.type == "cuda":
@@ -512,8 +699,7 @@ def main(argv=None) -> trainer.TrainState:
                                   for _ in range(tc.log_interval)])
             u8 = _as_uint8(chunk)
             if multi is None:
-                multi = trainer.make_multi_step(cfg, tc, diffusion, device,
-                                                input_u8=u8 is not None)
+                multi = make_step(u8 is not None)
                 text_log.log(
                     "H2D encoding: uint8 (byte-derived dataset; f32 rebuilt "
                     "on the device within 1 ulp)" if multi.input_u8 else
@@ -527,9 +713,18 @@ def main(argv=None) -> trainer.TrainState:
         return batches
 
     def save(it: int) -> str:
+        """model_<it>.bin, written by rank 0; under FSDP every rank joins
+        the gather of the pieces first."""
         path = os.path.join(args.output_dir, f"model_{it}.bin")
+        saved = state
+        if parallel:
+            flat, m, v, ema = pmesh.host_state(state)
+            if not main_proc:
+                return path
+            saved = pmesh.tree_state(unravel, flat, m, v, ema,
+                                     step=state.step, seed=state.seed)
         ckpt_io.save(path, trainer.to_checkpoint(
-            state, cfg, batch_size=tc.batch_size, loader_pos=it,
+            saved, cfg, batch_size=tc.batch_size, loader_pos=it,
             ema_rate=tc.ema_rate, noise_schedule=args.noise_schedule,
             host_rng_state=(host_rng.get_state() if host_rng is not None
                             else None)))
@@ -538,15 +733,27 @@ def main(argv=None) -> trainer.TrainState:
 
     # SIGTERM / SIGINT: the handler only notes the signal; the loop saves
     # after the step or chunk in flight and returns.  A second signal kills
-    # at once (the handler puts the default back).
+    # at once (the handler puts the default back).  The ranks of one
+    # --num_devices command (whose launcher passes the signal on to each)
+    # agree once per step or chunk on whether any caught it, so that all
+    # stop at one step; not armed for --coordinator_address processes,
+    # whose signals no launcher passes on.
     caught = []
 
     def graceful(signum, frame):
         caught.append(signum)
         signal.signal(signum, signal.SIG_DFL)
 
-    previous = {sig: signal.signal(sig, graceful)
-                for sig in (signal.SIGTERM, signal.SIGINT)}
+    def stopping() -> bool:
+        if multiproc:
+            return False
+        if parallel:
+            return distributed.any_rank(bool(caught))
+        return bool(caught)
+
+    previous = {} if multiproc else {
+        sig: signal.signal(sig, graceful)
+        for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
         pending = []  # this interval's losses, still on the device
         t_flush = time.perf_counter()
@@ -563,6 +770,14 @@ def main(argv=None) -> trainer.TrainState:
                            and not caught else None)
                 pending.append(losses)
                 it += tc.log_interval
+            elif parallel:
+                if args.class_cond:
+                    batch, labels = next(loader)
+                    state, loss = step_fn(state, batch[None], labels[None])
+                else:
+                    state, loss = step_fn(state, next(loader)[None])
+                pending.append(loss)
+                it += 1
             elif host_rng is not None:
                 # the JAX CLI's draws: timesteps floor(u * T), then the noise
                 # in torch's NCHW element order, laid out NHWC
@@ -613,12 +828,12 @@ def main(argv=None) -> trainer.TrainState:
             path = None
             if tc.save_interval > 0 and it % tc.save_interval == 0:
                 path = save(it)
-            if caught:
+            if stopping():
                 path = path or save(it)
-                text_log.log(f"caught signal {caught[0]} at step {it}; "
-                             "checkpoint saved, exiting (resume with "
-                             f"--model_weights {path} or --auto_resume "
-                             "true)")
+                text_log.log(f"caught signal {caught[0] if caught else '-'} "
+                             f"at step {it}; checkpoint saved, exiting "
+                             f"(resume with --model_weights {path} or "
+                             "--auto_resume true)")
                 return state
     finally:
         # main() runs in-process in tests: the caller's handlers come back

@@ -185,7 +185,8 @@ def data_loader(path: str, batch_size: int, *, shuffle: bool = False,
 
 def image_dir_loader(data_dir: str, batch_size: int, *, size: int = 64,
                      class_cond: bool = False, randomize: bool = False,
-                     seed: int = 0, skip_batches: int = 0) -> Iterator:
+                     seed: int = 0, skip_batches: int = 0,
+                     num_shards: int = 1, shard_index: int = 0) -> Iterator:
     """Infinite NHWC batch iterator straight over a directory of images:
     with `randomize`, a permutation per epoch and a p=0.5 horizontal flip
     per image; with `class_cond`, (batch, labels) tuples, an image's label
@@ -195,14 +196,22 @@ def image_dir_loader(data_dir: str, batch_size: int, *, size: int = 64,
     skip_batches=N fast-forwards past the first N batches without decoding
     an image: cursor arithmetic and a replay of the draws (one permutation
     per epoch, one flip draw per image), so a resumed run sees the stream
-    the original would have from step N on."""
+    the original would have from step N on.
+
+    num_shards > 1: the stream of global batches of batch_size *
+    num_shards images, of which this shard decodes and yields rows
+    shard_index, shard_index + num_shards, ... (the rows
+    `parallel.distributed.global_batch` gives a rank); every shard makes
+    every draw, so the shards together yield what one shard of them all
+    would."""
     files = _list_images(data_dir)
     if not files:
         raise ValueError(f"no images under {data_dir}")
-    if len(files) < batch_size:
+    whole = batch_size * num_shards
+    if len(files) < whole:
         # the epoch loop below would yield nothing, for ever
         raise ValueError(f"{data_dir} has {len(files)} images < batch_size "
-                         f"{batch_size}; an epoch needs one full batch")
+                         f"{whole}; an epoch needs one full batch")
     labels = None
     if class_cond:
         names = [os.path.basename(p).split("_")[0] for p in files]
@@ -217,21 +226,27 @@ def image_dir_loader(data_dir: str, batch_size: int, *, size: int = 64,
         return arr  # HWC
 
     n = len(files)
-    per_epoch = max(len(range(0, n - batch_size + 1, batch_size)), 1)
+    per_epoch = max(len(range(0, n - whole + 1, whole)), 1)
     if randomize:  # replay the draws of the skipped prefix
         for _ in range(skip_batches // per_epoch):
             rng.permutation(n)
-            rng.random(per_epoch * batch_size)
+            rng.random(per_epoch * whole)
     start = skip_batches % per_epoch
     while True:
         order = rng.permutation(n) if randomize else np.arange(n)
         if randomize and start:
-            rng.random(start * batch_size)
-        for i in range(start * batch_size, n - batch_size + 1, batch_size):
-            idx = order[i:i + batch_size]
-            batch = np.stack([load(j) for j in idx])
+            rng.random(start * whole)
+        for i in range(start * whole, n - whole + 1, whole):
+            idx = order[i:i + whole]
+            rows = []
+            for j, k in enumerate(idx):
+                if j % num_shards == shard_index:
+                    rows.append(load(k))
+                elif randomize:
+                    rng.random()  # another shard's image's flip draw
+            batch = np.stack(rows)
             if class_cond:
-                yield batch, labels[idx]
+                yield batch, labels[idx[shard_index::num_shards]]
             else:
                 yield batch
         start = 0

@@ -32,6 +32,7 @@ import torch
 
 from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from unet_tpu_torch.parallel import distributed
 from unet_tpu_torch.utils import graphs
 
 
@@ -66,27 +67,39 @@ def make_model_fn(cfg: UnetConfig, *, compute_dtype=torch.float32,
     return model_fn
 
 
-def _start(model, cfg, generator, batch_size, x_init):
+def _start(model, cfg, generator, batch_size, x_init, rows=None):
+    """The chain's start: `x_init`, or a draw from `generator`; with
+    `rows`, those rows of it, `batch_size` being the global batch."""
     if x_init is not None:
-        return x_init.to(device=model.device, dtype=torch.float32).clone()
-    return torch.randn((batch_size, cfg.image_size, cfg.image_size,
-                        cfg.in_channels), generator=generator,
-                       device=model.device)
+        x = x_init.to(device=model.device, dtype=torch.float32)
+        return (x if rows is None else x[rows]).clone()
+    x = torch.randn((batch_size, cfg.image_size, cfg.image_size,
+                     cfg.in_channels), generator=generator,
+                    device=model.device)
+    return x if rows is None else x[rows].contiguous()
 
 
-def _run_chain(step, z, n, draws, generator, noise) -> None:
+def _run_chain(step, z, n, draws, generator, noise, rows=None) -> None:
     """Runs `step` n times (captured and replayed on a CUDA device).  Before
     step k, where `draws[k]`, z gets that step's noise: `noise[k]` when
-    given, else a draw from `generator`."""
+    given, else a draw from `generator`.  With `rows`, z holds those rows
+    of the global batch, and the noise (given or drawn) is the global
+    batch's, cut to them."""
     if noise is not None:
         noise = noise.to(device=z.device, dtype=torch.float32)
+    whole = None
+    if rows is not None and noise is None:  # rows = slice(rank, None, world)
+        whole = torch.empty((z.shape[0] * rows.step,) + tuple(z.shape[1:]),
+                            dtype=z.dtype, device=z.device)
     chain = graphs.Graph(step, z.device)
     for k in range(n):
         if draws[k]:
-            if noise is None:
-                z.normal_(generator=generator)
+            if noise is not None:
+                z.copy_(noise[k] if rows is None else noise[k][rows])
+            elif whole is not None:
+                z.copy_(whole.normal_(generator=generator)[rows])
             else:
-                z.copy_(noise[k])
+                z.normal_(generator=generator)
         chain()
 
 
@@ -131,7 +144,7 @@ def ddpm_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
                 generator=None, *, batch_size: int = 1,
                 compute_dtype=torch.float32, x_init=None, num_steps=None,
                 model_fn=None, y=None, guidance_scale: float = 1.0,
-                noise=None):
+                noise=None, rows=None):
     """Draw `batch_size` images on the model's device.  Returns (B, H, W, C)
     float32 in [-1, 1]-ish (unclipped).  `num_steps` truncates the chain to
     its first iterations (t = T-1 downward).  `y`/`guidance_scale` select
@@ -139,10 +152,12 @@ def ddpm_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
     make_model_fn); `model_fn` overrides the model call entirely.  `noise`
     (n_steps, B, H, W, C) supplies the per-step injected noise instead of
     drawing it from `generator`, and `x_init` the start: the cross-framework
-    parity hooks."""
+    parity hooks.  `rows` (a slice `distributed.global_batch` gives) keeps
+    those rows of a chain of `batch_size` images: the start and the noise
+    are drawn (or given) for all of them (see `make_parallel_sampler`)."""
     T = diffusion.num_timesteps
     net = model.to_compute(compute_dtype)
-    x = _start(net, cfg, generator, batch_size, x_init)
+    x = _start(net, cfg, generator, batch_size, x_init, rows)
     if model_fn is None:
         model_fn = make_model_fn(cfg, compute_dtype=compute_dtype, y=y,
                                  guidance_scale=guidance_scale)
@@ -157,7 +172,7 @@ def ddpm_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
         x.copy_((x - at("c_eps") * eps) * at("c_mu") + at("sigma") * z)
         at.advance()
 
-    _run_chain(step, z, n, [True] * n, generator, noise)
+    _run_chain(step, z, n, [True] * n, generator, noise, rows)
     return x
 
 
@@ -204,7 +219,7 @@ def ddim_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
                 generator=None, *, num_steps: int = 50, eta: float = 0.0,
                 batch_size: int = 1, compute_dtype=torch.float32,
                 x_init=None, model_fn=None, y=None,
-                guidance_scale: float = 1.0, noise=None):
+                guidance_scale: float = 1.0, noise=None, rows=None):
     """DDIM sampler (Song et al. 2020): `num_steps` model calls instead of
     the ancestral chain's T-2.
 
@@ -219,12 +234,12 @@ def ddim_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
     with abar_prev = 1 at the final step, so eta=0 is deterministic given
     x_init.  A step whose sigma is 0 draws no noise.  `noise` (n_steps, B,
     H, W, C) supplies the injected noise, a parity hook like
-    ddpm_sample's."""
+    ddpm_sample's, and `rows` keeps some rows of the chain as there."""
     columns = ddim_tables(diffusion, num_steps, eta)
     n = len(columns["t"])
     draws = list(columns["sigma"] != 0.0)
     net = model.to_compute(compute_dtype)
-    x = _start(net, cfg, generator, batch_size, x_init)
+    x = _start(net, cfg, generator, batch_size, x_init, rows)
     if model_fn is None:
         model_fn = make_model_fn(cfg, compute_dtype=compute_dtype, y=y,
                                  guidance_scale=guidance_scale)
@@ -243,7 +258,7 @@ def ddim_sample(model, cfg: UnetConfig, diffusion: GaussianDiffusion,
         x.copy_(x_next)
         at.advance()
 
-    _run_chain(step, z, n, draws, generator, noise)
+    _run_chain(step, z, n, draws, generator, noise, rows)
     return x
 
 
@@ -257,6 +272,49 @@ def make_ddim_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion, *,
         model, cfg, diffusion, generator, num_steps=num_steps, eta=eta,
         batch_size=batch_size, compute_dtype=compute_dtype,
         y=y, guidance_scale=guidance_scale)
+
+
+def make_parallel_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion,
+                          mesh, *, batch_size: int,
+                          compute_dtype=torch.float32, num_steps=None,
+                          sampler: str = "ddpm", gather: bool = False):
+    """`sample(model, generator) -> images` over the ranks of a
+    `parallel.mesh.Mesh`: the serving side of the data-parallel step.
+    `batch_size` is the global batch, which must divide by the data axis;
+    each rank runs the whole chain (`sampler` "ddpm", or "ddim" of
+    `num_steps`) on its rows of it, rank, rank + N, ...  The start and each
+    step's noise are drawn for the global batch from `generator` (the same
+    seed on every rank) and cut to the rank's rows, so the rows are those
+    `make_sampler` / `make_ddim_sampler` give for the same generator.
+    Returns the rank's rows, or with `gather` every row in the global
+    order on every rank (an all-gather: every rank calls it)."""
+    if batch_size % mesh.data:
+        raise ValueError(f"batch {batch_size} does not divide over "
+                         f"{mesh.data} ranks")
+    if sampler not in ("ddpm", "ddim"):
+        raise ValueError(f"unknown sampler {sampler!r}")
+    rows = mesh.rows
+
+    def sample(model, generator=None):
+        if sampler == "ddpm":
+            x = ddpm_sample(model, cfg, diffusion, generator,
+                            batch_size=batch_size, num_steps=num_steps,
+                            compute_dtype=compute_dtype, rows=rows)
+        else:
+            x = ddim_sample(model, cfg, diffusion, generator,
+                            num_steps=50 if num_steps is None else num_steps,
+                            batch_size=batch_size,
+                            compute_dtype=compute_dtype, rows=rows)
+        if not gather:
+            return x
+        ranks = torch.empty((batch_size,) + tuple(x.shape[1:]),
+                            dtype=x.dtype, device=x.device)
+        distributed.all_gather(ranks, x)
+        # rank r's row i is global row i * N + r
+        return ranks.view((mesh.data,) + tuple(x.shape)).transpose(
+            0, 1).reshape(ranks.shape)
+
+    return sample
 
 
 def to_uint8(images) -> np.ndarray:

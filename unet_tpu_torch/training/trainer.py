@@ -188,13 +188,19 @@ def _make_grad_fn(loss_fn, tc: TrainConfig, leaves=_parameters):
     return grad_fn
 
 
-def _drop_labels(y, generator: torch.Generator, rate: float):
+def _drop_labels(y, generator: torch.Generator, rate: float, world: int = 1,
+                 rows: Optional[slice] = None):
     """Per-example classifier-free-guidance label dropout: each label
     becomes the null label -1 with probability `rate`.  Drawn after the
-    step's timesteps and noise, so enabling it perturbs nothing else."""
+    step's timesteps and noise, so enabling it perturbs nothing else.  With
+    `world` > 1 the draw is that of the global batch of `world` times y's
+    rows, cut to `rows` (see `_draws`)."""
     if y is None or rate <= 0.0:
         return y
-    drop = torch.rand(y.shape, generator=generator, device=y.device) < rate
+    drop = torch.rand((y.shape[0] * world,) + tuple(y.shape[1:]),
+                      generator=generator, device=y.device) < rate
+    if rows is not None:
+        drop = drop[rows]
     return torch.where(drop, torch.full_like(y, -1), y)
 
 
@@ -224,11 +230,20 @@ def _to_device(a, device, dtype=None):
     return a.to(device=device, dtype=dtype)
 
 
-def _draws(state: TrainState, batch, num_timesteps: int, device):
-    """The step's generator, then its timesteps and noise drawn from it."""
+def _draws(state: TrainState, batch, num_timesteps: int, device,
+           world: int = 1, rows: Optional[slice] = None):
+    """The step's generator, then its timesteps and noise drawn from it.
+    With `world` > 1 the batch is one rank's rows of a global batch of
+    `world` times as many: the draws are the global batch's, cut to `rows`
+    (`parallel.distributed.global_batch`), so that the ranks together draw
+    what one device draws for the whole batch."""
     gen = step_generator(state, device)
-    t = sample_timesteps(gen, batch.shape[0], num_timesteps, device)
-    return gen, t, torch.randn(batch.shape, generator=gen, device=device)
+    shape = (batch.shape[0] * world,) + tuple(batch.shape[1:])
+    t = sample_timesteps(gen, shape[0], num_timesteps, device)
+    noise = torch.randn(shape, generator=gen, device=device)
+    if rows is not None:
+        t, noise = t[rows], noise[rows]
+    return gen, t, noise
 
 
 def _update(state: TrainState, grads, step, tc: TrainConfig) -> None:
@@ -284,36 +299,43 @@ class MultiStep:
     """K train steps as K replays of one captured step (`utils/graphs.py`):
     on a CUDA device the first step ever runs eagerly (the warm-up), the
     second is captured, and every step after that is a replay; on the CPU
-    every step runs eagerly.  Returned by `make_multi_step` and
-    `make_flat_multi_step`.
+    every step runs eagerly.  Returned by `make_multi_step`,
+    `make_flat_multi_step` and `parallel.mesh.make_parallel_train_step`.
 
-    * `multi(state, batches) -> (state, losses)`: K steps over batches
-      (K, B, H, W, C) (uint8 pixels where `make_multi_step` was given
-      `input_u8`), the K losses in one (K,) float32 tensor on the device;
-    * `multi.step_with(state, batch, t, noise) -> (state, loss)`: one
-      step with its timesteps and noise given (the parity hook).
+    * `multi(state, batches, labels=None) -> (state, losses)`: K steps over
+      batches (K, B, H, W, C) (uint8 pixels where `make_multi_step` was
+      given `input_u8`) and, for a class-conditional model, labels (K, B),
+      the K losses in one (K,) float32 tensor on the device;
+    * `multi.step_with(state, batch, t, noise, y=None) -> (state, loss)`:
+      one step with its timesteps and noise given (the parity hook).
 
-    Each step's timesteps and noise are drawn outside the graph, from the
-    step's generator (`step_generator`), as `make_train_step`'s
-    `train_step` draws them, and copied into the graph's input tensors:
-    the random stream stays a pure function of (seed, step) on both paths.
-    The graph reads the parameters, moments and EMA of the state it was
-    captured with, in place; a call with another state, or another batch
-    shape or type, captures again.  `graph` is the current `graphs.Graph`
-    (its `held` counts the kernels one step launches)."""
+    Each step's timesteps, noise and label dropout are drawn outside the
+    graph, from the step's generator (`step_generator`), as
+    `make_train_step`'s `train_step` draws them, and copied into the
+    graph's input tensors: the random stream stays a pure function of
+    (seed, step) on both paths.  A step of one rank of `world` draws them
+    for the global batch and keeps its `rows` of them (`_draws`); its
+    `step_with` takes them for the global batch too.  The graph reads the
+    parameters, moments and EMA of the state it was captured with, in
+    place; a call with another state, or another batch shape or type, or
+    with labels where there were none, captures again.  `graph` is the
+    current `graphs.Graph` (its `held` counts the kernels one step
+    launches)."""
 
     def __init__(self, device, diffusion, grad_fn, update, tensors,
-                 input_u8: bool):
+                 input_u8: bool, *, label_dropout: float = 0.0,
+                 world: int = 1, rows: Optional[slice] = None):
         self.device, self.diffusion = device, diffusion
         self._grad_fn, self._update, self._tensors = grad_fn, update, tensors
         self.input_u8 = input_u8
+        self.label_dropout, self.world, self.rows = label_dropout, world, rows
         self.graph = None
         self._bound = None
 
-    def _bind(self, state, shape, dtype) -> None:
+    def _bind(self, state, shape, dtype, labeled: bool) -> None:
         """The graph and its input tensors for this state and batch."""
         key = (id(state), tuple(t.data_ptr() for t in self._tensors(state)),
-               shape, dtype)
+               shape, dtype, labeled)
         if key == self._bound:
             return
         self.graph = None  # frees the old graph's memory pool
@@ -321,6 +343,8 @@ class MultiStep:
         self._batch = torch.zeros(shape, dtype=dtype, device=dev)
         self._t = torch.zeros(shape[:1], dtype=torch.long, device=dev)
         self._noise = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self._y = (torch.zeros(shape[:1], dtype=torch.long, device=dev)
+                   if labeled else None)
         self._step = torch.zeros((), dtype=torch.float32, device=dev)
         self._loss = torch.zeros((), dtype=torch.float32, device=dev)
 
@@ -328,7 +352,8 @@ class MultiStep:
             batch = self._batch
             if self.input_u8:
                 batch = from_uint8(batch)
-            loss, grads = self._grad_fn(state, batch, self._t, self._noise)
+            loss, grads = self._grad_fn(state, batch, self._t, self._noise,
+                                        self._y)
             self._step.add_(1.0)
             self._update(state, grads, self._step)
             self._loss.copy_(loss)
@@ -336,32 +361,44 @@ class MultiStep:
         self.graph = graphs.Graph(step, dev)
         self._bound = key
 
-    def _run(self, state, batch, t, noise) -> None:
+    def _run(self, state, batch, t, noise, y) -> None:
         self._batch.copy_(batch)
         self._t.copy_(t)
         self._noise.copy_(noise)
+        if y is not None:
+            self._y.copy_(y)
         self.graph()
         state.step += 1
 
-    def __call__(self, state, batches):
+    def __call__(self, state, batches, labels=None):
         batches = _to_device(batches, self.device)
-        self._bind(state, tuple(batches.shape[1:]), batches.dtype)
+        if labels is not None:
+            labels = _to_device(labels, self.device, torch.long)
+        self._bind(state, tuple(batches.shape[1:]), batches.dtype,
+                   labels is not None)
         self._step.fill_(state.step)
         losses = torch.empty(batches.shape[0], dtype=torch.float32,
                              device=self.device)
         for i, batch in enumerate(batches):
-            _, t, noise = _draws(state, batch, self.diffusion.num_timesteps,
-                                 self.device)
-            self._run(state, batch, t, noise)
+            gen, t, noise = _draws(state, batch, self.diffusion.num_timesteps,
+                                   self.device, self.world, self.rows)
+            y = None if labels is None else _drop_labels(
+                labels[i], gen, self.label_dropout, self.world, self.rows)
+            self._run(state, batch, t, noise, y)
             losses[i] = self._loss
         return state, losses
 
-    def step_with(self, state, batch, t, noise):
+    def step_with(self, state, batch, t, noise, y=None):
         batch = _to_device(batch, self.device)
-        self._bind(state, tuple(batch.shape), batch.dtype)
+        t = _to_device(t, self.device)
+        noise = _to_device(noise, self.device, torch.float32)
+        if self.rows is not None:
+            t, noise = t[self.rows], noise[self.rows]
+        if y is not None:
+            y = _to_device(y, self.device, torch.long)
+        self._bind(state, tuple(batch.shape), batch.dtype, y is not None)
         self._step.fill_(state.step)
-        self._run(state, batch, _to_device(t, self.device),
-                  _to_device(noise, self.device, torch.float32))
+        self._run(state, batch, t, noise, y)
         return state, self._loss.clone()
 
 
@@ -388,10 +425,10 @@ def make_multi_step(cfg: UnetConfig, tc: TrainConfig,
     device, diffusion, grad_fn = _setup(cfg, tc, diffusion, device)
     return MultiStep(
         device, diffusion,
-        lambda state, batch, t, noise: grad_fn(state.params, batch, t,
-                                               noise),
+        lambda state, batch, t, noise, y=None: grad_fn(state.params, batch,
+                                                       t, noise, y),
         lambda state, grads, step: _update(state, grads, step, tc),
-        _tree_tensors, input_u8)
+        _tree_tensors, input_u8, label_dropout=tc.label_dropout)
 
 
 # ---------------------------------------------------------------------------
@@ -424,6 +461,7 @@ class Unravel:
 
     * `unravel(flat) -> {name: view}`, the names of `named_parameters()`;
     * `unravel.flatten(model)`: the vector of a model's parameters;
+      `unravel.pack(tensors)`: that of tensors shaped like them;
     * `unravel.apply(flat, x, t, y=None, *, compute_dtype, remat)`:
       `unet.apply` with the parameters of `flat`, cast to `compute_dtype`
       with one cast of the whole vector, inside the autograd graph, so the
@@ -441,10 +479,16 @@ class Unravel:
 
     def flatten(self, model: unet.UNet) -> torch.Tensor:
         params = dict(model.named_parameters())
+        return self.pack([params[n] for n in self.names])
+
+    def pack(self, tensors) -> torch.Tensor:
+        """One float32 vector of tensors shaped like the parameters, in
+        `names` order (the AdamW moments of a `TrainState`, say), laid out
+        as `flatten` lays out the parameters."""
         return torch.cat([
-            (params[n].detach().permute(0, 2, 3, 1) if cl
-             else params[n].detach()).reshape(-1).float()
-            for n, cl in zip(self.names, self.layouts)])
+            (t.detach().permute(0, 2, 3, 1) if cl
+             else t.detach()).reshape(-1).float()
+            for t, cl in zip(tensors, self.layouts)])
 
     def __call__(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         out = {}
@@ -489,10 +533,12 @@ def make_flat_multi_step(cfg: UnetConfig, tc: TrainConfig, unravel: Unravel,
     hp = _adamw_params(tc)
     return MultiStep(
         device, diffusion,
-        lambda state, batch, t, noise: grad_fn(state.flat, batch, t, noise),
+        lambda state, batch, t, noise, y=None: grad_fn(state.flat, batch, t,
+                                                       noise, y),
         lambda state, grads, step: optim.adamw_update_flat(
             state.flat, grads[0], state.m, state.v, step, hp),
-        lambda state: [state.flat, state.m, state.v], False)
+        lambda state: [state.flat, state.m, state.v], False,
+        label_dropout=tc.label_dropout)
 
 
 def tree_sq_norm(tensors) -> torch.Tensor:
