@@ -15,7 +15,8 @@ object per line:
   2. `kernel_checks`: each hand-written kernel (GroupNorm and attention,
      forward and backward) against its plain PyTorch version on the card,
      float32 and bfloat16, at the shapes the U-Net gives it in sampling and
-     in training (attention also at head sizes 16 and 64), with the kernel's, the plain version's and a library
+     in training (attention also at head sizes 16 and 64, and both at the
+     shapes of a block split over two model ranks), with the kernel's, the plain version's and a library
      call's time and the least time the card could take.  Each is timed
      twice after warm-up: as it is called (CUDA events around a loop of
      calls) and on the device alone (the same calls replayed from a CUDA
@@ -113,7 +114,21 @@ object per line:
      of a `--coordinator_address` group, 20 chunked bfloat16 steps with the
      EMA and rank 0's checkpoint, beside the one-device run: ms/step, idle
      share, losses.  Launch counts held exactly.
- 11. `conv_checks` and `conv`: the kernel-benchmark path.  The
+ 11. `tensor_parallel`: Megatron TP and the 2-D tp x fsdp split
+     (`unet_tpu_torch/parallel/tensor.py`, `parallel/mesh.py`), the default
+     model at the global batch 32: at model axis 1 (one NCCL rank) the
+     captured TP and tp x fsdp steps against the one-device flat step, the
+     same bits after 3 bfloat16 and 2 float32 steps (cuDNN deterministic),
+     with each replay's device time; at model axis 2 two processes of this
+     script (`--tensor_parallel_rank`) over gloo on the one card (NCCL
+     refuses two ranks on a card), 3 bfloat16 and 2 float32 eager TP steps
+     against the same one-device steps (losses and parameters within the
+     tolerances stated at `TP_LR`), the leaves each rank keeps whole
+     bit-equal on both, and every kernel input of the split model (such as
+     GroupNorm at (32,64,64,32) in 16 groups and attention at
+     (32,256,288) with 3 heads) held against its plain version.  Launch
+     counts held exactly per rank.
+ 12. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
      and O are multiples of 8, else float32 FMAs, each case naming its
@@ -126,7 +141,7 @@ object per line:
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
- 12. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+ 13. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
      convolution's: those of the `conv` phase); then the seconds the whole
      run took, the card's name and power limit, and the result line.
@@ -185,6 +200,7 @@ from unet_tpu_torch.ops.kernels.groupnorm import (  # noqa: E402
     gn_act_bwd, gn_act_bwd_plain, gn_act_fwd, gn_act_fwd_plain)
 from unet_tpu_torch.parallel import distributed  # noqa: E402
 from unet_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from unet_tpu_torch.parallel import tensor  # noqa: E402
 from unet_tpu_torch.scripts import bench_ops, block_timing  # noqa: E402
 from unet_tpu_torch.scripts import conv_proto  # noqa: E402
 from unet_tpu_torch.training import trainer  # noqa: E402
@@ -256,6 +272,11 @@ GN_SHAPES = [(8, 64, 64, 64), (8, 32, 32, 320), (8, 16, 16, 448),
              (8, 8, 8, 512), (4, 64, 64, 64), (16, 64, 64, 64),
              (4, 8, 8, 512), (16, 32, 32, 320), (8, 8, 8, 256),
              (2, 128, 128, 256), (2, 8, 8, 4160)]
+# A ResBlock split over two model ranks (tensor parallelism) hands GroupNorm
+# its C_out/2 channels in 16 groups: the first ResBlock's of the trainer,
+# forward and backward, timed beside the whole model's (32 groups at the
+# shapes above).
+TP_GN_CASES = [((32, 64, 64, 32), 16)]
 # Batches the requests give the model: DDPM at 4, DDIM at 8, guidance at 2 x 8.
 PATH_BATCHES = (4, 8, 16)
 # (B, T, C, NH): head size 32 (the default model's), then 16 and 64 (64 is
@@ -263,7 +284,8 @@ PATH_BATCHES = (4, 8, 16)
 # model's attention widths and a ragged T.
 ATTN_SHAPES = [(8, 256, 192, 6), (8, 64, 256, 8), (4, 1024, 192, 6),
                (2, 576, 64, 2), (2, 100, 64, 2), (8, 256, 192, 12),
-               (8, 256, 192, 3), (8, 64, 256, 4), (2, 100, 64, 4)]
+               (8, 256, 192, 3), (8, 64, 256, 4), (2, 100, 64, 4),
+               (32, 256, 96, 3)]
 # The backward kernels at the trainer's batch (32, and 16 with microbatches):
 # the first and the widest concatenated GroupNorm inputs of each level, and
 # both attention resolutions; two small ragged shapes besides.  In float32,
@@ -277,9 +299,11 @@ GN_BWD_SHAPES = [(32, 64, 64, 64), (32, 64, 64, 128), (32, 32, 32, 320),
                  (32, 16, 16, 448), (32, 8, 8, 1024), (16, 64, 64, 64),
                  (3, 5, 7, 96), (32, 64, 64, 192), (32, 8, 8, 2048),
                  (2, 8, 8, 2080)]
+# (32,256,96,3) is the ds-4 attention split over two model ranks (half its
+# heads), forward and backward.
 ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
                    (2, 100, 64, 2), (32, 256, 192, 12), (32, 256, 192, 3),
-                   (32, 64, 256, 4)]
+                   (32, 64, 256, 4), (32, 256, 96, 3)]
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
 # ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
 # columns), a single pixel, and C = 3, which is no multiple of 8 and so
@@ -359,50 +383,50 @@ def same_bits(got, again, what) -> None:
         raise AssertionError(f"{what}: a rerun gave other bits")
 
 
-def gn_geometry(shape, dtype, backward) -> dict:
+def gn_geometry(shape, dtype, backward, groups=32) -> dict:
     """The cluster size the wrapper chooses for a GroupNorm case, and
     whether the rows stay in shared memory (staged) or stream through it."""
-    geo = gn_mod.geometry(*shape, 32, dtype, backward)
+    geo = gn_mod.geometry(*shape, groups, dtype, backward)
     return dict(cluster=geo.cluster, staged=geo.staged,
                 streamed=geo.streamed)
 
 
 def check_groupnorm(gen):
     cases = []
-    for shape in GN_SHAPES:
+    for shape, G in [(s, 32) for s in GN_SHAPES] + TP_GN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for act in ("silu", "none"):
                 B, H, W, C = shape
                 x, gamma, beta = gn_inputs(shape, dtype, gen)
-                y, mean, rstd = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
-                again = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
+                y, mean, rstd = gn_act_fwd(x, gamma, beta, G, 1e-5, act)
+                again = gn_act_fwd(x, gamma, beta, G, 1e-5, act)
                 torch.cuda.synchronize()
-                what = f"gn_act_fwd {shape} {dtype} act={act}"
+                what = f"gn_act_fwd {shape} G={G} {dtype} act={act}"
                 same_bits((y, mean, rstd), again, what)
-                yp, meanp, rstdp = gn_act_fwd_plain(x, gamma, beta, 32, 1e-5,
+                yp, meanp, rstdp = gn_act_fwd_plain(x, gamma, beta, G, 1e-5,
                                                     act)
                 err = compare(y, yp, GN_TOL[dtype], what)
                 err_mean = compare(mean, meanp, STAT_TOL, what + " mean")
                 err_rstd = compare(rstd, rstdp, STAT_TOL, what + " rstd")
 
                 def library():
-                    z = TF.group_norm(x.permute(0, 3, 1, 2), 32, gamma, beta,
+                    z = TF.group_norm(x.permute(0, 3, 1, 2), G, gamma, beta,
                                       1e-5)
                     return TF.silu(z) if act == "silu" else z
 
                 item = x.element_size()
-                nbytes = 2 * x.numel() * item + 2 * C * item + 2 * B * 32 * 4
+                nbytes = 2 * x.numel() * item + 2 * C * item + 2 * B * G * 4
                 # subtract, scale, affine, and the SiLU's exp, add, divide
                 flops = x.numel() * (8 if act == "silu" else 4)
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 cases.append(dict(
-                    shape=list(shape), dtype=str(dtype), act=act,
-                    **gn_geometry(shape, dtype, False),
+                    shape=list(shape), groups=G, dtype=str(dtype), act=act,
+                    **gn_geometry(shape, dtype, False, G),
                     max_abs_err=err, mean_max_abs_err=err_mean,
                     rstd_max_abs_err=err_rstd, tol=GN_TOL[dtype],
                     **timings(
-                        lambda: gn_act_fwd(x, gamma, beta, 32, 1e-5, act),
-                        lambda: gn_act_fwd_plain(x, gamma, beta, 32, 1e-5,
+                        lambda: gn_act_fwd(x, gamma, beta, G, 1e-5, act),
+                        lambda: gn_act_fwd_plain(x, gamma, beta, G, 1e-5,
                                                  act),
                         library),
                     bound_ms=bound_ms, bound_by=bound_by))
@@ -464,18 +488,18 @@ def compare_gn_bwd(got, want, dtype, what):
 
 def check_groupnorm_bwd(gen):
     cases = []
-    for shape in GN_BWD_SHAPES:
+    for shape, G in [(s, 32) for s in GN_BWD_SHAPES] + TP_GN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             for act in ("silu", "none"):
                 B, H, W, C = shape
                 x, gamma, beta = gn_inputs(shape, dtype, gen)
                 dy = torch.randn(shape, generator=gen, device=DEV).to(dtype)
-                _, mean, rstd = gn_act_fwd(x, gamma, beta, 32, 1e-5, act)
-                args = (x, gamma, beta, mean, rstd, dy, 32, act)
+                _, mean, rstd = gn_act_fwd(x, gamma, beta, G, 1e-5, act)
+                args = (x, gamma, beta, mean, rstd, dy, G, act)
                 got = gn_act_bwd(*args)
                 again = gn_act_bwd(*args)
                 torch.cuda.synchronize()
-                what = f"gn_act_bwd {shape} {dtype} act={act}"
+                what = f"gn_act_bwd {shape} G={G} {dtype} act={act}"
                 same_bits(got, again, what)
                 want = gn_act_bwd_plain(*args)
                 err, err_partials = compare_gn_bwd(got, want, dtype, what)
@@ -490,7 +514,7 @@ def check_groupnorm_bwd(gen):
                     xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
                     gl = gamma.detach().requires_grad_()
                     bl = beta.detach().requires_grad_()
-                    yl = TF.group_norm(xl, 32, gl, bl, 1e-5)
+                    yl = TF.group_norm(xl, G, gl, bl, 1e-5)
                     yl = TF.silu(yl) if act == "silu" else yl
                 dyl = dy.permute(0, 3, 1, 2)
 
@@ -502,13 +526,13 @@ def check_groupnorm_bwd(gen):
                 # x and dy read, dx written; gamma, beta, mean, rstd read;
                 # the (B, C) partials written
                 nbytes = (3 * x.numel() * item + 2 * C * item
-                          + 2 * B * 32 * 4 + 2 * B * C * 4)
+                          + 2 * B * G * 4 + 2 * B * C * 4)
                 # x-hat, the SiLU's derivative, dz, two sums, dx
                 flops = x.numel() * (20 if act == "silu" else 10)
                 bound_ms, bound_by = bound(nbytes, flops, torch.float32)
                 cases.append(dict(
-                    shape=list(shape), dtype=str(dtype), act=act,
-                    **gn_geometry(shape, dtype, True),
+                    shape=list(shape), groups=G, dtype=str(dtype), act=act,
+                    **gn_geometry(shape, dtype, True, G),
                     max_abs_err=err, partials_max_abs_err=err_partials,
                     partials_err_of_largest=partials_of_largest,
                     tol=GN_TOL[dtype],
@@ -1988,6 +2012,369 @@ def drive_parallel(tmp, totals, step_ms):
     return out
 
 
+# The `tensor_parallel` phase: the steps of each comparison (name, compute
+# type, steps), as the `parallel` phase's, at lr 1e-4.  The two-rank run on
+# the card (gloo, which passes CUDA tensors through the host: NCCL refuses
+# two ranks on one card) runs under the CLI's own settings (cuDNN not held
+# deterministic) and is held to the one-device step within tolerances, not
+# bits:
+# * the gradient of the first step's batch at the initial parameters,
+#   gathered into the whole vector, leaf by leaf (|g - g1| / |g1|, the
+#   worst leaf): float32 within TP_F32_GRAD_RTOL of the one-device float32
+#   gradient; bfloat16 against the one-device float32 gradient within
+#   TP_BF16_GRAD_FACTOR times the one-device bfloat16 gradient's own error
+#   there (the split rounds each rank's partial product of conv2 and proj
+#   to bfloat16 and their sum once more).  A wrong leaf is off by about
+#   its own size;
+# * the losses of the steps: float32 within 1e-5 relative; bfloat16 against
+#   the one-device bfloat16 steps within the one-device bfloat16 steps'
+#   own distance from the float32 ones (their common steps, the same
+#   batches and draws);
+# * the parameters after the steps only within 2.02 lr x steps: an AdamW
+#   step moves a parameter by about lr whatever its gradient, so where two
+#   runs' gradients differ in sign they part by up to 2.02 lr a step; this
+#   catches a diverging run, not a wrong gradient (the gradient check does).
+# Readings on an H100 (PERF.md): the float32 worst leaf 6.8e-6; the
+# bfloat16 one 0.032 against the one-device bfloat16 gradient's 0.032; the
+# bfloat16 losses 4.2e-5 against the control's 1.4e-4.
+TP_LR = 1e-4
+TP_F32_LOSS_RTOL = 1e-5
+TP_F32_GRAD_RTOL = 1e-4
+TP_BF16_GRAD_FACTOR = 1.5
+TP_RANKS = 2
+TP_RANK_LIMIT_S = 300
+
+
+def tp_config(dtype: str) -> TrainConfig:
+    return TrainConfig(batch_size=TRAIN_BATCH, lr=TP_LR, compute_dtype=dtype)
+
+
+def tp_model(cfg):
+    return unet.init(cfg, generator=torch.Generator().manual_seed(4),
+                     device=DEV)
+
+
+def tp_batches(cfg, steps):
+    """The seeded float32 batches of the phase's steps, on the card."""
+    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    pixels = torch.randint(0, 256, (3,) + shape, generator=gen, device=DEV,
+                           dtype=torch.uint8)
+    return pixels[:steps].float() / 127.5 - 1.0
+
+
+def tp_grad_inputs(cfg):
+    """The batch (the phase's first), t and noise of the gradient check,
+    seeded, on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    t = torch.randint(0, cfg.max_period, (TRAIN_BATCH,), generator=gen,
+                      device=DEV)
+    return tp_batches(cfg, 1)[0], t, torch.randn(shape, generator=gen,
+                                                 device=DEV)
+
+
+def leaf_rel_err(got, want, unravel) -> float:
+    """The worst leaf's |got - want| / |want| (L2 norms) of two whole
+    vectors laid out by `unravel`."""
+    got, want = unravel(got), unravel(want)
+    return max(((got[n] - want[n]).norm()
+                / want[n].norm().clamp_min(1e-30)).item()
+               for n in unravel.names)
+
+
+def tensor_parallel_rank(spec_path: str, rank: int) -> None:
+    """One rank of the phase's two-rank run (a child process of
+    `drive_tensor_parallel`): a process group over gloo on card 0, the mesh
+    data 1 x model 2, and for each of `PARALLEL_BITS` the TP step's loss
+    and gradient at the initial parameters (`tp_grad_inputs`, gathered into
+    the whole vector) and then the eager TP steps from the phase's model,
+    seed and batches, kernel inputs recorded; cuDNN as the CLI leaves it.
+    Writes the losses, the launch counts, the shapes and the seconds to
+    `rank<r>.json`, the rank's vector to `<name><r>.npy` and (rank 0) the
+    whole gradient to `<name>_grad.npy` beside the spec."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out_dir = os.path.dirname(spec_path)
+    functional.set_f32_precision("highest")
+    _build.load()
+    distributed.initialize(spec["address"], TP_RANKS, rank, DEV,
+                           timeout_s=TP_RANK_LIMIT_S, process_backend="gloo")
+    try:
+        mesh = pmesh.make_mesh(model=TP_RANKS)
+        cfg = UnetConfig()
+        diffusion = GaussianDiffusion.create(
+            named_beta_schedule("linear", cfg.max_period), device=DEV)
+        record, seen = {}, new_seen()
+        for name, dtype, steps in PARALLEL_BITS:
+            net = tp_model(cfg)
+            tc = tp_config(dtype)
+            step = pmesh.make_parallel_train_step(cfg, tc, mesh, diffusion,
+                                                  tp=True, example_params=net)
+            state = pmesh.init_state(trainer.Unravel(net), net, mesh, tp=True,
+                                     seed=6)
+            batch, t, noise = tp_grad_inputs(cfg)
+            grad_loss, grad = step.value_and_grad(state, batch[mesh.rows], t,
+                                                  noise)
+            grad = state.layout.gather(grad)
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"{name}_grad.npy"),
+                        grad.cpu().numpy())
+            # the same gradient before the step's reductions, at the leaves
+            # the rank keeps whole (what each rank computes for them alone)
+            _, _, raw_fn = trainer._setup(cfg, tc, diffusion, DEV,
+                                          apply=state.layout.local.apply,
+                                          leaves=lambda vec: [vec])
+            _, (raw,) = raw_fn(state.flat, batch[mesh.rows], t, noise)
+            np.save(os.path.join(out_dir, f"{name}_kept_raw{rank}.npy"),
+                    raw[state.layout.kept().to(DEV)].cpu().numpy())
+            del grad, raw, raw_fn, batch, t, noise
+            batches = tp_batches(cfg, steps)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eager_steps(), recording(seen):
+                losses = step(state, batches)[1].tolist()
+            torch.cuda.synchronize()
+            record[name] = dict(
+                losses=losses, grad_loss=grad_loss.item(), launches=counts(),
+                seconds_per_step=(time.perf_counter() - t0) / steps,
+                local_size=state.layout.size)
+            np.save(os.path.join(out_dir, f"{name}{rank}.npy"),
+                    state.flat.detach().cpu().numpy())
+            del step, state, net
+            free_graphs()
+        record["seen"] = {k: sorted(v) for k, v in seen.items()}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        distributed.shutdown()
+
+
+def drive_tensor_parallel(tmp, totals, gen):
+    """Megatron TP and the 2-D tp x fsdp split (`parallel/tensor.py`,
+    `parallel/mesh.py`) on the card, `UnetConfig()` at B=32:
+
+    * model axis 1 over NCCL (one rank): the captured TP and tp x fsdp
+      steps of `make_parallel_train_step` against the one-device flat step
+      (`make_flat_multi_step`) from the same model, seed and batches: the
+      same bits after 3 bfloat16 and 2 float32 steps (cuDNN deterministic
+      on both sides), and each step's device time from its graph's replays;
+    * model axis 2 on the one card: two processes over gloo
+      (`tensor_parallel_rank`) with cuDNN as the CLI leaves it, the TP
+      gradient at the initial parameters and then 3 eager bfloat16 and 2
+      float32 TP steps at the global batch 32, against the one-device
+      gradient and steps (their pieces joined into the whole vector):
+      gradients, losses and parameters within the tolerances above, and
+      the leaves each rank keeps whole bit-equal over the two; every kernel
+      input the split model gave the kernels held against its plain
+      version (`check_seen_shapes`).
+    Launch counts are held exactly (per rank: a split block launches the
+    kernels of a whole one) and added to `totals`."""
+    cfg = UnetConfig()
+    per_step = launches_per_step(cfg, False, 1)
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    out = {}
+
+    def counted(name, want, got=None):
+        torch.cuda.synchronize()
+        got = counts() if got is None else got
+        if got != want:
+            raise AssertionError(f"tensor_parallel {name}: launches {got}, "
+                                 f"want {want}")
+        for k, v in got.items():
+            totals[k] += v
+        return got
+
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, DEV,
+                           timeout_s=120)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    one_device, one_grads = {}, {}
+    try:
+        mesh = pmesh.make_mesh(model=1)
+        steps_record = {}
+        for name, dtype, steps in PARALLEL_BITS:
+            tc = tp_config(dtype)
+            net = tp_model(cfg)
+            flat, unravel = trainer.flatten_state(net, seed=6)
+            _, _, grad_fn = trainer._setup(cfg, tc, diffusion, DEV,
+                                           apply=unravel.apply,
+                                           leaves=lambda vec: [vec])
+            grad_loss, (grad,) = grad_fn(flat.flat, *tp_grad_inputs(cfg))
+            one_grads[name] = (grad_loss.item(), grad.cpu())
+            del grad, grad_fn
+            one = trainer.make_flat_multi_step(cfg, tc, unravel, diffusion,
+                                               DEV)
+            batches = tp_batches(cfg, steps)
+            reset_counts()
+            want = one(flat, batches)[1].tolist()
+            want_launches = {k: steps * v for k, v in per_step.items()}
+            counted(f"one-device {name}", want_launches)
+            one_device[name] = (want, flat.flat.detach().cpu())
+            record = dict(steps=steps, one_device_losses=want)
+            for mode in ("tp", "tp_fsdp"):
+                fsdp = mode == "tp_fsdp"
+                step = pmesh.make_parallel_train_step(
+                    cfg, tc, mesh, diffusion, tp=True, fsdp=fsdp,
+                    example_params=net)
+                state = pmesh.init_state(unravel, net, mesh, tp=True,
+                                         fsdp=fsdp, seed=6)
+                reset_counts()
+                got = step(state, batches)[1].tolist()
+                counted(f"{mode} {name}", want_launches)
+                pairs = ((state.flat, flat.flat), (state.m, flat.m),
+                         (state.v, flat.v))
+                diff = max((a.detach() - b.detach()).abs().max().item()
+                           for a, b in pairs)
+                if got != want or diff != 0.0:
+                    raise AssertionError(
+                        f"tensor_parallel {mode} {name} at model axis 1: "
+                        f"losses {got} against the one-device {want}, "
+                        f"state max abs diff {diff}")
+                record[mode] = dict(
+                    losses=got, bits_equal=True,
+                    replay_ms=replay_ms(step.graph), held=step.graph.held,
+                    split_leaves=len(state.layout.splits),
+                    shard_fraction=pmesh.shard_fraction(state.placement,
+                                                        state.layout))
+                del step, state
+                free_graphs()
+            record["one_device_replay_ms"] = replay_ms(one.graph)
+            steps_record[name] = record
+            del one, flat, unravel, net
+            free_graphs()
+        out["model_axis_1_nccl"] = steps_record
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        distributed.shutdown()
+
+    # model axis 2: two gloo ranks on card 0
+    spec = os.path.join(tmp, "tp_spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(address=f"localhost:{distributed.free_port()}"), f)
+    logs = [os.path.join(tmp, f"tp_rank{r}.log") for r in range(TP_RANKS)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--tensor_parallel_rank", spec, str(r)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                    stdin=subprocess.DEVNULL))
+        codes = [p.wait(timeout=TP_RANK_LIMIT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * TP_RANKS:
+        text = "".join(open(log, errors="replace").read()[-3000:]
+                       for log in logs)
+        raise AssertionError(f"tensor_parallel: the ranks exited {codes}:\n"
+                             f"{text}")
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+             for r in range(TP_RANKS)]
+    net = tp_model(cfg).cpu()
+    layouts = [pmesh.Layout(net, tensor.Shard(TP_RANKS, m))
+               for m in range(TP_RANKS)]
+    axis2 = dict(backend="gloo (CUDA tensors through the host)",
+                 cudnn_deterministic=False,
+                 seconds=time.perf_counter() - t0)
+    whole = layouts[0].whole
+    f32_loss, f32_grad = one_grads["f32"]
+    # the one-device bfloat16 run's own distance from the float32 one: the
+    # gradient (worst leaf) and the losses of the steps both runs take
+    control = dict(
+        grad=leaf_rel_err(one_grads["bf16"][1], f32_grad, whole),
+        losses=max(abs(a - b) / abs(b) for a, b in zip(
+            one_device["bf16"][0], one_device["f32"][0])))
+    axis2["bf16_against_f32_one_device"] = control
+    for name, dtype, steps in PARALLEL_BITS:
+        want, want_flat = one_device[name]
+        got = ranks[0][name]["losses"]
+        if any(rank[name]["losses"] != got for rank in ranks):
+            raise AssertionError(f"tensor_parallel {name}: the ranks' "
+                                 f"losses differ: {ranks}")
+        grad = torch.from_numpy(np.load(os.path.join(tmp, f"{name}_grad.npy")))
+        if dtype == "float32":
+            rtol, grad_rtol = TP_F32_LOSS_RTOL, TP_F32_GRAD_RTOL
+        else:
+            rtol = control["losses"]
+            grad_rtol = TP_BF16_GRAD_FACTOR * control["grad"]
+        grad_err = leaf_rel_err(grad, f32_grad, whole)
+        grad_err_same_type = leaf_rel_err(grad, one_grads[name][1], whole)
+        grad_loss_rel = abs(ranks[0][name]["grad_loss"] - one_grads[name][0]
+                            ) / abs(one_grads[name][0])
+        if not (grad_err <= grad_rtol and grad_loss_rel <= rtol):
+            raise AssertionError(
+                f"tensor_parallel {name} at model axis 2: gradient worst "
+                f"leaf {grad_err} from the one-device float32 gradient "
+                f"(bar {grad_rtol}), loss {grad_loss_rel} from the "
+                f"one-device loss (bar {rtol})")
+        del grad
+        raw = [np.load(os.path.join(tmp, f"{name}_kept_raw{r}.npy"))
+               for r in range(TP_RANKS)]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        vecs = [torch.from_numpy(np.load(os.path.join(tmp, f"{name}{r}.npy")))
+                for r in range(TP_RANKS)]
+        param_diff = (layouts[0].join(vecs) - want_flat).abs().max().item()
+        atol = 2.02 * TP_LR * steps
+        if not (rel <= rtol and param_diff <= atol):
+            raise AssertionError(
+                f"tensor_parallel {name} at model axis 2: losses {got} "
+                f"against the one-device {want} (max rel {rel}, rtol "
+                f"{rtol}), parameters max abs diff {param_diff} (atol "
+                f"{atol})")
+        views = [layout.local(vec) for layout, vec in zip(layouts, vecs)]
+        kept = [n for n in layouts[0].whole.names
+                if n not in layouts[0].splits]
+        if not all(torch.equal(views[1][n], views[0][n]) for n in kept):
+            raise AssertionError(f"tensor_parallel {name}: a leaf kept whole "
+                                 "differs between the model ranks")
+        for r, rank in enumerate(ranks):
+            counted(f"model axis 2 {name} rank {r}",
+                    {k: steps * v for k, v in per_step.items()},
+                    rank[name]["launches"])
+        axis2[name] = dict(
+            steps=steps, losses=got, one_device_losses=want,
+            loss_max_rel_diff=rel, loss_rtol=rtol,
+            param_max_abs_diff=param_diff, param_atol=atol,
+            grad_leaf_rel_err=grad_err, grad_leaf_rtol=grad_rtol,
+            grad_leaf_rel_err_against_same_type=grad_err_same_type,
+            grad_loss_rel_err=grad_loss_rel,
+            kept_raw_grad_bits_equal=bool(np.array_equal(raw[0], raw[1])),
+            kept_raw_grad_max_abs_diff=float(np.abs(raw[0] - raw[1]).max()),
+            kept_whole_bit_equal=True,
+            local_sizes=[rank[name]["local_size"] for rank in ranks],
+            whole_size=sum(whole.sizes),
+            seconds_per_step=[rank[name]["seconds_per_step"]
+                              for rank in ranks])
+    seen = new_seen()
+    for rank in ranks:
+        for k, v in rank["seen"].items():
+            seen[k] |= {tuple(tuple(a) if isinstance(a, list) else a
+                              for a in entry) for entry in v}
+    # the first ResBlock's gn2 on its half of the channels, and every
+    # attention layer on half its heads (UnetConfig(): (32,64,64,32) in 16
+    # groups; (32,256,288) and (32,64,384), 3 and 4 heads)
+    width = cfg.model_channels * cfg.channel_mult[0] // TP_RANKS
+    gn2 = ((TRAIN_BATCH, cfg.image_size, cfg.image_size, width),
+           cfg.gn_num_groups // TP_RANKS)
+    heads = {w // cfg.num_head_channels // TP_RANKS
+             for w in unet.attention_widths(cfg)}
+    if (gn2 not in {(e[0], e[1]) for e in seen["gn_fwd"]}
+            or heads != {e[1] for e in seen["attn_fwd"]}):
+        raise AssertionError(f"tensor_parallel: the split model handed the "
+                             f"kernels {seen}, not {gn2} and {heads} heads")
+    axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(seen, gen)
+    out["model_axis_2_one_card"] = axis2
+    return out
+
+
 def check_conv(gen):
     """The convolution kernels against their plain version at
     `CONV_SHAPES`, float32 and bfloat16, twice (the second call must give
@@ -2186,6 +2573,14 @@ def main() -> None:
           "seconds": time.perf_counter() - t0,
           "launches_with_the_runs_before": dict(totals)})
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp = drive_tensor_parallel(tmp, totals, gen)
+    emit({"phase": "tensor_parallel", "model": "UnetConfig() ImageNet-64, "
+          f"full depth, global B={TRAIN_BATCH}", **tp,
+          "seconds": time.perf_counter() - t0,
+          "launches_with_the_runs_before": dict(totals)})
+
     cases["conv3x3_hwbc"] = check_conv(gen)
     emit({"phase": "conv_checks", "conv3x3_hwbc": cases["conv3x3_hwbc"]})
     conv = drive_conv(gen)
@@ -2229,4 +2624,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--tensor_parallel_rank"]:
+        tensor_parallel_rank(sys.argv[2], int(sys.argv[3]))
+    else:
+        main()

@@ -254,17 +254,24 @@ def test_world_size_1_gives_the_one_device_flat_steps_bits(one_rank, fsdp):
         assert torch.equal(a.detach(), b.detach())
 
 
-def test_make_mesh_needs_a_process_group_and_refuses_the_model_axis():
+def test_make_mesh_needs_a_process_group_and_refuses_the_model_axis(ranks):
+    """make_mesh needs a process group; over one it builds a model axis
+    (here over the worker's ranks: data world / 2 x model 2, rank d * 2 +
+    m, as tests/test_torch_tensor_parallel.py holds at more shapes); the
+    spatial split of the model axis raises, naming item 8b-ii."""
+    world, _, _, sizes = ranks
     with pytest.raises(RuntimeError, match="initialize"):
         pmesh.make_mesh()
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        pmesh.make_mesh(model=2)
+    for r, rank_sizes in enumerate(sizes):
+        assert rank_sizes["mesh_model_2"] == dict(
+            data=world // 2, model=2, data_rank=r // 2, model_rank=r % 2)
     mesh = pmesh.Mesh(data=2, rank=0, device=torch.device("cpu"))
-    for fn in (pmesh.tp_sharding, pmesh.tp_fsdp_sharding):
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            fn(mesh, None)
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        pmesh.param_sharding(mesh, 10, tp=True)
+    with pytest.raises(NotImplementedError, match="item 8b-ii"):
+        pmesh.make_parallel_train_step(configs()[1], TrainConfig(), mesh,
+                                       spatial=True)
+    with pytest.raises(ValueError, match="tp and spatial"):
+        pmesh.make_parallel_train_step(configs()[1], TrainConfig(), mesh,
+                                       tp=True, spatial=True)
 
 
 @pytest.mark.parametrize("size,world", [(10, 4), (12, 4), (7, 1), (5, 8)])

@@ -339,13 +339,13 @@ def test_cli_init_model_only_and_log_norms(data_file, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tensor_parallel", "2"], "8b"), (["--spatial_parallel", "2"], "8b"),
-    (["--tensor_parallel", "2", "--num_devices", "2"], "8b"),
-    (["--spatial_parallel", "4", "--fsdp", "true"], "8b")])
+    (["--spatial_parallel", "2"], "8b-ii"),
+    (["--spatial_parallel", "4", "--fsdp", "true"], "8b-ii")])
 def test_cli_flags_of_later_slices_raise(data_file, flags, item):
-    """The model axis is not ported (the data axis is: `--num_devices`,
-    `--fsdp` and `--coordinator_address` run, tests/test_torch_distributed.py);
-    it raises before anything else, with or without the data axis."""
+    """Spatial sharding is not ported (the data axis and tensor parallelism
+    are: tests/test_torch_distributed.py,
+    tests/test_torch_tensor_parallel.py); it raises before anything else,
+    with or without the data axis."""
     with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
         port_cli.main(_cli_flags(data_file, "x", *flags))
 

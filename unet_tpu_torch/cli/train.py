@@ -4,7 +4,7 @@
 python -m unet_tpu_torch.cli.train --data_file data/train.bin \\
     [--batch_size 32] [--iterations N] [--compute_dtype bfloat16] \\
     [--model_weights models/model_N.bin | --auto_resume true] [--device cuda]
-    [--num_devices N [--fsdp true]]
+    [--num_devices N [--fsdp true] [--tensor_parallel M]]
 
 A fresh init (from `--seed`) or `--model_weights` (parameters, AdamW
 moments, step, seed, EMA, loader cursor and, with `--host_rng`, the host
@@ -58,9 +58,16 @@ one-process run at the global batch.  Rank 0 writes the log and the
 checkpoints, every rank joins their gather; `--auto_resume` resumes where
 rank 0 says.  SIGTERM to the one command is passed to every rank, which
 agree once per step or chunk whether any caught it, and all stop at one
-step; `--coordinator_address` processes do not catch it.  The model axis
-(`--tensor_parallel`, `--spatial_parallel`) raises `NotImplementedError`,
-naming its `ROADMAP.md` item.
+step; `--coordinator_address` processes do not catch it.
+
+`--tensor_parallel M` splits the N ranks into N / M data ranks by M model
+ranks (rank d * M + m), as the JAX CLI's mesh: the model ranks of one data
+index read the same shard and split the model Megatron-style (TP), with
+`--fsdp` also its vector over the data axis (tp x fsdp); the global batch
+is N / M times `--batch_size`.  A checkpoint is the one-device `.bin`, so
+a run resumes under any layout.  Each rank needs a device of its own: two
+NCCL ranks cannot share a card.  `--spatial_parallel` raises
+`NotImplementedError`, naming its `ROADMAP.md` item.
 """
 
 from __future__ import annotations
@@ -193,12 +200,15 @@ def model_config_from_args(args) -> UnetConfig:
 
 # Flags of paths not ported yet: (flag, is it set?, ROADMAP.md item).
 _LATER = (
-    ("--tensor_parallel", lambda a: a.tensor_parallel != 1, "8b"),
-    ("--spatial_parallel", lambda a: a.spatial_parallel != 1, "8b"),
+    ("--spatial_parallel", lambda a: a.spatial_parallel != 1, "8b-ii"),
 )
 
 
 def _reject_not_ported(args) -> None:
+    # the JAX CLI's rule for the two flags of the model axis comes first
+    if args.tensor_parallel > 1 and args.spatial_parallel > 1:
+        raise SystemExit("train: --tensor_parallel and --spatial_parallel "
+                         "both use the model mesh axis")
     for flag, is_set, item in _LATER:
         if is_set(args):
             raise NotImplementedError(
@@ -226,13 +236,21 @@ def _num_ranks(args) -> int:
     return _visible_devices(args)
 
 
+def _model_axis(args) -> int:
+    """The model axis: --tensor_parallel (1 and below: none)."""
+    return max(args.tensor_parallel, 1)
+
+
 def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
                        ) -> None:
     """Error loudly instead of silently ignoring flags.  `ranks` is the
-    data axis; `multiproc`, a run of --coordinator_address processes.  An
-    EXPLICIT --num_devices > 1 conflicts with single-device-only features;
-    the auto default (--num_devices 0) quietly drops to one device for
-    them."""
+    number of devices (data x model axis); `multiproc`, a run of
+    --coordinator_address processes.  An EXPLICIT --num_devices > 1
+    conflicts with single-device-only features; the auto default
+    (--num_devices 0) quietly drops to one device for them.  The JAX CLI's
+    rule that its data axis divide over the processes holds here by
+    construction: a process is one device, and the processes of one data
+    index read one shard."""
     def bad(cond, msg):
         if cond:
             raise SystemExit(f"train: {msg}")
@@ -271,14 +289,18 @@ def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
         "--num_shards applies to .bin streams")
     bad(args.shard_index >= args.num_shards,
         "--shard_index must be < --num_shards")
-    # the data axis (the JAX CLI's rules, the model axis left out)
+    # the mesh (the JAX CLI's rules)
     bad(args.num_devices < 0, "--num_devices must be >= 0 (0 = all)")
     for flag in ("host_rng", "log_norms"):
         bad(args.num_devices > 1 and getattr(args, flag),
             f"--{flag} is only wired for single-device runs "
             "(--num_devices 1)")
-    if args.fsdp:
-        bad(ranks < 2, "--fsdp needs >= 2 devices on the data axis")
+    model_axis = _model_axis(args)
+    if args.fsdp or model_axis > 1:
+        bad(ranks % model_axis != 0,
+            f"model axis {model_axis} does not divide {ranks} devices")
+        bad(args.fsdp and ranks // model_axis < 2,
+            "--fsdp needs >= 2 devices on the data axis")
         for flag in ("host_rng", "log_norms"):
             bad(getattr(args, flag),
                 f"--{flag} is only wired for single-device runs")
@@ -435,10 +457,10 @@ def _newest_checkpoint(output_dir: str):
 
 
 def _loader(args, tc: TrainConfig, seed: int, start_step: int,
-            rank: int = 0, world: int = 1):
+            data_rank: int = 0, data: int = 1):
     """(batch iterator, the native loader behind it or None), as the JAX
-    CLI chooses them: a directory of images (rows rank, rank + world, ...
-    of each global batch); a plain sequential `.bin` stream through
+    CLI chooses them: a directory of images (rows data_rank, data_rank +
+    data, ... of each global batch); a plain sequential `.bin` stream through
     `NativeLoader`; shuffle, flip or shards through `NativeAugmentedLoader`;
     `data_loader` with `--native_loader false`.  Every one starts
     `start_step` batches into its stream."""
@@ -447,8 +469,8 @@ def _loader(args, tc: TrainConfig, seed: int, start_step: int,
         return dataset.image_dir_loader(
             args.data_dir, tc.batch_size, size=args.image_size,
             class_cond=args.class_cond, randomize=args.randomize, seed=seed,
-            skip_batches=start_step, num_shards=world,
-            shard_index=rank), None
+            skip_batches=start_step, num_shards=data,
+            shard_index=data_rank), None
     if not args.native_loader:
         return dataset.data_loader(
             args.data_file, tc.batch_size, shuffle=tc.shuffle, flip=flip,
@@ -507,15 +529,19 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
     (`device` None), else rank `rank` of `world` (`parallel/mesh.py`)."""
     parallel = device is not None
     main_proc = rank == 0
+    # the data axis: the model ranks of one data index read the same rows
+    model_axis = _model_axis(args)
+    data_rank, data = rank // model_axis, world // model_axis
     if parallel:
         if multiproc:
-            # each process streams its own interleaved shard of the dataset
-            args.num_shards, args.shard_index = world, rank
+            # each data index streams its own interleaved shard of the data
+            args.num_shards, args.shard_index = data, data_rank
         else:
-            # shard shard_index of num_shards, split again over the ranks:
-            # rank r reads rows r, r + world, ... of that shard's batches
-            args.shard_index += args.num_shards * rank
-            args.num_shards *= world
+            # shard shard_index of num_shards, split again over the data
+            # axis: data rank d reads rows d, d + data, ... of that shard's
+            # batches
+            args.shard_index += args.num_shards * data_rank
+            args.num_shards *= data
     else:
         device = torch.device(args.device)
     if args.auto_resume and not args.model_weights:
@@ -616,26 +642,32 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
         device=device)
     chunked = _chunked(args, tc, start_step)
     mesh = unravel = None
+    tp = model_axis > 1
     if parallel:
         # the flat state of this rank; the tree state goes
-        mesh = pmesh.make_mesh()
+        mesh = pmesh.make_mesh(model=model_axis)
         unravel = trainer.Unravel(params)
         state = pmesh.init_state(
-            unravel, state.params, mesh, fsdp=args.fsdp,
+            unravel, state.params, mesh, fsdp=args.fsdp, tp=tp,
             ema_rate=tc.ema_rate, seed=state.seed, step=state.step,
             m=state.m, v=state.v, ema=state.ema)
         if main_proc:
-            print(f"data parallel: {world} rank(s) x batch {tc.batch_size} "
-                  f"= global batch {world * tc.batch_size}")
-            if args.fsdp:
+            print(f"data parallel: {data} rank(s) x batch {tc.batch_size} "
+                  f"= global batch {data * tc.batch_size}")
+            if tp:
+                print(f"tensor parallel: {model_axis} model ranks a data "
+                      "rank")
+            if args.fsdp or tp:
+                kind = "fsdp+tp" if args.fsdp and tp else (
+                    "fsdp" if args.fsdp else "tp")
                 print(f"param sharding: "
-                      f"{pmesh.shard_fraction(state.placement):.1%} of "
-                      f"elements sharded (fsdp)")
+                      f"{pmesh.shard_fraction(state.placement, state.layout):.1%}"
+                      f" of elements sharded ({kind})")
 
     def make_step(input_u8: bool):
         if parallel:
             return pmesh.make_parallel_train_step(
-                cfg, tc, mesh, diffusion, fsdp=args.fsdp,
+                cfg, tc, mesh, diffusion, fsdp=args.fsdp, tp=tp,
                 class_cond=args.class_cond, example_params=params,
                 input_u8=input_u8)
         return trainer.make_multi_step(cfg, tc, diffusion, device,
@@ -659,7 +691,8 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
                 f"{cfg.image_size}x{cfg.in_channels} — pass --image_size "
                 f"{hdr.height} (and matching arch flags) or rebuild the "
                 "dataset with prepare_data --size")
-    loader, native_loader = _loader(args, tc, seed, start_step, rank, world)
+    loader, native_loader = _loader(args, tc, seed, start_step, data_rank,
+                                    data)
 
     # --- loop ---
     # rank 0 owns the log files and the checkpoint writes; the other ranks
@@ -713,8 +746,8 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
         return batches
 
     def save(it: int) -> str:
-        """model_<it>.bin, written by rank 0; under FSDP every rank joins
-        the gather of the pieces first."""
+        """model_<it>.bin, written by rank 0; under FSDP and TP every rank
+        joins the gather of the pieces first."""
         path = os.path.join(args.output_dir, f"model_{it}.bin")
         saved = state
         if parallel:

@@ -287,7 +287,9 @@ def make_parallel_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion,
     seed on every rank) and cut to the rank's rows, so the rows are those
     `make_sampler` / `make_ddim_sampler` give for the same generator.
     Returns the rank's rows, or with `gather` every row in the global
-    order on every rank (an all-gather: every rank calls it)."""
+    order on every rank (an all-gather over the data axis: every rank
+    calls it).  On a mesh with a model axis each model rank runs the whole
+    model on the rows of its data index."""
     if batch_size % mesh.data:
         raise ValueError(f"batch {batch_size} does not divide over "
                          f"{mesh.data} ranks")
@@ -309,7 +311,7 @@ def make_parallel_sampler(cfg: UnetConfig, diffusion: GaussianDiffusion,
             return x
         ranks = torch.empty((batch_size,) + tuple(x.shape[1:]),
                             dtype=x.dtype, device=x.device)
-        distributed.all_gather(ranks, x)
+        distributed.all_gather(ranks, x, mesh.data_group)
         # rank r's row i is global row i * N + r
         return ranks.view((mesh.data,) + tuple(x.shape)).transpose(
             0, 1).reshape(ranks.shape)

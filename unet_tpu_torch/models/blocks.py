@@ -8,6 +8,11 @@ Initialisation follows the torch defaults the JAX package reproduces:
 U(+-1/sqrt(fan_in)) for conv and linear weights and biases, ones and zeros
 for GroupNorm.  A block computes in its parameters' type; `models.unet.apply`
 casts them to the compute type, once, for a call.
+
+Given a `parallel.tensor.Shard`, a block holds its rank's piece of the
+model axis's Megatron split (see parallel/tensor.py) and says in `splits`
+how each of those leaves lies over the model group; without one it is the
+whole block, and the collectives are the identity.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from torch import nn
 
 from unet_tpu_torch.ops import functional as F
+from unet_tpu_torch.parallel import tensor
 
 
 def _uniform(shape, bound, generator):
@@ -28,28 +34,31 @@ class Conv2d(nn.Module):
     w is stored in the channels_last memory format (same shape and values,
     other strides): the activations reach cuDNN as channels_last tensors,
     and a kernel in the default format would be laid out again on every
-    call."""
+    call.  Without `bias`, b is None."""
 
-    def __init__(self, cin, cout, ksize, generator=None):
+    def __init__(self, cin, cout, ksize, generator=None, bias=True):
         super().__init__()
         bound = 1.0 / (cin * ksize * ksize) ** 0.5
         self.w = nn.Parameter(
             _uniform((cout, cin, ksize, ksize), bound, generator)
             .contiguous(memory_format=torch.channels_last))
-        self.b = nn.Parameter(_uniform((cout,), bound, generator))
+        self.b = (nn.Parameter(_uniform((cout,), bound, generator)) if bias
+                  else None)
 
     def forward(self, x):
         return F.conv2d(x, self.w, self.b)
 
 
 class Linear(nn.Module):
-    """Parameters of a linear layer: w (O, I), b (O,)."""
+    """Parameters of a linear layer: w (O, I), b (O,) (None without
+    `bias`)."""
 
-    def __init__(self, cin, cout, generator=None):
+    def __init__(self, cin, cout, generator=None, bias=True):
         super().__init__()
         bound = 1.0 / cin ** 0.5
         self.w = nn.Parameter(_uniform((cout, cin), bound, generator))
-        self.b = nn.Parameter(_uniform((cout,), bound, generator))
+        self.b = (nn.Parameter(_uniform((cout,), bound, generator)) if bias
+                  else None)
 
     def forward(self, x):
         return F.linear(x, self.w, self.b)
@@ -77,24 +86,38 @@ class ResBlock(nn.Module):
 
     The embedding projection is added before GN2; with `scale_shift_norm` it
     becomes (scale, shift) applied after a GN2 without activation, and the
-    SiLU follows.  The 1x1 `skip` exists only when the channels change."""
+    SiLU follows.  The 1x1 `skip` exists only when the channels change.
+
+    With `shard` (N ranks) the block holds rank m's piece: conv1 and emb
+    column-parallel (C_out/N output rows; emb's [scale | shift] cut part by
+    part), gn2 on those C_out/N channels in G/N groups, conv2 row-parallel
+    (their input columns; its bias on rank 0 alone); gn1 and skip
+    whole."""
 
     def __init__(self, cin, cout, emb_dim, *, scale_shift_norm=False,
                  up=False, down=False, num_groups=32, eps=1e-5,
-                 generator=None):
+                 generator=None, shard=None):
         super().__init__()
         if up and down:
             raise ValueError("a ResBlock resamples up or down, not both")
         self.scale_shift_norm = scale_shift_norm
         self.up, self.down = up, down
+        self.shard = shard
+        n = 1 if shard is None else shard.size
+        parts = 2 if scale_shift_norm else 1
         self.gn1 = GroupNorm(cin, num_groups, eps)
-        self.conv1 = Conv2d(cin, cout, 3, generator)
-        self.emb = Linear(emb_dim, 2 * cout if scale_shift_norm else cout,
-                          generator)
-        self.gn2 = GroupNorm(cout, num_groups, eps)
-        self.conv2 = Conv2d(cout, cout, 3, generator)
+        self.conv1 = Conv2d(cin, cout // n, 3, generator)
+        self.emb = Linear(emb_dim, parts * cout // n, generator)
+        self.gn2 = GroupNorm(cout // n, num_groups // n, eps)
+        self.conv2 = Conv2d(cout // n, cout, 3, generator,
+                            bias=shard is None or shard.index == 0)
         if cin != cout:
             self.skip = Conv2d(cin, cout, 1, generator)
+        self.splits = {} if shard is None else {
+            "conv1.w": tensor.ROWS, "conv1.b": tensor.ROWS,
+            "emb.w": tensor.Split(0, parts), "emb.b": tensor.Split(0, parts),
+            "gn2.scale": tensor.ROWS, "gn2.bias": tensor.ROWS,
+            "conv2.w": tensor.COLUMNS, "conv2.b": tensor.FIRST}
 
     def forward(self, x, emb):
         h = self.gn1(x)
@@ -102,9 +125,9 @@ class ResBlock(nn.Module):
             h, x = F.upsample_nearest_2x(h), F.upsample_nearest_2x(x)
         elif self.down:
             h, x = F.avg_pool_2x(h), F.avg_pool_2x(x)
-        h = self.conv1(h)
+        h = self.conv1(tensor.copy_to_model(h, self.shard))
 
-        e = self.emb(F.silu(emb))
+        e = self.emb(tensor.copy_to_model(F.silu(emb), self.shard))
         if self.scale_shift_norm:
             scale, shift = e.chunk(2, dim=-1)
             h = self.gn2(h, act="none")
@@ -113,7 +136,7 @@ class ResBlock(nn.Module):
         else:
             h = h + e[:, None, None, :]
             h = self.gn2(h)
-        h = self.conv2(h)
+        h = tensor.reduce_from_model(self.conv2(h), self.shard)
 
         if hasattr(self, "skip"):
             x = self.skip(x)
@@ -122,18 +145,31 @@ class ResBlock(nn.Module):
 
 class AttentionBlock(nn.Module):
     """GN (no activation) -> QKV linear -> multi-head attention -> proj ->
-    residual.  x: (B, H, W, C) NHWC, so the (B, T, C) view is a reshape."""
+    residual.  x: (B, H, W, C) NHWC, so the (B, T, C) view is a reshape.
+
+    With `shard` (N ranks) the block holds rank m's NH/N heads: the q, k and
+    v rows of qkv for those heads, packed [q | k | v] as the kernels take
+    them, and proj row-parallel over their channels (its bias on rank 0
+    alone); gn whole."""
 
     def __init__(self, channels, *, head_size=32, num_groups=32, eps=1e-5,
-                 generator=None):
+                 generator=None, shard=None):
         super().__init__()
-        self.num_heads = channels // head_size
+        self.shard = shard
+        n = 1 if shard is None else shard.size
+        self.num_heads = channels // head_size // n
         self.gn = GroupNorm(channels, num_groups, eps)
-        self.qkv = Linear(channels, 3 * channels, generator)
-        self.proj = Linear(channels, channels, generator)
+        self.qkv = Linear(channels, 3 * channels // n, generator)
+        self.proj = Linear(channels // n, channels, generator,
+                           bias=shard is None or shard.index == 0)
+        self.splits = {} if shard is None else {
+            "qkv.w": tensor.Split(0, 3), "qkv.b": tensor.Split(0, 3),
+            "proj.w": tensor.COLUMNS, "proj.b": tensor.FIRST}
 
     def forward(self, x):
         B, H, W, C = x.shape
         h = self.gn(x, act="none").reshape(B, H * W, C)
-        a = F.qkv_attention(self.qkv(h), self.num_heads)
-        return x + self.proj(a).reshape(B, H, W, C)
+        a = F.qkv_attention(self.qkv(tensor.copy_to_model(h, self.shard)),
+                            self.num_heads)
+        h = tensor.reduce_from_model(self.proj(a), self.shard)
+        return x + h.reshape(B, H, W, C)

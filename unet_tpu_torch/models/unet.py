@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.models import blocks
 from unet_tpu_torch.ops import functional as F
+from unet_tpu_torch.parallel import tensor
 
 # Layer kinds appearing in a plan:
 #   ("conv_in", cin, cout)  ("res", cin, cout)  ("attn", c)
@@ -141,7 +142,7 @@ class LayerGroup(nn.Module):
     """One entry of the plan's input or output column: its layers applied in
     order.  "down" and "up" have no parameters."""
 
-    def __init__(self, layers, cfg: UnetConfig, generator=None):
+    def __init__(self, layers, cfg: UnetConfig, generator=None, shard=None):
         super().__init__()
         self.layers = layers
         for layer in layers:
@@ -149,9 +150,9 @@ class LayerGroup(nn.Module):
             if kind == "conv_in":
                 self.conv = blocks.Conv2d(layer[1], layer[2], 3, generator)
             elif kind == "res":
-                self.res = _res(layer, cfg, generator)
+                self.res = _res(layer, cfg, generator, shard)
             elif kind == "attn":
-                self.attn = _attn(layer, cfg, generator)
+                self.attn = _attn(layer, cfg, generator, shard)
 
     def forward(self, h, emb):
         for layer in self.layers:
@@ -169,26 +170,38 @@ class LayerGroup(nn.Module):
         return h
 
 
-def _res(layer, cfg, generator):
+def _res(layer, cfg, generator, shard=None):
+    if shard is not None and not tensor.res_splits(
+            layer[2], cfg.gn_num_groups, shard.size):
+        shard = None
     return blocks.ResBlock(layer[1], layer[2], cfg.time_embed_dim,
                            scale_shift_norm=cfg.use_scale_shift_norm,
                            num_groups=cfg.gn_num_groups, eps=cfg.gn_eps,
-                           generator=generator)
+                           generator=generator, shard=shard)
 
 
-def _attn(layer, cfg, generator):
+def _attn(layer, cfg, generator, shard=None):
+    if shard is not None and not tensor.attn_splits(
+            layer[1], cfg.num_head_channels, shard.size):
+        shard = None
     return blocks.AttentionBlock(layer[1], head_size=cfg.num_head_channels,
                                  num_groups=cfg.gn_num_groups, eps=cfg.gn_eps,
-                                 generator=generator)
+                                 generator=generator, shard=shard)
 
 
 class UNet(nn.Module):
     """The U-Net over NHWC tensors.  Parameters are initialised on the CPU
     from `generator` (torch-default statistics); move the module with
-    `.to(device)` or build it through `init`."""
+    `.to(device)` or build it through `init`.
+
+    With `shard` (`parallel.tensor.Shard`) it is one rank's piece of the
+    model under Megatron TP: every ResBlock and attention block that splits
+    over the shard's ranks (`tensor.res_splits`, `tensor.attn_splits`)
+    holds the rank's piece (`blocks`), every other layer is whole; the
+    pieces come from a whole model through `parallel.mesh.tp_sharding`."""
 
     def __init__(self, cfg: UnetConfig, num_classes: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, shard=None):
         super().__init__()
         self.cfg = cfg
         self.num_classes = num_classes
@@ -198,16 +211,19 @@ class UNet(nn.Module):
         self.time_mlp.l1 = blocks.Linear(cfg.model_channels, ted, generator)
         self.time_mlp.l2 = blocks.Linear(ted, ted, generator)
         if num_classes is not None:
-            self.label_emb = nn.Parameter(
-                torch.empty(num_classes, ted).normal_(generator=generator))
+            label_emb = torch.empty(num_classes, ted)
+            if not label_emb.is_meta:  # (on the meta device the draw loads
+                #                         torch's compiler stack: seconds)
+                label_emb.normal_(generator=generator)
+            self.label_emb = nn.Parameter(label_emb)
         self.input = nn.ModuleList(
-            LayerGroup(b, cfg, generator) for b in plan.input_blocks)
+            LayerGroup(b, cfg, generator, shard) for b in plan.input_blocks)
         self.middle = nn.Module()
-        self.middle.res1 = _res(plan.middle[0], cfg, generator)
-        self.middle.attn = _attn(plan.middle[1], cfg, generator)
-        self.middle.res2 = _res(plan.middle[2], cfg, generator)
+        self.middle.res1 = _res(plan.middle[0], cfg, generator, shard)
+        self.middle.attn = _attn(plan.middle[1], cfg, generator, shard)
+        self.middle.res2 = _res(plan.middle[2], cfg, generator, shard)
         self.output = nn.ModuleList(
-            LayerGroup(b, cfg, generator) for b in plan.output_blocks)
+            LayerGroup(b, cfg, generator, shard) for b in plan.output_blocks)
         self.out = nn.Module()
         self.out.gn = blocks.GroupNorm(plan.out_channels_pre_head,
                                        cfg.gn_num_groups, cfg.gn_eps)

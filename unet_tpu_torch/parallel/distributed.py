@@ -7,11 +7,14 @@ one card (or, on the CPU, one process), and N ranks train as one device
 with N times the batch (`parallel/mesh.py`).
 
 * `initialize` joins the rendezvous at `host:port` (`tcp://`, rank 0 hosts
-  it) over NCCL for a CUDA device and gloo for the CPU: a CUDA device never
-  gets gloo, nor the CPU NCCL.  For NCCL the rank's card is set first and
-  given to the process group, and one collective runs at once, outside any
-  capture, so that the communicator exists before a step is captured.
-  Every rendezvous and every collective waits at most `timeout_s`.
+  it) over NCCL for a CUDA device and gloo for the CPU: a CUDA device gets
+  gloo only where the caller names that backend (for ranks that share one
+  card, which NCCL refuses), and the CPU never NCCL.  For NCCL
+  the rank's card is set first and given to the process group, and one
+  collective runs at once, outside any capture, so that the communicator
+  exists before a step is captured; `subgroup` does the same for the
+  groups of a mesh's axes.  Every rendezvous and every collective waits at
+  most `timeout_s`.
 * `global_batch` says which rows of the global batch, and of a step's
   draws made for the global batch, a rank owns: rows rank, rank + N, ...,
   which is exactly what a loader's shard `perm[rank::N]` reads
@@ -53,6 +56,9 @@ TIMEOUT_S = 600.0
 # the ranks are polled (seconds).
 GRACE_S, TRIES, POLL_S = 120.0, 3, 0.1
 _ROOT = pathlib.Path(__file__).resolve().parents[2]
+# The device `initialize` gave this process (None outside a process group),
+# as the process group itself is this process's.
+_device: Optional[torch.device] = None
 
 
 def backend(device) -> str:
@@ -78,25 +84,32 @@ def _rank_device(device, process_id: int) -> torch.device:
 
 def initialize(coordinator_address: str, num_processes: int,
                process_id: int, device="cuda",
-               timeout_s: float = TIMEOUT_S) -> torch.device:
+               timeout_s: float = TIMEOUT_S,
+               process_backend: Optional[str] = None) -> torch.device:
     """Join the rendezvous at `coordinator_address` (host:port; the rank
     with process_id 0 hosts it) as rank `process_id` of `num_processes`,
     and return the rank's device (`device`, or for a CUDA device without
-    an index card `process_id` modulo the cards this machine shows).  A
-    failed rendezvous raises."""
+    an index card `process_id` modulo the cards this machine shows).  The
+    process group's backend is `backend(device)` unless `process_backend`
+    names one: gloo on a CUDA device lets ranks share a card (gloo moves
+    CUDA tensors through the host), which only a harness on a one-card
+    machine asks for.  A failed rendezvous raises."""
+    global _device
     device = _rank_device(device, process_id)
-    kind = backend(device)
+    kind = process_backend or backend(device)
     extra = {}
-    if kind == "nccl":
+    if device.type == "cuda":
         torch.cuda.set_device(device)
+    if kind == "nccl":
         extra["device_id"] = device
-    elif "OMP_NUM_THREADS" not in os.environ:
+    elif device.type == "cpu" and "OMP_NUM_THREADS" not in os.environ:
         # the ranks of one machine share its cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // num_processes))
     dist.init_process_group(
         kind, init_method=f"tcp://{coordinator_address}",
         world_size=num_processes, rank=process_id,
         timeout=datetime.timedelta(seconds=timeout_s), **extra)
+    _device = device
     probe = torch.ones(1, device=device)
     dist.all_reduce(probe)
     if probe.item() != num_processes:
@@ -108,19 +121,43 @@ def initialize(coordinator_address: str, num_processes: int,
 
 def shutdown() -> None:
     """Leave the process group `initialize` joined (nothing if none)."""
+    global _device
     if dist.is_initialized():
         dist.destroy_process_group()
+    _device = None
 
 
 def device() -> torch.device:
-    """The device this rank joined the process group with: the card
-    `initialize` set for NCCL, the CPU for gloo."""
-    if not dist.is_initialized():
+    """The device this rank joined the process group with (`initialize`)."""
+    if not dist.is_initialized() or _device is None:
         raise RuntimeError("no process group: call "
                            "parallel.distributed.initialize first")
-    if dist.get_backend() == "nccl":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu")
+    return _device
+
+
+def subgroup(partition: Sequence[Sequence[int]],
+             timeout_s: float = TIMEOUT_S):
+    """The process group of this rank's part of `partition` (lists of
+    ranks, each rank in one).  Every rank creates every part's group, in
+    the order given, as `dist.new_group` asks, and runs one all-reduce on
+    its own, outside any capture, so that its communicator exists before a
+    step is captured.  A partition of one part is the default group
+    (None): no group is created."""
+    if len(partition) == 1:
+        return None
+    rank = world()[0]
+    mine = size = None
+    for ranks in partition:
+        group = dist.new_group(list(ranks),
+                               timeout=datetime.timedelta(seconds=timeout_s))
+        if rank in ranks:
+            mine, size = group, len(ranks)
+    probe = torch.ones(1, device=device())
+    dist.all_reduce(probe, group=mine)
+    if probe.item() != size:
+        raise RuntimeError(f"the first all-reduce of a group of {size} "
+                           f"ranks gave {probe.item()}")
+    return mine
 
 
 def world() -> Tuple[int, int]:
@@ -143,30 +180,33 @@ def global_batch(rank: int, world_size: int) -> slice:
     return slice(rank, None, world_size)
 
 
-def all_gather(out: torch.Tensor, piece: torch.Tensor) -> None:
+def all_gather(out: torch.Tensor, piece: torch.Tensor, group=None) -> None:
     """`out` <- every rank's `piece`, in rank order (`piece` may be this
-    rank's part of `out` itself)."""
+    rank's part of `out` itself), over `group` (None: every rank)."""
     with warnings.catch_warnings():
         # deprecated in newer torch for a name older ones lack
         warnings.simplefilter("ignore", FutureWarning)
-        dist.all_gather_into_tensor(out, piece)
+        dist.all_gather_into_tensor(out, piece, group=group)
 
 
-def reduce_scatter(out: torch.Tensor, whole: torch.Tensor) -> None:
-    """`out` <- this rank's piece of the sum over the ranks of `whole`."""
+def reduce_scatter(out: torch.Tensor, whole: torch.Tensor,
+                   group=None) -> None:
+    """`out` <- this rank's piece of the sum over the ranks of `group`
+    (None: every rank) of `whole`."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", FutureWarning)
-        dist.reduce_scatter_tensor(out, whole)
+        dist.reduce_scatter_tensor(out, whole, group=group)
 
 
 def replicate(vectors: Sequence[Optional[torch.Tensor]], size: int,
-              sharded: bool) -> List[Optional[torch.Tensor]]:
+              sharded: bool, group=None) -> List[Optional[torch.Tensor]]:
     """Whole host (CPU) copies of the first `size` elements of vectors
-    that are either whole on every rank (`sharded` False) or split evenly
-    over the ranks, each rank holding its piece.  A collective when
-    sharded: every rank calls it, with the same vectors in the same order.
-    One vector at a time, so that the device holds at most one whole
-    vector more than the rank's pieces (None stays None)."""
+    that are either whole on every rank of `group` (None: every rank;
+    `sharded` False) or split evenly over them, each holding its piece.  A
+    collective when sharded: every rank of the group calls it, with the
+    same vectors in the same order.  One vector at a time, so that the
+    device holds at most one whole vector more than the rank's pieces (None
+    stays None)."""
     out = []
     for vec in vectors:
         if vec is None:
@@ -175,9 +215,9 @@ def replicate(vectors: Sequence[Optional[torch.Tensor]], size: int,
         if not sharded:
             out.append(vec.detach()[:size].cpu())
             continue
-        whole = torch.empty(vec.numel() * world()[1], dtype=vec.dtype,
-                            device=vec.device)
-        all_gather(whole, vec.detach())
+        whole = torch.empty(vec.numel() * dist.get_world_size(group),
+                            dtype=vec.dtype, device=vec.device)
+        all_gather(whole, vec.detach(), group)
         out.append(whole[:size].cpu())
         del whole
     return out

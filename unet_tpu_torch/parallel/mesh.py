@@ -1,9 +1,9 @@
-"""Data-parallel training over ranks (port of the data axis of
-unet_tpu/parallel/mesh.py).
+"""Parallel training over ranks (port of unet_tpu/parallel/mesh.py).
 
 The JAX package shards a jitted step with GSPMD: the batch over a 'data'
-mesh axis, the parameters replicated (DP) or split leaf by leaf (FSDP), and
-XLA places the collectives.  Here each rank is one process on one device
+mesh axis, the parameters replicated (DP) or split leaf by leaf (FSDP), or
+Megatron-style over a 'model' axis (TP, and both: tp x fsdp), and XLA
+places the collectives.  Here each rank is one process on one device
 (`parallel/distributed.py`) and the step says its collectives itself.  The
 contract is the JAX package's: N ranks compute the math of one device with
 the global batch.
@@ -36,16 +36,53 @@ returns is the global mean.  On a CUDA device the step is captured with its
 collectives and replayed (`trainer.MultiStep`, `utils/graphs.py`); on the
 CPU it runs eagerly.
 
-The model axis (Megatron TP, the 2-D tp x fsdp split, spatial sharding)
-is not ported: `make_mesh(model > 1)`, `tp_sharding` and
-`tp_fsdp_sharding` raise, naming ROADMAP.md's Queue 1 item 8b.
+The model axis: `make_mesh(data, model)` lays the ranks out as the JAX
+package's `devices.reshape(data, model)`, rank d * model + m, with a
+process group for each axis.  The model ranks of one data index take the
+same rows, draws and labels; the batch's reductions (the loss, the
+gradient's all-reduce or reduce-scatter, FSDP's all-gather) run over the
+data group only.
+
+* TP (`tp=True`): Megatron over the model group (`parallel/tensor.py`).
+  A rank trains its piece of the model (`Layout`, from `tp_sharding`): the
+  pieces of the blocks that split and every other leaf whole, flattened
+  into the rank's vector by `trainer.Unravel` of the piece.  Every model
+  rank computes the gradient of the leaves it holds whole, and the card's
+  convolution backward does not repeat its bits from call to call, so one
+  all-reduce over the model group averages that gradient (`Layout.kept`)
+  before the data axis's reduction: the copies stay equal by
+  construction, whatever the backward's algorithms.  The JAX package
+  shards conv1, emb and qkv by output and conv2 and proj by input and
+  replicates the rest; the port does the same by blocks (a block whose
+  widths do not divide stays whole, as a leaf does there), and differs in
+  two places: gn2's affine is cut with the channels it scales (no
+  collective, where JAX's replicated copy needs its gradient summed), and
+  the bias of conv2 and proj is held by model rank 0 alone, which adds it
+  once inside its partial product.
+* tp x fsdp (`tp=True, fsdp=True`): the rank's vector is split evenly over
+  its data group, as FSDP splits the whole one; the JAX package splits the
+  largest remaining dimension of each leaf instead, which is the same math
+  for AdamW and the EMA.
+
+DP and FSDP are TP over one model rank: every step goes through a
+`Layout`, which over one rank splits nothing (the whole model, its vector
+in the one-device order) and runs no model-axis collective.
+
+A checkpoint is written from whole host vectors (`host_state`): under TP
+the pieces are gathered over the model group and put back in `.bin`
+order, so that it is the file one device writes; `init_state` cuts a
+rank's pieces from whole vectors, so a run resumes under another layout.
+Spatial sharding is not ported: `--spatial_parallel` and
+`make_parallel_train_step(spatial=True)` raise, naming ROADMAP.md's Queue
+1 item 8b-ii.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+import itertools
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,56 +90,84 @@ import torch.distributed as dist
 from unet_tpu_torch.config import TrainConfig, UnetConfig
 from unet_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from unet_tpu_torch.models import unet
-from unet_tpu_torch.parallel import distributed
+from unet_tpu_torch.parallel import distributed, tensor
 from unet_tpu_torch.training import optim, trainer
 
-_MODEL_AXIS = ("the model axis (tensor and spatial parallelism) is not "
-               "ported to unet_tpu_torch yet (ROADMAP.md, Queue 1 item 8b)")
+_MODEL_AXIS = ("spatial sharding is not ported to unet_tpu_torch yet "
+               "(ROADMAP.md, Queue 1 item 8b-ii)")
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data axis: `data` ranks of the default process group, this
-    process being rank `rank` on `device`."""
+    """`data` x `model` ranks of the default process group, rank d * model
+    + m at data index d and model index m; this process is rank `rank`, on
+    `device`.  `data_group` holds the data ranks of this model index (those
+    that split the batch), `model_group` the model ranks of this data index
+    (those that split the model); a group of every rank is None (the
+    default group), and so is the model group of a model axis of one rank,
+    which runs no collective."""
     data: int
     rank: int
     device: torch.device
+    model: int = 1
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model
 
     @property
     def rows(self) -> slice:
-        """This rank's rows of a global batch."""
-        return distributed.global_batch(self.rank, self.data)
+        """This rank's rows of a global batch (those of its data index)."""
+        return distributed.global_batch(self.data_rank, self.data)
+
+    @property
+    def shard(self) -> tensor.Shard:
+        """This rank's place on the model axis."""
+        return tensor.Shard(self.model, self.model_rank, self.model_group)
 
 
 def make_mesh(data: int = 0, model: int = 1) -> Mesh:
     """The mesh over the ranks of the process group `distributed.initialize`
-    joined.  data=0 means all of them; a data axis over some of them only,
-    or a model axis, raises."""
-    if model != 1:
-        raise NotImplementedError(f"make_mesh(model={model}): {_MODEL_AXIS}")
+    joined: `model` ranks on the model axis and `data` (0: the rest) on the
+    data axis, which together span every rank.  Every rank calls it: it
+    creates the groups of both axes."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a process group: call "
                            "parallel.distributed.initialize first")
     rank, world = distributed.world()
+    if model < 1 or world % model:
+        raise ValueError(f"model axis {model} does not divide {world} ranks")
     if data == 0:
-        data = world
-    if data != world:
-        raise ValueError(f"data axis {data} != {world} ranks: the data "
-                         "axis spans every rank")
-    return Mesh(data=data, rank=rank, device=distributed.device())
+        data = world // model
+    if data * model != world:
+        raise ValueError(f"{data} x {model} != {world} ranks: the data and "
+                         "model axes span every rank")
+    model_group = None if model == 1 else distributed.subgroup(
+        [[d * model + m for m in range(model)] for d in range(data)])
+    data_group = distributed.subgroup(
+        [[d * model + m for d in range(data)] for m in range(model)])
+    return Mesh(data=data, rank=rank, device=distributed.device(),
+                model=model, data_group=data_group, model_group=model_group)
 
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """How a flat vector of `size` elements lies over the data axis: whole
     on every rank, or (`sharded`) padded to `shards` * `shard` elements and
-    split into `shards` pieces of `shard`, rank `index` holding piece
+    split into `shards` pieces of `shard`, data rank `index` holding piece
     `index` (one piece, the whole vector, on a data axis of one rank; the
-    collectives run all the same)."""
+    collectives run all the same), over the data group `group`."""
     size: int
     shards: int
     index: int
     sharded: bool
+    group: Optional[object] = None
 
     @property
     def shard(self) -> int:
@@ -119,52 +184,148 @@ class Placement:
 
 def replicated(mesh: Mesh, size: int) -> Placement:
     """A vector of `size` elements whole on every rank."""
-    return Placement(size=size, shards=1, index=0, sharded=False)
+    return Placement(size=size, shards=1, index=0, sharded=False,
+                     group=mesh.data_group)
 
 
 def fsdp_sharding(mesh: Mesh, size: int) -> Placement:
     """A vector of `size` elements split evenly over the data axis (ZeRO-3:
     every element sharded, the tail padded)."""
-    return Placement(size=size, shards=mesh.data, index=mesh.rank,
-                     sharded=True)
+    return Placement(size=size, shards=mesh.data, index=mesh.data_rank,
+                     sharded=True, group=mesh.data_group)
 
 
-def tp_sharding(mesh: Mesh, params):
-    raise NotImplementedError(f"tp_sharding: {_MODEL_AXIS}")
+class Layout:
+    """One rank's pieces of a whole model's parameters under Megatron TP
+    (see the module's docstring): `model`, the piece itself (a `unet.UNet`
+    on the meta device, whose blocks run the collectives over the shard's
+    group; `local.apply` calls it with the parameters of a vector),
+    `local`, the `trainer.Unravel` of its vector (`size` elements),
+    `whole`, that of the whole model, and `splits`, how each split leaf
+    lies over the model group (`tensor.Split`, by `whole` name; every
+    other leaf is whole on every rank).  Over one rank nothing splits:
+    `model` is the whole model and its vector the one-device vector.
+
+    * `kept()`: the positions in the rank's vector of the leaves it holds
+      whole (a tensor of indices);
+    * `take(vec)`: the rank's vector of a whole vector;
+    * `join(vecs)`: the whole vector of every model rank's vectors, in
+      rank order;
+    * `gather(vec)`: `join` of every model rank's `vec`, which each passes
+      (a collective over the model group)."""
+
+    def __init__(self, params: unet.UNet, shard: tensor.Shard):
+        self.shard = shard
+        self.whole = trainer.Unravel(params)
+
+        def piece(index, group):
+            with torch.device("meta"):
+                return unet.UNet(params.cfg, params.num_classes,
+                                 shard=tensor.Shard(shard.size, index, group))
+
+        self.model = piece(shard.index, shard.group)
+        self.local = trainer.Unravel(self.model)
+        self.size = sum(self.local.sizes)
+        self.ranks = [self.local if m == shard.index
+                      else trainer.Unravel(piece(m, None))
+                      for m in range(shard.size)]
+        self.splits = {
+            f"{prefix}.{name}": split
+            for prefix, module in self.model.named_modules()
+            for name, split in getattr(module, "splits", {}).items()}
+
+    def kept(self) -> torch.Tensor:
+        offsets = itertools.accumulate(self.local.sizes, initial=0)
+        return torch.cat([
+            torch.arange(start, start + size)
+            for name, start, size in zip(self.local.names, offsets,
+                                         self.local.sizes)
+            if name not in self.splits])
+
+    def take(self, vec: torch.Tensor) -> torch.Tensor:
+        views = self.whole(vec)
+        return self.local.pack([
+            tensor.take(views[n], self.splits[n], self.shard)
+            if n in self.splits else views[n] for n in self.local.names])
+
+    def join(self, vecs: List[torch.Tensor]) -> torch.Tensor:
+        views = [unravel(vec) for unravel, vec in zip(self.ranks, vecs)]
+        return self.whole.pack([
+            tensor.join([v.get(n) for v in views], self.splits[n])
+            if n in self.splits else views[0][n] for n in self.whole.names])
+
+    def gather(self, vec: torch.Tensor) -> torch.Tensor:
+        if self.shard.size == 1:
+            return self.join([vec])
+        longest = max(sum(unravel.sizes) for unravel in self.ranks)
+        mine = torch.zeros(longest, dtype=vec.dtype, device=vec.device)
+        mine[:vec.numel()] = vec
+        every = torch.empty(self.shard.size * longest, dtype=vec.dtype,
+                            device=vec.device)
+        distributed.all_gather(every, mine, self.shard.group)
+        return self.join([row[:sum(unravel.sizes)] for unravel, row in
+                          zip(self.ranks, every.view(self.shard.size, -1))])
+
+    @property
+    def fraction(self) -> float:
+        """The fraction of the whole model's elements in split leaves."""
+        split = sum(size for name, size in zip(self.whole.names,
+                                               self.whole.sizes)
+                    if name in self.splits)
+        return split / sum(self.whole.sizes)
 
 
-def tp_fsdp_sharding(mesh: Mesh, params):
-    raise NotImplementedError(f"tp_fsdp_sharding: {_MODEL_AXIS}")
+def tp_sharding(mesh: Mesh, params: unet.UNet) -> Layout:
+    """This rank's Megatron pieces of `params` (a whole model) on the
+    mesh's model axis."""
+    return Layout(params, mesh.shard)
 
 
-def param_sharding(mesh: Mesh, size: int, *, fsdp: bool = False,
-                   tp: bool = False) -> Placement:
-    """The placement `make_parallel_train_step` gives the flat parameters,
-    the moments and the EMA."""
-    if tp:
-        return tp_sharding(mesh, size)
-    return fsdp_sharding(mesh, size) if fsdp else replicated(mesh, size)
+def tp_fsdp_sharding(mesh: Mesh, params: unet.UNet
+                     ) -> Tuple[Layout, Placement]:
+    """The 2-D split: this rank's Megatron pieces of `params`, and their
+    vector split evenly over the data axis."""
+    layout = tp_sharding(mesh, params)
+    return layout, fsdp_sharding(mesh, layout.size)
 
 
-def shard_fraction(placement: Placement) -> float:
-    """The fraction of the parameters' elements that are sharded: 1.0 under
-    FSDP (the even split leaves nothing whole), 0.0 under DP."""
-    return 1.0 if placement.sharded else 0.0
+def param_sharding(mesh: Mesh, params: unet.UNet, *, fsdp: bool = False,
+                   tp: bool = False) -> Tuple[Layout, Placement]:
+    """What `make_parallel_train_step` and `init_state` give the
+    parameters, the moments and the EMA: the rank's TP pieces (without
+    `tp`, the whole model: the `Layout` of one model rank) and how the
+    vector of them lies over the data axis."""
+    layout = tp_sharding(mesh, params) if tp else Layout(
+        params, tensor.Shard(1, 0))
+    return layout, (fsdp_sharding if fsdp else replicated)(mesh, layout.size)
+
+
+def shard_fraction(placement: Placement,
+                   layout: Optional[Layout] = None) -> float:
+    """The fraction of the parameters' elements that are sharded: 1.0 when
+    the vector is split over the data axis (the even split leaves nothing
+    whole), under TP alone the share in split leaves, 0.0 under DP (or
+    without a layout)."""
+    if placement.sharded:
+        return 1.0
+    return 0.0 if layout is None else layout.fraction
 
 
 @dataclasses.dataclass
 class ParallelState:
-    """A rank's training state.  `flat` is the whole float32 parameter
-    vector the forward reads (`Unravel` order; padded to
-    `placement.padded` under FSDP), requiring grad.  Under DP `m`, `v` and
-    `ema` are whole too; under FSDP they are the rank's pieces, and the
-    rank's master parameters are `master`, its piece of `flat`."""
+    """A rank's training state.  `flat` is the float32 parameter vector the
+    forward reads (the `Unravel` order of the rank's pieces, `layout`: the
+    whole model's without TP; padded to `placement.padded` under FSDP),
+    requiring grad.  Without FSDP `m`, `v` and `ema` are like it; under
+    FSDP they are the rank's pieces, and the rank's master parameters are
+    `master`, its piece of `flat`."""
     flat: torch.Tensor
     m: torch.Tensor
     v: torch.Tensor
     step: int
     seed: int
     placement: Placement
+    layout: Layout
     ema: Optional[torch.Tensor] = None
 
     @property
@@ -174,31 +335,33 @@ class ParallelState:
         return self.flat.detach()[self.placement.piece]
 
 
-def shard_state(flat: torch.Tensor, mesh: Mesh, *, fsdp: bool = False,
-                m: Optional[torch.Tensor] = None,
+def shard_state(flat: torch.Tensor, mesh: Mesh, layout: Layout, *,
+                fsdp: bool = False, m: Optional[torch.Tensor] = None,
                 v: Optional[torch.Tensor] = None,
                 ema: Optional[torch.Tensor] = None, step: int = 0,
                 seed: int = 0) -> ParallelState:
     """The rank's `ParallelState` of whole vectors that every rank holds
     alike (from one seed or one checkpoint): the parameters `flat`, the
-    moments (zeros when None) and the EMA (none when None), as
-    `param_sharding` places them, on the mesh's device."""
-    size = flat.numel()
-    placement = param_sharding(mesh, size, fsdp=fsdp)
+    moments (zeros when None) and the EMA (none when None), cut to the
+    rank's pieces by `layout` and placed over the data axis (split evenly
+    with `fsdp`), on the mesh's device."""
+    size = layout.size
+    placement = (fsdp_sharding if fsdp else replicated)(mesh, size)
 
     def place(vec, whole):
-        vec = vec.detach().to(device=mesh.device, dtype=torch.float32)
+        vec = layout.take(vec.detach().to(device=mesh.device,
+                                          dtype=torch.float32))
         if placement.padded != size:
             vec = torch.cat([vec, vec.new_zeros(placement.padded - size)])
         return vec.clone() if whole else vec[placement.piece].clone()
 
-    zeros = torch.zeros(size)
+    zeros = torch.zeros(flat.numel())
     return ParallelState(
         flat=place(flat, True).requires_grad_(),
         m=place(zeros if m is None else m, not placement.sharded),
         v=place(zeros if v is None else v, not placement.sharded),
         ema=None if ema is None else place(ema, not placement.sharded),
-        step=step, seed=seed, placement=placement)
+        step=step, seed=seed, placement=placement, layout=layout)
 
 
 def shard_batch(batch: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -207,33 +370,43 @@ def shard_batch(batch: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 
 
 def init_state(unravel: trainer.Unravel, params: unet.UNet, mesh: Mesh, *,
-               fsdp: bool = False, ema_rate: float = 0.0, seed: int = 0,
-               step: int = 0, m=None, v=None,
+               fsdp: bool = False, tp: bool = False, ema_rate: float = 0.0,
+               seed: int = 0, step: int = 0, m=None, v=None,
                ema: Optional[unet.UNet] = None) -> ParallelState:
-    """The rank's state of a model's parameters (laid out by `unravel`):
-    fresh moments, or `m` and `v` (tensors shaped like the parameters, in
-    their order, as a `trainer.TrainState` holds them); the EMA `ema`, or a
-    copy of the parameters when ema_rate > 0 and none is given."""
+    """The rank's state of a whole model's parameters (laid out by
+    `unravel`): fresh moments, or `m` and `v` (tensors shaped like the
+    parameters, in their order, as a `trainer.TrainState` holds them); the
+    EMA `ema`, or a copy of the parameters when ema_rate > 0 and none is
+    given.  `tp` cuts the rank's Megatron pieces (`tp_sharding`)."""
     flat = unravel.flatten(params)
     if ema is not None:
         ema = unravel.flatten(ema)
     elif ema_rate > 0.0:
         ema = flat
-    return shard_state(flat, mesh, fsdp=fsdp,
-                       m=None if m is None else unravel.pack(m),
-                       v=None if v is None else unravel.pack(v),
+    order = [name for name, _ in params.named_parameters()]
+
+    def pack(tensors):  # from the parameters' order to `unravel`'s
+        by_name = dict(zip(order, tensors))
+        return unravel.pack([by_name[name] for name in unravel.names])
+
+    layout, _ = param_sharding(mesh, params, tp=tp)
+    return shard_state(flat, mesh, layout, fsdp=fsdp,
+                       m=None if m is None else pack(m),
+                       v=None if v is None else pack(v),
                        ema=ema, step=step, seed=seed)
 
 
 def host_state(state: ParallelState):
     """(flat, m, v, ema): whole float32 host copies of a state's vectors
-    (ema None without one).  A collective under FSDP: every rank calls
-    it."""
+    in the whole model's `Unravel` order (ema None without one).  A
+    collective under FSDP or TP: every rank calls it."""
     size = state.placement.size
-    flat = state.flat.detach()[:size].cpu()
-    m, v, ema = distributed.replicate([state.m, state.v, state.ema], size,
-                                      state.placement.sharded)
-    return flat, m, v, ema
+    vecs = [state.flat.detach()[:size]] + distributed.replicate(
+        [state.m, state.v, state.ema], size, state.placement.sharded,
+        state.placement.group)
+    vecs = [None if vec is None else
+            state.layout.gather(vec.to(state.flat.device)) for vec in vecs]
+    return tuple(None if vec is None else vec.cpu() for vec in vecs)
 
 
 def tree_state(unravel: trainer.Unravel, flat, m, v, ema, *, step: int,
@@ -250,8 +423,10 @@ def tree_state(unravel: trainer.Unravel, flat, m, v, ema, *, step: int,
                 mine[name].copy_(view)
         return out
 
-    def tensors(vec):
-        return [view.clone() for view in unravel(vec).values()]
+    def tensors(vec):  # in the parameters' order, as a TrainState's
+        views = unravel(vec)
+        return [views[name].clone()
+                for name, _ in unravel.model.named_parameters()]
 
     return trainer.TrainState(
         params=model(flat), m=tensors(m), v=tensors(v), step=step, seed=seed,
@@ -263,9 +438,9 @@ class ParallelStep(trainer.MultiStep):
     `trainer.MultiStep` over a `ParallelState`, called with this rank's
     rows, (K, B, H, W, C), and returning the K global-mean losses.  Also
     `value_and_grad(state, batch, t, noise, y=None) -> (loss, grad)`: the
-    global-mean loss and the gradient after the reduction (whole under DP,
-    the rank's piece under FSDP), with t and noise given for the global
-    batch, updating nothing (the parity hook)."""
+    global-mean loss and the gradient after the reduction (the rank's
+    vector, or under FSDP its piece of it), with t and noise given for the
+    global batch, updating nothing (the parity hook)."""
 
     def value_and_grad(self, state: ParallelState, batch, t, noise, y=None):
         dev = self.device
@@ -280,21 +455,31 @@ class ParallelStep(trainer.MultiStep):
 
 def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
                              diffusion: Optional[GaussianDiffusion] = None,
-                             *, fsdp: bool = False, class_cond: bool = False,
+                             *, fsdp: bool = False, tp: bool = False,
+                             spatial: bool = False, class_cond: bool = False,
                              example_params: Optional[unet.UNet] = None,
                              input_u8: bool = False) -> ParallelStep:
-    """The step of this rank (`ParallelStep`): DP, or FSDP with `fsdp`.
-    `example_params` is the model whose parameters the flat vector holds
-    (its layout, and the module the forward calls); `class_cond` takes
+    """The step of this rank (`ParallelStep`): DP, or FSDP with `fsdp`,
+    each over the data axis; `tp` adds Megatron TP over the model axis
+    (tp x fsdp with both).  `example_params` is the whole model whose
+    parameters the flat vector holds (its layout, and the module the
+    forward calls, or under TP the rank's piece of it); `class_cond` takes
     labels (with tc.label_dropout); `input_u8` takes uint8 pixels, as
-    `trainer.make_multi_step`.  Build the state with `init_state` or
-    `shard_state`."""
+    `trainer.make_multi_step`.  `spatial` (sharding the rows of the
+    activations over the model axis) is not ported.  Build the state with
+    `init_state` or `shard_state`."""
+    if tp and spatial:
+        raise ValueError("tp and spatial both use the model axis")
+    if spatial:
+        raise NotImplementedError(
+            f"make_parallel_train_step(spatial=True): {_MODEL_AXIS}")
     if example_params is None:
         raise ValueError("make_parallel_train_step needs example_params "
                          "(the model whose flat parameters it trains)")
-    unravel = trainer.Unravel(example_params)
-    size = sum(unravel.sizes)
-    placement = param_sharding(mesh, size, fsdp=fsdp)
+    layout, placement = param_sharding(mesh, example_params, fsdp=fsdp,
+                                       tp=tp)
+    unravel = layout.local
+    size = placement.size
     if placement.padded == size:
         apply = unravel.apply
     else:
@@ -305,18 +490,24 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
         leaves=lambda flat: [flat])
     hp = trainer._adamw_params(tc)
     inv = 1.0 / mesh.data
+    shard = layout.shard
+    kept = None if shard.size == 1 else layout.kept().to(device)
 
     def reduced_grad(state, batch, t, noise, y=None):
         loss, (grad,) = grad_fn(state.flat, batch, t, noise, y)
-        dist.all_reduce(loss)
+        if kept is not None:  # one gradient for the leaves kept whole
+            whole = grad.index_select(0, kept)
+            dist.all_reduce(whole, group=shard.group)
+            grad.index_copy_(0, kept, whole.mul_(1.0 / shard.size))
+        dist.all_reduce(loss, group=mesh.data_group)
         loss.mul_(inv)
         if placement.sharded:
             piece = torch.empty(placement.shard, dtype=grad.dtype,
                                 device=grad.device)
-            distributed.reduce_scatter(piece, grad)
+            distributed.reduce_scatter(piece, grad, mesh.data_group)
             grad = piece
         else:
-            dist.all_reduce(grad)
+            dist.all_reduce(grad, group=mesh.data_group)
         return loss, [grad.mul_(inv)]
 
     @torch.no_grad()
@@ -326,7 +517,8 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
         if state.ema is not None and tc.ema_rate > 0.0:
             state.ema.mul_(tc.ema_rate).add_(master, alpha=1.0 - tc.ema_rate)
         if placement.sharded:
-            distributed.all_gather(state.flat.detach(), master)
+            distributed.all_gather(state.flat.detach(), master,
+                                   mesh.data_group)
 
     return ParallelStep(
         device, diffusion, reduced_grad, update,

@@ -454,7 +454,8 @@ def _channels_last(p: torch.Tensor) -> bool:
 
 class Unravel:
     """The parameters of `model` as views of one flat vector, in
-    `unet.param_order` (the `.bin` file's order), each parameter's elements
+    `unet.param_order` (the `.bin` file's order; a rank's piece of the model
+    under TP lacks the biases it does not hold), each parameter's elements
     in its memory order: a convolution kernel kept channels_last (see
     `models.blocks.Conv2d`) as (O, kh, kw, I), so that its view has the
     module's strides.
@@ -472,6 +473,8 @@ class Unravel:
         self.names, self.shapes, self.layouts = [], [], []
         for path, _ in unet.param_order(model.cfg, model.num_classes):
             p = unet.get_param(model, path)
+            if p is None:
+                continue
             self.names.append(".".join(str(k) for k in path))
             self.shapes.append(tuple(p.shape))
             self.layouts.append(_channels_last(p))

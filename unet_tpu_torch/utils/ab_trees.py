@@ -8,7 +8,8 @@ unpacked with `git archive` into a directory that `.gitignore` lists).
 Each turn starts one child process in the tree it names, which imports that
 tree's `chip_smoke.py` (so its package and its kernels, built from its own
 sources), sets the shape lists that the checks read (`GN_SHAPES`,
-`GN_BWD_SHAPES`, `ATTN_SHAPES`, `ATTN_BWD_SHAPES`, `CONV_SHAPES`) to those
+`GN_BWD_SHAPES`, `TP_GN_CASES`, `ATTN_SHAPES`, `ATTN_BWD_SHAPES`,
+`CONV_SHAPES`) to those
 of the current directory's `chip_smoke.py`, and runs the named check
 functions.  `check_conv` times only the case `CONV_HEADLINE` names, so for
 it the child names each (shape, type) in turn and keeps that case.
@@ -28,8 +29,8 @@ import os
 import subprocess
 import sys
 
-SHAPE_LISTS = ("GN_SHAPES", "GN_BWD_SHAPES", "ATTN_SHAPES", "ATTN_BWD_SHAPES",
-               "CONV_SHAPES")
+SHAPE_LISTS = ("GN_SHAPES", "GN_BWD_SHAPES", "TP_GN_CASES", "ATTN_SHAPES",
+               "ATTN_BWD_SHAPES", "CONV_SHAPES")
 
 _CHILD = r"""
 import json, sys, torch
