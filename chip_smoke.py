@@ -128,7 +128,24 @@ object per line:
      GroupNorm at (32,64,64,32) in 16 groups and attention at
      (32,256,288) with 3 heads) held against its plain version.  Launch
      counts held exactly per rank.
- 12. `conv_checks` and `conv`: the kernel-benchmark path.  The
+ 12. `spatial_parallel`: spatial sharding (`unet_tpu_torch/parallel/
+     spatial.py`, the model axis's other use), the default model at the
+     global batch 32.  The split GroupNorm's four kernels (`gn_stats`,
+     `gn_apply`, `gn_bwd_sums`, `gn_bwd_dx`) against their plain versions
+     at the half-height inputs of the model's GroupNorms over two ranks,
+     f32 and bf16, again for the same bits, and the two virtual ranks'
+     pipeline against K4 and K5 on the whole tensor; timed beside a
+     library call and their bound.  At model axis 1 (one NCCL rank, DP
+     itself) the captured spatial step against the one-device flat step of
+     the `tensor_parallel` phase, the same bits after 3 bf16 and 2 f32
+     steps; at model axis 2 two processes of this script
+     (`--spatial_parallel_rank`) over gloo on the card, the gradient at the
+     initial parameters leaf by leaf and 3 bf16 and 2 f32 eager steps
+     against one device's, every vector bit-equal on both ranks, and every
+     kernel input (the split GroupNorm at half height, K1 and K2 on the
+     gathered rows) held against its plain version.  Launch counts held
+     exactly per rank (no whole K4 or K5 in a split step).
+ 13. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
      and O are multiples of 8, else float32 FMAs, each case naming its
@@ -141,10 +158,12 @@ object per line:
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
- 13. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+ 14. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
-     convolution's: those of the `conv` phase); then the seconds the whole
-     run took, the card's name and power limit, and the result line.
+     convolution's: those of the `conv` phase; the split GroupNorm's:
+     those of the `spatial_parallel` phase's two ranks); then the seconds
+     the whole run took, the card's name and power limit, and the result
+     line.
 
 float32 runs in "highest" precision (TF32 off for matmuls and cuDNN).
 A failed build, launch or comparison raises, so the exit code is non-zero.
@@ -197,7 +216,9 @@ from unet_tpu_torch.ops.kernels.attention import (  # noqa: E402
 from unet_tpu_torch.ops.kernels.conv3x3 import (  # noqa: E402
     conv3x3_hwbc, conv3x3_hwbc_plain)
 from unet_tpu_torch.ops.kernels.groupnorm import (  # noqa: E402
-    gn_act_bwd, gn_act_bwd_plain, gn_act_fwd, gn_act_fwd_plain)
+    gn_act_bwd, gn_act_bwd_plain, gn_act_fwd, gn_act_fwd_plain, gn_apply,
+    gn_apply_plain, gn_bwd_dx, gn_bwd_dx_plain, gn_bwd_sums,
+    gn_bwd_sums_plain, gn_stats, gn_stats_plain)
 from unet_tpu_torch.parallel import distributed  # noqa: E402
 from unet_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from unet_tpu_torch.parallel import tensor  # noqa: E402
@@ -345,13 +366,17 @@ def time_ms(fn, reps=20, warmup=3) -> float:
 def timings(kernel, plain, library, library_stream=None) -> dict:
     """Each of the three as it is called (`*_ms`: CUDA events around a loop
     of calls, the larger of the host's and the device's time per call) and
-    on the device alone (`*_graph_ms`).  A library backward runs through
+    on the device alone (`*_graph_ms`); a library of None is reported as
+    None.  A library backward runs through
     autograd, which puts each backward kernel on the stream its forward ran
     on: `library_stream` is that stream, and the library is timed and
     captured there."""
     out = {}
     for name, fn in (("kernel", kernel), ("plain", plain),
                      ("library", library)):
+        if fn is None:  # no one library call computes it
+            out[f"{name}_ms"] = out[f"{name}_graph_ms"] = None
+            continue
         stream = library_stream if name == "library" else None
         with torch.cuda.stream(stream):
             out[f"{name}_ms"] = time_ms(fn)
@@ -596,12 +621,15 @@ class swapped:
     """Within the block, the autograd Functions and the functional ops call
     the given functions in place of the kernels' wrappers (for the
     comparisons and the shape records only): `fwd` and `bwd` map
-    "gn"/"attn" to a forward and a backward."""
+    "gn"/"attn" to a forward and a backward, `sgn_normalize` and `sgn_dx`
+    stand for the split GroupNorm's `gn_apply` and `gn_bwd_dx`."""
 
     NAMES = {("gn", "fwd"): (gn_mod.GroupNormAct, "fwd"),
              ("gn", "bwd"): (gn_mod.GroupNormAct, "bwd"),
              ("attn", "fwd"): (attn_mod.QKVAttention, "fwd"),
-             ("attn", "bwd"): (attn_mod.QKVAttention, "bwd")}
+             ("attn", "bwd"): (attn_mod.QKVAttention, "bwd"),
+             ("sgn", "normalize"): (gn_mod.SplitGroupNormAct, "normalize"),
+             ("sgn", "dx"): (gn_mod.SplitGroupNormAct, "dx")}
 
     def __init__(self, **mine):
         self.mine = mine  # e.g. gn_fwd=..., attn_bwd=...
@@ -628,8 +656,20 @@ def plain_versions():
 
 def recording(seen):
     """Within the block, the kernels' wrappers note the shape of every input
-    they are given in `seen`: {"gn_fwd", "gn_bwd", "attn_fwd", "attn_bwd"}
-    -> set of signatures."""
+    they are given in `seen`: {"gn_fwd", "gn_bwd", "attn_fwd", "attn_bwd",
+    "sgn_fwd", "sgn_bwd"} -> set of signatures (the split GroupNorm's with
+    the number of ranks it was split over)."""
+
+    def sgn_fwd(x, gamma, beta, stats, num_groups, eps, act):
+        seen["sgn_fwd"].add((tuple(x.shape), num_groups, eps, act,
+                             stats.shape[0]))
+        return gn_apply(x, gamma, beta, stats, num_groups, eps, act)
+
+    def sgn_bwd(x, gamma, beta, mean, rstd, dy, sums, num_groups, act):
+        seen["sgn_bwd"].add((tuple(x.shape), num_groups, 1e-5, act,
+                             sums.shape[0]))
+        return gn_bwd_dx(x, gamma, beta, mean, rstd, dy, sums, num_groups,
+                         act)
 
     def gn_fwd(x, gamma, beta, num_groups, eps, act):
         seen["gn_fwd"].add((tuple(x.shape), num_groups, eps, act))
@@ -648,18 +688,20 @@ def recording(seen):
         return qkv_attention_bwd(qkv, dout, num_heads)
 
     return swapped(gn_fwd=gn_fwd, gn_bwd=gn_bwd, attn_fwd=attn_fwd,
-                   attn_bwd=attn_bwd)
+                   attn_bwd=attn_bwd, sgn_normalize=sgn_fwd, sgn_dx=sgn_bwd)
 
 
 def new_seen():
     return {"gn_fwd": set(), "gn_bwd": set(), "attn_fwd": set(),
-            "attn_bwd": set()}
+            "attn_bwd": set(), "sgn_fwd": set(), "sgn_bwd": set()}
 
 
 def check_seen_shapes(seen, gen):
     """Kernel against plain version on random tensors of every shape noted,
     float32 and bfloat16; each GroupNorm kernel runs twice and must give the
-    same bits.  Returns the count of shapes and the worst error per type."""
+    same bits (the split GroupNorm's four kernels: `split_gn_case`, over
+    the ranks it was split over).  Returns the count of shapes and the
+    worst error per type."""
     worst = {"torch.float32": 0.0, "torch.bfloat16": 0.0}
 
     def note(dtype, err):
@@ -685,6 +727,10 @@ def check_seen_shapes(seen, gen):
             same_bits(got, gn_act_bwd(*args), what)
             note(dtype, max(compare_gn_bwd(
                 got, gn_act_bwd_plain(*args), dtype, what)))
+        for shape, groups, eps, act, shards in sorted(
+                seen["sgn_fwd"] | seen["sgn_bwd"]):
+            note(dtype, split_gn_case(shape, groups, shards, dtype, act,
+                                      gen)["max_abs_err"])
         for shape, heads in sorted(seen["attn_fwd"]):
             qkv = torch.randn(shape, generator=gen, device=DEV).to(dtype)
             want = qkv_attention_plain(qkv, heads)
@@ -802,6 +848,12 @@ def profile_replay(graph) -> dict:
                 / 1e3)
 
 
+# The split GroupNorm's four kernels (spatial sharding): no launch where
+# nothing is split.
+SPLIT_GN = ("gn_stats", "gn_apply", "gn_bwd_sums", "gn_bwd_dx")
+NO_SPLIT = dict.fromkeys(SPLIT_GN, 0)
+
+
 def launches_per_forward(cfg):
     plan = unet.build_plan(cfg)
     layers = [layer for group in plan.input_blocks + (plan.middle,)
@@ -822,7 +874,8 @@ def launches_per_step(cfg, remat, microbatches):
             "gn_act_bwd": microbatches * gn,
             "qkv_attention_fwd": microbatches * attn_fwd,
             "qkv_attention_bwd": microbatches * attn,
-            "conv3x3_hwbc": 0}  # the model convolves through cuDNN
+            "conv3x3_hwbc": 0,  # the model convolves through cuDNN
+            **NO_SPLIT}
 
 
 def check_forward(model, gen):
@@ -1429,7 +1482,7 @@ def drive_head_size(tmp, totals, gen):
     got_sample = counts()
     want_sample = dict(gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
                        qkv_attention_fwd=10 * attn_per_fwd,
-                       qkv_attention_bwd=0, conv3x3_hwbc=0)
+                       qkv_attention_bwd=0, conv3x3_hwbc=0, **NO_SPLIT)
     shape = (4, cfg.image_size, cfg.image_size, cfg.out_channels)
     if got_sample != want_sample or images.shape != shape:
         raise AssertionError(f"ddim10 at head size {OTHER_HEAD_SIZE}: "
@@ -1530,7 +1583,7 @@ def drive_cli(tmp, totals, step_ms):
     gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
     per_request = dict(gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
                        qkv_attention_fwd=10 * attn_per_fwd,
-                       qkv_attention_bwd=0, conv3x3_hwbc=0)
+                       qkv_attention_bwd=0, conv3x3_hwbc=0, **NO_SPLIT)
     rng = np.random.default_rng(2)
     data = os.path.join(tmp, "train.bin")
     write_bin(data, rng.integers(0, 256, (256, cfg.in_channels,
@@ -1940,7 +1993,7 @@ def drive_parallel(tmp, totals, step_ms):
             counted(f"ddim10 {kind}", dict(
                 gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
                 qkv_attention_fwd=10 * attn_per_fwd, qkv_attention_bwd=0,
-                conv3x3_hwbc=0))
+                conv3x3_hwbc=0, **NO_SPLIT))
             chains[kind] = (images, seconds)
             free_graphs()
         if not torch.equal(chains["parallel"][0], chains["one_device"][0]):
@@ -2170,7 +2223,10 @@ def drive_tensor_parallel(tmp, totals, gen):
       input the split model gave the kernels held against its plain
       version (`check_seen_shapes`).
     Launch counts are held exactly (per rank: a split block launches the
-    kernels of a whole one) and added to `totals`."""
+    kernels of a whole one) and added to `totals`.  Returns the phase's
+    record and the one-device references (losses and state after the
+    steps, gradients, the bf16 control) that the `spatial_parallel` phase
+    holds its steps against too."""
     cfg = UnetConfig()
     per_step = launches_per_step(cfg, False, 1)
     diffusion = GaussianDiffusion.create(
@@ -2212,7 +2268,8 @@ def drive_tensor_parallel(tmp, totals, gen):
             want = one(flat, batches)[1].tolist()
             want_launches = {k: steps * v for k, v in per_step.items()}
             counted(f"one-device {name}", want_launches)
-            one_device[name] = (want, flat.flat.detach().cpu())
+            one_device[name] = (want, flat.flat.detach().cpu(),
+                                flat.m.cpu(), flat.v.cpu())
             record = dict(steps=steps, one_device_losses=want)
             for mode in ("tp", "tp_fsdp"):
                 fsdp = mode == "tp_fsdp"
@@ -2294,7 +2351,7 @@ def drive_tensor_parallel(tmp, totals, gen):
             one_device["bf16"][0], one_device["f32"][0])))
     axis2["bf16_against_f32_one_device"] = control
     for name, dtype, steps in PARALLEL_BITS:
-        want, want_flat = one_device[name]
+        want, want_flat = one_device[name][:2]
         got = ranks[0][name]["losses"]
         if any(rank[name]["losses"] != got for rank in ranks):
             raise AssertionError(f"tensor_parallel {name}: the ranks' "
@@ -2372,6 +2429,434 @@ def drive_tensor_parallel(tmp, totals, gen):
                              f"kernels {seen}, not {gn2} and {heads} heads")
     axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(seen, gen)
     out["model_axis_2_one_card"] = axis2
+    return out, dict(one_device=one_device, one_grads=one_grads,
+                     control=control)
+
+
+# The `spatial_parallel` phase.  (a) The split GroupNorm's four kernels
+# alone at the half-height inputs of the default model's GroupNorms at two
+# model ranks (B=32): the first and last level's, and two between; each
+# against its plain version, again for the same bits, and the two virtual
+# ranks' pipeline (gn_stats on each half, gn_apply with both halves'
+# statistics; gn_bwd_sums, gn_bwd_dx) against K4 and K5 on the whole
+# tensor within their bars.  Timed with silu.  The library calls beside
+# them: `torch.var_mean` over the groups for gn_stats (the same statistics,
+# M2 / n); for gn_apply, `F.group_norm` + `F.silu` on the rank's rows, and
+# for gn_bwd_dx autograd through them (the local GroupNorm each pair of
+# kernels stands in for, as K4's and K5's yardsticks); none for
+# gn_bwd_sums.
+SPLIT_SHAPES = [(32, 32, 64, 64), (32, 16, 32, 128), (32, 8, 16, 192),
+                (32, 4, 8, 256)]
+SPLIT_RANKS = 2
+SPLIT_HEADLINE = dict(shape=[32, 32, 64, 64], dtype="torch.bfloat16",
+                      act="silu")
+# (c) Model axis 2 on the card: two processes of this script
+# (`--spatial_parallel_rank`) over gloo, eager, cuDNN as the CLI leaves it,
+# held to the one-device step (the `tensor_parallel` phase's references)
+# with the bars of TP: the gradient at the initial parameters leaf by leaf,
+# f32 within TP_F32_GRAD_RTOL of the one-device f32 gradient, bf16 within
+# TP_BF16_GRAD_FACTOR times the one-device bf16 gradient's own error; the
+# losses f32 within TP_F32_LOSS_RTOL, bf16 within the one-device bf16
+# steps' distance from the f32 ones.
+SP_RANKS = 2
+SP_RANK_LIMIT_S = 300
+
+
+def split_gn_case(shape, groups, shards, dtype, act, gen, timed=False):
+    """The split GroupNorm's four kernels at a rank's input `shape` of a
+    tensor split over `shards` ranks (see the phase's note): each against
+    its plain version, rerun for the same bits, and the ranks' pipeline
+    against K4 and K5 on the whole tensor.  Returns one case per kernel
+    (`timed`: with their times and bounds)."""
+    B, h, W, C = shape
+    G, eps = groups, 1e-5
+    whole, gamma, beta = gn_inputs((B, shards * h, W, C), dtype, gen)
+    dy_whole = torch.randn(whole.shape, generator=gen, device=DEV).to(dtype)
+    xs = [t.contiguous() for t in whole.chunk(shards, dim=1)]
+    dys = [t.contiguous() for t in dy_whole.chunk(shards, dim=1)]
+    what = f"{shape} over {shards} G={G} {dtype} act={act}"
+    errs = {}
+
+    def sums_err(name, pairs):
+        """The worst error of float32 sums (the statistics, the backward's
+        partials) within `partial_tol`, and the same over their largest
+        value."""
+        errs[name] = max(compare(got, want, partial_tol(want),
+                                 f"{name} {what}") for got, want in pairs)
+        largest[name] = max(want.abs().max().item() for _, want in pairs)
+
+    largest = {}
+    stats = [gn_stats(x, G) for x in xs]
+    same_bits((stats[0],), (gn_stats(xs[0], G),), "gn_stats " + what)
+    plain = [gn_stats_plain(x, G) for x in xs]
+    for got, want in zip(stats, plain):  # the mean at the statistics' bar
+        compare(got[..., 0], want[..., 0], STAT_TOL, "gn_stats mean " + what)
+    sums_err("gn_stats", [(got[..., 1], want[..., 1])  # M2, a float32 sum
+                          for got, want in zip(stats, plain)])
+    gathered = torch.stack(stats)
+
+    fwd = [gn_apply(x, gamma, beta, gathered, G, eps, act) for x in xs]
+    same_bits(fwd[0], gn_apply(xs[0], gamma, beta, gathered, G, eps, act),
+              "gn_apply " + what)
+    for got in fwd[1:]:  # every rank merged the same statistics
+        same_bits(got[1:], fwd[0][1:], "gn_apply's statistics " + what)
+    err = 0.0
+    for x, got in zip(xs, fwd):
+        want = gn_apply_plain(x, gamma, beta, gathered, G, eps, act)
+        err = max(err, compare(got[0], want[0], GN_TOL[dtype],
+                               "gn_apply " + what))
+        compare(got[1], want[1], STAT_TOL, "gn_apply mean " + what)
+        compare(got[2], want[2], STAT_TOL, "gn_apply rstd " + what)
+    errs["gn_apply"] = err
+    y4, mean4, rstd4 = gn_act_fwd(whole, gamma, beta, G, eps, act)
+    virtual_fwd = compare(torch.cat([y for y, _, _ in fwd], dim=1), y4,
+                          GN_TOL[dtype], "split forward against K4 " + what)
+    compare(fwd[0][1], mean4, STAT_TOL, "split mean against K4 " + what)
+    compare(fwd[0][2], rstd4, STAT_TOL, "split rstd against K4 " + what)
+
+    _, mean, rstd = fwd[0]
+    sums = [gn_bwd_sums(x, gamma, beta, mean, rstd, d, G, act)
+            for x, d in zip(xs, dys)]
+    same_bits((sums[0],), (gn_bwd_sums(xs[0], gamma, beta, mean, rstd, dys[0],
+                                       G, act),), "gn_bwd_sums " + what)
+    sums_err("gn_bwd_sums", [
+        (got, gn_bwd_sums_plain(x, gamma, beta, mean, rstd, d, G, act))
+        for got, x, d in zip(sums, xs, dys)])
+    every = torch.stack(sums)
+    dxs = [gn_bwd_dx(x, gamma, beta, mean, rstd, d, every, G, act)
+           for x, d in zip(xs, dys)]
+    same_bits((dxs[0],), (gn_bwd_dx(xs[0], gamma, beta, mean, rstd, dys[0],
+                                    every, G, act),), "gn_bwd_dx " + what)
+    errs["gn_bwd_dx"] = max(
+        compare(got, gn_bwd_dx_plain(x, gamma, beta, mean, rstd, d, every, G,
+                                     act), GN_TOL[dtype], "gn_bwd_dx " + what)
+        for got, x, d in zip(dxs, xs, dys))
+    dx5, dgamma5, dbeta5 = gn_act_bwd(whole, gamma, beta, mean, rstd,
+                                      dy_whole, G, act)
+    virtual_bwd = compare(torch.cat(dxs, dim=1), dx5, GN_TOL[dtype],
+                          "split backward against K5 " + what)
+    for got, want in ((every[:, 0].sum(0), dgamma5),
+                      (every[:, 1].sum(0), dbeta5)):
+        compare(got, want, partial_tol(want),
+                "split partials against K5 " + what)
+
+    base = dict(shape=list(shape), shards=shards, groups=G, dtype=str(dtype),
+                act=act, virtual_against_whole_max_abs_err=dict(
+                    forward_k4=virtual_fwd, backward_k5=virtual_bwd))
+    out = {name: dict(base, max_abs_err=err, tol=GN_TOL[dtype])
+           for name, err in errs.items()}
+    for name, top in largest.items():  # float32 sums: partial_tol's bar
+        out[name].update(tol="4e-6 of the largest value",
+                         err_of_largest=errs[name] / top)
+    # the worst error of the outputs in x's type (y, dx), as K4's and K5's
+    out["max_abs_err"] = max(errs["gn_apply"], errs["gn_bwd_dx"])
+    if not timed:
+        return out
+    x, d, item = xs[0], dys[0], xs[0].element_size()
+    n, stat = x.numel(), 4 * B * G * 2
+    flops = 20 if act == "silu" else 10
+    stream = side_stream()
+    with torch.cuda.stream(stream):
+        xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+        gl = gamma.detach().requires_grad_()
+        bl = beta.detach().requires_grad_()
+        yl = TF.group_norm(xl, G, gl, bl, eps)
+        yl = TF.silu(yl) if act == "silu" else yl
+    dyl = d.permute(0, 3, 1, 2)
+
+    def local_gn():
+        z = TF.group_norm(x.permute(0, 3, 1, 2), G, gamma, beta, eps)
+        return TF.silu(z) if act == "silu" else z
+
+    runs = {  # kernel, plain, library (and its stream), bytes, operations
+        "gn_stats": (
+            lambda: gn_stats(x, G), lambda: gn_stats_plain(x, G),
+            lambda: torch.var_mean(x.view(B, h * W, G, C // G), dim=(1, 3),
+                                   correction=0), None,
+            n * item + stat, 3 * n),
+        "gn_apply": (
+            lambda: gn_apply(x, gamma, beta, gathered, G, eps, act),
+            lambda: gn_apply_plain(x, gamma, beta, gathered, G, eps, act),
+            local_gn, None,
+            2 * n * item + 2 * C * item + shards * stat + 4 * 2 * B * G,
+            n * (8 if act == "silu" else 4)),
+        "gn_bwd_sums": (
+            lambda: gn_bwd_sums(x, gamma, beta, mean, rstd, d, G, act),
+            lambda: gn_bwd_sums_plain(x, gamma, beta, mean, rstd, d, G, act),
+            None, None,
+            2 * n * item + 2 * C * item + 4 * 2 * B * G + 4 * 2 * B * C,
+            n * flops),
+        "gn_bwd_dx": (
+            lambda: gn_bwd_dx(x, gamma, beta, mean, rstd, d, every, G, act),
+            lambda: gn_bwd_dx_plain(x, gamma, beta, mean, rstd, d, every, G,
+                                    act),
+            lambda: torch.autograd.grad(yl, (xl, gl, bl), dyl,
+                                        retain_graph=True), stream,
+            3 * n * item + 2 * C * item + 4 * 2 * B * G
+            + shards * 4 * 2 * B * C, n * flops)}
+    for name, (kernel, plain, library, lib_stream, nbytes, ops) in \
+            runs.items():
+        bound_ms, bound_by = bound(nbytes, ops, torch.float32)
+        out[name].update(timings(kernel, plain, library, lib_stream),
+                         bound_ms=bound_ms, bound_by=bound_by)
+    del yl
+    return out
+
+
+def check_split_kernels(gen):
+    """(a) of the `spatial_parallel` phase: {kernel: cases}."""
+    cases = {name: [] for name in SPLIT_GN}
+    for shape in SPLIT_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for act in ("silu", "none"):
+                got = split_gn_case(shape, 32, SPLIT_RANKS, dtype, act, gen,
+                                    timed=act == "silu")
+                for name in SPLIT_GN:
+                    cases[name].append(got[name])
+    return cases
+
+
+def spatial_parallel_rank(spec_path: str, rank: int) -> None:
+    """One rank of the `spatial_parallel` phase's two-rank run (a child
+    process of `drive_spatial_parallel`): a process group over gloo on card
+    0, the mesh data 1 x model 2, and for each of `PARALLEL_BITS` the
+    spatial step's loss and gradient at the initial parameters
+    (`tp_grad_inputs`) and then the eager spatial steps from the phase's
+    model, seed and batches, kernel inputs recorded; cuDNN as the CLI
+    leaves it.  Writes the losses, the launch counts, the shapes and the
+    seconds to `rank<r>.json`, the rank's vectors to `<name><r>.npz` and
+    (rank 0) the gradient to `<name>_grad.npy` beside the spec."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out_dir = os.path.dirname(spec_path)
+    functional.set_f32_precision("highest")
+    _build.load()
+    distributed.initialize(spec["address"], SP_RANKS, rank, DEV,
+                           timeout_s=SP_RANK_LIMIT_S, process_backend="gloo")
+    try:
+        mesh = pmesh.make_mesh(model=SP_RANKS)
+        cfg = UnetConfig()
+        diffusion = GaussianDiffusion.create(
+            named_beta_schedule("linear", cfg.max_period), device=DEV)
+        record, seen = {}, new_seen()
+        for name, dtype, steps in PARALLEL_BITS:
+            net = tp_model(cfg)
+            step = pmesh.make_parallel_train_step(
+                cfg, tp_config(dtype), mesh, diffusion, spatial=True,
+                example_params=net)
+            state = pmesh.init_state(trainer.Unravel(net), net, mesh, seed=6)
+            batch, t, noise = tp_grad_inputs(cfg)
+            grad_loss, grad = step.value_and_grad(state, batch[mesh.rows], t,
+                                                  noise)
+            if rank == 0:
+                np.save(os.path.join(out_dir, f"{name}_grad.npy"),
+                        grad.cpu().numpy())
+            del grad, batch, t, noise
+            batches = tp_batches(cfg, steps)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with eager_steps(), recording(seen):
+                losses = step(state, batches)[1].tolist()
+            torch.cuda.synchronize()
+            record[name] = dict(
+                losses=losses, grad_loss=grad_loss.item(), launches=counts(),
+                seconds_per_step=(time.perf_counter() - t0) / steps)
+            np.savez(os.path.join(out_dir, f"{name}{rank}.npz"),
+                     flat=state.flat.detach().cpu().numpy(),
+                     m=state.m.cpu().numpy(), v=state.v.cpu().numpy())
+            del step, state, net
+            free_graphs()
+        record["seen"] = {k: sorted(v) for k, v in seen.items()}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(record, f)
+    finally:
+        distributed.shutdown()
+
+
+def spatial_launches_per_step(cfg):
+    """Each kernel's launches in one spatial step of one model rank: every
+    GroupNorm through the split kernels, forward and backward, every
+    attention through K1 and K2 on the gathered rows; no whole K4 or K5."""
+    gn, attn = launches_per_forward(cfg)
+    return dict(gn_act_fwd=0, gn_act_bwd=0, qkv_attention_fwd=attn,
+                qkv_attention_bwd=attn, conv3x3_hwbc=0, gn_stats=gn,
+                gn_apply=gn, gn_bwd_sums=gn, gn_bwd_dx=gn)
+
+
+def drive_spatial_parallel(tmp, totals, gen, refs):
+    """Spatial sharding (`parallel/spatial.py`, `parallel/mesh.py`) on the
+    card, `UnetConfig()` at the global batch 32, against the one-device
+    references of the `tensor_parallel` phase (the same model, seed,
+    batches and steps):
+
+    * (b) model axis 1 over NCCL (one rank, DP itself): the captured
+      spatial step against the one-device flat step, the same bits after 3
+      bfloat16 and 2 float32 steps (cuDNN deterministic), and its replay's
+      device time;
+    * (c) model axis 2 on the one card: two processes over gloo
+      (`spatial_parallel_rank`) with cuDNN as the CLI leaves it, the
+      gradient at the initial parameters and then 3 eager bfloat16 and 2
+      float32 steps, held to the one-device gradient and losses within the
+      bars at SP_RANKS, every vector bit-equal on both ranks; every kernel
+      input the ranks gave the kernels held against its plain version
+      (`check_seen_shapes`: the split GroupNorm at half height, K1 and K2
+      at the gathered rows).
+    Launch counts are held exactly per rank and added to `totals`."""
+    cfg = UnetConfig()
+    per_step = launches_per_step(cfg, False, 1)
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    one_device, one_grads = refs["one_device"], refs["one_grads"]
+    control = refs["control"]
+    out = {}
+
+    def counted(name, want, got=None):
+        torch.cuda.synchronize()
+        got = counts() if got is None else got
+        if got != want:
+            raise AssertionError(f"spatial_parallel {name}: launches {got}, "
+                                 f"want {want}")
+        for k, v in got.items():
+            totals[k] += v
+
+    distributed.initialize(f"localhost:{distributed.free_port()}", 1, 0, DEV,
+                           timeout_s=120)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = pmesh.make_mesh(model=1)
+        axis1 = {}
+        for name, dtype, steps in PARALLEL_BITS:
+            net = tp_model(cfg)
+            step = pmesh.make_parallel_train_step(
+                cfg, tp_config(dtype), mesh, diffusion, spatial=True,
+                example_params=net)
+            state = pmesh.init_state(trainer.Unravel(net), net, mesh, seed=6)
+            reset_counts()
+            got = step(state, tp_batches(cfg, steps))[1].tolist()
+            counted(f"model axis 1 {name}",
+                    {k: steps * v for k, v in per_step.items()})
+            want, *want_state = one_device[name]
+            diff = max((a.detach().cpu() - b).abs().max().item() for a, b in
+                       zip((state.flat, state.m, state.v), want_state))
+            if got != want or diff != 0.0:
+                raise AssertionError(
+                    f"spatial_parallel {name} at model axis 1: losses {got} "
+                    f"against the one-device {want}, state max abs diff "
+                    f"{diff}")
+            axis1[name] = dict(steps=steps, losses=got, bits_equal=True,
+                               replay_ms=replay_ms(step.graph),
+                               held=step.graph.held)
+            del step, state, net
+            free_graphs()
+        out["model_axis_1_nccl"] = axis1
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        distributed.shutdown()
+
+    # model axis 2: two gloo ranks on card 0
+    spec = os.path.join(tmp, "sp_spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(address=f"localhost:{distributed.free_port()}"), f)
+    logs = [os.path.join(tmp, f"sp_rank{r}.log") for r in range(SP_RANKS)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "wb") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--spatial_parallel_rank", spec, str(r)],
+                    stdout=f, stderr=subprocess.STDOUT,
+                    stdin=subprocess.DEVNULL))
+        codes = [p.wait(timeout=SP_RANK_LIMIT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * SP_RANKS:
+        text = "".join(open(log, errors="replace").read()[-3000:]
+                       for log in logs)
+        raise AssertionError(f"spatial_parallel: the ranks exited {codes}:\n"
+                             f"{text}")
+    ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+             for r in range(SP_RANKS)]
+    whole = trainer.Unravel(tp_model(cfg).cpu())
+    axis2 = dict(backend="gloo (CUDA tensors through the host)",
+                 cudnn_deterministic=False, seconds=time.perf_counter() - t0,
+                 bf16_against_f32_one_device=control)
+    f32_grad = one_grads["f32"][1]
+    sp_step = spatial_launches_per_step(cfg)
+    for name, dtype, steps in PARALLEL_BITS:
+        want = one_device[name][0]
+        got = ranks[0][name]["losses"]
+        if any(rank[name]["losses"] != got for rank in ranks):
+            raise AssertionError(f"spatial_parallel {name}: the ranks' "
+                                 f"losses differ: {ranks}")
+        grad = torch.from_numpy(np.load(os.path.join(tmp, f"{name}_grad.npy")))
+        if dtype == "float32":
+            rtol, grad_rtol = TP_F32_LOSS_RTOL, TP_F32_GRAD_RTOL
+        else:
+            rtol = control["losses"]
+            grad_rtol = TP_BF16_GRAD_FACTOR * control["grad"]
+        grad_err = leaf_rel_err(grad, f32_grad, whole)
+        grad_err_same_type = leaf_rel_err(grad, one_grads[name][1], whole)
+        grad_loss_rel = abs(ranks[0][name]["grad_loss"] - one_grads[name][0]
+                            ) / abs(one_grads[name][0])
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if not (grad_err <= grad_rtol and grad_loss_rel <= rtol
+                and rel <= rtol):
+            raise AssertionError(
+                f"spatial_parallel {name} at model axis 2: gradient worst "
+                f"leaf {grad_err} from the one-device float32 gradient (bar "
+                f"{grad_rtol}), loss {grad_loss_rel} from the one-device "
+                f"loss, losses {got} against the one-device {want} (max rel "
+                f"{rel}; bar {rtol})")
+        vecs = [np.load(os.path.join(tmp, f"{name}{r}.npz"))
+                for r in range(SP_RANKS)]
+        for part in ("flat", "m", "v"):
+            if not np.array_equal(vecs[1][part], vecs[0][part]):
+                raise AssertionError(f"spatial_parallel {name}: the ranks' "
+                                     f"{part} differ")
+        param_diff = float(np.abs(vecs[0]["flat"]
+                                  - one_device[name][1].numpy()).max())
+        for r, rank in enumerate(ranks):
+            counted(f"model axis 2 {name} rank {r}",
+                    {k: steps * v for k, v in sp_step.items()},
+                    rank[name]["launches"])
+        axis2[name] = dict(
+            steps=steps, losses=got, one_device_losses=want,
+            loss_max_rel_diff=rel, loss_rtol=rtol,
+            grad_leaf_rel_err=grad_err, grad_leaf_rtol=grad_rtol,
+            grad_leaf_rel_err_against_same_type=grad_err_same_type,
+            grad_loss_rel_err=grad_loss_rel, param_max_abs_diff=param_diff,
+            every_vector_bit_equal_on_both_ranks=True,
+            seconds_per_step=[rank[name]["seconds_per_step"]
+                              for rank in ranks])
+    seen = new_seen()
+    for rank in ranks:
+        for k, v in rank["seen"].items():
+            seen[k] |= {tuple(tuple(a) if isinstance(a, list) else a
+                              for a in entry) for entry in v}
+    # the split GroupNorm at half height (the first: (32, 32, 64, 64) in 32
+    # groups over 2 ranks), no whole GroupNorm, and attention on the
+    # gathered rows of every attention layer ((32, 256, 576) and
+    # (32, 64, 768))
+    half = (TRAIN_BATCH, cfg.image_size // SP_RANKS, cfg.image_size,
+            cfg.model_channels)
+    gathered = {(TRAIN_BATCH, (cfg.image_size // ds) ** 2, 3 * w)
+                for ds, w in zip(sorted(cfg.attention_ds),
+                                 sorted(set(unet.attention_widths(cfg))))}
+    if (half not in {e[0] for e in seen["sgn_fwd"]}
+            or {e[4] for e in seen["sgn_fwd"] | seen["sgn_bwd"]} != {SP_RANKS}
+            or seen["gn_fwd"] or seen["gn_bwd"]
+            or {e[0] for e in seen["attn_fwd"]} != gathered):
+        raise AssertionError(f"spatial_parallel: the ranks handed the "
+                             f"kernels {seen}, not {half} and {gathered}")
+    axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(seen, gen)
+    out["model_axis_2_one_card"] = axis2
     return out
 
 
@@ -2446,7 +2931,7 @@ def drive_conv(gen):
     if got["conv3x3_hwbc"] != want:
         raise AssertionError(f"conv: {got['conv3x3_hwbc']} convolution "
                              f"launches, want {want}")
-    if min(got.values()) <= 0:
+    if min(v for k, v in got.items() if k not in SPLIT_GN) <= 0:
         raise AssertionError(f"conv: a kernel was never launched: {got}")
     if len(proto["bench"]) != len(conv_proto.SHAPES):
         raise AssertionError("conv_proto: the bench did not run every shape")
@@ -2575,11 +3060,22 @@ def main() -> None:
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        tp = drive_tensor_parallel(tmp, totals, gen)
+        tp, refs = drive_tensor_parallel(tmp, totals, gen)
     emit({"phase": "tensor_parallel", "model": "UnetConfig() ImageNet-64, "
           f"full depth, global B={TRAIN_BATCH}", **tp,
           "seconds": time.perf_counter() - t0,
           "launches_with_the_runs_before": dict(totals)})
+
+    t0 = time.perf_counter()
+    split_cases = check_split_kernels(gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        spatial = drive_spatial_parallel(tmp, totals, gen, refs)
+    del refs
+    emit({"phase": "spatial_parallel", "model": "UnetConfig() ImageNet-64, "
+          f"full depth, global B={TRAIN_BATCH}", "split_kernels": split_cases,
+          **spatial, "seconds": time.perf_counter() - t0,
+          "launches_with_the_runs_before": dict(totals)})
+    cases.update(split_cases)
 
     cases["conv3x3_hwbc"] = check_conv(gen)
     emit({"phase": "conv_checks", "conv3x3_hwbc": cases["conv3x3_hwbc"]})
@@ -2615,7 +3111,13 @@ def main() -> None:
                 "scripts/conv_proto.py:111", cases["conv3x3_hwbc"],
                 CONV_HEADLINE,
                 totals["conv3x3_hwbc"]),
-    ]})
+    ] + [summary(name, gn_src, replaces, cases[name], SPLIT_HEADLINE,
+                 totals[name])
+         for name, replaces in (
+             ("gn_stats", "unet_tpu/ops/pallas/groupnorm.py:165"),
+             ("gn_apply", "unet_tpu/ops/pallas/groupnorm.py:165"),
+             ("gn_bwd_sums", "unet_tpu/ops/pallas/groupnorm.py:200"),
+             ("gn_bwd_dx", "unet_tpu/ops/pallas/groupnorm.py:200"))]})
     emit({"phase": "done", "seconds_total": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -2626,5 +3128,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tensor_parallel_rank"]:
         tensor_parallel_rank(sys.argv[2], int(sys.argv[3]))
+    elif sys.argv[1:2] == ["--spatial_parallel_rank"]:
+        spatial_parallel_rank(sys.argv[2], int(sys.argv[3]))
     else:
         main()

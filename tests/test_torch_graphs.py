@@ -81,7 +81,8 @@ def test_a_graph_adds_what_it_holds_on_every_replay(zero_counts):
     graph()  # capture (counted, then taken back) and one replay
     assert graph.held == {"gn_act_fwd": 2, "gn_act_bwd": 0,
                           "qkv_attention_fwd": 1, "qkv_attention_bwd": 0,
-                          "conv3x3_hwbc": 0}
+                          "conv3x3_hwbc": 0, "gn_stats": 0, "gn_apply": 0,
+                          "gn_bwd_sums": 0, "gn_bwd_dx": 0}
     for _ in range(3):
         graph()
     assert len(ran) == 2 and graph.replays == 4

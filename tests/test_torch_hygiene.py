@@ -244,7 +244,11 @@ def _c_signature(name):
     ("attention", "unet_qkv_attention_fwd"),
     ("attention", "unet_qkv_attention_bwd"),
     ("groupnorm", "unet_gn_act_fwd"),
-    ("groupnorm", "unet_gn_act_bwd")])
+    ("groupnorm", "unet_gn_act_bwd"),
+    ("groupnorm", "unet_gn_stats"),
+    ("groupnorm", "unet_gn_apply"),
+    ("groupnorm", "unet_gn_bwd_sums"),
+    ("groupnorm", "unet_gn_bwd_dx")])
 def test_launcher_argtypes_match_the_sources(module, name):
     """The ctypes signature a wrapper declares is the one its launcher
     takes: a mismatch passes wrong arguments on the GPU without an error."""

@@ -257,8 +257,10 @@ def test_world_size_1_gives_the_one_device_flat_steps_bits(one_rank, fsdp):
 def test_make_mesh_needs_a_process_group_and_refuses_the_model_axis(ranks):
     """make_mesh needs a process group; over one it builds a model axis
     (here over the worker's ranks: data world / 2 x model 2, rank d * 2 +
-    m, as tests/test_torch_tensor_parallel.py holds at more shapes); the
-    spatial split of the model axis raises, naming item 8b-ii."""
+    m, as tests/test_torch_tensor_parallel.py holds at more shapes).
+    Spatial sharding builds a step, which over one model rank is DP's
+    (tests/test_torch_spatial_parallel.py runs it over more); TP and
+    spatial together raise."""
     world, _, _, sizes = ranks
     with pytest.raises(RuntimeError, match="initialize"):
         pmesh.make_mesh()
@@ -266,9 +268,13 @@ def test_make_mesh_needs_a_process_group_and_refuses_the_model_axis(ranks):
         assert rank_sizes["mesh_model_2"] == dict(
             data=world // 2, model=2, data_rank=r // 2, model_rank=r % 2)
     mesh = pmesh.Mesh(data=2, rank=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 8b-ii"):
-        pmesh.make_parallel_train_step(configs()[1], TrainConfig(), mesh,
-                                       spatial=True)
+    _, cfg = configs()
+    step = pmesh.make_parallel_train_step(
+        cfg, TrainConfig(), mesh, spatial=True,
+        example_params=convert.params_from_flat(flat_weights(cfg), cfg,
+                                                device="cpu"))
+    assert (step.world, step.rows, step.height) == (2, slice(0, None, 2),
+                                                    None)
     with pytest.raises(ValueError, match="tp and spatial"):
         pmesh.make_parallel_train_step(configs()[1], TrainConfig(), mesh,
                                        tp=True, spatial=True)

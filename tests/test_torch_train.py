@@ -338,18 +338,6 @@ def test_cli_init_model_only_and_log_norms(data_file, capsys):
     assert "peak_mem_MiB" not in out  # no device memory on the CPU
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--spatial_parallel", "2"], "8b-ii"),
-    (["--spatial_parallel", "4", "--fsdp", "true"], "8b-ii")])
-def test_cli_flags_of_later_slices_raise(data_file, flags, item):
-    """Spatial sharding is not ported (the data axis and tensor parallelism
-    are: tests/test_torch_distributed.py,
-    tests/test_torch_tensor_parallel.py); it raises before anything else,
-    with or without the data axis."""
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        port_cli.main(_cli_flags(data_file, "x", *flags))
-
-
 @pytest.mark.parametrize("flags", [
     ["--microbatch", "3"], ["--ema_rate", "1.5"],
     ["--compute_dtype", "float16"], ["--label_dropout", "0.1"],

@@ -39,6 +39,24 @@ the leaves it keeps whole against the other model ranks',
 `local<rank>.npy`), its `kept_grad<rank>.npy` and its place on the mesh
 (`mesh<rank>.json`).
 
+A spec with "spatial" (tests/test_torch_spatial_parallel.py) runs the
+spatial-sharding jobs instead (`run_spatial`), on each mesh it names in
+turn (name, model axis, extra jobs):
+
+* `modules` (where named): a 3x3 convolution, GroupNorm(+SiLU) and
+  GroupNorm alone, and attention on the rank's rows of the spec's module
+  inputs, forward and backward; the outputs and input gradients gathered
+  over the model ranks, the parameters' gradients summed over them;
+* `grad`: the global-mean loss and reduced gradient of the spatial step,
+  and with a data axis over 1 of the spatial x fsdp step, whole;
+* `spatial`, `spatialfsdp` (with a data axis over 1), and where named
+  `remat` (with remat and microbatches of one row): two steps each,
+  seeded draws, with the EMA.
+
+Into out/<mesh name>/, rank 0 writes the results (`results.npz`); every
+rank writes its vectors after each run of steps (`<run><rank>.npz`), to
+hold them against the other model ranks'.
+
 This module imports torch and the port only.
 """
 
@@ -54,8 +72,10 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
                                                named_beta_schedule)
 from unet_tpu_torch.diffusion.sampler import make_parallel_sampler
 from unet_tpu_torch.io import convert
+from unet_tpu_torch.ops import functional as F
 from unet_tpu_torch.parallel import distributed
 from unet_tpu_torch.parallel import mesh as pmesh
+from unet_tpu_torch.parallel import spatial as sp
 from unet_tpu_torch.training import trainer
 
 # the steps of `dp`, `fsdp`, `micro` and `cond`
@@ -71,7 +91,10 @@ def main(spec_path: str, rank: int) -> None:
     distributed.initialize(spec["address"], world, rank, device="cpu",
                            timeout_s=60)
     try:
-        (run_tp if "meshes" in spec else run)(spec, rank, world)
+        if "spatial" in spec:
+            run_spatial(spec, rank, world)
+        else:
+            (run_tp if "meshes" in spec else run)(spec, rank, world)
     finally:
         distributed.shutdown()
 
@@ -240,6 +263,107 @@ def tp_jobs(cfg, inputs, diffusion, mesh, jobs, rank, out_dir):
                        data_rank=mesh.data_rank, model_rank=mesh.model_rank,
                        rows=[mesh.rows.start, mesh.rows.step],
                        fraction=fraction), f)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "results.npz"), **out)
+
+
+def run_spatial(spec, rank, world):
+    cfg = UnetConfig(**{k: tuple(v) if isinstance(v, list) else v
+                        for k, v in spec["cfg"].items()})
+    inputs = np.load(spec["inputs"])
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device="cpu")
+    for name, model, jobs in spec["spatial"]:
+        out_dir = os.path.join(spec["out"], name)
+        os.makedirs(out_dir, exist_ok=True)
+        spatial_jobs(cfg, inputs, diffusion, pmesh.make_mesh(model=model),
+                     jobs, rank, out_dir)
+
+
+def module_jobs(inputs, shard):
+    """Each op of a spatial shard on the rank's rows (see the module's
+    docstring): {name: array} of the gathered outputs and gradients."""
+    out = {}
+
+    def check(name, fn, x, dy, params):
+        rows = sp.rows_of(x.shape[1], shard)
+        mine = x[:, rows].clone().requires_grad_()
+        params = [torch.from_numpy(p).requires_grad_() for p in params]
+        y = fn(mine, *params)
+        y.backward(torch.from_numpy(dy)[:, rows])
+
+        def whole(t):  # every rank's rows, back in order
+            return torch.cat(list(sp.gather(t.detach(), shard)), dim=1)
+
+        out[f"{name}_y"] = whole(y).numpy()
+        out[f"{name}_dx"] = whole(mine.grad).numpy()
+        for i, p in enumerate(params):
+            grad = p.grad.contiguous()
+            torch.distributed.all_reduce(grad, group=shard.group)
+            out[f"{name}_dp{i}"] = grad.numpy()
+
+    x = torch.from_numpy(inputs["mod_x"])
+    check("conv", lambda a, w, b: F.conv2d(
+        a, w.contiguous(memory_format=torch.channels_last), b, shard=shard),
+        x, inputs["mod_conv_dy"], [inputs["mod_conv_w"], inputs["mod_conv_b"]])
+    for act in ("silu", "none"):
+        check(f"gn_{act}", lambda a, g, b: F.group_norm_silu(
+            a, g, b, num_groups=8, act=act, shard=shard),
+            x, inputs["mod_gn_dy"], [inputs["mod_gamma"], inputs["mod_beta"]])
+    check("attn", lambda a: F.qkv_attention(a, 2, shard),
+          torch.from_numpy(inputs["mod_qkv"]), inputs["mod_attn_dy"], [])
+    return out
+
+
+def spatial_jobs(cfg, inputs, diffusion, mesh, jobs, rank, out_dir):
+    """The spatial jobs on one mesh (see the module's docstring)."""
+    local = inputs["batch"].shape[0] // mesh.data
+    batch = pmesh.shard_batch(torch.from_numpy(inputs["batch"]), mesh)
+    chunk = pmesh.shard_batch(torch.from_numpy(inputs["chunk"]).transpose(
+        0, 1), mesh).transpose(0, 1)
+    out = module_jobs(inputs, mesh.shard) if "modules" in jobs else {}
+
+    def model():
+        return convert.params_from_flat(inputs["weights"], cfg,
+                                        device="cpu")
+
+    def make(fsdp, **tc):
+        params = model()
+        tc = TrainConfig(**{**STEPS, "batch_size": local, **tc})
+        step = pmesh.make_parallel_train_step(
+            cfg, tc, mesh, diffusion, spatial=True, fsdp=fsdp,
+            example_params=params)
+        state = pmesh.init_state(trainer.Unravel(params), params, mesh,
+                                 fsdp=fsdp, ema_rate=tc.ema_rate, seed=SEED)
+        return step, state
+
+    fsdps = [("spatial", False)] + ([("spatialfsdp", True)]
+                                    if mesh.data > 1 else [])
+    for name, fsdp in fsdps:
+        step, state = make(fsdp)
+        loss, grad = step.value_and_grad(state, batch, inputs["t"],
+                                         inputs["noise"])
+        placement = state.placement
+        grad, = distributed.replicate([grad], placement.size,
+                                      placement.sharded, placement.group)
+        out[f"{name}_grad_loss"], out[f"{name}_grad"] = loss.numpy(), \
+            grad.numpy()
+    runs = fsdps + [("remat", False)] * ("remat" in jobs)
+    for name, fsdp in runs:
+        extra = dict(remat=True, microbatch=1) if name == "remat" else {}
+        step, state = make(fsdp, **extra)
+        state, losses = step(state, chunk)
+        flat, m, v, ema = pmesh.host_state(state)
+        out.update({f"{name}_losses": losses.numpy(),
+                    f"{name}_flat": flat.numpy(), f"{name}_m": m.numpy(),
+                    f"{name}_v": v.numpy(), f"{name}_ema": ema.numpy()})
+        np.savez(os.path.join(out_dir, f"{name}{rank}.npz"),
+                 flat=state.flat.detach().numpy(), m=state.m.numpy(),
+                 v=state.v.numpy(), ema=state.ema.numpy())
+    with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
+        json.dump(dict(data=mesh.data, model=mesh.model,
+                       data_rank=mesh.data_rank, model_rank=mesh.model_rank),
+                  f)
     if rank == 0:
         np.savez(os.path.join(out_dir, "results.npz"), **out)
 

@@ -4,7 +4,8 @@
 python -m unet_tpu_torch.cli.train --data_file data/train.bin \\
     [--batch_size 32] [--iterations N] [--compute_dtype bfloat16] \\
     [--model_weights models/model_N.bin | --auto_resume true] [--device cuda]
-    [--num_devices N [--fsdp true] [--tensor_parallel M]]
+    [--num_devices N [--fsdp true] [--tensor_parallel M |
+    --spatial_parallel M]]
 
 A fresh init (from `--seed`) or `--model_weights` (parameters, AdamW
 moments, step, seed, EMA, loader cursor and, with `--host_rng`, the host
@@ -64,10 +65,16 @@ step; `--coordinator_address` processes do not catch it.
 ranks (rank d * M + m), as the JAX CLI's mesh: the model ranks of one data
 index read the same shard and split the model Megatron-style (TP), with
 `--fsdp` also its vector over the data axis (tp x fsdp); the global batch
-is N / M times `--batch_size`.  A checkpoint is the one-device `.bin`, so
-a run resumes under any layout.  Each rank needs a device of its own: two
-NCCL ranks cannot share a card.  `--spatial_parallel` raises
-`NotImplementedError`, naming its `ROADMAP.md` item.
+is N / M times `--batch_size`.  `--spatial_parallel M` lays the ranks out
+the same way, and the model ranks of one data index split the height of
+every activation of their samples instead (`parallel/spatial.py`; with
+`--fsdp`, the vector over the data axis too): each holds rows [m H/M,
+(m+1) H/M) at every level and the whole model.  The lowest resolution,
+`--image_size` / 2^(levels - 1), must divide by M, so that every level's
+slice is whole and every pooled slice even (the JAX package's GSPMD
+reshards where the port refuses).  A checkpoint is the one-device `.bin`,
+so a run resumes under any layout.  Each rank needs a device of its own:
+two NCCL ranks cannot share a card.
 """
 
 from __future__ import annotations
@@ -198,24 +205,6 @@ def model_config_from_args(args) -> UnetConfig:
                       use_scale_shift_norm=args.use_scale_shift_norm)
 
 
-# Flags of paths not ported yet: (flag, is it set?, ROADMAP.md item).
-_LATER = (
-    ("--spatial_parallel", lambda a: a.spatial_parallel != 1, "8b-ii"),
-)
-
-
-def _reject_not_ported(args) -> None:
-    # the JAX CLI's rule for the two flags of the model axis comes first
-    if args.tensor_parallel > 1 and args.spatial_parallel > 1:
-        raise SystemExit("train: --tensor_parallel and --spatial_parallel "
-                         "both use the model mesh axis")
-    for flag, is_set, item in _LATER:
-        if is_set(args):
-            raise NotImplementedError(
-                f"train: {flag} is not ported to unet_tpu_torch yet "
-                f"(ROADMAP.md, Queue 1 item {item})")
-
-
 def _visible_devices(args) -> int:
     """What --num_devices 0 means: the cards this machine shows for a CUDA
     --device without an index, else 1 (one card, or the CPU)."""
@@ -237,8 +226,9 @@ def _num_ranks(args) -> int:
 
 
 def _model_axis(args) -> int:
-    """The model axis: --tensor_parallel (1 and below: none)."""
-    return max(args.tensor_parallel, 1)
+    """The model axis: --tensor_parallel or --spatial_parallel (1 and
+    below: none)."""
+    return max(args.tensor_parallel, args.spatial_parallel, 1)
 
 
 def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
@@ -290,6 +280,9 @@ def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
     bad(args.shard_index >= args.num_shards,
         "--shard_index must be < --num_shards")
     # the mesh (the JAX CLI's rules)
+    bad(args.tensor_parallel > 1 and args.spatial_parallel > 1,
+        "--tensor_parallel and --spatial_parallel both use the model "
+        "mesh axis")
     bad(args.num_devices < 0, "--num_devices must be >= 0 (0 = all)")
     for flag in ("host_rng", "log_norms"):
         bad(args.num_devices > 1 and getattr(args, flag),
@@ -304,6 +297,14 @@ def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
         for flag in ("host_rng", "log_norms"):
             bad(getattr(args, flag),
                 f"--{flag} is only wired for single-device runs")
+    if args.spatial_parallel > 1:  # the port's own rule
+        cfg = model_config_from_args(args)
+        step = 2 ** (len(cfg.channel_mult) - 1)
+        bad(cfg.image_size % (step * args.spatial_parallel) != 0,
+            f"--spatial_parallel {args.spatial_parallel} does not divide "
+            f"the lowest resolution {cfg.image_size / step:g} (--image_size "
+            "/ 2^(levels - 1)): every level's slice of the height must be "
+            "whole")
     device = torch.device(args.device)
     if ranks > 1 and not multiproc:
         bad(device.index is not None,
@@ -493,7 +494,6 @@ def main(argv=None):
     ranks).  A rank of a data-parallel run returns its
     `parallel.mesh.ParallelState`."""
     args = create_argparser().parse_args(argv)
-    _reject_not_ported(args)
     launched = distributed.launched()
     multiproc = bool(args.coordinator_address)
     if launched is None and not multiproc:
@@ -642,7 +642,7 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
         device=device)
     chunked = _chunked(args, tc, start_step)
     mesh = unravel = None
-    tp = model_axis > 1
+    tp, use_sp = args.tensor_parallel > 1, args.spatial_parallel > 1
     if parallel:
         # the flat state of this rank; the tree state goes
         mesh = pmesh.make_mesh(model=model_axis)
@@ -657,6 +657,9 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
             if tp:
                 print(f"tensor parallel: {model_axis} model ranks a data "
                       "rank")
+            if use_sp:
+                print(f"spatial parallel: {model_axis} model ranks a data "
+                      "rank")
             if args.fsdp or tp:
                 kind = "fsdp+tp" if args.fsdp and tp else (
                     "fsdp" if args.fsdp else "tp")
@@ -668,8 +671,8 @@ def _train(args, argv, device=None, rank: int = 0, world: int = 1,
         if parallel:
             return pmesh.make_parallel_train_step(
                 cfg, tc, mesh, diffusion, fsdp=args.fsdp, tp=tp,
-                class_cond=args.class_cond, example_params=params,
-                input_u8=input_u8)
+                spatial=use_sp, class_cond=args.class_cond,
+                example_params=params, input_u8=input_u8)
         return trainer.make_multi_step(cfg, tc, diffusion, device,
                                        input_u8=input_u8)
 

@@ -73,6 +73,7 @@
 #include <mutex>
 #include <set>
 #include <tuple>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -925,6 +926,447 @@ extern "C" int unet_gn_act_bwd(const void* x, const void* gamma, const void* bet
                              tile_rows, act_silu);
     }
     return (int)err;
+}
+
+// ---------------------------------------------------------------------------
+// The split GroupNorm (spatial sharding: parallel/spatial.py).  The rows of
+// every sample are split over N model ranks, so the statistics and the
+// backward's sums that K4 and K5 take inside one launch come from every
+// rank.  Four kernels around two all-gathers over the ranks, which the
+// caller makes (ops/kernels/groupnorm.py::SplitGroupNormAct):
+//
+//   gn_stats (K4a): per (b, g), the (mean, M2) of this rank's rows, two
+//     passes over them in float32: (B, G, 2).
+//   gn_apply (K4b): merges the N ranks' (mean, M2) (N, B, G, 2) in rank
+//     order by the pairwise formula mean += d n_b / n, M2 += M2_b + d^2 n_a
+//     n_b / n (Chan, Golub and LeVeque), every rank the same bits; writes
+//     mean and rstd (B, G) and y = (x - mean) rstd gamma + beta, SiLU'd.
+//   gn_bwd_sums (K5a): per (b, c), this rank's dgamma_b = sum dz xhat and
+//     dbeta_b = sum dz, xhat from the merged statistics: (2, B, C).
+//   gn_bwd_dx (K5b): adds the N ranks' sums (N, 2, B, C) in rank order,
+//     forms t1 and t2 per group over the whole sample's count and writes
+//     dx as K5 does.
+//
+// They replace no TPU kernel of their own: they are K4 and K5 (the Pallas
+// `_fwd_kernel` and `_bwd_kernel` of unet_tpu/ops/pallas/groupnorm.py) cut
+// around the collective that GSPMD places in the JAX package's spatial
+// step.  Bound: memory traffic, as K4 and K5 (gn_stats reads x, gn_apply
+// reads x and writes y, gn_bwd_sums reads x and dy, gn_bwd_dx reads x and
+// dy and writes dx).  A first, simple design: gn_stats and gn_bwd_sums run
+// one block per batch element (and per chunk of columns where a row has
+// more vectors than a block has threads), each thread a vector of V
+// channels (16 bytes where C allows) down every RS-th row, kUnroll rows'
+// loads in flight at once, the row slots then the group's channels folded
+// through shared memory in a fixed order; gn_apply and gn_bwd_dx are
+// elementwise over a grid of (chunks, B), each block working out its
+// sample's per-group constants at its start in a fixed order.  No atomics,
+// so a rerun gives the same bits.
+
+namespace {
+
+constexpr int kSplitThreads = 512;  // gn_stats, gn_bwd_sums (the wrapper's _SPLIT_THREADS)
+constexpr int kElemThreads = 256;   // gn_apply, gn_bwd_dx
+constexpr int kElemBlocks = 8 * 132;  // about 8 blocks an SM in all
+constexpr int kUnroll = 4;
+constexpr size_t kSplitSmem = 48 * 1024;
+
+// f(T*, integral_constant<V>) for the storage type and the vector width:
+// two channels a thread at least (an odd C is refused: the kernels at one
+// value a thread spilled registers, and no GroupNorm of the model has one).
+template <typename F>
+cudaError_t with_type_vec(int is_bf16, int vec, F f) {
+    using B16 = __nv_bfloat16;
+    if (is_bf16) {
+        switch (vec) {
+            case 2: return f((B16*)nullptr, std::integral_constant<int, 2>{});
+            case 4: return f((B16*)nullptr, std::integral_constant<int, 4>{});
+            case 8: return f((B16*)nullptr, std::integral_constant<int, 8>{});
+        }
+    } else {
+        switch (vec) {
+            case 2: return f((float*)nullptr, std::integral_constant<int, 2>{});
+            case 4: return f((float*)nullptr, std::integral_constant<int, 4>{});
+        }
+    }
+    return cudaErrorInvalidValue;
+}
+
+// The column vectors a block of kSplitThreads covers at once (L = C / V a
+// row), and its row slots.
+__host__ __device__ inline int split_cols(int L) { return L < kSplitThreads ? L : kSplitThreads; }
+__host__ __device__ inline int split_slots(int L) { return kSplitThreads / split_cols(L); }
+
+// acc[k] += f(k, value) over rows rs, rs + RS, ... < HW of column c0 of a
+// sample's rows `p` (row stride C), kUnroll rows' loads issued together.
+template <typename T, int V, typename F>
+__device__ __forceinline__ void column_sum(const T* p, int C, int HW, int rs, int RS, int c0,
+                                           float (&acc)[V], F f) {
+    int r = rs;
+    for (; r + (kUnroll - 1) * RS < HW; r += kUnroll * RS) {
+        float v[kUnroll][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) load_floats<T, V>(p + (size_t)(r + u * RS) * C + c0, v[u]);
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+            for (int k = 0; k < V; ++k) acc[k] += f(k, v[u][k], r + u * RS);
+    }
+    for (; r < HW; r += RS) {
+        float v[V];
+        load_floats<T, V>(p + (size_t)r * C + c0, v);
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] += f(k, v[k], r);
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSplitThreads)
+    gn_stats_kernel(const T* __restrict__ x, float* __restrict__ stats, int HW, int C, int G) {
+    extern __shared__ __align__(16) float fsm[];
+    const int b = blockIdx.x, L = C / V, cols = split_cols(L), RS = split_slots(L);
+    const int rs = threadIdx.x / cols, cg = C / G;
+    float* red = fsm;                    // RS x C: per row slot and channel
+    float* chan = red + (size_t)RS * C;  // C
+    float* mean = chan + C;              // G
+    const T* xb = x + (size_t)b * HW * C;
+    const float n = (float)HW * (float)cg;
+#pragma unroll 1
+    for (int pass = 0; pass < 2; ++pass) {  // the sum, then the squared differences
+        if (rs < RS) {
+            for (int j = threadIdx.x % cols; j < L; j += cols) {
+                const int c0 = j * V;
+                float mu[V], acc[V];
+#pragma unroll
+                for (int k = 0; k < V; ++k) {
+                    mu[k] = pass ? mean[(c0 + k) / cg] : 0.f;
+                    acc[k] = 0.f;
+                }
+                if (pass == 0)
+                    column_sum<T, V>(xb, C, HW, rs, RS, c0, acc,
+                                     [&](int, float v, int) { return v; });
+                else
+                    column_sum<T, V>(xb, C, HW, rs, RS, c0, acc, [&](int k, float v, int) {
+                        const float d = v - mu[k];
+                        return d * d;
+                    });
+#pragma unroll
+                for (int k = 0; k < V; ++k) red[(size_t)rs * C + c0 + k] = acc[k];
+            }
+        }
+        __syncthreads();
+        for (int c = threadIdx.x; c < C; c += blockDim.x) {
+            float sum = 0.f;
+            for (int i = 0; i < RS; ++i) sum += red[(size_t)i * C + c];
+            chan[c] = sum;
+        }
+        __syncthreads();
+        for (int g = threadIdx.x; g < G; g += blockDim.x) {
+            float sum = 0.f;
+            for (int c = g * cg; c < (g + 1) * cg; ++c) sum += chan[c];
+            if (pass == 0) {
+                mean[g] = sum / n;
+            } else {
+                stats[((size_t)b * G + g) * 2] = mean[g];
+                stats[((size_t)b * G + g) * 2 + 1] = sum;
+            }
+        }
+        __syncthreads();
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kElemThreads)
+    gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                    const T* __restrict__ beta, const float* __restrict__ stats,
+                    T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                    int N, int HW, int C, int G, float eps, int act_silu) {
+    extern __shared__ __align__(16) float fsm[];  // 2G: mean, rstd
+    const int b = blockIdx.y, B = gridDim.y, cg = C / G;
+    const float n = (float)HW * (float)cg;  // each rank's count
+    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+        const float* s = stats + ((size_t)b * G + g) * 2;
+        float mean = s[0], m2 = s[1];
+        for (int i = 1; i < N; ++i) {
+            s = stats + (((size_t)i * B + b) * G + g) * 2;
+            const float na = n * (float)i, tot = na + n;
+            const float d = s[0] - mean;
+            mean = mean + d * (n / tot);
+            m2 = m2 + s[1] + d * d * (na * n / tot);
+        }
+        const float rstd = rsqrtf(m2 / (n * (float)N) + eps);
+        fsm[g] = mean;
+        fsm[G + g] = rstd;
+        if (blockIdx.x == 0) {
+            mean_out[(size_t)b * G + g] = mean;
+            rstd_out[(size_t)b * G + g] = rstd;
+        }
+    }
+    __syncthreads();
+    const int L = C / V;
+    const size_t total = (size_t)HW * L, base = (size_t)b * HW * C;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+         i += (size_t)gridDim.x * blockDim.x) {
+        const int c0 = (int)(i % L) * V;
+        const size_t at = base + (i / L) * C + c0;
+        float v[V];
+        load_floats<T, V>(x + at, v);
+        Vec<T, V> o;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const int g = (c0 + k) / cg;
+            const float scale = to_float<T>(gamma[c0 + k]) * fsm[G + g];
+            float z = (v[k] - fsm[g]) * scale + to_float<T>(beta[c0 + k]);
+            if (act_silu) z *= sigmoid(z);
+            o.v[k] = from_float<T>(z);
+        }
+        *reinterpret_cast<Vec<T, V>*>(y + at) = o;
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kSplitThreads)
+    gn_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                       const T* __restrict__ beta, const float* __restrict__ mean,
+                       const float* __restrict__ rstd, const T* __restrict__ dy,
+                       float* __restrict__ sums, int HW, int C, int G, int act_silu) {
+    extern __shared__ __align__(16) float fsm[];  // 2 x RS x W: dgamma, dbeta
+    const int b = blockIdx.y, B = gridDim.y, L = C / V, cols = split_cols(L), RS = split_slots(L);
+    const int rs = threadIdx.x / cols, jt = threadIdx.x % cols, W = cols * V;
+    const int j = blockIdx.x * cols + jt, cg = C / G;
+    if (rs < RS && j < L) {
+        const int c0 = j * V;
+        float mu[V], rsd[V], ga[V], be[V], sg[V], sb[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const int g = (c0 + k) / cg;
+            mu[k] = mean[(size_t)b * G + g];
+            rsd[k] = rstd[(size_t)b * G + g];
+            ga[k] = to_float<T>(gamma[c0 + k]);
+            be[k] = to_float<T>(beta[c0 + k]);
+            sg[k] = sb[k] = 0.f;
+        }
+        const T* xb = x + (size_t)b * HW * C;
+        const T* db = dy + (size_t)b * HW * C;
+        // two rows in flight at 8 values a thread (the registers of 4 would
+        // not leave 128 a thread at 512 threads), else kUnroll
+        constexpr int U = V >= 8 ? 2 : kUnroll;
+        int r = rs;
+        for (; r + (U - 1) * RS < HW; r += U * RS) {
+            float xv[U][V], dv[U][V];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                load_floats<T, V>(xb + (size_t)(r + u * RS) * C + c0, xv[u]);
+                load_floats<T, V>(db + (size_t)(r + u * RS) * C + c0, dv[u]);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+#pragma unroll
+                for (int k = 0; k < V; ++k) {
+                    const float xhat = (xv[u][k] - mu[k]) * rsd[k];
+                    const float dz = dz_of(dv[u][k], xhat, ga[k], be[k], act_silu);
+                    sg[k] += dz * xhat;
+                    sb[k] += dz;
+                }
+        }
+        for (; r < HW; r += RS) {
+            float xv[V], dv[V];
+            load_floats<T, V>(xb + (size_t)r * C + c0, xv);
+            load_floats<T, V>(db + (size_t)r * C + c0, dv);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                const float xhat = (xv[k] - mu[k]) * rsd[k];
+                const float dz = dz_of(dv[k], xhat, ga[k], be[k], act_silu);
+                sg[k] += dz * xhat;
+                sb[k] += dz;
+            }
+        }
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            fsm[(size_t)rs * W + jt * V + k] = sg[k];
+            fsm[(size_t)(RS + rs) * W + jt * V + k] = sb[k];
+        }
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < W; w += blockDim.x) {
+        const int c = blockIdx.x * W + w;
+        if (c >= C) break;
+        float sg = 0.f, sb = 0.f;
+        for (int i = 0; i < RS; ++i) {
+            sg += fsm[(size_t)i * W + w];
+            sb += fsm[(size_t)(RS + i) * W + w];
+        }
+        sums[(size_t)b * C + c] = sg;
+        sums[((size_t)B + b) * C + c] = sb;
+    }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kElemThreads)
+    gn_bwd_dx_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                     const T* __restrict__ beta, const float* __restrict__ mean,
+                     const float* __restrict__ rstd, const T* __restrict__ dy,
+                     const float* __restrict__ sums, T* __restrict__ dx, int N, int HW, int C,
+                     int G, int act_silu) {
+    extern __shared__ __align__(16) float fsm[];
+    float* tot = fsm;         // 2C: dbeta * gamma, dgamma * gamma of the whole sample
+    float* tt = tot + 2 * C;  // 2G: t1, t2
+    float* ms = tt + 2 * G;   // 2G: mean, rstd
+    const int b = blockIdx.y, B = gridDim.y, cg = C / G;
+    for (int c = threadIdx.x; c < C; c += blockDim.x) {
+        float sg = 0.f, sb = 0.f;
+        for (int i = 0; i < N; ++i) {
+            sg += sums[((size_t)(2 * i) * B + b) * C + c];
+            sb += sums[((size_t)(2 * i + 1) * B + b) * C + c];
+        }
+        const float gc = to_float<T>(gamma[c]);
+        tot[c] = sb * gc;
+        tot[C + c] = sg * gc;
+    }
+    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+        ms[g] = mean[(size_t)b * G + g];
+        ms[G + g] = rstd[(size_t)b * G + g];
+    }
+    __syncthreads();
+    const float inv_n = 1.f / ((float)N * (float)HW * (float)cg);
+    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+        float t1 = 0.f, t2 = 0.f;
+        for (int c = g * cg; c < (g + 1) * cg; ++c) {
+            t1 += tot[c];
+            t2 += tot[C + c];
+        }
+        tt[g] = t1 * inv_n;
+        tt[G + g] = t2 * inv_n;
+    }
+    __syncthreads();
+    const int L = C / V;
+    const size_t total = (size_t)HW * L, base = (size_t)b * HW * C;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+         i += (size_t)gridDim.x * blockDim.x) {
+        const int c0 = (int)(i % L) * V;
+        const size_t at = base + (i / L) * C + c0;
+        float xv[V], dv[V];
+        load_floats<T, V>(x + at, xv);
+        load_floats<T, V>(dy + at, dv);
+        Vec<T, V> o;
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+            const int g = (c0 + k) / cg;
+            const float ga = to_float<T>(gamma[c0 + k]), rsd = ms[G + g];
+            const float xhat = (xv[k] - ms[g]) * rsd;
+            const float dz = dz_of(dv[k], xhat, ga, to_float<T>(beta[c0 + k]), act_silu);
+            o.v[k] = from_float<T>(rsd * (dz * ga - tt[g] - xhat * tt[G + g]));
+        }
+        *reinterpret_cast<Vec<T, V>*>(dx + at) = o;
+    }
+}
+
+// Bytes of dynamic shared memory of a block of each split kernel
+// (ops/kernels/groupnorm.py::_split_smem counts the same), 0 for a call the
+// kernels do not take.
+inline size_t split_smem(int kernel, int B, int HW, int C, int G, int vec) {
+    if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || vec < 2) return 0;
+    const int L = C / vec, cols = split_cols(L), RS = split_slots(L);
+    size_t floats = 0;
+    switch (kernel) {
+        case 0: floats = (size_t)RS * C + C + G; break;         // gn_stats
+        case 1: floats = 2 * (size_t)G; break;                  // gn_apply
+        case 2: floats = 2 * (size_t)RS * cols * vec; break;    // gn_bwd_sums
+        case 3: floats = 2 * (size_t)C + 4 * (size_t)G; break;  // gn_bwd_dx
+    }
+    const size_t bytes = 4 * floats;
+    return bytes <= kSplitSmem ? bytes : 0;
+}
+
+// The elementwise kernels' blocks for each sample: enough to cover its
+// vectors, about kElemBlocks in all.
+inline int elem_chunks(int B, int HW, int C, int vec) {
+    const size_t vectors = (size_t)HW * (C / vec);
+    const size_t need = (vectors + kElemThreads - 1) / kElemThreads;
+    const size_t want = (size_t)((kElemBlocks + B - 1) / B);
+    return (int)(need < want ? need : want);
+}
+
+}  // namespace
+
+// x: (B, HW, C) contiguous, 16-byte aligned; stats: (B, G, 2) float32, the
+// (mean, M2) of each (b, g).  Returns the CUDA error code of the launch.
+extern "C" int unet_gn_stats(const void* x, float* stats, int B, int HW, int C, int G,
+                             int is_bf16, cudaStream_t stream) {
+    const int vec = vec_width(C, is_bf16);
+    const size_t smem = split_smem(0, B, HW, C, G, vec);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
+        using T = std::remove_pointer_t<decltype(t)>;
+        constexpr int V = decltype(v)::value;
+        gn_stats_kernel<T, V><<<B, kSplitThreads, smem, stream>>>(static_cast<const T*>(x),
+                                                                  stats, HW, C, G);
+        return cudaGetLastError();
+    });
+}
+
+// x, y: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of x's
+// type; stats: (N, B, G, 2) float32, every rank's gn_stats in rank order;
+// mean, rstd: (B, G) float32 outputs.  Returns the CUDA error code.
+extern "C" int unet_gn_apply(const void* x, const void* gamma, const void* beta,
+                             const float* stats, void* y, float* mean, float* rstd, int N, int B,
+                             int HW, int C, int G, float eps, int act_silu, int is_bf16,
+                             cudaStream_t stream) {
+    const int vec = vec_width(C, is_bf16);
+    const size_t smem = split_smem(1, B, HW, C, G, vec);
+    if (smem == 0 || N <= 0) return (int)cudaErrorInvalidValue;
+    const dim3 grid(elem_chunks(B, HW, C, vec), B);
+    return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
+        using T = std::remove_pointer_t<decltype(t)>;
+        constexpr int V = decltype(v)::value;
+        gn_apply_kernel<T, V><<<grid, kElemThreads, smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
+            stats, static_cast<T*>(y), mean, rstd, N, HW, C, G, eps, act_silu);
+        return cudaGetLastError();
+    });
+}
+
+// x, dy: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of x's
+// type; mean, rstd: (B, G) float32 from gn_apply; sums: (2, B, C) float32
+// output, this rank's [dgamma_b; dbeta_b].  Returns the CUDA error code.
+extern "C" int unet_gn_bwd_sums(const void* x, const void* gamma, const void* beta,
+                                const float* mean, const float* rstd, const void* dy,
+                                float* sums, int B, int HW, int C, int G, int act_silu,
+                                int is_bf16, cudaStream_t stream) {
+    const int vec = vec_width(C, is_bf16);
+    const size_t smem = split_smem(2, B, HW, C, G, vec);
+    if (smem == 0) return (int)cudaErrorInvalidValue;
+    const int L = C / vec, cols = split_cols(L);
+    const dim3 grid((L + cols - 1) / cols, B);
+    return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
+        using T = std::remove_pointer_t<decltype(t)>;
+        constexpr int V = decltype(v)::value;
+        gn_bwd_sums_kernel<T, V><<<grid, kSplitThreads, smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
+            mean, rstd, static_cast<const T*>(dy), sums, HW, C, G, act_silu);
+        return cudaGetLastError();
+    });
+}
+
+// x, dy, dx: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of
+// x's type; mean, rstd: (B, G) float32; sums: (N, 2, B, C) float32, every
+// rank's gn_bwd_sums in rank order.  Returns the CUDA error code.
+extern "C" int unet_gn_bwd_dx(const void* x, const void* gamma, const void* beta,
+                              const float* mean, const float* rstd, const void* dy,
+                              const float* sums, void* dx, int N, int B, int HW, int C, int G,
+                              int act_silu, int is_bf16, cudaStream_t stream) {
+    const int vec = vec_width(C, is_bf16);
+    const size_t smem = split_smem(3, B, HW, C, G, vec);
+    if (smem == 0 || N <= 0) return (int)cudaErrorInvalidValue;
+    const dim3 grid(elem_chunks(B, HW, C, vec), B);
+    return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
+        using T = std::remove_pointer_t<decltype(t)>;
+        constexpr int V = decltype(v)::value;
+        gn_bwd_dx_kernel<T, V><<<grid, kElemThreads, smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
+            mean, rstd, static_cast<const T*>(dy), sums, static_cast<T*>(dx), N, HW, C, G,
+            act_silu);
+        return cudaGetLastError();
+    });
 }
 
 #ifdef GN_PHASE_CLOCKS

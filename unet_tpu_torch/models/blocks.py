@@ -12,7 +12,11 @@ casts them to the compute type, once, for a call.
 Given a `parallel.tensor.Shard`, a block holds its rank's piece of the
 model axis's Megatron split (see parallel/tensor.py) and says in `splits`
 how each of those leaves lies over the model group; without one it is the
-whole block, and the collectives are the identity.
+whole block, and the collectives are the identity.  Given a `spatial`
+shard instead (the model axis's other use, parallel/spatial.py), a layer
+holds its whole parameters and works on this rank's rows of the
+activations: the 3x3 convolutions, the GroupNorms and attention exchange
+rows or statistics over the model group.  The two are never set at once.
 """
 
 from __future__ import annotations
@@ -34,10 +38,13 @@ class Conv2d(nn.Module):
     w is stored in the channels_last memory format (same shape and values,
     other strides): the activations reach cuDNN as channels_last tensors,
     and a kernel in the default format would be laid out again on every
-    call.  Without `bias`, b is None."""
+    call.  Without `bias`, b is None.  `spatial`: see the module's
+    docstring."""
 
-    def __init__(self, cin, cout, ksize, generator=None, bias=True):
+    def __init__(self, cin, cout, ksize, generator=None, bias=True,
+                 spatial=None):
         super().__init__()
+        self.spatial = spatial
         bound = 1.0 / (cin * ksize * ksize) ** 0.5
         self.w = nn.Parameter(
             _uniform((cout, cin, ksize, ksize), bound, generator)
@@ -46,7 +53,7 @@ class Conv2d(nn.Module):
                   else None)
 
     def forward(self, x):
-        return F.conv2d(x, self.w, self.b)
+        return F.conv2d(x, self.w, self.b, shard=self.spatial)
 
 
 class Linear(nn.Module):
@@ -65,10 +72,12 @@ class Linear(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """Parameters of a GroupNorm: scale (C,), bias (C,)."""
+    """Parameters of a GroupNorm: scale (C,), bias (C,).  `spatial`: see
+    the module's docstring."""
 
-    def __init__(self, channels, num_groups=32, eps=1e-5):
+    def __init__(self, channels, num_groups=32, eps=1e-5, spatial=None):
         super().__init__()
+        self.spatial = spatial
         self.num_groups = num_groups
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(channels))
@@ -77,7 +86,7 @@ class GroupNorm(nn.Module):
     def forward(self, x, act="silu"):
         return F.group_norm_silu(x, self.scale, self.bias,
                                  num_groups=self.num_groups, eps=self.eps,
-                                 act=act)
+                                 act=act, shard=self.spatial)
 
 
 class ResBlock(nn.Module):
@@ -92,11 +101,13 @@ class ResBlock(nn.Module):
     column-parallel (C_out/N output rows; emb's [scale | shift] cut part by
     part), gn2 on those C_out/N channels in G/N groups, conv2 row-parallel
     (their input columns; its bias on rank 0 alone); gn1 and skip
-    whole."""
+    whole.  With `spatial` the block is whole and its GroupNorms and 3x3
+    convolutions work on this rank's rows (the 1x1 skip, the resampling and
+    the embedding stay local)."""
 
     def __init__(self, cin, cout, emb_dim, *, scale_shift_norm=False,
                  up=False, down=False, num_groups=32, eps=1e-5,
-                 generator=None, shard=None):
+                 generator=None, shard=None, spatial=None):
         super().__init__()
         if up and down:
             raise ValueError("a ResBlock resamples up or down, not both")
@@ -105,12 +116,13 @@ class ResBlock(nn.Module):
         self.shard = shard
         n = 1 if shard is None else shard.size
         parts = 2 if scale_shift_norm else 1
-        self.gn1 = GroupNorm(cin, num_groups, eps)
-        self.conv1 = Conv2d(cin, cout // n, 3, generator)
+        self.gn1 = GroupNorm(cin, num_groups, eps, spatial)
+        self.conv1 = Conv2d(cin, cout // n, 3, generator, spatial=spatial)
         self.emb = Linear(emb_dim, parts * cout // n, generator)
-        self.gn2 = GroupNorm(cout // n, num_groups // n, eps)
+        self.gn2 = GroupNorm(cout // n, num_groups // n, eps, spatial)
         self.conv2 = Conv2d(cout // n, cout, 3, generator,
-                            bias=shard is None or shard.index == 0)
+                            bias=shard is None or shard.index == 0,
+                            spatial=spatial)
         if cin != cout:
             self.skip = Conv2d(cin, cout, 1, generator)
         self.splits = {} if shard is None else {
@@ -150,15 +162,16 @@ class AttentionBlock(nn.Module):
     With `shard` (N ranks) the block holds rank m's NH/N heads: the q, k and
     v rows of qkv for those heads, packed [q | k | v] as the kernels take
     them, and proj row-parallel over their channels (its bias on rank 0
-    alone); gn whole."""
+    alone); gn whole.  With `spatial` the block is whole, x is this rank's
+    rows, and its rows attend over every rank's."""
 
     def __init__(self, channels, *, head_size=32, num_groups=32, eps=1e-5,
-                 generator=None, shard=None):
+                 generator=None, shard=None, spatial=None):
         super().__init__()
-        self.shard = shard
+        self.shard, self.spatial = shard, spatial
         n = 1 if shard is None else shard.size
         self.num_heads = channels // head_size // n
-        self.gn = GroupNorm(channels, num_groups, eps)
+        self.gn = GroupNorm(channels, num_groups, eps, spatial)
         self.qkv = Linear(channels, 3 * channels // n, generator)
         self.proj = Linear(channels // n, channels, generator,
                            bias=shard is None or shard.index == 0)
@@ -170,6 +183,6 @@ class AttentionBlock(nn.Module):
         B, H, W, C = x.shape
         h = self.gn(x, act="none").reshape(B, H * W, C)
         a = F.qkv_attention(self.qkv(tensor.copy_to_model(h, self.shard)),
-                            self.num_heads)
+                            self.num_heads, self.spatial)
         h = tensor.reduce_from_model(self.proj(a), self.shard)
         return x + h.reshape(B, H, W, C)

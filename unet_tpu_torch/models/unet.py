@@ -142,17 +142,19 @@ class LayerGroup(nn.Module):
     """One entry of the plan's input or output column: its layers applied in
     order.  "down" and "up" have no parameters."""
 
-    def __init__(self, layers, cfg: UnetConfig, generator=None, shard=None):
+    def __init__(self, layers, cfg: UnetConfig, generator=None, shard=None,
+                 spatial=None):
         super().__init__()
         self.layers = layers
         for layer in layers:
             kind = layer[0]
             if kind == "conv_in":
-                self.conv = blocks.Conv2d(layer[1], layer[2], 3, generator)
+                self.conv = blocks.Conv2d(layer[1], layer[2], 3, generator,
+                                          spatial=spatial)
             elif kind == "res":
-                self.res = _res(layer, cfg, generator, shard)
+                self.res = _res(layer, cfg, generator, shard, spatial)
             elif kind == "attn":
-                self.attn = _attn(layer, cfg, generator, shard)
+                self.attn = _attn(layer, cfg, generator, shard, spatial)
 
     def forward(self, h, emb):
         for layer in self.layers:
@@ -170,23 +172,24 @@ class LayerGroup(nn.Module):
         return h
 
 
-def _res(layer, cfg, generator, shard=None):
+def _res(layer, cfg, generator, shard=None, spatial=None):
     if shard is not None and not tensor.res_splits(
             layer[2], cfg.gn_num_groups, shard.size):
         shard = None
     return blocks.ResBlock(layer[1], layer[2], cfg.time_embed_dim,
                            scale_shift_norm=cfg.use_scale_shift_norm,
                            num_groups=cfg.gn_num_groups, eps=cfg.gn_eps,
-                           generator=generator, shard=shard)
+                           generator=generator, shard=shard, spatial=spatial)
 
 
-def _attn(layer, cfg, generator, shard=None):
+def _attn(layer, cfg, generator, shard=None, spatial=None):
     if shard is not None and not tensor.attn_splits(
             layer[1], cfg.num_head_channels, shard.size):
         shard = None
     return blocks.AttentionBlock(layer[1], head_size=cfg.num_head_channels,
                                  num_groups=cfg.gn_num_groups, eps=cfg.gn_eps,
-                                 generator=generator, shard=shard)
+                                 generator=generator, shard=shard,
+                                 spatial=spatial)
 
 
 class UNet(nn.Module):
@@ -198,11 +201,23 @@ class UNet(nn.Module):
     model under Megatron TP: every ResBlock and attention block that splits
     over the shard's ranks (`tensor.res_splits`, `tensor.attn_splits`)
     holds the rank's piece (`blocks`), every other layer is whole; the
-    pieces come from a whole model through `parallel.mesh.tp_sharding`."""
+    pieces come from a whole model through `parallel.mesh.tp_sharding`.
+
+    With `spatial` (a `Shard` too; never with `shard`) it is the whole
+    model, its parameters in the one-device order and shapes, run on this
+    rank's rows [m H/N, (m+1) H/N) of every activation
+    (`parallel/spatial.py`): every 3x3 convolution, `conv_in` and
+    `out.conv` among them, every GroupNorm, `out.gn` among them, and every
+    attention layer exchange over the model group.  The image's lowest
+    resolution must divide by N, so that every level's slice is whole and
+    every pooled slice even."""
 
     def __init__(self, cfg: UnetConfig, num_classes: Optional[int] = None,
-                 generator: Optional[torch.Generator] = None, shard=None):
+                 generator: Optional[torch.Generator] = None, shard=None,
+                 spatial=None):
         super().__init__()
+        if shard is not None and spatial is not None:
+            raise ValueError("tp and spatial both use the model axis")
         self.cfg = cfg
         self.num_classes = num_classes
         plan = build_plan(cfg)
@@ -217,18 +232,25 @@ class UNet(nn.Module):
                 label_emb.normal_(generator=generator)
             self.label_emb = nn.Parameter(label_emb)
         self.input = nn.ModuleList(
-            LayerGroup(b, cfg, generator, shard) for b in plan.input_blocks)
+            LayerGroup(b, cfg, generator, shard, spatial)
+            for b in plan.input_blocks)
         self.middle = nn.Module()
-        self.middle.res1 = _res(plan.middle[0], cfg, generator, shard)
-        self.middle.attn = _attn(plan.middle[1], cfg, generator, shard)
-        self.middle.res2 = _res(plan.middle[2], cfg, generator, shard)
+        self.middle.res1 = _res(plan.middle[0], cfg, generator, shard,
+                                spatial)
+        self.middle.attn = _attn(plan.middle[1], cfg, generator, shard,
+                                 spatial)
+        self.middle.res2 = _res(plan.middle[2], cfg, generator, shard,
+                                spatial)
         self.output = nn.ModuleList(
-            LayerGroup(b, cfg, generator, shard) for b in plan.output_blocks)
+            LayerGroup(b, cfg, generator, shard, spatial)
+            for b in plan.output_blocks)
         self.out = nn.Module()
         self.out.gn = blocks.GroupNorm(plan.out_channels_pre_head,
-                                       cfg.gn_num_groups, cfg.gn_eps)
+                                       cfg.gn_num_groups, cfg.gn_eps,
+                                       spatial)
         self.out.conv = blocks.Conv2d(plan.out_channels_pre_head,
-                                      cfg.out_channels, 3, generator)
+                                      cfg.out_channels, 3, generator,
+                                      spatial=spatial)
 
     @property
     def dtype(self) -> torch.dtype:

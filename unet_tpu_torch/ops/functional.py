@@ -13,6 +13,12 @@ through the autograd Functions `GroupNormAct` and `QKVAttention`; there is
 no mode switch.  Convolutions and linears go to cuDNN and cuBLAS, as the JAX
 package leaves them to XLA, and their gradients to autograd.
 
+Given a spatial `shard` (`parallel.tensor.Shard`: this rank holds its
+slice of the height, `parallel/spatial.py`), a 3x3 convolution reads its
+neighbours' edge rows, a GroupNorm takes its statistics over the whole
+sample (the split kernels) and attention attends over every row; over one
+rank, or without a shard, each is the one-device op.
+
 float32 precision: `set_f32_precision("highest")` turns TF32 off for both
 matmuls and cuDNN convolutions (PyTorch leaves it on for convolutions by
 default); "high" turns both on.  As in the JAX package, "highest" is the
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 
 from unet_tpu_torch.ops.kernels.attention import QKVAttention
 from unet_tpu_torch.ops.kernels.groupnorm import GroupNormAct
+from unet_tpu_torch.parallel import spatial
 
 
 def set_f32_precision(name: str) -> None:
@@ -54,19 +61,32 @@ def linear(x, w, b):
     return F.linear(x, w, b)
 
 
-def conv2d(x, w, b):
+def _split(shard) -> bool:
+    return shard is not None and shard.size > 1
+
+
+def conv2d(x, w, b, shard=None):
     """SAME convolution of an NHWC tensor with an (O, I, kh, kw) kernel
-    (3x3 and 1x1 in this model), stride 1.  Returns NHWC, contiguous."""
+    (3x3 and 1x1 in this model), stride 1.  Returns NHWC, contiguous.
+    With a spatial `shard` a 3x3 convolution reads the neighbours' edge
+    rows (`spatial.halo_rows`) and pads only the width; a 1x1 never
+    exchanges."""
     pad = (w.shape[2] // 2, w.shape[3] // 2)
+    if _split(shard) and pad[0]:
+        x, pad = spatial.halo_rows(x, shard), (0, pad[1])
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=pad)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def group_norm_silu(x, gamma, beta, *, num_groups=32, eps=1e-5,
-                    act: str = "silu"):
+                    act: str = "silu", shard=None):
     """GroupNorm over (H, W, C//G) per group, then SiLU (act="silu") or
     nothing (act="none").  float32 statistics, two-pass variance for every
-    input type, as the JAX package's kernel."""
+    input type, as the JAX package's kernel.  With a spatial `shard` the
+    statistics are the whole sample's (`spatial.group_norm_act`)."""
+    if _split(shard):
+        return spatial.group_norm_act(x, gamma, beta, num_groups, eps, act,
+                                      shard)
     return GroupNormAct.apply(x, gamma, beta, num_groups, eps, act)
 
 
@@ -108,13 +128,17 @@ def timestep_embedding(t, dim, *, max_period=1000):
     return emb
 
 
-def qkv_attention(qkv, num_heads):
+def qkv_attention(qkv, num_heads, shard=None):
     """Non-causal multi-head attention with the guided-diffusion "new
     attention order" head split.
 
     qkv: (B, T, 3C), channels laid out [q(C) | k(C) | v(C)], each C split
     contiguously into (NH, HS).  Returns (B, T, C).  The scale 1/sqrt(HS) is
-    applied to q before the dot; the softmax runs in float32."""
+    applied to q before the dot; the softmax runs in float32.  With a
+    spatial `shard`, qkv is this rank's T/N rows and they attend over every
+    rank's (`spatial.qkv_attention`)."""
+    if _split(shard):
+        return spatial.qkv_attention(qkv, num_heads, shard)
     return QKVAttention.apply(qkv, num_heads)
 
 

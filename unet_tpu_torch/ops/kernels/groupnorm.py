@@ -72,11 +72,17 @@ def gn_act_fwd_plain(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
     xc = xg - mean[:, None, :, None]
     var = xc.square().mean(dim=(1, 3))
     rstd = torch.rsqrt(var + eps)
-    z = (xc * rstd[:, None, :, None]).reshape(B, H, W, C)
+    return _normalize(x, xc, gamma, beta, rstd, act), mean, rstd
+
+
+def _normalize(x, xc, gamma, beta, rstd, act):
+    """y in x's type from x - mean by group (B, H*W, G, C/G) and rstd."""
+    stat_dt = xc.dtype
+    z = (xc * rstd[:, None, :, None]).reshape(x.shape)
     z = z * gamma.to(stat_dt) + beta.to(stat_dt)
     if act == "silu":
         z = z * torch.sigmoid(z)
-    return z.to(x.dtype), mean, rstd
+    return z.to(x.dtype)
 
 
 class Geometry(NamedTuple):
@@ -225,18 +231,19 @@ def _check(x, gamma, beta, num_groups, act):
         raise ValueError("x, gamma and beta must lie on one device")
 
 
-def _check_cuda(x, gamma, beta):
+def _check_cuda(x, gamma=None, beta=None):
     """What the kernels take beyond `_check`: float32 or bfloat16 on a
-    CUDA device, gamma and beta of x's type, all contiguous."""
+    CUDA device, gamma and beta (where given) of x's type, all
+    contiguous."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the kernel takes float32 or bfloat16, got {x.dtype}")
-    if gamma.dtype != x.dtype or beta.dtype != x.dtype:
+    affine = [] if gamma is None else [gamma, beta]
+    if any(t.dtype != x.dtype for t in affine):
         raise TypeError(f"gamma and beta must have x's type {x.dtype}, got "
                         f"{gamma.dtype}, {beta.dtype}")
-    if not (x.is_contiguous() and gamma.is_contiguous()
-            and beta.is_contiguous()):
+    if not all(t.is_contiguous() for t in [x] + affine):
         raise ValueError("x, gamma and beta must be contiguous")
     if x.shape[0] == 0 or x.shape[1] * x.shape[2] == 0:
         raise ValueError(f"empty input {tuple(x.shape)}")
@@ -288,6 +295,17 @@ def gn_act_bwd_plain(x, gamma, beta, mean, rstd, dy, num_groups=32,
     dbeta_b * gamma and dgamma_b * gamma; all in float32 (float64 for float64
     input).  Returns (dx in x's type, dgamma_b, dbeta_b) with the partials
     (B, C) in float32."""
+    xhat, dz = _bwd_terms(x, gamma, beta, mean, rstd, dy, num_groups, act)
+    dbeta_b = dz.sum(dim=1)
+    dgamma_b = (dz * xhat).sum(dim=1)
+    B, H, W, C = x.shape
+    dx = _bwd_dx(x, gamma, rstd, xhat, dz, dgamma_b, dbeta_b, num_groups,
+                 H * W * (C // num_groups))
+    return dx, dgamma_b, dbeta_b
+
+
+def _bwd_terms(x, gamma, beta, mean, rstd, dy, num_groups, act):
+    """x-hat and dz (B, H*W, C) in float32 (float64 for float64 input)."""
     B, H, W, C = x.shape
     G = num_groups
     stat_dt = torch.promote_types(x.dtype, torch.float32)
@@ -295,20 +313,25 @@ def gn_act_bwd_plain(x, gamma, beta, mean, rstd, dy, num_groups=32,
     mean_c = mean.to(stat_dt)[:, None, :, None]
     rstd_c = rstd.to(stat_dt)[:, None, :, None]
     xhat = ((xg - mean_c) * rstd_c).reshape(B, H * W, C)
-    g, b = gamma.to(stat_dt), beta.to(stat_dt)
     dz = dy.reshape(B, H * W, C).to(stat_dt)
     if act == "silu":
-        z = xhat * g + b
+        z = xhat * gamma.to(stat_dt) + beta.to(stat_dt)
         sig = torch.sigmoid(z)
         dz = dz * (sig * (1.0 + z * (1.0 - sig)))
-    dbeta_b = dz.sum(dim=1)
-    dgamma_b = (dz * xhat).sum(dim=1)
-    n = H * W * (C // G)
+    return xhat, dz
+
+
+def _bwd_dx(x, gamma, rstd, xhat, dz, dgamma_b, dbeta_b, num_groups, n):
+    """dx in x's type from the sums over the `n` values of each (b, g)."""
+    B, H, W, C = x.shape
+    G = num_groups
+    g = gamma.to(xhat.dtype)
+    rstd_c = rstd.to(xhat.dtype)[:, None, :, None]
     t1 = ((dbeta_b * g).reshape(B, G, C // G).sum(-1) / n)[:, None, :, None]
     t2 = ((dgamma_b * g).reshape(B, G, C // G).sum(-1) / n)[:, None, :, None]
     dx = rstd_c * ((dz * g).reshape(B, H * W, G, C // G) - t1
                    - xhat.reshape(B, H * W, G, C // G) * t2)
-    return dx.reshape(B, H, W, C).to(x.dtype), dgamma_b, dbeta_b
+    return dx.reshape(B, H, W, C).to(x.dtype)
 
 
 def gn_act_bwd(x, gamma, beta, mean, rstd, dy, num_groups=32, act="silu"):
@@ -387,9 +410,311 @@ class GroupNormAct(torch.autograd.Function):
                 dbeta_b.sum(0).to(beta.dtype), None, None, None)
 
 
+# --- the split GroupNorm -----------------------------------------------------
+#
+# A GroupNorm whose rows are split over N model ranks (spatial sharding,
+# parallel/spatial.py) needs each (b, g)'s statistics and each (b, c)'s
+# backward sums over the whole sample, which K4 and K5 compute inside their
+# one launch.  Here they are split around a collective that the caller
+# makes (`gather`: every rank's tensor stacked in rank order):
+#
+#   forward:  gn_stats (K4a) -> gather -> gn_apply (K4b)
+#   backward: gn_bwd_sums (K5a) -> gather -> gn_bwd_dx (K5b)
+#
+# The ranks' statistics are merged in rank order by Chan et al.'s pairwise
+# formula (one collective, each rank's (mean, M2) two-pass over its own
+# rows), so every rank holds the same bits; two all-reduced passes (the
+# sum, then the squared differences from the merged mean) would be exact
+# two-pass arithmetic too, at one more collective and one more launch.
+# Every rank's slice has the same number of rows (the CLI's rule), so each
+# partial counts H*W*C/G values and the sample N times that.
+
+# The split kernels' shared memory, at most, and the threads of a block of
+# gn_stats and gn_bwd_sums.
+_SPLIT_SMEM = 48 * 1024
+_SPLIT_THREADS = 512
+
+
+def gn_stats_plain(x, num_groups=32):
+    """Per (b, g) of x (B, H, W, C): the mean and M2 (the sum of squared
+    differences from that mean) of its H*W*C/G values, two-pass, float32
+    (float64 for float64 input).  Returns (B, G, 2)."""
+    B, H, W, C = x.shape
+    G = num_groups
+    stat_dt = torch.promote_types(x.dtype, torch.float32)
+    xg = x.reshape(B, H * W, G, C // G).to(stat_dt)
+    mean = xg.mean(dim=(1, 3))
+    m2 = (xg - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([mean, m2], dim=-1)
+
+
+def gn_merge_plain(stats, count, eps=1e-5):
+    """(mean, rstd) (B, G) of N ranks' (mean, M2) (`stats` (N, B, G, 2)),
+    each over `count` values, merged in rank order by the pairwise formula
+    mean += d n_b / n, M2 += M2_b + d^2 n_a n_b / n (d the difference of
+    the means), as `gn_apply` merges them."""
+    n = torch.full((), float(count), dtype=stats.dtype, device=stats.device)
+    mean, m2 = stats[0, ..., 0], stats[0, ..., 1]
+    for i in range(1, stats.shape[0]):
+        na = n * i
+        tot = na + n
+        d = stats[i, ..., 0] - mean
+        mean = mean + d * (n / tot)
+        m2 = m2 + stats[i, ..., 1] + d * d * (na * n / tot)
+    return mean, torch.rsqrt(m2 / (n * stats.shape[0]) + eps)
+
+
+def gn_apply_plain(x, gamma, beta, stats, num_groups=32, eps=1e-5,
+                   act="silu"):
+    """GroupNorm(+SiLU) of this rank's rows x (B, H, W, C) with the whole
+    sample's statistics, merged from every rank's `gn_stats` (`stats`
+    (N, B, G, 2), in rank order): (y in x's type, mean, rstd (B, G))."""
+    B, H, W, C = x.shape
+    G = num_groups
+    mean, rstd = gn_merge_plain(stats, H * W * (C // G), eps)
+    xg = x.reshape(B, H * W, G, C // G).to(stats.dtype)
+    xc = xg - mean[:, None, :, None]
+    return _normalize(x, xc, gamma, beta, rstd, act), mean, rstd
+
+
+def gn_bwd_sums_plain(x, gamma, beta, mean, rstd, dy, num_groups=32,
+                      act="silu"):
+    """This rank's per-(b, c) sums of the backward: dgamma_b = sum dz x-hat
+    and dbeta_b = sum dz over its rows, x-hat from the merged mean and rstd
+    (B, G), dz through the SiLU.  Returns (2, B, C) float32: [dgamma_b;
+    dbeta_b]."""
+    xhat, dz = _bwd_terms(x, gamma, beta, mean, rstd, dy, num_groups, act)
+    return torch.stack([(dz * xhat).sum(dim=1), dz.sum(dim=1)])
+
+
+def gn_bwd_dx_plain(x, gamma, beta, mean, rstd, dy, sums, num_groups=32,
+                    act="silu"):
+    """dx of this rank's rows from every rank's `gn_bwd_sums` (`sums`
+    (N, 2, B, C), added in rank order): t1 and t2 per group over the whole
+    sample's count, N * H*W*C/G."""
+    B, H, W, C = x.shape
+    xhat, dz = _bwd_terms(x, gamma, beta, mean, rstd, dy, num_groups, act)
+    total = sums[0]
+    for i in range(1, sums.shape[0]):
+        total = total + sums[i]
+    return _bwd_dx(x, gamma, rstd, xhat, dz, total[0], total[1], num_groups,
+                   sums.shape[0] * H * W * (C // num_groups))
+
+
+def _split_smem(kernel: str, C: int, G: int, vec: int) -> int:
+    """Bytes of dynamic shared memory of a block of a split kernel, as
+    csrc/groupnorm.cu counts them."""
+    cols = min(C // vec, _SPLIT_THREADS)
+    slots = _SPLIT_THREADS // cols
+    floats = {"stats": slots * C + C + G,
+              "apply": 2 * G,
+              "sums": 2 * slots * cols * vec,
+              "dx": 2 * C + 4 * G}[kernel]
+    return 4 * floats
+
+
+def _check_split(kernel, x, num_groups, gamma=None, beta=None):
+    """What a split kernel takes on a CUDA device beyond `_check`: what
+    `_check_cuda` asks, 16-byte alignment, an even C (two channels a
+    thread at least) and its shared memory."""
+    _check_cuda(x, gamma, beta)
+    if x.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned")
+    C = x.shape[-1]
+    if C % 2:
+        raise ValueError(f"gn_{kernel}: the kernel takes an even C, not {C}")
+    if _split_smem(kernel, C, num_groups,
+                   vec_width(C, x.element_size())) > _SPLIT_SMEM:
+        raise ValueError(f"gn_{kernel}: the kernel does not take C={C}, "
+                         f"G={num_groups}")
+
+
+def gn_stats(x, num_groups=32):
+    """K4a: `gn_stats_plain` of x (B, H, W, C), (B, G, 2) float32.  A CUDA
+    tensor goes to the hand-written kernel (float32 or bfloat16, contiguous)
+    or raises; only a CPU tensor takes the plain version."""
+    if x.dim() != 4 or num_groups <= 0 or x.shape[-1] % num_groups:
+        raise ValueError(f"no GroupNorm of {tuple(x.shape)} in "
+                         f"{num_groups} groups")
+    if x.device.type == "cpu":
+        return gn_stats_plain(x, num_groups)
+    _check_split("stats", x, num_groups)
+    B, H, W, C = x.shape
+    stats = torch.empty((B, num_groups, 2), dtype=torch.float32,
+                        device=x.device)
+    with torch.cuda.device(x.device):
+        code = _launcher("unet_gn_stats")(
+            x.data_ptr(), stats.data_ptr(), B, H * W, C, num_groups,
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "gn_stats")
+    gn_stats.launches += 1
+    return stats
+
+
+gn_stats.launches = 0
+
+
+def gn_apply(x, gamma, beta, stats, num_groups=32, eps=1e-5, act="silu"):
+    """K4b: `gn_apply_plain`.  Returns (y in x's type, mean, rstd (B, G)
+    float32); stats (N, B, G, 2) float32.  A CUDA tensor goes to the
+    hand-written kernel or raises; only a CPU tensor takes the plain
+    version."""
+    _check(x, gamma, beta, num_groups, act)
+    B, H, W, C = x.shape
+    G = num_groups
+    if stats.dim() != 4 or stats.shape[1:] != (B, G, 2):
+        raise ValueError(f"stats must be (N, {B}, {G}, 2), got "
+                         f"{tuple(stats.shape)}")
+    if x.device.type == "cpu":
+        return gn_apply_plain(x, gamma, beta, stats, G, eps, act)
+    _check_split("apply", x, G, gamma, beta)
+    stats = _float_stats(stats, x)
+    y = torch.empty_like(x)
+    mean = torch.empty((B, G), dtype=torch.float32, device=x.device)
+    rstd = torch.empty((B, G), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        code = _launcher("unet_gn_apply")(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+            stats.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            stats.shape[0], B, H * W, C, G, eps, int(act == "silu"),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "gn_apply")
+    gn_apply.launches += 1
+    return y, mean, rstd
+
+
+gn_apply.launches = 0
+
+
+def _float_stats(t, x):
+    """A float32 tensor on x's device, made contiguous."""
+    if t.dtype != torch.float32 or t.device != x.device:
+        raise TypeError(f"statistics must be float32 on {x.device}, got "
+                        f"{t.dtype} on {t.device}")
+    return t.contiguous()
+
+
+def _check_bwd(x, mean, rstd, dy, num_groups):
+    B, H, W, C = x.shape
+    if dy.shape != x.shape:
+        raise ValueError(f"dy {tuple(dy.shape)} is not x's {tuple(x.shape)}")
+    if mean.shape != (B, num_groups) or rstd.shape != (B, num_groups):
+        raise ValueError(f"mean and rstd must be ({B}, {num_groups})")
+    if x.device.type != "cpu" and (dy.dtype != x.dtype
+                                   or dy.device != x.device):
+        raise TypeError(f"dy must be {x.dtype} on {x.device}")
+
+
+def gn_bwd_sums(x, gamma, beta, mean, rstd, dy, num_groups=32, act="silu"):
+    """K5a: `gn_bwd_sums_plain`, (2, B, C) float32.  A CUDA tensor goes to
+    the hand-written kernel (dy made contiguous first) or raises; only a CPU
+    tensor takes the plain version."""
+    _check(x, gamma, beta, num_groups, act)
+    _check_bwd(x, mean, rstd, dy, num_groups)
+    dy = dy.contiguous()
+    if x.device.type == "cpu":
+        return gn_bwd_sums_plain(x, gamma, beta, mean, rstd, dy, num_groups,
+                                 act)
+    _check_split("sums", x, num_groups, gamma, beta)
+    B, H, W, C = x.shape
+    mean, rstd = _float_stats(mean, x), _float_stats(rstd, x)
+    sums = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
+    if dy.data_ptr() % 16:
+        raise ValueError("dy must be 16-byte aligned")
+    with torch.cuda.device(x.device):
+        code = _launcher("unet_gn_bwd_sums")(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(), sums.data_ptr(), B, H * W, C,
+            num_groups, int(act == "silu"), int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "gn_bwd_sums")
+    gn_bwd_sums.launches += 1
+    return sums
+
+
+gn_bwd_sums.launches = 0
+
+
+def gn_bwd_dx(x, gamma, beta, mean, rstd, dy, sums, num_groups=32,
+              act="silu"):
+    """K5b: `gn_bwd_dx_plain`, dx in x's type; sums (N, 2, B, C) float32.
+    A CUDA tensor goes to the hand-written kernel or raises; only a CPU
+    tensor takes the plain version."""
+    _check(x, gamma, beta, num_groups, act)
+    _check_bwd(x, mean, rstd, dy, num_groups)
+    B, H, W, C = x.shape
+    if sums.dim() != 4 or sums.shape[1:] != (2, B, C):
+        raise ValueError(f"sums must be (N, 2, {B}, {C}), got "
+                         f"{tuple(sums.shape)}")
+    dy = dy.contiguous()
+    if x.device.type == "cpu":
+        return gn_bwd_dx_plain(x, gamma, beta, mean, rstd, dy, sums,
+                               num_groups, act)
+    _check_split("dx", x, num_groups, gamma, beta)
+    mean, rstd = _float_stats(mean, x), _float_stats(rstd, x)
+    sums = _float_stats(sums, x)
+    dx = torch.empty_like(x)
+    if dy.data_ptr() % 16 or dx.data_ptr() % 16:
+        raise ValueError("dy must be 16-byte aligned")
+    with torch.cuda.device(x.device):
+        code = _launcher("unet_gn_bwd_dx")(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(), sums.data_ptr(), dx.data_ptr(),
+            sums.shape[0], B, H * W, C, num_groups, int(act == "silu"),
+            int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(code, "gn_bwd_dx")
+    gn_bwd_dx.launches += 1
+    return dx
+
+
+gn_bwd_dx.launches = 0
+
+
+class SplitGroupNormAct(torch.autograd.Function):
+    """y = GroupNorm(+SiLU)(x) of this rank's rows x, the statistics and
+    the backward's sums taken over every rank's rows: `gn_stats`, `gather`,
+    `gn_apply` forward; `gn_bwd_sums`, `gather`, `gn_bwd_dx` backward.
+    `gather(t)` stacks every rank's t in rank order ((N,) + t.shape; a
+    collective, which every rank makes in the same order).  The gradient of
+    gamma and beta is this rank's own part, summed over B: the step sums
+    the parameters' gradients over the ranks afterwards, so a sum over them
+    here would count it N times.  `normalize` and `dx` are the
+    `gn_apply` and `gn_bwd_dx` it calls (chip_smoke.py swaps them)."""
+
+    normalize = staticmethod(gn_apply)
+    dx = staticmethod(gn_bwd_dx)
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps, act, gather):
+        cls = SplitGroupNormAct
+        stats = gather(gn_stats(x, num_groups))
+        y, mean, rstd = cls.normalize(x, gamma, beta, stats, num_groups,
+                                      eps, act)
+        ctx.save_for_backward(x, gamma, beta, mean, rstd)
+        ctx.num_groups, ctx.act, ctx.gather = num_groups, act, gather
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        cls = SplitGroupNormAct
+        x, gamma, beta, mean, rstd = ctx.saved_tensors
+        G, act = ctx.num_groups, ctx.act
+        mine = gn_bwd_sums(x, gamma, beta, mean, rstd, dy, G, act)
+        dx = cls.dx(x, gamma, beta, mean, rstd, dy, ctx.gather(mine), G, act)
+        return (dx, mine[0].sum(0).to(gamma.dtype),
+                mine[1].sum(0).to(beta.dtype), None, None, None, None)
+
+
 _ARGTYPES = {
     "unet_gn_act_fwd": "pppppp" "iiii" "f" "iiiii" "p",
     "unet_gn_act_bwd": "ppppppppp" "iiii" "iiiii" "p",
+    "unet_gn_stats": "pp" "iiii" "i" "p",
+    "unet_gn_apply": "ppppppp" "iiiii" "f" "ii" "p",
+    "unet_gn_bwd_sums": "ppppppp" "iiii" "ii" "p",
+    "unet_gn_bwd_dx": "pppppppp" "iiiii" "ii" "p",
 }
 
 

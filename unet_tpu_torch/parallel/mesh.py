@@ -41,7 +41,7 @@ package's `devices.reshape(data, model)`, rank d * model + m, with a
 process group for each axis.  The model ranks of one data index take the
 same rows, draws and labels; the batch's reductions (the loss, the
 gradient's all-reduce or reduce-scatter, FSDP's all-gather) run over the
-data group only.
+data group.  The model axis has two uses, never both at once:
 
 * TP (`tp=True`): Megatron over the model group (`parallel/tensor.py`).
   A rank trains its piece of the model (`Layout`, from `tp_sharding`): the
@@ -64,17 +64,30 @@ data group only.
   largest remaining dimension of each leaf instead, which is the same math
   for AdamW and the EMA.
 
+* spatial (`spatial=True`, the JAX package's activations sharded
+  `P("data", "model", None, None)`): model rank m holds rows [m H/N,
+  (m+1) H/N) of every activation of its data index's samples
+  (`parallel/spatial.py`) and the whole model, its vector the one-device
+  vector (a `Layout` of one model rank).  The step is given the rank's
+  rows at the full height and cuts its slice on the device (the noise
+  too).  The rank's loss is the mean over its slice, and every parameter
+  is used by every model rank on its own rows, so the loss and the whole
+  gradient are summed over every rank (one all-reduce) and scaled by
+  1/(data N) (the slices are equal: the CLI's rule).  spatial x fsdp sums
+  the gradient over the model group, then reduce-scatters it over the data
+  axis as FSDP does, and splits the vector as FSDP does.  One summed
+  gradient keeps the model ranks' copies equal by construction.
+
 DP and FSDP are TP over one model rank: every step goes through a
 `Layout`, which over one rank splits nothing (the whole model, its vector
-in the one-device order) and runs no model-axis collective.
+in the one-device order) and runs no model-axis collective; spatial
+sharding over one model rank is DP itself.
 
 A checkpoint is written from whole host vectors (`host_state`): under TP
 the pieces are gathered over the model group and put back in `.bin`
-order, so that it is the file one device writes; `init_state` cuts a
-rank's pieces from whole vectors, so a run resumes under another layout.
-Spatial sharding is not ported: `--spatial_parallel` and
-`make_parallel_train_step(spatial=True)` raise, naming ROADMAP.md's Queue
-1 item 8b-ii.
+order, so that it is the file one device writes (under spatial sharding
+the rank's vector is already that); `init_state` cuts a rank's pieces from
+whole vectors, so a run resumes under another layout.
 """
 
 from __future__ import annotations
@@ -90,11 +103,8 @@ import torch.distributed as dist
 from unet_tpu_torch.config import TrainConfig, UnetConfig
 from unet_tpu_torch.diffusion.gaussian import GaussianDiffusion
 from unet_tpu_torch.models import unet
-from unet_tpu_torch.parallel import distributed, tensor
+from unet_tpu_torch.parallel import distributed, spatial as sp, tensor
 from unet_tpu_torch.training import optim, trainer
-
-_MODEL_AXIS = ("spatial sharding is not ported to unet_tpu_torch yet "
-               "(ROADMAP.md, Queue 1 item 8b-ii)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -439,14 +449,17 @@ class ParallelStep(trainer.MultiStep):
     rows, (K, B, H, W, C), and returning the K global-mean losses.  Also
     `value_and_grad(state, batch, t, noise, y=None) -> (loss, grad)`: the
     global-mean loss and the gradient after the reduction (the rank's
-    vector, or under FSDP its piece of it), with t and noise given for the
-    global batch, updating nothing (the parity hook)."""
+    vector, or under FSDP its piece of it), with the rank's rows at the
+    full height as the step takes them and t and noise given for the global
+    batch (both cut to the rank's rows, and to its slice of the height
+    under spatial sharding), updating nothing (the parity hook)."""
 
     def value_and_grad(self, state: ParallelState, batch, t, noise, y=None):
         dev = self.device
-        batch = trainer._to_device(batch, dev, torch.float32)
+        batch = self._cut(trainer._to_device(batch, dev, torch.float32))
         t = trainer._to_device(t, dev)[self.rows]
-        noise = trainer._to_device(noise, dev, torch.float32)[self.rows]
+        noise = self._cut(
+            trainer._to_device(noise, dev, torch.float32)[self.rows])
         if y is not None:
             y = trainer._to_device(y, dev, torch.long)
         loss, (grad,) = self._grad_fn(state, batch, t, noise, y)
@@ -460,25 +473,31 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
                              example_params: Optional[unet.UNet] = None,
                              input_u8: bool = False) -> ParallelStep:
     """The step of this rank (`ParallelStep`): DP, or FSDP with `fsdp`,
-    each over the data axis; `tp` adds Megatron TP over the model axis
-    (tp x fsdp with both).  `example_params` is the whole model whose
+    each over the data axis; over the model axis `tp` adds Megatron TP (tp
+    x fsdp with both) or `spatial` shards the activations' height (spatial
+    x fsdp with both).  `example_params` is the whole model whose
     parameters the flat vector holds (its layout, and the module the
     forward calls, or under TP the rank's piece of it); `class_cond` takes
     labels (with tc.label_dropout); `input_u8` takes uint8 pixels, as
-    `trainer.make_multi_step`.  `spatial` (sharding the rows of the
-    activations over the model axis) is not ported.  Build the state with
-    `init_state` or `shard_state`."""
+    `trainer.make_multi_step`.  Build the state with `init_state` or
+    `shard_state` (without `tp`: the whole vector)."""
     if tp and spatial:
         raise ValueError("tp and spatial both use the model axis")
-    if spatial:
-        raise NotImplementedError(
-            f"make_parallel_train_step(spatial=True): {_MODEL_AXIS}")
     if example_params is None:
         raise ValueError("make_parallel_train_step needs example_params "
                          "(the model whose flat parameters it trains)")
     layout, placement = param_sharding(mesh, example_params, fsdp=fsdp,
                                        tp=tp)
     unravel = layout.local
+    shard = mesh.shard
+    split = spatial and shard.size > 1  # over one rank spatial is DP
+    height = None
+    if split:
+        with torch.device("meta"):
+            unravel = trainer.Unravel(unet.UNet(
+                example_params.cfg, example_params.num_classes,
+                spatial=shard))
+        height = sp.rows_of(cfg.image_size, shard)
     size = placement.size
     if placement.padded == size:
         apply = unravel.apply
@@ -489,9 +508,8 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
         cfg, tc, diffusion, mesh.device, apply=apply,
         leaves=lambda flat: [flat])
     hp = trainer._adamw_params(tc)
-    inv = 1.0 / mesh.data
-    shard = layout.shard
-    kept = None if shard.size == 1 else layout.kept().to(device)
+    inv = 1.0 / (mesh.data * (shard.size if split else 1))
+    kept = None if layout.shard.size == 1 else layout.kept().to(device)
 
     def reduced_grad(state, batch, t, noise, y=None):
         loss, (grad,) = grad_fn(state.flat, batch, t, noise, y)
@@ -499,15 +517,20 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
             whole = grad.index_select(0, kept)
             dist.all_reduce(whole, group=shard.group)
             grad.index_copy_(0, kept, whole.mul_(1.0 / shard.size))
-        dist.all_reduce(loss, group=mesh.data_group)
+        # spatial: every rank holds a part of every parameter's gradient,
+        # summed over all ranks (None: the group of every rank)
+        over = None if split else mesh.data_group
+        dist.all_reduce(loss, group=over)
         loss.mul_(inv)
         if placement.sharded:
+            if split:
+                dist.all_reduce(grad, group=shard.group)
             piece = torch.empty(placement.shard, dtype=grad.dtype,
                                 device=grad.device)
             distributed.reduce_scatter(piece, grad, mesh.data_group)
             grad = piece
         else:
-            dist.all_reduce(grad, group=mesh.data_group)
+            dist.all_reduce(grad, group=over)
         return loss, [grad.mul_(inv)]
 
     @torch.no_grad()
@@ -526,4 +549,4 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
                                                 else [s.ema]),
         input_u8=input_u8,
         label_dropout=tc.label_dropout if class_cond else 0.0,
-        world=mesh.data, rows=mesh.rows)
+        world=mesh.data, rows=mesh.rows, height=height)

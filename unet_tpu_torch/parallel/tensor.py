@@ -1,6 +1,9 @@
 """Megatron tensor parallelism over the model axis (port of `tp_sharding`
 in unet_tpu/parallel/mesh.py, whose collectives GSPMD places; here the
-blocks say them).
+blocks say them).  The model axis has a second use, spatial sharding
+(`parallel/spatial.py`), which splits the activations' height instead and
+shares `Shard`, a rank's place on the axis, with it; the two never run at
+once.
 
 A block that splits (`res_splits`, `attn_splits`) holds only its rank's
 piece of the layers the JAX package shards, and runs them between two

@@ -315,7 +315,10 @@ class MultiStep:
     graph's input tensors: the random stream stays a pure function of
     (seed, step) on both paths.  A step of one rank of `world` draws them
     for the global batch and keeps its `rows` of them (`_draws`); its
-    `step_with` takes them for the global batch too.  The graph reads the
+    `step_with` takes them for the global batch too.  A rank that holds a
+    slice of the height (`height`, spatial sharding) is given its rows at
+    the full height, cuts its slice of them on the device (after the copy
+    of a uint8 batch) and of the noise.  The graph reads the
     parameters, moments and EMA of the state it was captured with, in
     place; a call with another state, or another batch shape or type, or
     with labels where there were none, captures again.  `graph` is the
@@ -324,11 +327,13 @@ class MultiStep:
 
     def __init__(self, device, diffusion, grad_fn, update, tensors,
                  input_u8: bool, *, label_dropout: float = 0.0,
-                 world: int = 1, rows: Optional[slice] = None):
+                 world: int = 1, rows: Optional[slice] = None,
+                 height: Optional[slice] = None):
         self.device, self.diffusion = device, diffusion
         self._grad_fn, self._update, self._tensors = grad_fn, update, tensors
         self.input_u8 = input_u8
         self.label_dropout, self.world, self.rows = label_dropout, world, rows
+        self.height = height
         self.graph = None
         self._bound = None
 
@@ -342,14 +347,15 @@ class MultiStep:
         dev = self.device
         self._batch = torch.zeros(shape, dtype=dtype, device=dev)
         self._t = torch.zeros(shape[:1], dtype=torch.long, device=dev)
-        self._noise = torch.zeros(shape, dtype=torch.float32, device=dev)
+        self._noise = torch.zeros(self._cut(self._batch).shape,
+                                  dtype=torch.float32, device=dev)
         self._y = (torch.zeros(shape[:1], dtype=torch.long, device=dev)
                    if labeled else None)
         self._step = torch.zeros((), dtype=torch.float32, device=dev)
         self._loss = torch.zeros((), dtype=torch.float32, device=dev)
 
         def step():
-            batch = self._batch
+            batch = self._cut(self._batch)
             if self.input_u8:
                 batch = from_uint8(batch)
             loss, grads = self._grad_fn(state, batch, self._t, self._noise,
@@ -361,10 +367,14 @@ class MultiStep:
         self.graph = graphs.Graph(step, dev)
         self._bound = key
 
+    def _cut(self, batch):
+        """This rank's slice of the height of a batch at the full height."""
+        return batch if self.height is None else batch[:, self.height]
+
     def _run(self, state, batch, t, noise, y) -> None:
         self._batch.copy_(batch)
         self._t.copy_(t)
-        self._noise.copy_(noise)
+        self._noise.copy_(self._cut(noise))
         if y is not None:
             self._y.copy_(y)
         self.graph()

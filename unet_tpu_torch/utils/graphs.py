@@ -42,7 +42,8 @@ from unet_tpu_torch.ops.kernels import attention, conv3x3, groupnorm
 # The wrappers that count their launches.
 COUNTED = (groupnorm.gn_act_fwd, groupnorm.gn_act_bwd,
            attention.qkv_attention_fwd, attention.qkv_attention_bwd,
-           conv3x3.conv3x3_hwbc)
+           conv3x3.conv3x3_hwbc, groupnorm.gn_stats, groupnorm.gn_apply,
+           groupnorm.gn_bwd_sums, groupnorm.gn_bwd_dx)
 
 
 def launch_counts() -> Dict[str, int]:
