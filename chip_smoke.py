@@ -2545,6 +2545,11 @@ def split_gn_case(shape, groups, shards, dtype, act, gen, timed=False):
                     forward_k4=virtual_fwd, backward_k5=virtual_bwd))
     out = {name: dict(base, max_abs_err=err, tol=GN_TOL[dtype])
            for name, err in errs.items()}
+    for name, kernel in (("gn_stats", "stats"), ("gn_bwd_sums", "sums")):
+        geo = gn_mod.split_geometry(kernel, *shape, G, dtype)  # their cut
+        out[name].update(cluster=geo.cluster,
+                         rows_per_block=geo.rows_per_block,
+                         staged=geo.staged, streamed=geo.streamed)
     for name, top in largest.items():  # float32 sums: partial_tol's bar
         out[name].update(tol="4e-6 of the largest value",
                          err_of_largest=errs[name] / top)

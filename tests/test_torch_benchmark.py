@@ -141,3 +141,24 @@ def test_ab_trees_reads_the_shape_lists_and_summarises():
     summary = ab_trees.summarise(turns)
     assert summary == {"check_groupnorm [8, 64, 64, 64] torch.bfloat16 silu":
                        {"old": 2.0, "new": 1.0, "ratio": 0.5}}
+
+
+def test_ab_trees_keys_the_split_kernels_by_kernel_and_skips_untimed_cases():
+    """`check_split_kernels` returns {kernel: cases}: the four kernels'
+    cases at one shape stay apart, and the untimed ones (act "none") are
+    left out."""
+    from unet_tpu_torch.utils import ab_trees
+    assert "SPLIT_SHAPES" in ab_trees.SHAPE_LISTS
+    case = dict(shape=[32, 32, 64, 64], dtype="torch.bfloat16")
+
+    def turn(stats_ms, sums_ms):
+        return {"check_split_kernels": {
+            "gn_stats": [dict(case, act="silu", kernel_graph_ms=stats_ms),
+                         dict(case, act="none")],
+            "gn_bwd_sums": [dict(case, act="silu", kernel_graph_ms=sums_ms)]}}
+    summary = ab_trees.summarise([("old", turn(4.0, 8.0)),
+                                  ("new", turn(1.0, 4.0))])
+    key = "check_split_kernels {} [32, 32, 64, 64] torch.bfloat16 silu"
+    assert summary == {
+        key.format("gn_stats"): {"old": 4.0, "new": 1.0, "ratio": 0.25},
+        key.format("gn_bwd_sums"): {"old": 8.0, "new": 4.0, "ratio": 0.5}}

@@ -166,6 +166,42 @@ def test_gn_geometry_takes_the_widest_rows_the_earlier_kernels_took(
             backward, port_gn.vec_width(C, dtype.itemsize))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_geometry_takes_the_smallest_cluster_that_holds_the_rows(
+        dtype):
+    """gn_stats stages a block's rows for its two passes in the smallest
+    cluster that keeps them within 100 KB (K4's first choice, not doubled
+    to fill the card); gn_bwd_sums reads its rows once, so its blocks take
+    at most 64 KB of x and dy in one tile, in the smallest such cluster that
+    keeps two blocks an SM, and stream what is larger in 16 KB tiles.  At a
+    rank's (32, 32, 64, 64) of two ranks: gn_stats in clusters of 4
+    (bfloat16) or 8 (float32), gn_bwd_sums in clusters of 8."""
+    item = dtype.itemsize
+    for shape in ((32, 32, 64, 64), (32, 16, 32, 128), (32, 8, 16, 192),
+                  (32, 4, 8, 256)):
+        B, H, W, C = shape
+        rows = H * W
+        stats = port_gn.split_geometry("stats", *shape, 32, dtype)
+        assert stats.staged, (shape, stats)
+        assert stats.rows_per_block * C * item <= 100 * 1024, (shape, stats)
+        assert (stats.cluster == 1
+                or -(-rows // (stats.cluster // 2)) * C * item > 100 * 1024)
+        sums = port_gn.split_geometry("sums", *shape, 32, dtype)
+        block = sums.rows_per_block * 2 * C * item
+        assert B * sums.cluster <= 2 * 132, (shape, sums)
+        assert (sums.cluster == 1
+                or -(-rows // (sums.cluster // 2)) * 2 * C * item > 64 * 1024)
+        if sums.staged:
+            assert block <= 64 * 1024 and sums.tile_rows == sums.rows_per_block
+        else:
+            assert sums.streamed and sums.tile_rows * 2 * C * item <= 16 * 1024
+    assert port_gn.split_geometry("stats", 32, 32, 64, 64, 32, dtype).cluster \
+        == (4 if dtype == torch.bfloat16 else 8)
+    sums = port_gn.split_geometry("sums", 32, 32, 64, 64, 32, dtype)
+    assert (sums.cluster, sums.rows_per_block) == (8, 256)
+    assert sums.staged == (dtype == torch.bfloat16)
+
+
 def test_gn_geometry_constants_match_the_source():
     """The wrapper counts shared memory and threads as the launcher does
     (the launcher launches with its own count, the wrapper chooses the

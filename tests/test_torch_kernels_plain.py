@@ -162,6 +162,8 @@ def test_cpu_tensor_takes_the_plain_version_and_counts_no_launch(rng):
     lambda: port_gn.geometry(65536, 1, 1, 64, 32, torch.float32, False),
     lambda: port_gn.geometry(1, 2, 2, 16384, 32, torch.float32, True),
     lambda: port_gn.geometry(1, 2, 2, 64, 48, torch.float32, False),
+    # only gn_stats and gn_bwd_sums are cut into clusters
+    lambda: port_gn.split_geometry("apply", 1, 2, 2, 64, 32, torch.float32),
 ])
 def test_wrappers_refuse_bad_shapes(call):
     with pytest.raises(ValueError):

@@ -151,10 +151,14 @@ def test_halo_comes_from_the_neighbours_and_zeros_at_the_edges():
 
 @pytest.mark.parametrize("n", [2, 4])
 def test_split_kernels_take_every_group_norm_of_the_default_model(n):
-    """Every GroupNorm of `UnetConfig()` on a rank's rows at n model ranks,
-    such as (32, 32, 64, 64) and (32, 4, 8, 256) at n = 2, fits the four
-    split kernels' shared memory in both types (the launcher refuses what
-    does not)."""
+    """Every GroupNorm of `UnetConfig()` on a rank's rows at n model ranks
+    and B=32, such as (32, 32, 64, 64) and (32, 4, 8, 256) at n = 2, in
+    both types: gn_stats and gn_bwd_sums get a cluster geometry
+    (`split_geometry`, which the launchers check) whose blocks cover the
+    rank's rows exactly, in a cluster of a power of two up to 16, with
+    shared memory within the card, and at least two blocks a sample at
+    (32, 32, 64, 64); gn_apply and gn_bwd_dx fit their shared memory (the
+    launchers refuse what does not)."""
     cfg = UnetConfig()
     plan, res, shapes = port_unet.build_plan(cfg), cfg.image_size, set()
     for group in plan.input_blocks + (plan.middle,) + plan.output_blocks:
@@ -168,13 +172,23 @@ def test_split_kernels_take_every_group_norm_of_the_default_model(n):
             elif layer[0] == "up":
                 res *= 2
     assert {(64, 64), (8, 256)} <= shapes  # half height: (32, 64), (4, 256)
+    B, G = 32, cfg.gn_num_groups
     for H, C in sorted(shapes):
         assert H % n == 0
-        for item in (4, 2):
-            vec = port_gn.vec_width(C, item)
-            for kernel in ("stats", "apply", "sums", "dx"):
-                smem = port_gn._split_smem(kernel, C, cfg.gn_num_groups, vec)
-                assert 0 < smem <= port_gn._SPLIT_SMEM, (H // n, C, kernel)
+        h, rows = H // n, H // n * H
+        for dtype in (torch.float32, torch.bfloat16):
+            for kernel in ("stats", "sums"):
+                geo = port_gn.split_geometry(kernel, B, h, H, C, G, dtype)
+                what = (h, H, C, dtype, kernel, geo)
+                assert geo.cluster in (1, 2, 4, 8, 16), what
+                assert 0 < geo.smem_bytes <= port_gn._SMEM_LIMIT, what
+                assert (geo.cluster - 1) * geo.rows_per_block < rows, what
+                assert rows <= geo.cluster * geo.rows_per_block, what
+                if (h, H, C) == (32, 64, 64):
+                    assert B * geo.cluster >= 2 * B, what
+        for kernel in ("apply", "dx"):
+            smem = port_gn._split_smem(kernel, C, G)
+            assert 0 < smem <= port_gn._SPLIT_SMEM, (h, C, kernel)
 
 
 @pytest.fixture(scope="module")

@@ -359,12 +359,16 @@ __device__ __forceinline__ void group_sums(float* red, float* chan, float* out, 
     __syncthreads();
 }
 
-template <typename T, int V, bool WIDE>
-__global__ void __launch_bounds__(max_threads(0, V), 1)
-    gn_act_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                      const T* __restrict__ beta, T* __restrict__ y, float* __restrict__ mean_out,
-                      float* __restrict__ rstd_out, int HW, int C, int G, int rows_per_block,
-                      int tile_rows, float eps, int act_silu) {
+// The forward (K4), or with STATS its statistics alone (gn_stats, K4a:
+// two passes, then each block merges a slice of the groups and writes their
+// (mean, M2) to mean_out (B, G, 2); gamma, beta, y and rstd_out are not
+// read).
+template <typename T, int V, bool WIDE, bool STATS>
+__device__ __forceinline__ void gn_fwd(const T* __restrict__ x, const T* __restrict__ gamma,
+                                       const T* __restrict__ beta, T* __restrict__ y,
+                                       float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                                       int HW, int C, int G, int rows_per_block, int tile_rows,
+                                       float eps, int act_silu) {
     constexpr bool kStaged = V * sizeof(T) == 16;
     extern __shared__ __align__(16) unsigned char smem[];
     const int rank = blockIdx.x, ranks = gridDim.x, b = blockIdx.y;
@@ -387,7 +391,7 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
     const int ntiles = (nrows + tile_rows - 1) / tile_rows;
     const Rows<T, kStaged> rows{{x + ((size_t)b * HW + row0) * C, nullptr},
                                 {reinterpret_cast<T*>(smem), nullptr},
-                                1, C, nrows, tile_rows, ntiles, 3 * J, bars};
+                                1, C, nrows, tile_rows, ntiles, (STATS ? 2 : 3) * J, bars};
     rows.start();
     PHASE(1);
     float scale[V], shift[V];  // gamma and beta of the thread's channels, for now
@@ -399,7 +403,7 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
             shift[k] = to_float<T>(beta[c0 + k]);
         }
     };
-    if (!WIDE) affine(c00);  // loaded while the rows arrive
+    if (!STATS && !WIDE) affine(c00);  // loaded while the rows arrive
 
     float acc[V];
 #pragma unroll 1
@@ -443,14 +447,26 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
     }
     group_sums(red, chan, part + 1, RS, L, C, G, 1.f);
     PHASE(4);
+    if (STATS && ranks == 1) {  // the block's statistics are the sample's
+        for (int g = threadIdx.x; g < G; g += blockDim.x) {
+            mean_out[2 * ((size_t)b * G + g)] = part[2 * g];
+            mean_out[2 * ((size_t)b * G + g) + 1] = part[2 * g + 1];
+        }
+        PHASE(5);
+        PHASE(6);
+        return;
+    }
 
-    // Every block's (mean, M2) is written: copy them all here, then combine
-    // them in rank order.
+    // Every block's (mean, M2) is written: copy those of every block here,
+    // for every group (STATS: this block's slice of them), then combine them
+    // in rank order.
     cluster_arrive();
     cluster_wait();
     cgrp::cluster_group cluster = cgrp::this_cluster();
-    for (int t = threadIdx.x; t < G * ranks; t += blockDim.x) {
-        const int g = t % G, from = t / G;
+    const int per_g = STATS ? (G + ranks - 1) / ranks : G;
+    const int g0 = min(G, rank * (STATS ? per_g : 0)), ng = min(G, g0 + per_g) - g0;
+    for (int t = threadIdx.x; t < ng * ranks; t += blockDim.x) {
+        const int g = g0 + t % ng, from = t / ng;
         const float* p = cluster.map_shared_rank(part, from) + 2 * g;
         recv[2 * (from * G + g)] = p[0];
         recv[2 * (from * G + g) + 1] = p[1];
@@ -459,7 +475,7 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
     __syncthreads();
     PHASE(5);
     const float n_all = (float)HW * (float)cg;
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    for (int g = g0 + threadIdx.x; g < g0 + ng; g += blockDim.x) {
         float pm[kMaxCluster], pq[kMaxCluster], pn[kMaxCluster];
 #pragma unroll
         for (int i = 0; i < kMaxCluster; ++i) {
@@ -482,6 +498,11 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
                 m2 += pq[i] + pn[i] * d * d;
             }
         }
+        if (STATS) {
+            mean_out[2 * ((size_t)b * G + g)] = mean;
+            mean_out[2 * ((size_t)b * G + g) + 1] = m2;
+            continue;
+        }
         const float rstd = rsqrtf(m2 / n_all + eps);
         stat[2 * g] = mean;
         stat[2 * g + 1] = rstd;
@@ -489,6 +510,11 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
             mean_out[(size_t)b * G + g] = mean;
             rstd_out[(size_t)b * G + g] = rstd;
         }
+    }
+    if (STATS) {
+        PHASE(6);
+        cluster_wait();  // the others have read this block's shared memory
+        return;
     }
     __syncthreads();
     PHASE(6);
@@ -524,6 +550,25 @@ __global__ void __launch_bounds__(max_threads(0, V), 1)
     cluster_wait();  // the others have read this block's shared memory
 }
 
+template <typename T, int V, bool WIDE>
+__global__ void __launch_bounds__(max_threads(0, V), 1)
+    gn_act_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                      const T* __restrict__ beta, T* __restrict__ y, float* __restrict__ mean_out,
+                      float* __restrict__ rstd_out, int HW, int C, int G, int rows_per_block,
+                      int tile_rows, float eps, int act_silu) {
+    gn_fwd<T, V, WIDE, false>(x, gamma, beta, y, mean_out, rstd_out, HW, C, G, rows_per_block,
+                              tile_rows, eps, act_silu);
+}
+
+// gn_stats (K4a, the split GroupNorm below): stats (B, G, 2).
+template <typename T, int V, bool WIDE>
+__global__ void __launch_bounds__(max_threads(0, V), 1)
+    gn_stats_kernel(const T* __restrict__ x, float* __restrict__ stats, int HW, int C, int G,
+                    int rows_per_block, int tile_rows) {
+    gn_fwd<T, V, WIDE, true>(x, nullptr, nullptr, nullptr, stats, nullptr, HW, C, G,
+                             rows_per_block, tile_rows, 0.f, 0);
+}
+
 // d(loss)/dz from d(loss)/dy, where y = silu(z) or y = z.
 __device__ __forceinline__ float dz_of(float dy, float xhat, float gamma, float beta,
                                        int act_silu) {
@@ -533,14 +578,16 @@ __device__ __forceinline__ float dz_of(float dy, float xhat, float gamma, float 
     return dy * (s * (1.f + z * (1.f - s)));
 }
 
-template <typename T, int V, bool WIDE>
-__global__ void __launch_bounds__(max_threads(1, V), 1)
-    gn_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                      const T* __restrict__ beta, const float* __restrict__ mean,
-                      const float* __restrict__ rstd, const T* __restrict__ dy,
-                      T* __restrict__ dx, float* __restrict__ dgamma_b,
-                      float* __restrict__ dbeta_b, int HW, int C, int G, int rows_per_block,
-                      int tile_rows, int act_silu) {
+// The backward (K5), or with SUMS its first pass alone (gn_bwd_sums, K5a:
+// the cluster's sums reduce-scattered, each block adding a slice of the
+// channels and writing it to dgamma_b and dbeta_b; dx is not written).
+template <typename T, int V, bool WIDE, bool SUMS>
+__device__ __forceinline__ void gn_bwd(const T* __restrict__ x, const T* __restrict__ gamma,
+                                       const T* __restrict__ beta, const float* __restrict__ mean,
+                                       const float* __restrict__ rstd, const T* __restrict__ dy,
+                                       T* __restrict__ dx, float* __restrict__ dgamma_b,
+                                       float* __restrict__ dbeta_b, int HW, int C, int G,
+                                       int rows_per_block, int tile_rows, int act_silu) {
     constexpr bool kStaged = V * sizeof(T) == 16;
     extern __shared__ __align__(16) unsigned char smem[];
     const int rank = blockIdx.x, ranks = gridDim.x, b = blockIdx.y;
@@ -563,12 +610,13 @@ __global__ void __launch_bounds__(max_threads(1, V), 1)
     const int ntiles = (nrows + tile_rows - 1) / tile_rows;
     const Rows<T, kStaged> rows{{x + base, dy + base},
                                 {reinterpret_cast<T*>(smem), reinterpret_cast<T*>(smem + slab)},
-                                2, C, nrows, tile_rows, ntiles, 2 * J, bars};
+                                2, C, nrows, tile_rows, ntiles, (SUMS ? 1 : 2) * J, bars};
     rows.start();
     PHASE(1);
 
-    for (int c = threadIdx.x; c < C; c += blockDim.x)
-        tot[c] = to_float<T>(gamma[c]);  // until the cluster's sums replace it
+    if (!SUMS)
+        for (int c = threadIdx.x; c < C; c += blockDim.x)
+            tot[c] = to_float<T>(gamma[c]);  // until the cluster's sums replace it
     // The constants of the thread's channels c0 ... c0 + V - 1 (none where
     // c0 >= C): mean, rstd, gamma, beta.
     float mu[V], rsd[V], ga[V], be[V], db[V], dg[V];
@@ -633,8 +681,18 @@ __global__ void __launch_bounds__(max_threads(1, V), 1)
             sb += red[s * C + c];
             sg += red[(RS + s) * C + c];
         }
+        if (SUMS && ranks == 1) {  // the block's sums are the sample's
+            dbeta_b[(size_t)b * C + c] = sb;
+            dgamma_b[(size_t)b * C + c] = sg;
+        }
         part[c] = sb;
         part[C + c] = sg;
+    }
+    if (SUMS && ranks == 1) {
+        PHASE(3);
+        PHASE(4);
+        PHASE(5);
+        return;
     }
     PHASE(3);
 
@@ -644,6 +702,25 @@ __global__ void __launch_bounds__(max_threads(1, V), 1)
     cluster_wait();
     PHASE(4);
     cgrp::cluster_group cluster = cgrp::this_cluster();
+    if (SUMS) {  // a reduce-scatter: this block adds its slice of the channels
+        const int per = (C + ranks - 1) / ranks;
+        const int cs = min(C, rank * per), ce = min(C, cs + per);
+        for (int c = cs + threadIdx.x; c < ce; c += blockDim.x) {
+            float sb = 0.f, sg = 0.f;
+#pragma unroll 4
+            for (int i = 0; i < ranks; ++i) {
+                const float* p = cluster.map_shared_rank(part, i);
+                sb += p[c];
+                sg += p[C + c];
+            }
+            dbeta_b[(size_t)b * C + c] = sb;
+            dgamma_b[(size_t)b * C + c] = sg;
+        }
+        PHASE(5);
+        cluster_arrive();
+        cluster_wait();  // the others have read this block's shared memory
+        return;
+    }
     for (int t = threadIdx.x; t < S * C; t += blockDim.x) {
         const int c = t % C, slice = t / C;
         float sb = 0.f, sg = 0.f;
@@ -722,6 +799,32 @@ __global__ void __launch_bounds__(max_threads(1, V), 1)
     }
     PHASE(6);
     cluster_wait();  // the others have read this block's shared memory
+}
+
+template <typename T, int V, bool WIDE>
+__global__ void __launch_bounds__(max_threads(1, V), 1)
+    gn_act_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                      const T* __restrict__ beta, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const T* __restrict__ dy,
+                      T* __restrict__ dx, float* __restrict__ dgamma_b,
+                      float* __restrict__ dbeta_b, int HW, int C, int G, int rows_per_block,
+                      int tile_rows, int act_silu) {
+    gn_bwd<T, V, WIDE, false>(x, gamma, beta, mean, rstd, dy, dx, dgamma_b, dbeta_b, HW, C, G,
+                              rows_per_block, tile_rows, act_silu);
+}
+
+// gn_bwd_sums (K5a, the split GroupNorm below): sums (2, B, C), [dgamma_b;
+// dbeta_b].
+template <typename T, int V, bool WIDE>
+__global__ void __launch_bounds__(max_threads(1, V), 1)
+    gn_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
+                       const T* __restrict__ beta, const float* __restrict__ mean,
+                       const float* __restrict__ rstd, const T* __restrict__ dy,
+                       float* __restrict__ sums, int HW, int C, int G, int rows_per_block,
+                       int tile_rows, int act_silu) {
+    gn_bwd<T, V, WIDE, true>(x, gamma, beta, mean, rstd, dy, nullptr, sums,
+                             sums + (size_t)gridDim.y * C, HW, C, G, rows_per_block, tile_rows,
+                             act_silu);
 }
 
 // Widest vector of V elements (at most 16 bytes) that divides C.
@@ -952,22 +1055,27 @@ extern "C" int unet_gn_act_bwd(const void* x, const void* gamma, const void* bet
 // around the collective that GSPMD places in the JAX package's spatial
 // step.  Bound: memory traffic, as K4 and K5 (gn_stats reads x, gn_apply
 // reads x and writes y, gn_bwd_sums reads x and dy, gn_bwd_dx reads x and
-// dy and writes dx).  A first, simple design: gn_stats and gn_bwd_sums run
-// one block per batch element (and per chunk of columns where a row has
-// more vectors than a block has threads), each thread a vector of V
-// channels (16 bytes where C allows) down every RS-th row, kUnroll rows'
-// loads in flight at once, the row slots then the group's channels folded
-// through shared memory in a fixed order; gn_apply and gn_bwd_dx are
-// elementwise over a grid of (chunks, B), each block working out its
-// sample's per-group constants at its start in a fixed order.  No atomics,
-// so a rerun gives the same bits.
+// dy and writes dx).  gn_stats and gn_bwd_sums are K4's and K5's cluster
+// kernels stopped early (`gn_fwd` with STATS, `gn_bwd` with SUMS): one
+// cluster per batch element, cut as the wrapper's `split_geometry` says
+// (at B=32 and the model's largest rank input, 128 and 256 blocks on the
+// card's 132 SMs).  gn_stats stages each block's rows in shared memory
+// once (streams them where they do not fit), takes each block's two-pass
+// (mean, M2) per group from them, and merges the blocks' in rank order
+// through the cluster's shared memory as K4 does, each block a slice of
+// the groups.  gn_bwd_sums reads its block's rows of x and dy once (one
+// bulk copy each, or streamed through the ring where they are large),
+// forms the column sums of dz xhat and dz, and reduce-scatters the
+// cluster's 2C partials: block j adds channel slice j of every block's, in
+// rank order.  In a cluster of one block neither exchanges anything.
+// gn_apply and gn_bwd_dx are elementwise over a grid of (chunks, B), each
+// block working out its sample's per-group constants at its start in a
+// fixed order.  No atomics, so a rerun gives the same bits.
 
 namespace {
 
-constexpr int kSplitThreads = 512;  // gn_stats, gn_bwd_sums (the wrapper's _SPLIT_THREADS)
 constexpr int kElemThreads = 256;   // gn_apply, gn_bwd_dx
 constexpr int kElemBlocks = 8 * 132;  // about 8 blocks an SM in all
-constexpr int kUnroll = 4;
 constexpr size_t kSplitSmem = 48 * 1024;
 
 // f(T*, integral_constant<V>) for the storage type and the vector width:
@@ -989,89 +1097,6 @@ cudaError_t with_type_vec(int is_bf16, int vec, F f) {
         }
     }
     return cudaErrorInvalidValue;
-}
-
-// The column vectors a block of kSplitThreads covers at once (L = C / V a
-// row), and its row slots.
-__host__ __device__ inline int split_cols(int L) { return L < kSplitThreads ? L : kSplitThreads; }
-__host__ __device__ inline int split_slots(int L) { return kSplitThreads / split_cols(L); }
-
-// acc[k] += f(k, value) over rows rs, rs + RS, ... < HW of column c0 of a
-// sample's rows `p` (row stride C), kUnroll rows' loads issued together.
-template <typename T, int V, typename F>
-__device__ __forceinline__ void column_sum(const T* p, int C, int HW, int rs, int RS, int c0,
-                                           float (&acc)[V], F f) {
-    int r = rs;
-    for (; r + (kUnroll - 1) * RS < HW; r += kUnroll * RS) {
-        float v[kUnroll][V];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) load_floats<T, V>(p + (size_t)(r + u * RS) * C + c0, v[u]);
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-            for (int k = 0; k < V; ++k) acc[k] += f(k, v[u][k], r + u * RS);
-    }
-    for (; r < HW; r += RS) {
-        float v[V];
-        load_floats<T, V>(p + (size_t)r * C + c0, v);
-#pragma unroll
-        for (int k = 0; k < V; ++k) acc[k] += f(k, v[k], r);
-    }
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kSplitThreads)
-    gn_stats_kernel(const T* __restrict__ x, float* __restrict__ stats, int HW, int C, int G) {
-    extern __shared__ __align__(16) float fsm[];
-    const int b = blockIdx.x, L = C / V, cols = split_cols(L), RS = split_slots(L);
-    const int rs = threadIdx.x / cols, cg = C / G;
-    float* red = fsm;                    // RS x C: per row slot and channel
-    float* chan = red + (size_t)RS * C;  // C
-    float* mean = chan + C;              // G
-    const T* xb = x + (size_t)b * HW * C;
-    const float n = (float)HW * (float)cg;
-#pragma unroll 1
-    for (int pass = 0; pass < 2; ++pass) {  // the sum, then the squared differences
-        if (rs < RS) {
-            for (int j = threadIdx.x % cols; j < L; j += cols) {
-                const int c0 = j * V;
-                float mu[V], acc[V];
-#pragma unroll
-                for (int k = 0; k < V; ++k) {
-                    mu[k] = pass ? mean[(c0 + k) / cg] : 0.f;
-                    acc[k] = 0.f;
-                }
-                if (pass == 0)
-                    column_sum<T, V>(xb, C, HW, rs, RS, c0, acc,
-                                     [&](int, float v, int) { return v; });
-                else
-                    column_sum<T, V>(xb, C, HW, rs, RS, c0, acc, [&](int k, float v, int) {
-                        const float d = v - mu[k];
-                        return d * d;
-                    });
-#pragma unroll
-                for (int k = 0; k < V; ++k) red[(size_t)rs * C + c0 + k] = acc[k];
-            }
-        }
-        __syncthreads();
-        for (int c = threadIdx.x; c < C; c += blockDim.x) {
-            float sum = 0.f;
-            for (int i = 0; i < RS; ++i) sum += red[(size_t)i * C + c];
-            chan[c] = sum;
-        }
-        __syncthreads();
-        for (int g = threadIdx.x; g < G; g += blockDim.x) {
-            float sum = 0.f;
-            for (int c = g * cg; c < (g + 1) * cg; ++c) sum += chan[c];
-            if (pass == 0) {
-                mean[g] = sum / n;
-            } else {
-                stats[((size_t)b * G + g) * 2] = mean[g];
-                stats[((size_t)b * G + g) * 2 + 1] = sum;
-            }
-        }
-        __syncthreads();
-    }
 }
 
 template <typename T, int V>
@@ -1120,83 +1145,6 @@ __global__ void __launch_bounds__(kElemThreads)
             o.v[k] = from_float<T>(z);
         }
         *reinterpret_cast<Vec<T, V>*>(y + at) = o;
-    }
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kSplitThreads)
-    gn_bwd_sums_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                       const T* __restrict__ beta, const float* __restrict__ mean,
-                       const float* __restrict__ rstd, const T* __restrict__ dy,
-                       float* __restrict__ sums, int HW, int C, int G, int act_silu) {
-    extern __shared__ __align__(16) float fsm[];  // 2 x RS x W: dgamma, dbeta
-    const int b = blockIdx.y, B = gridDim.y, L = C / V, cols = split_cols(L), RS = split_slots(L);
-    const int rs = threadIdx.x / cols, jt = threadIdx.x % cols, W = cols * V;
-    const int j = blockIdx.x * cols + jt, cg = C / G;
-    if (rs < RS && j < L) {
-        const int c0 = j * V;
-        float mu[V], rsd[V], ga[V], be[V], sg[V], sb[V];
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-            const int g = (c0 + k) / cg;
-            mu[k] = mean[(size_t)b * G + g];
-            rsd[k] = rstd[(size_t)b * G + g];
-            ga[k] = to_float<T>(gamma[c0 + k]);
-            be[k] = to_float<T>(beta[c0 + k]);
-            sg[k] = sb[k] = 0.f;
-        }
-        const T* xb = x + (size_t)b * HW * C;
-        const T* db = dy + (size_t)b * HW * C;
-        // two rows in flight at 8 values a thread (the registers of 4 would
-        // not leave 128 a thread at 512 threads), else kUnroll
-        constexpr int U = V >= 8 ? 2 : kUnroll;
-        int r = rs;
-        for (; r + (U - 1) * RS < HW; r += U * RS) {
-            float xv[U][V], dv[U][V];
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                load_floats<T, V>(xb + (size_t)(r + u * RS) * C + c0, xv[u]);
-                load_floats<T, V>(db + (size_t)(r + u * RS) * C + c0, dv[u]);
-            }
-#pragma unroll
-            for (int u = 0; u < U; ++u)
-#pragma unroll
-                for (int k = 0; k < V; ++k) {
-                    const float xhat = (xv[u][k] - mu[k]) * rsd[k];
-                    const float dz = dz_of(dv[u][k], xhat, ga[k], be[k], act_silu);
-                    sg[k] += dz * xhat;
-                    sb[k] += dz;
-                }
-        }
-        for (; r < HW; r += RS) {
-            float xv[V], dv[V];
-            load_floats<T, V>(xb + (size_t)r * C + c0, xv);
-            load_floats<T, V>(db + (size_t)r * C + c0, dv);
-#pragma unroll
-            for (int k = 0; k < V; ++k) {
-                const float xhat = (xv[k] - mu[k]) * rsd[k];
-                const float dz = dz_of(dv[k], xhat, ga[k], be[k], act_silu);
-                sg[k] += dz * xhat;
-                sb[k] += dz;
-            }
-        }
-#pragma unroll
-        for (int k = 0; k < V; ++k) {
-            fsm[(size_t)rs * W + jt * V + k] = sg[k];
-            fsm[(size_t)(RS + rs) * W + jt * V + k] = sb[k];
-        }
-    }
-    __syncthreads();
-    for (int w = threadIdx.x; w < W; w += blockDim.x) {
-        const int c = blockIdx.x * W + w;
-        if (c >= C) break;
-        float sg = 0.f, sb = 0.f;
-        for (int i = 0; i < RS; ++i) {
-            sg += fsm[(size_t)i * W + w];
-            sb += fsm[(size_t)(RS + i) * W + w];
-        }
-        sums[(size_t)b * C + c] = sg;
-        sums[((size_t)B + b) * C + c] = sb;
     }
 }
 
@@ -1260,20 +1208,12 @@ __global__ void __launch_bounds__(kElemThreads)
     }
 }
 
-// Bytes of dynamic shared memory of a block of each split kernel
+// Bytes of dynamic shared memory of a block of gn_apply or (dx) gn_bwd_dx
 // (ops/kernels/groupnorm.py::_split_smem counts the same), 0 for a call the
 // kernels do not take.
-inline size_t split_smem(int kernel, int B, int HW, int C, int G, int vec) {
+inline size_t split_smem(int dx, int B, int HW, int C, int G, int vec) {
     if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || vec < 2) return 0;
-    const int L = C / vec, cols = split_cols(L), RS = split_slots(L);
-    size_t floats = 0;
-    switch (kernel) {
-        case 0: floats = (size_t)RS * C + C + G; break;         // gn_stats
-        case 1: floats = 2 * (size_t)G; break;                  // gn_apply
-        case 2: floats = 2 * (size_t)RS * cols * vec; break;    // gn_bwd_sums
-        case 3: floats = 2 * (size_t)C + 4 * (size_t)G; break;  // gn_bwd_dx
-    }
-    const size_t bytes = 4 * floats;
+    const size_t bytes = 4 * (dx ? 2 * (size_t)C + 4 * (size_t)G : 2 * (size_t)G);
     return bytes <= kSplitSmem ? bytes : 0;
 }
 
@@ -1288,19 +1228,24 @@ inline int elem_chunks(int B, int HW, int C, int vec) {
 
 }  // namespace
 
-// x: (B, HW, C) contiguous, 16-byte aligned; stats: (B, G, 2) float32, the
-// (mean, M2) of each (b, g).  Returns the CUDA error code of the launch.
+// x: (B, HW, C) contiguous, 16-byte aligned, C even; stats: (B, G, 2)
+// float32, the (mean, M2) of each (b, g).  The geometry as for
+// unet_gn_act_fwd (ops/kernels/groupnorm.py::split_geometry chooses it).
+// Returns the CUDA error code of the launch.
 extern "C" int unet_gn_stats(const void* x, float* stats, int B, int HW, int C, int G,
-                             int is_bf16, cudaStream_t stream) {
-    const int vec = vec_width(C, is_bf16);
-    const size_t smem = split_smem(0, B, HW, C, G, vec);
+                             int is_bf16, int cluster, int rows_per_block, int tile_rows,
+                             cudaStream_t stream) {
+    const size_t smem = call_smem(0, B, HW, C, G, is_bf16, cluster, rows_per_block, tile_rows);
     if (smem == 0) return (int)cudaErrorInvalidValue;
+    const int vec = vec_width(C, is_bf16), threads = block_threads(0, C, vec);
+    const bool wide = C / vec > threads;
     return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
         using T = std::remove_pointer_t<decltype(t)>;
         constexpr int V = decltype(v)::value;
-        gn_stats_kernel<T, V><<<B, kSplitThreads, smem, stream>>>(static_cast<const T*>(x),
-                                                                  stats, HW, C, G);
-        return cudaGetLastError();
+        void (*kernel)(const T*, float*, int, int, int, int, int) = gn_stats_kernel<T, V, false>;
+        if (wide) kernel = gn_stats_kernel<T, V, true>;
+        return launch_cluster(kernel, cluster, B, threads, smem, stream, static_cast<const T*>(x),
+                              stats, HW, C, G, rows_per_block, tile_rows);
     });
 }
 
@@ -1312,7 +1257,7 @@ extern "C" int unet_gn_apply(const void* x, const void* gamma, const void* beta,
                              int HW, int C, int G, float eps, int act_silu, int is_bf16,
                              cudaStream_t stream) {
     const int vec = vec_width(C, is_bf16);
-    const size_t smem = split_smem(1, B, HW, C, G, vec);
+    const size_t smem = split_smem(0, B, HW, C, G, vec);
     if (smem == 0 || N <= 0) return (int)cudaErrorInvalidValue;
     const dim3 grid(elem_chunks(B, HW, C, vec), B);
     return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
@@ -1325,25 +1270,30 @@ extern "C" int unet_gn_apply(const void* x, const void* gamma, const void* beta,
     });
 }
 
-// x, dy: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of x's
-// type; mean, rstd: (B, G) float32 from gn_apply; sums: (2, B, C) float32
-// output, this rank's [dgamma_b; dbeta_b].  Returns the CUDA error code.
+// x, dy: (B, HW, C) contiguous, 16-byte aligned, C even; gamma, beta: (C,)
+// of x's type; mean, rstd: (B, G) float32 from gn_apply; sums: (2, B, C)
+// float32 output, this rank's [dgamma_b; dbeta_b].  The geometry as for
+// unet_gn_act_bwd (ops/kernels/groupnorm.py::split_geometry chooses it).
+// Returns the CUDA error code of the launch.
 extern "C" int unet_gn_bwd_sums(const void* x, const void* gamma, const void* beta,
                                 const float* mean, const float* rstd, const void* dy,
                                 float* sums, int B, int HW, int C, int G, int act_silu,
-                                int is_bf16, cudaStream_t stream) {
-    const int vec = vec_width(C, is_bf16);
-    const size_t smem = split_smem(2, B, HW, C, G, vec);
+                                int is_bf16, int cluster, int rows_per_block, int tile_rows,
+                                cudaStream_t stream) {
+    const size_t smem = call_smem(1, B, HW, C, G, is_bf16, cluster, rows_per_block, tile_rows);
     if (smem == 0) return (int)cudaErrorInvalidValue;
-    const int L = C / vec, cols = split_cols(L);
-    const dim3 grid((L + cols - 1) / cols, B);
+    const int vec = vec_width(C, is_bf16), threads = block_threads(1, C, vec);
+    const bool wide = C / vec > threads;
     return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
         using T = std::remove_pointer_t<decltype(t)>;
         constexpr int V = decltype(v)::value;
-        gn_bwd_sums_kernel<T, V><<<grid, kSplitThreads, smem, stream>>>(
-            static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-            mean, rstd, static_cast<const T*>(dy), sums, HW, C, G, act_silu);
-        return cudaGetLastError();
+        void (*kernel)(const T*, const T*, const T*, const float*, const float*, const T*, float*,
+                       int, int, int, int, int, int) = gn_bwd_sums_kernel<T, V, false>;
+        if (wide) kernel = gn_bwd_sums_kernel<T, V, true>;
+        return launch_cluster(kernel, cluster, B, threads, smem, stream, static_cast<const T*>(x),
+                              static_cast<const T*>(gamma), static_cast<const T*>(beta), mean,
+                              rstd, static_cast<const T*>(dy), sums, HW, C, G, rows_per_block,
+                              tile_rows, act_silu);
     });
 }
 
@@ -1355,7 +1305,7 @@ extern "C" int unet_gn_bwd_dx(const void* x, const void* gamma, const void* beta
                               const float* sums, void* dx, int N, int B, int HW, int C, int G,
                               int act_silu, int is_bf16, cudaStream_t stream) {
     const int vec = vec_width(C, is_bf16);
-    const size_t smem = split_smem(3, B, HW, C, G, vec);
+    const size_t smem = split_smem(1, B, HW, C, G, vec);
     if (smem == 0 || N <= 0) return (int)cudaErrorInvalidValue;
     const dim3 grid(elem_chunks(B, HW, C, vec), B);
     return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {

@@ -57,6 +57,12 @@ _SHARE_LIMIT = 100 * 1024
 _CLUSTERS_OF_16 = 7
 _MIN_TILE_BYTES = 8 * 1024
 _MIN_ROWS = 8
+# `split_geometry`: gn_stats' least staged tile; the rows of x and dy a
+# block of gn_bwd_sums takes in one copy, and the tiles it streams larger
+# ones in.
+_STATS_TILE_BYTES = 32 * 1024
+_SUMS_BLOCK_BYTES = 64 * 1024
+_SUMS_TILE_BYTES = 16 * 1024
 
 
 def gn_act_fwd_plain(x, gamma, beta, num_groups=32, eps=1e-5, act="silu"):
@@ -154,7 +160,8 @@ def _splits(rows: int, cluster: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def geometry(B: int, H: int, W: int, C: int, G: int, dtype: torch.dtype,
-             backward: bool) -> Geometry:
+             backward: bool, fill: bool = True,
+             min_tile_bytes: int = _MIN_TILE_BYTES) -> Geometry:
     """The cut of a call on a (B, H, W, C) tensor: the smallest cluster in
     which a block's rows take at most `_SHARE_LIMIT` bytes of its shared
     memory (`_STAGE_LIMIT` for the float32 backward, and where that fails),
@@ -163,7 +170,9 @@ def geometry(B: int, H: int, W: int, C: int, G: int, dtype: torch.dtype,
     once.  Where C fills whole 16-byte vectors and the rows fit in 16
     blocks they are staged; where they do not fit they are streamed, in
     tiles that leave room for the arrays; otherwise read from device
-    memory.  Raises ValueError for what the kernel does not take."""
+    memory.  A staged tile holds at least `min_tile_bytes`.  Without
+    `fill` the cluster is not doubled (gn_stats: see `split_geometry`).
+    Raises ValueError for what the kernel does not take."""
     rows, item = H * W, dtype.itemsize
     vec = vec_width(C, item)
     if B <= 0 or rows <= 0 or C <= 0 or G <= 0 or C % G:
@@ -176,7 +185,7 @@ def geometry(B: int, H: int, W: int, C: int, G: int, dtype: torch.dtype,
         per = -(-rows // cluster)
         if staged:
             return min(per, max(-(-per // _SLOTS),
-                                -(-_MIN_TILE_BYTES // row_bytes)))
+                                -(-min_tile_bytes // row_bytes)))
         if not streamed:
             return per
         room = _SMEM_LIMIT - smem_bytes(backward, cluster, per, 0, C, G,
@@ -203,7 +212,7 @@ def geometry(B: int, H: int, W: int, C: int, G: int, dtype: torch.dtype,
     cluster = ring and (smallest(share) or smallest(_STAGE_LIMIT))
     staged = bool(cluster)
     streamed, cluster = ring and not staged, cluster or 1
-    while (cluster < _MAX_CLUSTER and 2 * cluster * B <= _SMS
+    while (fill and cluster < _MAX_CLUSTER and 2 * cluster * B <= _SMS
            and rows >= 2 * cluster * _MIN_ROWS and _splits(rows, 2 * cluster)
            and smem(2 * cluster, staged, streamed) <= _SMEM_LIMIT
            and (2 * cluster < _MAX_CLUSTER or B <= _CLUSTERS_OF_16)):
@@ -428,11 +437,11 @@ class GroupNormAct(torch.autograd.Function):
 # two-pass arithmetic too, at one more collective and one more launch.
 # Every rank's slice has the same number of rows (the CLI's rule), so each
 # partial counts H*W*C/G values and the sample N times that.
-
-# The split kernels' shared memory, at most, and the threads of a block of
-# gn_stats and gn_bwd_sums.
+#
+# gn_stats and gn_bwd_sums are K4's and K5's cluster kernels stopped after
+# their statistics and sums (`split_geometry`); gn_apply and gn_bwd_dx are
+# elementwise, their shared memory at most `_SPLIT_SMEM`.
 _SPLIT_SMEM = 48 * 1024
-_SPLIT_THREADS = 512
 
 
 def gn_stats_plain(x, num_groups=32):
@@ -501,30 +510,72 @@ def gn_bwd_dx_plain(x, gamma, beta, mean, rstd, dy, sums, num_groups=32,
                    sums.shape[0] * H * W * (C // num_groups))
 
 
-def _split_smem(kernel: str, C: int, G: int, vec: int) -> int:
-    """Bytes of dynamic shared memory of a block of a split kernel, as
-    csrc/groupnorm.cu counts them."""
-    cols = min(C // vec, _SPLIT_THREADS)
-    slots = _SPLIT_THREADS // cols
-    floats = {"stats": slots * C + C + G,
-              "apply": 2 * G,
-              "sums": 2 * slots * cols * vec,
-              "dx": 2 * C + 4 * G}[kernel]
-    return 4 * floats
+def split_geometry(kernel: str, B: int, H: int, W: int, C: int, G: int,
+                   dtype: torch.dtype) -> Geometry:
+    """The cut of a gn_stats ("stats") or gn_bwd_sums ("sums") call on a
+    rank's rows (B, H, W, C), one cluster per batch element; the launcher
+    checks it and counts shared memory as `smem_bytes` does.
+
+    gn_stats is K4 up to its statistics, two passes over rows kept in
+    shared memory: K4's geometry, the smallest cluster whose blocks stage
+    their rows within `_SHARE_LIMIT`, but not doubled to fill the card (the
+    cluster's exchange costs more than the SMs it adds save:
+    utils/gn_sweep.py at B=32), in tiles of at least `_STATS_TILE_BYTES`.
+    gn_bwd_sums is K5's first pass alone, each row read once: the smallest
+    cluster whose blocks hold at most `_SUMS_BLOCK_BYTES` of x and dy, all
+    copied at once in one tile, while B x cluster stays within two blocks
+    an SM; where the rows are still larger they stream through the ring in
+    tiles of `_SUMS_TILE_BYTES`."""
+    if kernel == "stats":
+        return geometry(B, H, W, C, G, dtype, False, fill=False,
+                        min_tile_bytes=_STATS_TILE_BYTES)
+    if kernel != "sums":
+        raise ValueError(f"no split kernel {kernel!r} takes a geometry")
+    rows, item = H * W, dtype.itemsize
+    vec = vec_width(C, item)
+    if B <= 0 or rows <= 0 or C <= 0 or G <= 0 or C % G:
+        raise ValueError(f"no GroupNorm of ({B}, {H}, {W}, {C}), G={G}")
+    if B > 65535:
+        raise ValueError(f"the kernel does not take B={B}")
+    row_bytes = 2 * C * item
+    cluster = 1
+    while (-(-rows // cluster) * row_bytes > _SUMS_BLOCK_BYTES
+           and cluster < _MAX_CLUSTER and 2 * cluster * B <= 2 * _SMS
+           and _splits(rows, 2 * cluster)
+           and (2 * cluster < _MAX_CLUSTER or B <= _CLUSTERS_OF_16)):
+        cluster *= 2
+    per = -(-rows // cluster)
+    ring = vec * item == 16
+    staged = ring and per * row_bytes <= _SUMS_BLOCK_BYTES
+    streamed = ring and not staged
+    tile = (min(per, max(1, _SUMS_TILE_BYTES // row_bytes)) if streamed
+            else per)
+    smem = smem_bytes(True, cluster, per, tile, C, G, vec, item)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"the kernel does not take C={C}, G={G}")
+    return Geometry(cluster, per, tile, staged, streamed, smem,
+                    block_threads(True, C, vec))
+
+
+def _split_smem(kernel: str, C: int, G: int) -> int:
+    """Bytes of dynamic shared memory of a block of gn_apply ("apply") or
+    gn_bwd_dx ("dx"), as csrc/groupnorm.cu counts them."""
+    return 4 * (2 * C + 4 * G if kernel == "dx" else 2 * G)
 
 
 def _check_split(kernel, x, num_groups, gamma=None, beta=None):
     """What a split kernel takes on a CUDA device beyond `_check`: what
     `_check_cuda` asks, 16-byte alignment, an even C (two channels a
-    thread at least) and its shared memory."""
+    thread at least) and, for gn_apply and gn_bwd_dx, their shared memory
+    (`split_geometry` raises for what the others do not take)."""
     _check_cuda(x, gamma, beta)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     C = x.shape[-1]
     if C % 2:
         raise ValueError(f"gn_{kernel}: the kernel takes an even C, not {C}")
-    if _split_smem(kernel, C, num_groups,
-                   vec_width(C, x.element_size())) > _SPLIT_SMEM:
+    if kernel in ("apply", "dx") and _split_smem(
+            kernel, C, num_groups) > _SPLIT_SMEM:
         raise ValueError(f"gn_{kernel}: the kernel does not take C={C}, "
                          f"G={num_groups}")
 
@@ -540,13 +591,14 @@ def gn_stats(x, num_groups=32):
         return gn_stats_plain(x, num_groups)
     _check_split("stats", x, num_groups)
     B, H, W, C = x.shape
+    geo = split_geometry("stats", B, H, W, C, num_groups, x.dtype)
     stats = torch.empty((B, num_groups, 2), dtype=torch.float32,
                         device=x.device)
     with torch.cuda.device(x.device):
         code = _launcher("unet_gn_stats")(
             x.data_ptr(), stats.data_ptr(), B, H * W, C, num_groups,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            int(x.dtype == torch.bfloat16), geo.cluster, geo.rows_per_block,
+            geo.tile_rows, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "gn_stats")
     gn_stats.launches += 1
     return stats
@@ -619,6 +671,7 @@ def gn_bwd_sums(x, gamma, beta, mean, rstd, dy, num_groups=32, act="silu"):
                                  act)
     _check_split("sums", x, num_groups, gamma, beta)
     B, H, W, C = x.shape
+    geo = split_geometry("sums", B, H, W, C, num_groups, x.dtype)
     mean, rstd = _float_stats(mean, x), _float_stats(rstd, x)
     sums = torch.empty((2, B, C), dtype=torch.float32, device=x.device)
     if dy.data_ptr() % 16:
@@ -628,6 +681,7 @@ def gn_bwd_sums(x, gamma, beta, mean, rstd, dy, num_groups=32, act="silu"):
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), mean.data_ptr(),
             rstd.data_ptr(), dy.data_ptr(), sums.data_ptr(), B, H * W, C,
             num_groups, int(act == "silu"), int(x.dtype == torch.bfloat16),
+            geo.cluster, geo.rows_per_block, geo.tile_rows,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "gn_bwd_sums")
     gn_bwd_sums.launches += 1
@@ -711,9 +765,9 @@ class SplitGroupNormAct(torch.autograd.Function):
 _ARGTYPES = {
     "unet_gn_act_fwd": "pppppp" "iiii" "f" "iiiii" "p",
     "unet_gn_act_bwd": "ppppppppp" "iiii" "iiiii" "p",
-    "unet_gn_stats": "pp" "iiii" "i" "p",
+    "unet_gn_stats": "pp" "iiii" "i" "iii" "p",
     "unet_gn_apply": "ppppppp" "iiiii" "f" "ii" "p",
-    "unet_gn_bwd_sums": "ppppppp" "iiii" "ii" "p",
+    "unet_gn_bwd_sums": "ppppppp" "iiii" "ii" "iii" "p",
     "unet_gn_bwd_dx": "pppppppp" "iiiii" "ii" "p",
 }
 

@@ -9,10 +9,12 @@ Each turn starts one child process in the tree it names, which imports that
 tree's `chip_smoke.py` (so its package and its kernels, built from its own
 sources), sets the shape lists that the checks read (`GN_SHAPES`,
 `GN_BWD_SHAPES`, `TP_GN_CASES`, `ATTN_SHAPES`, `ATTN_BWD_SHAPES`,
-`CONV_SHAPES`) to those
-of the current directory's `chip_smoke.py`, and runs the named check
-functions.  `check_conv` times only the case `CONV_HEADLINE` names, so for
-it the child names each (shape, type) in turn and keeps that case.
+`CONV_SHAPES`, `SPLIT_SHAPES`) to those of the current directory's
+`chip_smoke.py`, and runs the named check functions.  A check returns a
+list of cases, or one list per kernel (`check_split_kernels`: `{kernel:
+cases}`); only the timed cases, those with `kernel_graph_ms`, are compared.
+`check_conv` times only the case `CONV_HEADLINE` names, so for it the child
+names each (shape, type) in turn and keeps that case.
 So both trees are timed at the same shapes, on the same card, in the
 order given (old, new, new, old evens out drift).  Prints one JSON object
 per turn, then one summary: per case the fastest device-alone time
@@ -30,7 +32,7 @@ import subprocess
 import sys
 
 SHAPE_LISTS = ("GN_SHAPES", "GN_BWD_SHAPES", "TP_GN_CASES", "ATTN_SHAPES",
-               "ATTN_BWD_SHAPES", "CONV_SHAPES")
+               "ATTN_BWD_SHAPES", "CONV_SHAPES", "SPLIT_SHAPES")
 
 _CHILD = r"""
 import json, sys, torch
@@ -71,9 +73,20 @@ def shape_lists(path: str) -> dict:
     return lists
 
 
-def case_key(check: str, case: dict) -> str:
-    return " ".join([check, str(case["shape"]), case["dtype"],
-                     case.get("act", "")]).strip()
+def case_key(check: str, kernel: str, case: dict) -> str:
+    return " ".join(part for part in (check, kernel, str(case["shape"]),
+                                      case["dtype"], case.get("act", ""))
+                    if part)
+
+
+def timed_cases(check: str, cases):
+    """(key, case) of each timed case of a check's result: a list of cases,
+    or {kernel: cases}."""
+    groups = cases.items() if isinstance(cases, dict) else [("", cases)]
+    for kernel, group in groups:
+        for case in group:
+            if "kernel_graph_ms" in case:
+                yield case_key(check, kernel, case), case
 
 
 def run_turn(tree: str, lists: dict, checks) -> dict:
@@ -92,8 +105,8 @@ def summarise(turns) -> dict:
     best = {}
     for tree, result in turns:
         for check, cases in result.items():
-            for case in cases:
-                entry = best.setdefault(case_key(check, case), {})
+            for key, case in timed_cases(check, cases):
+                entry = best.setdefault(key, {})
                 ms = case["kernel_graph_ms"]
                 entry[tree] = min(entry.get(tree, ms), ms)
     trees = list(dict.fromkeys(tree for tree, _ in turns))
