@@ -135,7 +135,9 @@ object per line:
      at the half-height inputs of the model's GroupNorms over two ranks,
      f32 and bf16, again for the same bits, and the two virtual ranks'
      pipeline against K4 and K5 on the whole tensor; timed beside a
-     library call and their bound.  At model axis 1 (one NCCL rank, DP
+     library call and their bound; the cut of each (the two reductions'
+     clusters, gn_apply's blocks a sample and vectors a thread) recorded.
+     At model axis 1 (one NCCL rank, DP
      itself) the captured spatial step against the one-device flat step of
      the `tensor_parallel` phase, the same bits after 3 bf16 and 2 f32
      steps; at model axis 2 two processes of this script
@@ -147,9 +149,9 @@ object per line:
      exactly per rank (no whole K4 or K5 in a split step).
  13. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
-     scripts/conv_proto.py; bfloat16 on the tensor cores (`wgmma`) where C
-     and O are multiples of 8, else float32 FMAs, each case naming its
-     route) is held
+     scripts/conv_proto.py; where C and O are multiples of 8 on the tensor
+     cores, bfloat16 with `wgmma` and float32 in 3xTF32, else float32
+     FMAs, each case naming its route) is held
      against its plain version at the six shapes of that script's bench and
      at ragged ones, float32 and bfloat16, and a rerun must give the same
      bits (timed at the headline shape only); then `unet_tpu_torch.scripts.conv_proto --bench`,
@@ -328,7 +330,7 @@ ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
 # ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
 # columns), a single pixel, and C = 3, which is no multiple of 8 and so
-# takes the FMA kernel in bfloat16 too.  A literal, so that
+# takes the FMA kernel in both types.  A literal, so that
 # utils/ab_trees.py can read it without importing this file.
 CONV_SHAPES = [(64, 64, 32, 64, 64), (64, 64, 32, 192, 64),
                (64, 64, 32, 128, 64), (64, 64, 32, 64, 128),
@@ -752,12 +754,14 @@ def check_seen_shapes(seen, gen):
 
 
 # Instantiations the build log must list (`_build.kernel_instance` names):
-# every attention kernel at every head size, both tensor-core convolutions.
+# every attention kernel at every head size, the four tensor-core
+# convolutions (bf16 `wgmma` and float32 3xTF32, 64 and 128 columns).
 REQUIRED_INSTANCES = [
     f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
     for k in ("fwd_tf32", "bwd_dq_tf32", "bwd_dkv_tf32", "fwd_mma",
               "bwd_dq_mma", "bwd_dkv_mma")] + [
-    "conv3x3_hwbc_wgmma_kernel<64>", "conv3x3_hwbc_wgmma_kernel<128>"]
+    f"conv3x3_hwbc_{k}_kernel<{bn}>" for k in ("wgmma", "tf32")
+    for bn in (64, 128)]
 
 
 def reset_counts() -> None:
@@ -2550,6 +2554,10 @@ def split_gn_case(shape, groups, shards, dtype, act, gen, timed=False):
         out[name].update(cluster=geo.cluster,
                          rows_per_block=geo.rows_per_block,
                          staged=geo.staged, streamed=geo.streamed)
+    apply = gn_mod.apply_geometry(*shape, dtype)  # gn_apply's grid
+    out["gn_apply"].update(blocks_per_sample=apply.chunks * apply.cols,
+                           threads=apply.threads,
+                           vectors_per_thread=apply.vectors_per_thread)
     for name, top in largest.items():  # float32 sums: partial_tol's bar
         out[name].update(tol="4e-6 of the largest value",
                          err_of_largest=errs[name] / top)
@@ -2868,8 +2876,10 @@ def drive_spatial_parallel(tmp, totals, gen, refs):
 def check_conv(gen):
     """The convolution kernels against their plain version at
     `CONV_SHAPES`, float32 and bfloat16, twice (the second call must give
-    the same bits); each case records its `route` (the tensor-core kernel,
-    "wgmma", or the FMA kernel, "fma").  The plain version sums in float64, so
+    the same bits); each case records its `route` (the tensor-core kernels,
+    "wgmma" in bfloat16 and "tf32" in float32, or the FMA kernel, "fma"), and a
+    float32 case whose C and O are multiples of 8 must take "tf32".  The
+    plain version sums in float64, so
     `library_max_abs_err`, cuDNN's distance from it (`F.conv2d` on the
     channels_last view of a (B, H, W, C) copy of the input, as conv_proto's
     bench), shows the error of cuDNN's own sum beside the kernel's.  Only
@@ -2902,8 +2912,12 @@ def check_conv(gen):
             bound_ms, bound_by = bound(
                 (x.numel() + w.numel() + H * W * B * O + O) * item,
                 2 * H * W * B * O * 9 * C, dtype)
+            route = conv_mod.route(dtype, C, O)
+            if dtype == torch.float32 and C % 8 == 0 and O % 8 == 0 \
+                    and route != "tf32":
+                raise AssertionError(f"{what}: route {route}, not tf32")
             case = dict(shape=list(shape), dtype=str(dtype),
-                        route=conv_mod.route(dtype, C, O), max_abs_err=err,
+                        route=route, max_abs_err=err,
                         tol=CONV_TOL[dtype], library_max_abs_err=lib_err,
                         bound_ms=bound_ms, bound_by=bound_by)
             if case["shape"] == CONV_HEADLINE["shape"]:

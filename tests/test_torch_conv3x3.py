@@ -120,13 +120,20 @@ def test_conv_proto_check_passes_on_the_cpu(capsys):
 
 
 def _source_rule():
-    """csrc/conv3x3.cu's `use_wgmma(is_bf16, C, O)` as a Python function."""
+    """csrc/conv3x3.cu's `route(is_bf16, C, O)` as a Python function: its
+    ragged test, then its choice by type."""
     src = (ROOT / "unet_tpu_torch" / "csrc" / "conv3x3.cu").read_text()
-    body = re.search(r"bool use_wgmma\(int is_bf16, int C, int O\) "
-                     r"\{\s*return ([^;]*);\s*\}", src).group(1)
-    expr = body.replace("&&", " and ").replace("||", " or ")
-    return lambda is_bf16, C, O: bool(eval(expr, {}, dict(
-        is_bf16=is_bf16, C=C, O=O)))
+    body = re.search(r"Route route\(int is_bf16, int C, int O\) \{(.*?)\n\}",
+                     src, re.S).group(1)
+    ragged = re.search(r"if \((.*?)\) return Route::(\w+);", body)
+    typed = re.search(r"return is_bf16 \? Route::(\w+) : Route::(\w+);", body)
+    expr = ragged.group(1).replace("&&", " and ").replace("||", " or ")
+
+    def rule(is_bf16, C, O):
+        if eval(expr, {}, dict(C=C, O=O)):
+            return ragged.group(2)
+        return typed.group(1) if is_bf16 else typed.group(2)
+    return rule
 
 
 def _chip_smoke_conv_shapes():
@@ -137,19 +144,17 @@ def _chip_smoke_conv_shapes():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_mirrors_the_launchers_rule_at_the_chip_shapes(dtype):
-    """The wrapper's `route` is the launcher's `use_wgmma` at every shape
-    chip_smoke.py checks the kernels at: bfloat16 with C and O multiples of
-    8 on the tensor cores, float32 and C = 3 (the image's channels) on the
-    FMA kernel."""
+    """The wrapper's `route` is the launcher's `route` at every shape
+    chip_smoke.py checks the kernels at: with C and O multiples of 8,
+    bfloat16 on `wgmma` and float32 on 3xTF32; C = 3 (the image's
+    channels) on the FMA kernel in both types."""
     rule = _source_rule()
     shapes = _chip_smoke_conv_shapes()
     assert len(shapes) == 9
     routes = {}
     for H, W, B, C, O in shapes:
         routes[(C, O)] = port_conv.route(dtype, C, O)
-        assert (routes[(C, O)] == "wgmma") == rule(dtype == torch.bfloat16, C, O)
-    if dtype == torch.float32:
-        assert set(routes.values()) == {"fma"}
-    else:
-        assert routes.pop((3, 64)) == "fma"
-        assert set(routes.values()) == {"wgmma"}
+        assert routes[(C, O)] == rule(dtype == torch.bfloat16, C, O)
+    assert routes.pop((3, 64)) == "fma"
+    assert set(routes.values()) == {
+        "wgmma" if dtype == torch.bfloat16 else "tf32"}

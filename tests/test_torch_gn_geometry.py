@@ -7,6 +7,7 @@ hands them is decided here."""
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -232,3 +233,83 @@ def test_gn_smem_bytes_counts_the_ring_and_the_arrays():
     floats = 16 * 64 + 64 + 4 * 32 + 8 * 2 * 32
     assert port_gn.smem_bytes(False, 8, 512, 512, 64, 32, 4, 2) == (
         4 * floats + 8 * 4)
+
+
+def _const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+)", SOURCE)[1])
+
+
+def _source_apply_layout(C, vec):
+    """(cols, lanes, slots) as the launcher's `apply_layout` computes them,
+    its statements evaluated in Python."""
+    body = re.search(r"inline ApplyLayout apply_layout\(int C, int vec\) "
+                     r"\{(.*?)\n\}", SOURCE, re.S)[1]
+    env = dict(C=C, vec=vec, kApplyThreads=_const("kApplyThreads"))
+    for name, expr in re.findall(r"const int (\w+) = ([^;]+);", body):
+        env[name] = eval(expr.replace("/", "//"), {}, env)
+    return env["cols"], env["lanes"], env["slots"]
+
+
+def _apply_cover(geo, rows, L):
+    """How often gn_apply's grid, as the kernel walks it, reaches each
+    (row, vector) of a sample, and the most vectors one thread takes."""
+    count = np.zeros((rows, L), dtype=np.int64)
+    most = 0
+    for chunk in range(geo.chunks):
+        first = chunk * geo.rows_per_block
+        end = min(rows, first + geo.rows_per_block)
+        for col in range(geo.cols):
+            for tid in range(geo.threads):
+                vector = col * geo.lanes + tid % geo.lanes
+                if vector >= L:
+                    continue
+                mine = range(first + tid // geo.lanes, end, geo.slots)
+                count[mine.start:end:geo.slots, vector] += 1
+                most = max(most, len(mine))
+    return count, most
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_geometry_covers_every_vector_once_as_the_launcher_lays_it_out(
+        dtype):
+    """gn_apply (K4b) at chip_smoke.py's `SPLIT_SHAPES` and at every
+    GroupNorm of the default model on a rank's half of the rows, B=32:
+    the launcher's `apply_layout` (read from the source) puts the threads
+    where `apply_geometry` says, the grid (chunks, cols, B) reaches every
+    (row, vector) of a sample exactly once, no thread takes more than
+    `vectors_per_thread` vectors, and each takes at least one full batch
+    of loads where half the sample's rows allow, and no more passes than
+    keep the grid within `_APPLY_BLOCKS` blocks."""
+    from unet_tpu_torch.utils.ab_trees import shape_lists
+    root = Path(port_gn.__file__).resolve().parents[3]
+    split = [tuple(s) for s in shape_lists(str(root / "chip_smoke.py"))[
+        "SPLIT_SHAPES"]]
+    assert (32, 32, 64, 64) in split
+    cases = set(split) | {(32, H // 2, W, C) for H, W, C in SHAPES}
+    assert port_gn._APPLY_THREADS == _const("kApplyThreads")
+    assert port_gn._APPLY_UNROLL == _const("kApplyUnroll")
+    for B, H, W, C in sorted(cases):
+        geo = port_gn.apply_geometry(B, H, W, C, dtype)
+        vec = port_gn.vec_width(C, dtype.itemsize)
+        what = (B, H, W, C, dtype, geo)
+        assert (geo.cols, geo.lanes, geo.slots) == _source_apply_layout(
+            C, vec), what
+        assert geo.threads == geo.lanes * geo.slots <= 256, what
+        rows, L = H * W, C // vec
+        assert geo.chunks == -(-rows // geo.rows_per_block), what
+        count, most = _apply_cover(geo, rows, L)
+        assert (count == 1).all(), what
+        assert most == geo.vectors_per_thread, what
+        passes, per = -(-rows // geo.slots), geo.vectors_per_thread
+        half = -(-passes // 2)  # two runs a sample at least
+        assert geo.rows_per_block == per * geo.slots, what
+        assert min(half, port_gn._APPLY_UNROLL) <= per <= half, what
+        assert B * geo.cols * geo.chunks <= port_gn._APPLY_BLOCKS \
+            or per == min(half, port_gn._APPLY_UNROLL) \
+            or 2 * B * geo.cols > port_gn._APPLY_BLOCKS, what
+        if per > port_gn._APPLY_UNROLL:
+            assert B * geo.cols * -(-passes // (per - 1)) \
+                > port_gn._APPLY_BLOCKS, what
+    bf16 = port_gn.apply_geometry(32, 32, 64, 64, torch.bfloat16)
+    f32 = port_gn.apply_geometry(32, 32, 64, 64, torch.float32)
+    assert (bf16.vectors_per_thread, f32.vectors_per_thread) == (8, 16)

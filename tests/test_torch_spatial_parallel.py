@@ -157,8 +157,9 @@ def test_split_kernels_take_every_group_norm_of_the_default_model(n):
     (`split_geometry`, which the launchers check) whose blocks cover the
     rank's rows exactly, in a cluster of a power of two up to 16, with
     shared memory within the card, and at least two blocks a sample at
-    (32, 32, 64, 64); gn_apply and gn_bwd_dx fit their shared memory (the
-    launchers refuse what does not)."""
+    (32, 32, 64, 64); gn_apply gets its streaming cut (`apply_geometry`)
+    and gn_bwd_dx fits its shared memory (the launchers refuse what does
+    not)."""
     cfg = UnetConfig()
     plan, res, shapes = port_unet.build_plan(cfg), cfg.image_size, set()
     for group in plan.input_blocks + (plan.middle,) + plan.output_blocks:
@@ -186,9 +187,9 @@ def test_split_kernels_take_every_group_norm_of_the_default_model(n):
                 assert rows <= geo.cluster * geo.rows_per_block, what
                 if (h, H, C) == (32, 64, 64):
                     assert B * geo.cluster >= 2 * B, what
-        for kernel in ("apply", "dx"):
-            smem = port_gn._split_smem(kernel, C, G)
-            assert 0 < smem <= port_gn._SPLIT_SMEM, (h, C, kernel)
+            apply = port_gn.apply_geometry(B, h, H, C, dtype)
+            assert 0 < apply.threads <= port_gn._APPLY_THREADS, (h, C, apply)
+        assert 0 < port_gn._dx_smem(C, G) <= port_gn._SPLIT_SMEM, (h, C)
 
 
 @pytest.fixture(scope="module")

@@ -1,14 +1,17 @@
-"""The arithmetic of the float32 attention kernels, emulated on the CPU.
+"""The arithmetic of the float32 attention kernels and of the float32
+convolution, emulated on the CPU.
 
 csrc/attention.cu computes every float32 product of K1 and K2 on the TF32
-tensor cores as three products (3xTF32): each operand x is split into
+tensor cores as three products (3xTF32), and csrc/conv3x3.cu those of K7's
+"tf32" route: each operand x is split into
 hi = tf32(x) and lo = tf32(x - hi), rounded to nearest with ties away from
 zero as `cvt.rna.tf32.f32` rounds, and a b is taken as a_hi b_lo + a_lo b_hi
 + a_hi b_hi (common.cuh: `cvt_tf32`, `split_tf32`, `mma_3xtf32`).  Here
 that arithmetic is written out in PyTorch (the rounding by bit arithmetic,
 the products exact in float32 and summed in float32) and the attention
 forward and backward are built from it at the kernels' rounding points.
-They are held against the plain versions, the kernels' float32 reference,
+So is the convolution, stage by stage as the kernel sums it.  They are
+held against the plain versions, the kernels' float32 reference,
 at the repo's float32 bar (2e-5 absolute, chip_smoke.py `F32_TOL`): three
 products keep it, one TF32 product does not, so the bar decides between
 the two.  Nothing on the port's path uses this emulation; the kernels
@@ -24,11 +27,15 @@ import numpy as np
 import pytest
 import torch
 
+import torch.nn.functional as F
+
 from unet_tpu_torch.ops.kernels.attention import (qkv_attention_bwd_plain,
                                                    qkv_attention_plain)
+from unet_tpu_torch.ops.kernels.conv3x3 import conv3x3_hwbc_plain
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 F32_ATOL = 2e-5
+CONV_STAGE = 32  # channels of one stage of the "tf32" convolution (TF_BK)
 
 
 def tf32(x):
@@ -159,3 +166,57 @@ def test_float32_launches_only_the_tf32_kernels():
                                       for k in _launches(f32))
     assert port_attn.route(torch.float32) == "3xtf32"
     assert port_attn.route(torch.bfloat16) == "bf16"
+
+
+def conv3x3_stages(x, w, b, mm):
+    """The convolution of x (H, W, B, C) with w (3, 3, C, O) plus b at the
+    "tf32" kernel's rounding points: the accumulator starts at the bias;
+    for each tap, then each stage of CONV_STAGE channels, the stage's
+    products are summed apart (`mm` of the shifted rows and the weights'
+    rows) and that partial is added to the accumulator in float32."""
+    H, W, B, C = x.shape
+    xp = F.pad(x, (0, 0, 0, 0, 1, 1, 1, 1))  # one zero pixel around H, W
+    acc = b.float().expand(H * W * B, w.shape[3]).clone()
+    for tap in range(9):
+        dy, dx = divmod(tap, 3)
+        rows = xp[dy:dy + H, dx:dx + W].reshape(-1, C)
+        for c0 in range(0, C, CONV_STAGE):
+            acc = acc + mm(rows[:, c0:c0 + CONV_STAGE],
+                           w[dy, dx, c0:c0 + CONV_STAGE])
+    return acc.reshape(H, W, B, -1)
+
+
+@pytest.mark.parametrize("C", [192, 320])
+def test_three_tf32_products_keep_the_float32_bar_in_the_convolution(C):
+    """At the widest inputs of the U-Net's convolutions (C = 192 at 64x64,
+    320 at 32x32; K = 9C products an output) the stage partials in 3xTF32
+    stay within the bar of the float64 plain version, one TF32 product a
+    term does not."""
+    rng = np.random.default_rng(11)
+    H, W, B, O = 4, 4, 2, 8
+    x = torch.from_numpy(rng.standard_normal((H, W, B, C), np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3, C, O), np.float32)
+                         * np.float32(0.05))
+    b = torch.from_numpy(rng.standard_normal(O, np.float32))
+    want = conv3x3_hwbc_plain(x, w, b)
+    three = conv3x3_stages(x, w, b, mm_3xtf32)
+    one = conv3x3_stages(x, w, b, mm_tf32)
+    assert three.shape == one.shape == want.shape
+    torch.testing.assert_close(three, want, atol=F32_ATOL, rtol=0)
+    assert (one - want).abs().max().item() > F32_ATOL
+
+
+def test_the_float32_convolution_uses_the_shared_3xtf32_blocks():
+    """conv3x3.cu's float32 tensor-core kernel splits and multiplies with
+    common.cuh's `split_tf32` and `mma_3xtf32` (no copy of them), in stages
+    of CONV_STAGE channels, and its launcher sends float32 there."""
+    source = (ROOT / "unet_tpu_torch/csrc/conv3x3.cu").read_text()
+    assert '#include "common.cuh"' in source
+    assert not re.search(r"\b(?:void|uint32_t)\s+(?:split_tf32|mma_3xtf32|"
+                         r"mma_tf32|cvt_tf32)\s*\(", source)
+    start = source.index("conv3x3_hwbc_tf32_kernel(")
+    body = source[start:source.index("\n}\n", start)]
+    assert "split_tf32(" in body and "mma_3xtf32(" in body
+    assert re.search(r"constexpr int TF_BK = (\d+);", source)[1] == str(
+        CONV_STAGE)
+    assert "return is_bf16 ? Route::wgmma : Route::tf32;" in source

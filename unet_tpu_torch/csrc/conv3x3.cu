@@ -18,8 +18,10 @@
 // itemsize bytes: at the U-Net's shapes (C 64..320, O 64..128, B = 32) the
 // operations set the bound, 10..40 us on the bf16 tensor cores.
 //
-// Two kernels; the launcher picks one by a plain rule (`use_wgmma`,
-// mirrored by ops/kernels/conv3x3.py::route).
+// Three kernels; the launcher picks one by a plain rule (`route`, mirrored
+// by ops/kernels/conv3x3.py::route): "wgmma" for bfloat16 and "tf32" for
+// float32 where C and O are multiples of 8, "fma" for a ragged C or O in
+// either type.
 //
 // bfloat16 with C and O multiples of 8: conv3x3_hwbc_wgmma_kernel, on the
 // tensor cores with Hopper's warpgroup products.  In the (H, W, B, C)
@@ -44,8 +46,27 @@
 // once, and leave through shared memory as whole 16-byte row pieces.  No
 // split-K and no atomics, so a rerun gives the same bits.
 //
-// float32, and bfloat16 with a ragged C or O (C = 3 at the U-Net's first
-// convolution): conv3x3_hwbc_kernel, the plain implicit GEMM with float32
+// float32 with C and O multiples of 8: conv3x3_hwbc_tf32_kernel, the same
+// implicit GEMM on the TF32 tensor cores in 3xTF32 (common.cuh:
+// `split_tf32`, `mma_3xtf32`; the float32 attention kernels' scheme).  A
+// stage is one tap and 32 channels: the A tile is 128 shifted rows of 128
+// bytes, copied and zero-filled exactly as the bf16 kernel's (the same
+// swizzle, so `ldmatrix` reads the fragments without bank conflicts), and
+// the W tile 32 rows x BN floats, each row padded by 8 floats so that the
+// B fragments' 32-bit reads fall in 32 different banks.  A ring of three
+// stages keeps two stages' copies in flight while one is multiplied.
+// Eight warps a block, 4 x 2, each 32 rows x BN / 2 columns in
+// `mma.sync.m16n8k8` tiles; each operand is split into its TF32 pair hi +
+// lo as its fragment is read, and a b is taken as a_hi b_lo + a_lo b_hi +
+// a_hi b_hi.  The accuracy trap of the float32 sum (below) is worse on
+// the tensor cores, which truncate where IEEE rounds: a stage's products
+// go into a partial sum of their own (12 products a fragment), which is
+// added to the bias-initialised accumulator with a rounded float32 add
+// once the stage is done, stage by stage in one fixed order.  Bound on an
+// H100: the products, at 495 / 3 = 165 TFLOP/s effective.
+//
+// A ragged C or O (C = 3 at the U-Net's first convolution), in either
+// type: conv3x3_hwbc_kernel, the plain implicit GEMM with float32
 // FMAs.  A block computes a BM x BN tile of the output.  For each tap and
 // each chunk of BK input channels it gathers the A tile (BM rows x BK
 // channels, zero-filled at the padding and past C) and the matching W tile
@@ -59,9 +80,9 @@
 // 700 W; PERF.md).  Every output is summed by one thread in one fixed
 // order (bias, then tap by tap, channel by channel), with no atomics.
 //
-// Both take any H, W, B: rows past M are masked, and offsets are 64-bit
+// All three take any H, W, B: rows past M are masked, and offsets are 64-bit
 // (the U-Net's largest input is 42 M elements and M*C*9 exceeds 2^31
-// elsewhere).  The card's times of both are in PERF.md.
+// elsewhere).  The card's times of each are in PERF.md.
 
 #include <stdint.h>
 
@@ -433,10 +454,207 @@ conv3x3_hwbc_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w
     }
 }
 
-// Before a tensor-core kernel's first launch on a device: allow it the
-// dynamic shared memory its ring needs (beyond the default 48 KB).
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores, in 3xTF32.
+
+constexpr int TF_BM = 128;         // output rows per block
+constexpr int TF_THREADS = 256;    // eight warps: 4 along the rows x 2 along the columns
+constexpr int TF_BK = 32;          // input channels per stage: one 128-byte row
+constexpr int TF_STAGES = 3;       // slots in the cp.async ring
+constexpr int TF_AHEAD = TF_STAGES - 1;  // stages copied ahead of the one multiplied
+constexpr int TF_A_BYTES = TF_BM * TF_BK * 4;  // one A slot
+
+// A W slot's row: BN floats and 8 of padding (a row is 8 banks past a
+// multiple of 32), so that a B fragment's reads (lane 4g + t: rows t and
+// t + 4, column g) fall in banks 8t + g.  The output tile goes through
+// shared memory in rows of the same width.
+template <int BN> __host__ __device__ constexpr int tf_row() { return BN + 8; }
+
+// Dynamic shared memory of one block: the ring of A and W slots.
+template <int BN> __host__ __device__ constexpr size_t tf_smem_bytes() {
+    return (size_t)TF_STAGES * (TF_A_BYTES + TF_BK * tf_row<BN>() * 4);
+}
+
 template <int BN>
-cudaError_t prepare_wgmma() {
+__global__ void __launch_bounds__(TF_THREADS, BN == 64 ? 2 : 1)
+conv3x3_hwbc_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         const float* __restrict__ bias, float* __restrict__ out, int H, int W,
+                         int B, int C, int O) {
+    constexpr int LDW = tf_row<BN>();
+    constexpr int W_BYTES = TF_BK * LDW * 4;
+    constexpr int WN = BN / 2;  // a warp's columns
+    constexpr int NJ = WN / 8;  // its n-tiles
+    static_assert((size_t)TF_BM * LDW * 4 <= tf_smem_bytes<BN>(), "output tile");
+    extern __shared__ __align__(128) unsigned char tf_smem[];
+    unsigned char* a_ring = tf_smem;                         // slot s at s * TF_A_BYTES
+    unsigned char* w_ring = tf_smem + TF_STAGES * TF_A_BYTES;  // slot s at s * W_BYTES
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wm = warp >> 1, wn = warp & 1;  // rows 32 wm .., columns WN wn ..
+    const int g = lane >> 2, t = lane & 3;
+    const int64_t M = (int64_t)H * W * B;
+    const int64_t m0 = (int64_t)blockIdx.x * TF_BM;
+    const int n0 = blockIdx.y * BN;
+
+    // This thread's share of an A stage, as in the bf16 kernel: 16-byte
+    // piece `ac` (channels 4 ac .. 4 ac + 3 of the stage) of rows ar +
+    // A_STEP i, with the 9-bit mask of the taps whose pixel lies in the
+    // image (none for a row past M).
+    constexpr int A_STEP = TF_THREADS / 8, A_ITERS = TF_BM / A_STEP;
+    const int ac = tid & 7, ar = tid >> 3;
+    const float* x_row = x + (m0 + ar) * C + ac * 4;
+    uint32_t taps_ok[A_ITERS];
+#pragma unroll
+    for (int i = 0; i < A_ITERS; ++i) {
+        const int64_t m = m0 + ar + A_STEP * i;
+        uint32_t ok = 0;
+        if (m < M) {
+            const int64_t p = m / B;
+            const int wq = (int)(p % W), hq = (int)(p / W);
+#pragma unroll
+            for (int tap = 0; tap < 9; ++tap) {
+                const int h = hq + tap / 3 - 1, wp = wq + tap % 3 - 1;
+                if (h >= 0 && h < H && wp >= 0 && wp < W) ok |= 1u << tap;
+            }
+        }
+        taps_ok[i] = ok;
+    }
+    // ... and of a W stage (TF_BK rows of the (9C, O) matrix x BN columns):
+    // piece `wc` (4 columns) of rows wr + W_STEP j.
+    constexpr int W_PIECES = BN / 4, W_STEP = TF_THREADS / W_PIECES, W_ITERS = TF_BK / W_STEP;
+    static_assert(TF_BM % A_STEP == 0 && TF_BK % W_STEP == 0, "staging shapes");
+    const int wc = tid % W_PIECES, wr = tid / W_PIECES;
+    const bool w_col_ok = n0 + wc * 4 < O;
+    const float* w_row = w + (int64_t)wr * O + n0 + wc * 4;
+
+    const int chunks = (C + TF_BK - 1) / TF_BK;
+    const int kiters = 9 * chunks;  // tap-major: tap, then chunk of TF_BK channels
+
+    // Issues the copies of stage `kit` into ring slot `slot`: for tap (dy,
+    // dx) the A tile is TF_BM contiguous rows of x shifted by (dy W + dx) B
+    // rows, zero where the pixel leaves the image or the channel passes C,
+    // in the swizzled layout; the W tile is rows tap C + c0 .. of the (9C,
+    // O) matrix, zero past C and past O, in padded rows.
+    auto load_stage = [&](int slot, int kit) {
+        const int tap = kit / chunks, c0 = (kit - tap * chunks) * TF_BK;
+        const float* xa = x_row + ((int64_t)(tap / 3 - 1) * W + (tap % 3 - 1)) * B * C + c0;
+        const bool c_ok = c0 + ac * 4 < C;
+        unsigned char* a = a_ring + slot * TF_A_BYTES;
+#pragma unroll
+        for (int i = 0; i < A_ITERS; ++i) {
+            const bool valid = c_ok && ((taps_ok[i] >> tap) & 1u);
+            cp_async16(a + swizzled(ar + A_STEP * i, ac),
+                       valid ? xa + (int64_t)A_STEP * i * C : x, valid);
+        }
+        const float* wa = w_row + ((int64_t)tap * C + c0) * O;
+        unsigned char* wt = w_ring + slot * W_BYTES;
+#pragma unroll
+        for (int j = 0; j < W_ITERS; ++j) {
+            const int k = wr + j * W_STEP;
+            const bool valid = w_col_ok && c0 + k < C;
+            cp_async16(wt + (k * LDW + wc * 4) * 4, valid ? wa + (int64_t)j * W_STEP * O : w,
+                       valid);
+        }
+    };
+
+    // The warp's 32 x WN accumulator starts at the bias: m-tile i, n-tile j,
+    // lane 4g + t holds rows 32 wm + 16 i + g and + 8, columns WN wn + 8 j +
+    // 2t and + 1.
+    float acc[2][NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+        const int col = n0 + WN * wn + 8 * j + 2 * t;
+        const float b0 = col < O ? bias[col] : 0.f, b1 = col + 1 < O ? bias[col + 1] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+            acc[i][j][0] = acc[i][j][2] = b0;
+            acc[i][j][1] = acc[i][j][3] = b1;
+        }
+    }
+
+    // A warp whose rows all lie past M, or whose columns all lie past O
+    // (a small or ragged call), copies its share but multiplies nothing.
+    const bool busy = m0 + 32 * wm < M && n0 + WN * wn < O;
+#pragma unroll
+    for (int s = 0; s < TF_AHEAD; ++s) {
+        if (s < kiters) load_stage(s, s);
+        cp_async_commit();
+    }
+    for (int kit = 0; kit < kiters; ++kit) {
+        // Stage kit has landed; after the barrier every warp is also done
+        // with stage kit - 1, whose slot the next copies refill.
+        cp_async_wait<TF_AHEAD - 1>();
+        __syncthreads();
+        const int next = kit + TF_AHEAD;
+        if (next < kiters) load_stage(next % TF_STAGES, next);
+        cp_async_commit();
+
+        if (!busy) continue;  // nothing of this warp's tile is in the output
+        const int slot = kit % TF_STAGES;
+        const unsigned char* a = a_ring + slot * TF_A_BYTES;
+        const float* ws = reinterpret_cast<const float*>(w_ring + slot * W_BYTES) + WN * wn + g;
+        float part[2][NJ][4] = {};
+#pragma unroll
+        for (int ks = 0; ks < TF_BK / 8; ++ks) {
+            // A: one `ldmatrix.x4` an m-tile (lane l: row l % 8 + 8 (l / 8 %
+            // 2), piece 2 ks + l / 16; on rows of floats it hands lane 4g + t
+            // the float at column t of row g of each 8 x 4 matrix).
+            uint32_t ah[2][4], al[2][4];
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+                uint32_t f[4];
+                ldsm_x4(f, a + swizzled(32 * wm + 16 * i + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                        2 * ks + (lane >> 4)));
+#pragma unroll
+                for (int e = 0; e < 4; ++e) split_tf32(__uint_as_float(f[e]), ah[i][e], al[i][e]);
+            }
+#pragma unroll
+            for (int j = 0; j < NJ; ++j) {
+                const float* wb = ws + (8 * ks + t) * LDW + 8 * j;
+                uint32_t bh[2], bl[2];
+                split_tf32(wb[0], bh[0], bl[0]);
+                split_tf32(wb[4 * LDW], bh[1], bl[1]);
+#pragma unroll
+                for (int i = 0; i < 2; ++i) mma_3xtf32(part[i][j], ah[i], al[i], bh, bl);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+    }
+    cp_async_wait<0>();  // no copy outlives the block (the last groups are empty)
+    __syncthreads();     // every warp is done with the ring, which now holds the output
+
+    // The output tile through shared memory, so that every store to device
+    // memory is a whole 16-byte piece of a row.
+    float (*o_s)[LDW] = reinterpret_cast<float (*)[LDW]>(tf_smem);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            const int r = 32 * wm + 16 * i + g + 8 * h;
+#pragma unroll
+            for (int j = 0; j < NJ; ++j)
+                *reinterpret_cast<float2*>(&o_s[r][WN * wn + 8 * j + 2 * t]) =
+                    make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        }
+    __syncthreads();
+    for (int e = tid; e < TF_BM * (BN / 4); e += TF_THREADS) {
+        const int r = e / (BN / 4), c = e % (BN / 4) * 4;
+        const int64_t m = m0 + r;
+        if (m < M && n0 + c < O)  // O % 8 == 0: the whole piece
+            *reinterpret_cast<float4*>(out + m * O + n0 + c) =
+                *reinterpret_cast<const float4*>(&o_s[r][c]);
+    }
+}
+
+// Before a ring kernel's first launch on a device: allow it the dynamic
+// shared memory its ring needs (beyond the default 48 KB).
+template <int BN, bool TF32>
+cudaError_t prepare_ring() {
     static std::mutex mutex;
     static std::set<int> prepared;
     int device = 0;
@@ -444,9 +662,12 @@ cudaError_t prepare_wgmma() {
     if (err != cudaSuccess) return err;
     std::lock_guard<std::mutex> lock(mutex);
     if (!prepared.count(device)) {
-        err = cudaFuncSetAttribute(conv3x3_hwbc_wgmma_kernel<BN>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)wg_smem_bytes<BN>());
+        err = TF32 ? cudaFuncSetAttribute(conv3x3_hwbc_tf32_kernel<BN>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)tf_smem_bytes<BN>())
+                   : cudaFuncSetAttribute(conv3x3_hwbc_wgmma_kernel<BN>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)wg_smem_bytes<BN>());
         if (err != cudaSuccess) return err;
         prepared.insert(device);
     }
@@ -459,7 +680,7 @@ int launch_wgmma(const void* x, const void* w, const float* bias, void* out, int
     const int64_t blocks_m = (M + WG_BM - 1) / WG_BM;
     const int blocks_n = (O + BN - 1) / BN;
     if (blocks_m > INT32_MAX || blocks_n > 65535) return (int)cudaErrorInvalidValue;
-    const cudaError_t err = prepare_wgmma<BN>();
+    const cudaError_t err = prepare_ring<BN, false>();
     if (err != cudaSuccess) return (int)err;
     conv3x3_hwbc_wgmma_kernel<BN><<<dim3((unsigned)blocks_m, blocks_n), WG_THREADS,
                                     wg_smem_bytes<BN>(), stream>>>(
@@ -468,28 +689,54 @@ int launch_wgmma(const void* x, const void* w, const float* bias, void* out, int
     return (int)cudaGetLastError();
 }
 
+template <int BN>
+int launch_tf32(const void* x, const void* w, const float* bias, void* out, int H, int W, int B,
+                int C, int O, int64_t M, cudaStream_t stream) {
+    const int64_t blocks_m = (M + TF_BM - 1) / TF_BM;
+    const int blocks_n = (O + BN - 1) / BN;
+    if (blocks_m > INT32_MAX || blocks_n > 65535) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = prepare_ring<BN, true>();
+    if (err != cudaSuccess) return (int)err;
+    conv3x3_hwbc_tf32_kernel<BN><<<dim3((unsigned)blocks_m, blocks_n), TF_THREADS,
+                                   tf_smem_bytes<BN>(), stream>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), bias,
+        static_cast<float*>(out), H, W, B, C, O);
+    return (int)cudaGetLastError();
+}
+
 // Which kernel a call goes to (ops/kernels/conv3x3.py::route mirrors it):
-// the tensor-core kernel takes bfloat16 with C and O multiples of 8, so
-// that every A and W row is whole 16-byte pieces for cp.async; float32
-// (whose 2e-5 bar bf16 products cannot meet) and a ragged C or O go to the
-// FMA kernel.
-bool use_wgmma(int is_bf16, int C, int O) { return is_bf16 && C % 8 == 0 && O % 8 == 0; }
+// the tensor-core kernels take C and O multiples of 8, so that every A and
+// W row is whole 16-byte pieces for cp.async; bfloat16 goes to `wgmma`,
+// float32 to 3xTF32 (whose products keep the 2e-5 bar, which bf16 products
+// cannot); a ragged C or O goes to the FMA kernel.
+enum class Route { fma, wgmma, tf32 };
+
+Route route(int is_bf16, int C, int O) {
+    if (C % 8 != 0 || O % 8 != 0) return Route::fma;
+    return is_bf16 ? Route::wgmma : Route::tf32;
+}
 
 }  // namespace
 
 // x: (H, W, B, C) contiguous; w: (3, 3, C, O) contiguous, of x's type;
 // bias: (O,) float32; out: (H, W, B, O) contiguous, of x's type; on the
-// tensor-core route (`use_wgmma`) x, w and out 16-byte aligned.  H*W*B / 128
-// blocks at most 2^31 - 1, O / 64 at most 65535.  Returns the CUDA error code
-// of the launch (0 = success).
+// tensor-core routes ("wgmma", "tf32") x, w and out 16-byte aligned.
+// H*W*B / 128 blocks at most 2^31 - 1, O / 64 at most 65535.  Returns the
+// CUDA error code of the launch (0 = success).
 extern "C" int unet_conv3x3_hwbc(const void* x, const void* w, const float* bias, void* out,
                                  int H, int W, int B, int C, int O, int is_bf16,
                                  cudaStream_t stream) {
     if (H <= 0 || W <= 0 || B <= 0 || C <= 0 || O <= 0) return (int)cudaErrorInvalidValue;
     const int64_t M = (int64_t)H * W * B;
-    if (use_wgmma(is_bf16, C, O)) {
-        return O > 64 ? launch_wgmma<128>(x, w, bias, out, H, W, B, C, O, M, stream)
-                      : launch_wgmma<64>(x, w, bias, out, H, W, B, C, O, M, stream);
+    switch (route(is_bf16, C, O)) {
+        case Route::wgmma:
+            return O > 64 ? launch_wgmma<128>(x, w, bias, out, H, W, B, C, O, M, stream)
+                          : launch_wgmma<64>(x, w, bias, out, H, W, B, C, O, M, stream);
+        case Route::tf32:
+            return O > 64 ? launch_tf32<128>(x, w, bias, out, H, W, B, C, O, M, stream)
+                          : launch_tf32<64>(x, w, bias, out, H, W, B, C, O, M, stream);
+        case Route::fma:
+            break;
     }
     const int64_t blocks_m = (M + BM - 1) / BM;
     const int blocks_n = (O + BN - 1) / BN;

@@ -1068,14 +1068,24 @@ extern "C" int unet_gn_act_bwd(const void* x, const void* gamma, const void* bet
 // forms the column sums of dz xhat and dz, and reduce-scatters the
 // cluster's 2C partials: block j adds channel slice j of every block's, in
 // rank order.  In a cluster of one block neither exchanges anything.
-// gn_apply and gn_bwd_dx are elementwise over a grid of (chunks, B), each
-// block working out its sample's per-group constants at its start in a
-// fixed order.  No atomics, so a rerun gives the same bits.
+// gn_apply streams the rows: block (chunk, col, b) takes a contiguous run
+// of rows of sample b (the wrapper's `apply_geometry` sizes the runs so
+// that the grid is about one wave on the card), and each of its threads
+// one fixed vector of channels in every slots-th row of the run, so the
+// thread works out the mean, gamma * rstd and beta of its channels once,
+// into registers: it merges the ranks' statistics of its channels' groups
+// itself, in rank order, after its first kApplyUnroll loads of x are on
+// their way.  Each element then costs a subtract, an FMA and the SiLU.
+// gn_bwd_dx is elementwise over a grid of (chunks, B), each block working
+// out its sample's per-group constants at its start in a fixed order.  No
+// atomics, so a rerun gives the same bits.
 
 namespace {
 
-constexpr int kElemThreads = 256;   // gn_apply, gn_bwd_dx
+constexpr int kElemThreads = 256;   // gn_bwd_dx
 constexpr int kElemBlocks = 8 * 132;  // about 8 blocks an SM in all
+constexpr int kApplyThreads = 256;  // gn_apply: at most this many threads a block
+constexpr int kApplyUnroll = 4;     // loads of x a thread has in flight
 constexpr size_t kSplitSmem = 48 * 1024;
 
 // f(T*, integral_constant<V>) for the storage type and the vector width:
@@ -1099,52 +1109,193 @@ cudaError_t with_type_vec(int is_bf16, int vec, F f) {
     return cudaErrorInvalidValue;
 }
 
+// Where gn_apply's threads sit: a row's C / vec vectors are cut into `cols`
+// column blocks of `lanes` vectors (the last may have fewer), and lanes *
+// slots of a block's kApplyThreads threads take `slots` rows of one column
+// block at a time (ops/kernels/groupnorm.py::apply_geometry mirrors it).
+struct ApplyLayout {
+    int cols, lanes, slots;
+};
+
+inline ApplyLayout apply_layout(int C, int vec) {
+    const int L = C / vec;
+    const int cols = (L + kApplyThreads - 1) / kApplyThreads;
+    const int lanes = (L + cols - 1) / cols;
+    const int slots = kApplyThreads / lanes;
+    return {cols, lanes, slots};
+}
+
+// gn_apply holds a vector of V elements of T as its 32-bit words (a vector
+// struct assigned under a condition went to local memory).  x's words are
+// read once: past L1 (`ld.global.nc.L1::no_allocate`).
+template <typename T, int V> constexpr int kWords = (int)sizeof(T) * V / 4;
+
+template <int N>
+__device__ __forceinline__ void load_words_once(const void* p, uint32_t (&w)[N]) {
+    if constexpr (N == 4) {
+        asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+            : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+            : "l"(p));
+    } else if constexpr (N == 2) {
+        asm("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];\n"
+            : "=r"(w[0]), "=r"(w[1])
+            : "l"(p));
+    } else {
+        asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n" : "=r"(w[0]) : "l"(p));
+    }
+}
+
+template <int N>
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[N]) {
+    if constexpr (N == 4) {
+        *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (N == 2) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+        *reinterpret_cast<uint32_t*>(p) = w[0];
+    }
+}
+
+// The V elements of T held in w, as floats (a bfloat16 is the high half
+// of its float); and V floats rounded to T (to nearest), as words.
 template <typename T, int V>
-__global__ void __launch_bounds__(kElemThreads)
+__device__ __forceinline__ float word_element(const uint32_t (&w)[kWords<T, V>], int k) {
+    if constexpr (std::is_same<T, float>::value) {
+        return __uint_as_float(w[k]);
+    } else {
+        return __uint_as_float(k & 1 ? w[k >> 1] & 0xffff0000u : w[k >> 1] << 16);
+    }
+}
+
+// A float or a bfloat16 from its bits.
+__device__ __forceinline__ float bits_to_float(uint32_t b) { return __uint_as_float(b); }
+__device__ __forceinline__ float bits_to_float(unsigned short b) {
+    return __uint_as_float((uint32_t)b << 16);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void to_words(const float (&z)[V], uint32_t (&w)[kWords<T, V>]) {
+#pragma unroll
+    for (int j = 0; j < kWords<T, V>; ++j) {
+        if constexpr (std::is_same<T, float>::value) {
+            w[j] = __float_as_uint(z[j]);
+        } else {
+            w[j] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(z[2 * j])) |
+                   (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(z[2 * j + 1])) << 16;
+        }
+    }
+}
+
+// Block (chunk, col, b) of kApplyThreads threads: rows [chunk *
+// rows_per_block, ...) of sample b, vectors [col * lanes, ...) of each row.
+// Thread tid < lanes * slots takes vector col * lanes + tid % lanes of rows
+// first + tid / lanes, + slots, + 2 slots, ...; the others only help merge.
+template <typename T, int V>
+__global__ void __launch_bounds__(kApplyThreads, 1)  // ptxas spilled at V = 2 without the 1
     gn_apply_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
                     const T* __restrict__ beta, const float* __restrict__ stats,
                     T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ rstd_out,
-                    int N, int HW, int C, int G, float eps, int act_silu) {
-    extern __shared__ __align__(16) float fsm[];  // 2G: mean, rstd
-    const int b = blockIdx.y, B = gridDim.y, cg = C / G;
-    const float n = (float)HW * (float)cg;  // each rank's count
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-        const float* s = stats + ((size_t)b * G + g) * 2;
-        float mean = s[0], m2 = s[1];
-        for (int i = 1; i < N; ++i) {
-            s = stats + (((size_t)i * B + b) * G + g) * 2;
-            const float na = n * (float)i, tot = na + n;
-            const float d = s[0] - mean;
-            mean = mean + d * (n / tot);
-            m2 = m2 + s[1] + d * d * (na * n / tot);
-        }
-        const float rstd = rsqrtf(m2 / (n * (float)N) + eps);
-        fsm[g] = mean;
-        fsm[G + g] = rstd;
-        if (blockIdx.x == 0) {
-            mean_out[(size_t)b * G + g] = mean;
-            rstd_out[(size_t)b * G + g] = rstd;
-        }
+                    int N, int HW, int C, int G, int lanes, int rows_per_block, float eps,
+                    int act_silu) {
+    const int b = blockIdx.z, B = gridDim.z, cg = C / G, lane = threadIdx.x & 31;
+    const int slots = kApplyThreads / lanes;
+    const int c0 = (blockIdx.y * lanes + threadIdx.x % lanes) * V;
+    const int first = blockIdx.x * rows_per_block;
+    const int end = min(HW, first + rows_per_block);
+    int r = first + threadIdx.x / lanes;
+    const bool busy = threadIdx.x < lanes * slots && c0 < C && r < end;
+    const T* xb = x + (size_t)b * HW * C + c0;
+    T* yb = y + (size_t)b * HW * C + c0;
+
+    // The first loads of x, gamma and beta go out before anything else
+    // (gamma and beta as raw bits, at a channel inside the row for the
+    // threads past it).
+    constexpr int NW = kWords<T, V>;
+    uint32_t v[kApplyUnroll][NW];
+    if (busy) {
+#pragma unroll
+        for (int u = 0; u < kApplyUnroll; ++u)
+            if (r + u * slots < end) load_words_once(xb + (size_t)(r + u * slots) * C, v[u]);
     }
-    __syncthreads();
-    const int L = C / V;
-    const size_t total = (size_t)HW * L, base = (size_t)b * HW * C;
-    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-         i += (size_t)gridDim.x * blockDim.x) {
-        const int c0 = (int)(i % L) * V;
-        const size_t at = base + (i / L) * C + c0;
-        float v[V];
-        load_floats<T, V>(x + at, v);
-        Vec<T, V> o;
+    using Bits = std::conditional_t<sizeof(T) == 4, uint32_t, unsigned short>;
+    const int cc = min(c0, C - V);
+    Bits gamma_bits[V], beta_bits[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        gamma_bits[k] = reinterpret_cast<const Bits*>(gamma)[cc + k];
+        beta_bits[k] = reinterpret_cast<const Bits*>(beta)[cc + k];
+    }
+
+    // Then the statistics: lane i of every warp merges the ranks' (mean,
+    // M2) of groups i, i + 32, ... in rank order (the same formula and
+    // order in every warp and on every rank, so the same bits), and each
+    // thread takes its channels' mean and rstd from those lanes by
+    // shuffles.  Warp 0 of the sample's first block writes them.
+    const float n = (float)HW * (float)cg;  // each rank's count
+    float mu[V], rs[V];
+    for (int q = 0; q < G; q += 32) {
+        const int g = q + lane;
+        float mean = 0.f, rstd = 0.f;
+        if (g < G) {
+            const float* s = stats + ((size_t)b * G + g) * 2;
+            float m2 = s[1];
+            mean = s[0];
+            for (int i = 1; i < N; ++i) {
+                s = stats + (((size_t)i * B + b) * G + g) * 2;
+                const float na = n * (float)i, tot = na + n;
+                const float d = s[0] - mean;
+                mean = mean + d * (n / tot);
+                m2 = m2 + s[1] + d * d * (na * n / tot);
+            }
+            rstd = rsqrtf(m2 / (n * (float)N) + eps);
+            if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x < 32) {
+                mean_out[(size_t)b * G + g] = mean;
+                rstd_out[(size_t)b * G + g] = rstd;
+            }
+        }
 #pragma unroll
         for (int k = 0; k < V; ++k) {
-            const int g = (c0 + k) / cg;
-            const float scale = to_float<T>(gamma[c0 + k]) * fsm[G + g];
-            float z = (v[k] - fsm[g]) * scale + to_float<T>(beta[c0 + k]);
-            if (act_silu) z *= sigmoid(z);
-            o.v[k] = from_float<T>(z);
+            const int gk = (c0 + k) / cg - q;
+            const float m = __shfl_sync(0xffffffffu, mean, gk & 31);
+            const float rr = __shfl_sync(0xffffffffu, rstd, gk & 31);
+            if (gk >= 0 && gk < 32) {
+                mu[k] = m;
+                rs[k] = rr;
+            }
         }
-        *reinterpret_cast<Vec<T, V>*>(y + at) = o;
+    }
+    if (!busy) return;
+    float scale[V], shift[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+        scale[k] = bits_to_float(gamma_bits[k]) * rs[k];
+        shift[k] = bits_to_float(beta_bits[k]);
+    }
+
+    // Then the rows, kApplyUnroll of them at a time, the next ones' loads
+    // issued before this batch is written.
+    for (;;) {
+        uint32_t o[kApplyUnroll][NW];
+#pragma unroll
+        for (int u = 0; u < kApplyUnroll; ++u) {
+            float z[V];
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+                z[k] = (word_element<T, V>(v[u], k) - mu[k]) * scale[k] + shift[k];
+                if (act_silu) z[k] *= sigmoid(z[k]);
+            }
+            to_words<T, V>(z, o[u]);
+        }
+        const int next = r + kApplyUnroll * slots;
+#pragma unroll
+        for (int u = 0; u < kApplyUnroll; ++u)
+            if (next + u * slots < end)
+                load_words_once(xb + (size_t)(next + u * slots) * C, v[u]);
+#pragma unroll
+        for (int u = 0; u < kApplyUnroll; ++u)
+            if (r + u * slots < end) store_words(yb + (size_t)(r + u * slots) * C, o[u]);
+        r = next;
+        if (r >= end) break;
     }
 }
 
@@ -1208,17 +1359,17 @@ __global__ void __launch_bounds__(kElemThreads)
     }
 }
 
-// Bytes of dynamic shared memory of a block of gn_apply or (dx) gn_bwd_dx
-// (ops/kernels/groupnorm.py::_split_smem counts the same), 0 for a call the
-// kernels do not take.
-inline size_t split_smem(int dx, int B, int HW, int C, int G, int vec) {
+// Bytes of dynamic shared memory of a block of gn_bwd_dx
+// (ops/kernels/groupnorm.py::_dx_smem counts the same), 0 for a call the
+// kernel does not take.
+inline size_t dx_smem(int B, int HW, int C, int G, int vec) {
     if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || vec < 2) return 0;
-    const size_t bytes = 4 * (dx ? 2 * (size_t)C + 4 * (size_t)G : 2 * (size_t)G);
+    const size_t bytes = 4 * (2 * (size_t)C + 4 * (size_t)G);
     return bytes <= kSplitSmem ? bytes : 0;
 }
 
-// The elementwise kernels' blocks for each sample: enough to cover its
-// vectors, about kElemBlocks in all.
+// gn_bwd_dx's blocks for each sample: enough to cover its vectors, about
+// kElemBlocks in all.
 inline int elem_chunks(int B, int HW, int C, int vec) {
     const size_t vectors = (size_t)HW * (C / vec);
     const size_t need = (vectors + kElemThreads - 1) / kElemThreads;
@@ -1251,21 +1402,28 @@ extern "C" int unet_gn_stats(const void* x, float* stats, int B, int HW, int C, 
 
 // x, y: (B, HW, C) contiguous, 16-byte aligned; gamma, beta: (C,) of x's
 // type; stats: (N, B, G, 2) float32, every rank's gn_stats in rank order;
-// mean, rstd: (B, G) float32 outputs.  Returns the CUDA error code.
+// mean, rstd: (B, G) float32 outputs; rows_per_block: the run of rows a
+// block takes (ops/kernels/groupnorm.py::apply_geometry chooses it).
+// Returns the CUDA error code.
 extern "C" int unet_gn_apply(const void* x, const void* gamma, const void* beta,
                              const float* stats, void* y, float* mean, float* rstd, int N, int B,
                              int HW, int C, int G, float eps, int act_silu, int is_bf16,
-                             cudaStream_t stream) {
+                             int rows_per_block, cudaStream_t stream) {
     const int vec = vec_width(C, is_bf16);
-    const size_t smem = split_smem(0, B, HW, C, G, vec);
-    if (smem == 0 || N <= 0) return (int)cudaErrorInvalidValue;
-    const dim3 grid(elem_chunks(B, HW, C, vec), B);
+    if (N <= 0 || B <= 0 || B > 65535 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 ||
+        vec < 2 || rows_per_block <= 0)
+        return (int)cudaErrorInvalidValue;
+    const ApplyLayout lay = apply_layout(C, vec);
+    const int chunks = (HW + rows_per_block - 1) / rows_per_block;
+    if (lay.cols > 65535) return (int)cudaErrorInvalidValue;
+    const dim3 grid(chunks, lay.cols, B);
     return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {
         using T = std::remove_pointer_t<decltype(t)>;
         constexpr int V = decltype(v)::value;
-        gn_apply_kernel<T, V><<<grid, kElemThreads, smem, stream>>>(
+        gn_apply_kernel<T, V><<<grid, kApplyThreads, 0, stream>>>(
             static_cast<const T*>(x), static_cast<const T*>(gamma), static_cast<const T*>(beta),
-            stats, static_cast<T*>(y), mean, rstd, N, HW, C, G, eps, act_silu);
+            stats, static_cast<T*>(y), mean, rstd, N, HW, C, G, lay.lanes, rows_per_block, eps,
+            act_silu);
         return cudaGetLastError();
     });
 }
@@ -1305,7 +1463,7 @@ extern "C" int unet_gn_bwd_dx(const void* x, const void* gamma, const void* beta
                               const float* sums, void* dx, int N, int B, int HW, int C, int G,
                               int act_silu, int is_bf16, cudaStream_t stream) {
     const int vec = vec_width(C, is_bf16);
-    const size_t smem = split_smem(1, B, HW, C, G, vec);
+    const size_t smem = dx_smem(B, HW, C, G, vec);
     if (smem == 0 || N <= 0) return (int)cudaErrorInvalidValue;
     const dim3 grid(elem_chunks(B, HW, C, vec), B);
     return (int)with_type_vec(is_bf16, vec, [&](auto t, auto v) {

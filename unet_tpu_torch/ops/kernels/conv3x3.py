@@ -16,15 +16,19 @@ has this one: inputs that require grad are refused.
 
 What bounds it on an H100: `2 * H*W*B * O * 9C` operations against about
 `(|x| + |w| + |out|) * itemsize` bytes, so the operations at every shape of
-the U-Net.  Two kernels share the launcher; `route` says which a call takes
-(the launcher's `use_wgmma` is the same rule).  bfloat16 with C and O
+the U-Net.  Three kernels share the launcher; `route` says which a call
+takes (the launcher's `route` is the same rule).  bfloat16 with C and O
 multiples of 8 runs on the tensor cores: `wgmma` (two warpgroups a block)
 on bf16 tiles of 128 rows x 64 channels of the shifted input and 64 x 64
 (or 128) of the weights, staged by 16-byte `cp.async` in the swizzled
 layout `wgmma` reads through a ring of three stages, with the padding's rows
-zero-filled by the copy.  float32, and a C or O that is not a multiple of
-8, take the implicit GEMM with float32 FMAs.  The card's times of both are
-in PERF.md.
+zero-filled by the copy.  float32 with C and O multiples of 8 runs on the
+TF32 tensor cores in 3xTF32 (`mma.sync` on each operand's TF32 pair hi +
+lo, a b = a_hi b_lo + a_lo b_hi + a_hi b_hi), on stages of one tap and 32
+channels staged the same way, each stage's products summed apart and then
+added to the accumulator.  A C or O that is not a multiple of 8 takes the
+implicit GEMM with float32 FMAs, in either type.  The card's times of all
+three are in PERF.md.
 """
 
 from __future__ import annotations
@@ -81,11 +85,14 @@ def _check_cuda(x):
 
 
 def route(dtype, C, O):
-    """"wgmma" where a call of this type and widths runs on the tensor cores,
-    "fma" where it takes the float32 FMA kernel: the launcher's rule
-    (csrc/conv3x3.cu `use_wgmma`), which needs 16-byte rows of x and w."""
-    return ("wgmma" if dtype == torch.bfloat16 and C % 8 == 0 and O % 8 == 0
-            else "fma")
+    """Which kernel a call of this type and widths takes: "wgmma" (bfloat16
+    on the tensor cores), "tf32" (float32 on the TF32 tensor cores, in
+    3xTF32), or "fma" (a C or O that is not a multiple of 8, in either type,
+    on the float32 FMA kernel).  The launcher's rule (csrc/conv3x3.cu
+    `route`): the tensor-core kernels need 16-byte rows of x and w."""
+    if C % 8 or O % 8:
+        return "fma"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32"
 
 
 def conv3x3_hwbc(x, w, b):
@@ -94,7 +101,7 @@ def conv3x3_hwbc(x, w, b):
     the bias widened to float32 before the products, as in the TPU kernel.
 
     A CUDA tensor goes to the hand-written kernels (x float32 or bfloat16,
-    contiguous; on the tensor-core route of `route` 16-byte aligned) or
+    contiguous; on the tensor-core routes of `route` 16-byte aligned) or
     raises; only a CPU tensor takes the plain version."""
     _check(x, w, b)
     if x.device.type == "cpu":
@@ -105,8 +112,8 @@ def conv3x3_hwbc(x, w, b):
     wk = w.to(x.dtype).contiguous()
     bk = b.float().contiguous()
     out = torch.empty((H, W, B, O), dtype=x.dtype, device=x.device)
-    if route(x.dtype, C, O) == "wgmma" and (x.data_ptr() % 16
-                                          or wk.data_ptr() % 16):
+    if route(x.dtype, C, O) != "fma" and (x.data_ptr() % 16
+                                        or wk.data_ptr() % 16):
         raise ValueError("x and w must be 16-byte aligned")
     fn = _launcher()
     with torch.cuda.device(x.device):

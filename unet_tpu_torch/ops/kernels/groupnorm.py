@@ -439,9 +439,15 @@ class GroupNormAct(torch.autograd.Function):
 # partial counts H*W*C/G values and the sample N times that.
 #
 # gn_stats and gn_bwd_sums are K4's and K5's cluster kernels stopped after
-# their statistics and sums (`split_geometry`); gn_apply and gn_bwd_dx are
-# elementwise, their shared memory at most `_SPLIT_SMEM`.
+# their statistics and sums (`split_geometry`); gn_apply streams the rows,
+# each thread on one fixed vector of channels (`apply_geometry`: blocks of
+# `_APPLY_THREADS`, at least `_APPLY_UNROLL` vectors a thread, the grid
+# within about `_APPLY_BLOCKS` blocks, two an SM); gn_bwd_dx is
+# elementwise, its shared memory at most `_SPLIT_SMEM`.
 _SPLIT_SMEM = 48 * 1024
+_APPLY_THREADS = 256
+_APPLY_UNROLL = 4
+_APPLY_BLOCKS = 2 * _SMS
 
 
 def gn_stats_plain(x, num_groups=32):
@@ -557,25 +563,73 @@ def split_geometry(kernel: str, B: int, H: int, W: int, C: int, G: int,
                     block_threads(True, C, vec))
 
 
-def _split_smem(kernel: str, C: int, G: int) -> int:
-    """Bytes of dynamic shared memory of a block of gn_apply ("apply") or
-    gn_bwd_dx ("dx"), as csrc/groupnorm.cu counts them."""
-    return 4 * (2 * C + 4 * G if kernel == "dx" else 2 * G)
+class ApplyGeometry(NamedTuple):
+    """How gn_apply cuts a call: a row's C / vec vectors in `cols` column
+    blocks of `lanes` vectors (the last may have fewer), `slots` rows of
+    them at a time in `threads` = lanes * slots of a block's
+    `_APPLY_THREADS` threads, and a sample's rows in `chunks` runs of
+    `rows_per_block` (the last may have fewer).  Grid (chunks, cols, B);
+    each thread takes at most `vectors_per_thread` vectors, one every
+    `slots` rows of its run."""
+    cols: int
+    lanes: int
+    slots: int
+    threads: int
+    chunks: int
+    rows_per_block: int
+    vectors_per_thread: int
+
+
+def apply_geometry(B: int, H: int, W: int, C: int,
+                   dtype: torch.dtype) -> ApplyGeometry:
+    """The cut of a gn_apply call on a rank's rows (B, H, W, C); the
+    launcher lays out its blocks as `cols`, `lanes` and `slots` say (its
+    `apply_layout` is the same rule) and takes `rows_per_block`.  Each
+    block's run of rows is a whole number of `slots`-row passes: at least
+    `_APPLY_UNROLL` (a thread's first batch of loads is then full), and
+    as many more as keep the grid within `_APPLY_BLOCKS` blocks, but at
+    most half a sample's passes (two blocks a sample at least).  Fewer,
+    larger runs won where the per-thread start (merging the statistics)
+    was dear: utils/gn_sweep.py at B=32.  At (32, 32, 64, 64): 8 passes a
+    block in bfloat16, 16 in float32."""
+    rows, vec = H * W, vec_width(C, dtype.itemsize)
+    if B <= 0 or rows <= 0 or C <= 0 or vec < 2:
+        raise ValueError(f"gn_apply: the kernel does not take ({B}, {H}, "
+                         f"{W}, {C}) (C even, at least two channels a "
+                         f"thread)")
+    if B > 65535:
+        raise ValueError(f"gn_apply: the kernel does not take B={B}")
+    L = C // vec
+    cols = -(-L // _APPLY_THREADS)
+    lanes = -(-L // cols)
+    slots = _APPLY_THREADS // lanes
+    passes = -(-rows // slots)
+    runs = max(1, _APPLY_BLOCKS // (B * cols))  # a sample's, at most
+    per = min(-(-passes // 2), max(_APPLY_UNROLL, -(-passes // runs)))
+    rows_per_block = per * slots
+    return ApplyGeometry(cols, lanes, slots, lanes * slots,
+                         -(-rows // rows_per_block), rows_per_block, per)
+
+
+def _dx_smem(C: int, G: int) -> int:
+    """Bytes of dynamic shared memory of a block of gn_bwd_dx, as
+    csrc/groupnorm.cu counts them."""
+    return 4 * (2 * C + 4 * G)
 
 
 def _check_split(kernel, x, num_groups, gamma=None, beta=None):
     """What a split kernel takes on a CUDA device beyond `_check`: what
     `_check_cuda` asks, 16-byte alignment, an even C (two channels a
-    thread at least) and, for gn_apply and gn_bwd_dx, their shared memory
-    (`split_geometry` raises for what the others do not take)."""
+    thread at least) and, for gn_bwd_dx, its shared memory
+    (`split_geometry` and `apply_geometry` raise for what the others do
+    not take)."""
     _check_cuda(x, gamma, beta)
     if x.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned")
     C = x.shape[-1]
     if C % 2:
         raise ValueError(f"gn_{kernel}: the kernel takes an even C, not {C}")
-    if kernel in ("apply", "dx") and _split_smem(
-            kernel, C, num_groups) > _SPLIT_SMEM:
+    if kernel == "dx" and _dx_smem(C, num_groups) > _SPLIT_SMEM:
         raise ValueError(f"gn_{kernel}: the kernel does not take C={C}, "
                          f"G={num_groups}")
 
@@ -621,6 +675,7 @@ def gn_apply(x, gamma, beta, stats, num_groups=32, eps=1e-5, act="silu"):
     if x.device.type == "cpu":
         return gn_apply_plain(x, gamma, beta, stats, G, eps, act)
     _check_split("apply", x, G, gamma, beta)
+    geo = apply_geometry(B, H, W, C, x.dtype)
     stats = _float_stats(stats, x)
     y = torch.empty_like(x)
     mean = torch.empty((B, G), dtype=torch.float32, device=x.device)
@@ -630,7 +685,7 @@ def gn_apply(x, gamma, beta, stats, num_groups=32, eps=1e-5, act="silu"):
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
             stats.data_ptr(), y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             stats.shape[0], B, H * W, C, G, eps, int(act == "silu"),
-            int(x.dtype == torch.bfloat16),
+            int(x.dtype == torch.bfloat16), geo.rows_per_block,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(code, "gn_apply")
     gn_apply.launches += 1
@@ -766,7 +821,7 @@ _ARGTYPES = {
     "unet_gn_act_fwd": "pppppp" "iiii" "f" "iiiii" "p",
     "unet_gn_act_bwd": "ppppppppp" "iiii" "iiiii" "p",
     "unet_gn_stats": "pp" "iiii" "i" "iii" "p",
-    "unet_gn_apply": "ppppppp" "iiiii" "f" "ii" "p",
+    "unet_gn_apply": "ppppppp" "iiiii" "f" "iii" "p",
     "unet_gn_bwd_sums": "ppppppp" "iiii" "ii" "iii" "p",
     "unet_gn_bwd_dx": "pppppppp" "iiiii" "ii" "p",
 }

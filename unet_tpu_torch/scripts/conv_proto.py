@@ -8,7 +8,8 @@ The JAX script asked whether a Pallas kernel could beat XLA's convolutions
 at the model's shapes, and recorded that it could not.  Here the kernel is
 `ops.kernels.conv3x3.conv3x3_hwbc` (csrc/conv3x3.cu: an implicit GEMM, in
 bfloat16 on the tensor cores with `wgmma` on tiles that `cp.async` stages,
-in float32 on FMAs), and the yardstick is cuDNN through `F.conv2d`,
+in float32 on the TF32 tensor cores in 3xTF32, on FMAs where C or O is no
+multiple of 8), and the yardstick is cuDNN through `F.conv2d`,
 which the model itself uses.
 
 The check: the kernel against its plain version on one (8, 8, 4, 64 -> 64)

@@ -13,8 +13,8 @@ sources), sets the shape lists that the checks read (`GN_SHAPES`,
 `chip_smoke.py`, and runs the named check functions.  A check returns a
 list of cases, or one list per kernel (`check_split_kernels`: `{kernel:
 cases}`); only the timed cases, those with `kernel_graph_ms`, are compared.
-`check_conv` times only the case `CONV_HEADLINE` names, so for it the child
-names each (shape, type) in turn and keeps that case.
+`check_conv` times both types at the shape `CONV_HEADLINE` names, so for it
+the child names each shape in turn and keeps both of its cases.
 So both trees are timed at the same shapes, on the same card, in the
 order given (old, new, new, old evens out drift).  Prints one JSON object
 per turn, then one summary: per case the fastest device-alone time
@@ -48,11 +48,9 @@ gen = torch.Generator(device=c.DEV).manual_seed(0)
 def conv_cases():
     cases = []
     for shape in lists["CONV_SHAPES"]:
-        for dtype in ("torch.float32", "torch.bfloat16"):
-            c.CONV_SHAPES = [tuple(shape)]
-            c.CONV_HEADLINE = dict(shape=list(shape), dtype=dtype)
-            cases += [k for k in c.check_conv(gen)
-                      if k["dtype"] == dtype and "kernel_graph_ms" in k]
+        c.CONV_SHAPES = [tuple(shape)]
+        c.CONV_HEADLINE = dict(shape=list(shape), dtype="torch.float32")
+        cases += [k for k in c.check_conv(gen) if "kernel_graph_ms" in k]
     return cases
 
 

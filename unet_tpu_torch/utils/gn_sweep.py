@@ -1,4 +1,5 @@
-"""The split GroupNorm's two cluster kernels at every cut of the rows.
+"""The split GroupNorm's two cluster kernels at every cut of the rows, and
+gn_apply at every run of rows a block.
 
     python -m unet_tpu_torch.utils.gn_sweep [--out FILE]
 
@@ -6,10 +7,13 @@ For each of chip_smoke.py's `SPLIT_SHAPES` (a rank's rows at two model
 ranks, B=32), float32 and bfloat16, times `gn_stats` and `gn_bwd_sums` (with
 SiLU) at every cluster of 1 to 16 blocks that cuts the rows and, for each,
 at a few tile sizes: all of a block's rows in one tile, four tiles,
-tiles of 8, 16 and 32 KB, and the tile `split_geometry` picks.  Each case is checked against its plain version
-(the largest error over the largest value) and timed device alone (the
-fastest of three CUDA graphs of 20 calls).  Prints one JSON object per case,
-`chosen` where it is what `split_geometry` picks, so that the rule can be
+tiles of 8, 16 and 32 KB, and the tile `split_geometry` picks; and
+`gn_apply` (with SiLU, the statistics of two ranks) at runs of 1, 2, 3, 4,
+6, 8, 16 and 32 passes of its rows a block, and the run `apply_geometry`
+picks.  Each case is checked against its plain version (the largest error
+over the largest value) and timed device alone (the fastest of three CUDA
+graphs of 20 calls).  Prints one JSON object per case, `chosen` where it is
+what `split_geometry` or `apply_geometry` picks, so that the rule can be
 read against the alternatives.  Needs a CUDA device.
 """
 
@@ -43,6 +47,15 @@ def cases(shape, dtype, kernel, pick):
             tiles.add(pick.tile_rows)
         for tile in sorted(tiles):
             yield cluster, per, tile
+
+
+def apply_cases(shape, dtype):
+    """The runs of rows a gn_apply block could take: 1 to 32 passes of its
+    threads' rows, and the one `apply_geometry` picks."""
+    pick = gn.apply_geometry(*shape, dtype)
+    passes = -(-shape[1] * shape[2] // pick.slots)
+    runs = {min(k, passes) * pick.slots for k in (1, 2, 3, 4, 6, 8, 16, 32)}
+    return pick, sorted(runs | {pick.rows_per_block})
 
 
 def main(argv=None) -> None:
@@ -96,6 +109,31 @@ def main(argv=None) -> None:
                         ms=min(graph_ms(fn) for _ in range(3)),
                         err_of_largest=err)))
                     print(lines[-1], flush=True)
+            stats = torch.stack([gn.gn_stats_plain(x, GROUPS),
+                                 gn.gn_stats_plain(x.flip(1), GROUPS)])
+            want = gn.gn_apply_plain(x, g, b, stats, GROUPS, 1e-5, "silu")[0]
+            y = torch.empty_like(x)
+            m, r = (torch.empty((B, GROUPS), device=dev) for _ in range(2))
+            head = [t.data_ptr() for t in (x, g, b, stats, y, m, r)]
+            head += [2, B, H * W, C, GROUPS, 1e-5, 1, bf16]
+            launch = gn._launcher("unet_gn_apply")
+            pick, runs = apply_cases(shape, dtype)
+            for run in runs:
+                def fn():
+                    return launch(*head, run,
+                                  torch.cuda.current_stream().cuda_stream)
+                if fn() != 0:
+                    raise RuntimeError(f"gn_apply {shape} {dtype}: rows a "
+                                       f"block {run} refused")
+                err = ((y.float() - want.float()).abs().max()
+                       / want.float().abs().max()).item()
+                lines.append(json.dumps(dict(
+                    kernel="apply", shape=list(shape), dtype=str(dtype),
+                    rows_per_block=run, blocks=-(-H * W // run) * pick.cols * B,
+                    chosen=run == pick.rows_per_block,
+                    ms=min(graph_ms(fn) for _ in range(3)),
+                    err_of_largest=err)))
+                print(lines[-1], flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")
