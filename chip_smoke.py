@@ -82,7 +82,33 @@ object per line:
      64 channels a head: both refuse head size 48 on the card before they
      build a model; 3 bfloat16 steps at B=32 with a checkpoint, then a DDIM-10
      request at B=4 from it, with exact launch counts and finite losses.
-  9. `cli`: the rest of the one-card training CLI at the default model,
+  9. `s2d`: space-to-depth level 0 (`UNET_TPU_TORCH_S2D=on`,
+     `models.unet.set_s2d_mode`, `unet_tpu_torch/ops/s2d.py`) at the
+     default model, full width and depth, against pixel space on the
+     kernels: a B=8 forward in float32 (within 2e-3) and bfloat16 (within
+     1.5x the bfloat16 pixel forward's distance from the float32 one),
+     each mode's device time alone; a float32 step's loss and gradients
+     at B=32 (the `train_step` bars) and one `step_with` either way; the
+     captured bfloat16 + EMA step at B=32 in either mode, its device time
+     a replay, and the device time of one level-0 GroupNorm and 3x3
+     convolution in either space (`level0_ops`); `cli.train.main` 20
+     chunked bfloat16 steps (ms/step, images/s, idle share, peak MiB
+     beside the `train` phase's); a DDIM-10 float32 request at B=8 through
+     `cli.generate.run` in either mode, twice each, from one checkpoint
+     and seed (the float images within 2e-3).  Launches are held to the
+     plan's counts (56 GroupNorm and 11 attention launches a forward, as
+     many backward a step, as in pixel space: level 0's GroupNorms run K4
+     and K5 on a free view), and every kernel input of the s2d runs
+     against its plain version.
+ 10. `input_pipeline`: `unet_tpu_torch.scripts.profile_input_pipeline`
+     at its defaults (bfloat16 + EMA, B=32, 100 steps a chunk), 4 chunks
+     over a `.bin` of 1024 seeded images: the chunked path's host phases
+     a step (dispatch, assemble, stage, drain, total) and the dispatch
+     split (a step's host time on an idle device, a call's, the graph
+     launch, the draws, the rest, and what a busy device's dispatch takes
+     beyond the idle one's, an inferred remainder); every step's launches
+     held exactly.
+ 11. `cli`: the rest of the one-card training CLI at the default model,
      full width and depth, B=32.  The data path: bfloat16 with the EMA,
      50 chunked steps at a log interval of 10, with `--native_loader` true
      and false, each sequential and with `--randomize`; for each, over
@@ -104,7 +130,7 @@ object per line:
      `.pt` state_dict of the default model served by `cli.generate.run`
      (DDIM-10, B=4) must give the images of the `.bin` of the same weights.
      Launch counts are held exactly for the runs in this process.
- 10. `parallel`: the data-parallel tier (`unet_tpu_torch/parallel/`) over a
+ 12. `parallel`: the data-parallel tier (`unet_tpu_torch/parallel/`) over a
      process group of one rank (NCCL; the machine has one card), the
      default model at B=32 a rank: the captured DP and FSDP steps against
      the one-device flat step, the same bits after 3 bfloat16 and 2
@@ -114,7 +140,7 @@ object per line:
      of a `--coordinator_address` group, 20 chunked bfloat16 steps with the
      EMA and rank 0's checkpoint, beside the one-device run: ms/step, idle
      share, losses.  Launch counts held exactly.
- 11. `tensor_parallel`: Megatron TP and the 2-D tp x fsdp split
+ 13. `tensor_parallel`: Megatron TP and the 2-D tp x fsdp split
      (`unet_tpu_torch/parallel/tensor.py`, `parallel/mesh.py`), the default
      model at the global batch 32: at model axis 1 (one NCCL rank) the
      captured TP and tp x fsdp steps against the one-device flat step, the
@@ -128,7 +154,7 @@ object per line:
      GroupNorm at (32,64,64,32) in 16 groups and attention at
      (32,256,288) with 3 heads) held against its plain version.  Launch
      counts held exactly per rank.
- 12. `spatial_parallel`: spatial sharding (`unet_tpu_torch/parallel/
+ 14. `spatial_parallel`: spatial sharding (`unet_tpu_torch/parallel/
      spatial.py`, the model axis's other use), the default model at the
      global batch 32.  The split GroupNorm's four kernels (`gn_stats`,
      `gn_apply`, `gn_bwd_sums`, `gn_bwd_dx`) against their plain versions
@@ -147,7 +173,7 @@ object per line:
      kernel input (the split GroupNorm at half height, K1 and K2 on the
      gathered rows) held against its plain version.  Launch counts held
      exactly per rank (no whole K4 or K5 in a split step).
- 13. `conv_checks` and `conv`: the kernel-benchmark path.  The
+ 15. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; where C and O are multiples of 8 on the tensor
      cores, bfloat16 with `wgmma` and float32 in 3xTF32, else float32
@@ -160,10 +186,12 @@ object per line:
      kernel's launches counted exactly and every other kernel's at least
      once, and each GroupNorm and attention kernel is held against its
      plain version at every shape those scripts handed it.
- 14. `{"kernels": [...]}`: one summary entry per kernel, its launches those
+ 16. `{"kernels": [...]}`: one summary entry per kernel, its launches those
      of the sampling requests and the training runs together (the
      convolution's: those of the `conv` phase; the split GroupNorm's:
-     those of the `spatial_parallel` phase's two ranks); then the seconds
+     those of the `spatial_parallel` phase's two ranks; GroupNorm's and
+     attention's also those of the `s2d` and `input_pipeline` phases and
+     the later one-card phases); then the seconds
      the whole run took, the card's name and power limit, and the result
      line.
 
@@ -208,6 +236,7 @@ from unet_tpu_torch.diffusion.sampler import (  # noqa: E402
 from unet_tpu_torch.io import checkpoint as ckpt_io  # noqa: E402
 from unet_tpu_torch.models import unet  # noqa: E402
 from unet_tpu_torch.ops import functional  # noqa: E402
+from unet_tpu_torch.ops import s2d as s2d_ops  # noqa: E402
 from unet_tpu_torch.ops.kernels import _build  # noqa: E402
 from unet_tpu_torch.ops.kernels import attention as attn_mod  # noqa: E402
 from unet_tpu_torch.ops.kernels import conv3x3 as conv_mod  # noqa: E402
@@ -226,6 +255,7 @@ from unet_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from unet_tpu_torch.parallel import tensor  # noqa: E402
 from unet_tpu_torch.scripts import bench_ops, block_timing  # noqa: E402
 from unet_tpu_torch.scripts import conv_proto  # noqa: E402
+from unet_tpu_torch.scripts import profile_input_pipeline  # noqa: E402
 from unet_tpu_torch.training import trainer  # noqa: E402
 from unet_tpu_torch.utils import graphs  # noqa: E402
 from unet_tpu_torch.utils.native import TorchRng  # noqa: E402
@@ -1503,6 +1533,373 @@ def drive_head_size(tmp, totals, gen):
                             seconds=sample_seconds, launches=got_sample,
                             pixel_mean=float(images.mean())),
                 kernel_inputs=check_seen_shapes(seen, gen))
+
+
+# The `s2d` phase: space-to-depth level 0 against pixel space.  bfloat16: the
+# s2d forward's distance from the float32 pixel forward, at most this many
+# times the bfloat16 pixel forward's (each rounds its own way).
+S2D_BF16_FACTOR = 1.5
+S2D_SERVING_STEPS = 10
+
+
+def s2d_op_times(gen):
+    """Device ms (alone, `graph_ms`) of forward + backward of one level-0
+    GroupNorm(+SiLU) and one 64 -> 64 3x3 convolution at the trainer's
+    batch in bfloat16, pixel space (K4 and K5; cuDNN) against patch space
+    (`group_norm_silu_s2d`, K4 and K5 on a view; `conv2d_s2d`): where the
+    s2d step's time goes."""
+    B, H, C = TRAIN_BATCH, 64, 64
+
+    def param(*shape, scale=0.05):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(
+            torch.bfloat16).requires_grad_()
+
+    x = param(B, H, H, C, scale=1.0)
+    dy = torch.randn((B, H, H, C), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    xs = s2d_ops.space_to_depth(x.detach()).requires_grad_()
+    dys = s2d_ops.space_to_depth(dy)
+    gamma, beta = param(C, scale=1.0), param(C)
+    w = param(C, C, 3, 3).detach().contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    b = param(C)
+    pairs = {
+        "group_norm_silu": (gamma, beta, (
+            lambda h: functional.group_norm_silu(h, gamma, beta),
+            lambda h: s2d_ops.group_norm_silu_s2d(h, gamma, beta))),
+        "conv3x3_64_64": (w, b, (
+            lambda h: functional.conv2d(h, w, b),
+            lambda h: s2d_ops.conv2d_s2d(h, w, b)))}
+    out = {}
+    for name, (p1, p2, (pixel, patch)) in pairs.items():
+        times = {}
+        for space, fn, inp, grad in (("pixel", pixel, x, dy),
+                                     ("s2d", patch, xs, dys)):
+            def step(fn=fn, inp=inp, grad=grad):
+                torch.autograd.grad(fn(inp), (inp, p1, p2), grad)
+
+            step()
+            times[f"{space}_ms"] = graph_ms(step, reps=3)
+        out[name] = dict(times, shape=[B, H, H, C], dtype="torch.bfloat16")
+    return out
+
+
+@contextlib.contextmanager
+def s2d_mode(name):
+    """Within the block the model runs level 0 as `name` says
+    (`unet.set_s2d_mode`); the mode before is restored after."""
+    saved = unet._S2D_MODE
+    unet.set_s2d_mode(name)
+    try:
+        yield
+    finally:
+        unet.set_s2d_mode(saved)
+
+
+def drive_s2d(tmp, totals, gen, pixel_replay_ms, pixel_run):
+    """Space-to-depth level 0 (`UNET_TPU_TORCH_S2D=on`) at `UnetConfig()`,
+    full width and depth, against pixel space, on the kernels:
+
+    * one forward at B=8, float32 (within `FORWARD_ATOL`) and bfloat16
+      (within `S2D_BF16_FACTOR` times the bfloat16 pixel forward's
+      distance from the float32 one), each mode's device time alone;
+    * the float32 loss and gradients of one step at B=32 (the `train_step`
+      phase's bars), and one `step_with` either way;
+    * the captured bfloat16 + EMA step (`make_multi_step`, uint8 input,
+      B=32) over ten batches, in either mode: launches exactly the plan's,
+      ten finite losses, the device time of one replay (beside
+      `pixel_replay_ms`, the `graphs` phase's), and the device time of a
+      level-0 GroupNorm and convolution in either space (`s2d_op_times`);
+    * `cli.train.main`, bfloat16 + EMA, chunked, 20 steps at B=32:
+      ms/step, images/s, idle share, peak MiB beside `pixel_run` (the
+      `train` phase's bf16 run);
+    * a DDIM-10 float32 request at B=8 through `cli.generate.run` in both
+      modes, twice each, from one checkpoint and one seed: the float
+      images within `FORWARD_ATOL`.
+
+    Every kernel input of the s2d runs is held against its plain version.
+    Launch counts are held exactly and added to `totals`."""
+    cfg = UnetConfig()
+    per_fwd = launches_per_forward(cfg)
+    per_step = launches_per_step(cfg, False, 1)
+    if not unet.s2d_supported(cfg):
+        raise AssertionError("the default model does not take s2d")
+    out = dict(launches_per_forward=dict(gn_act_fwd=per_fwd[0],
+                                         qkv_attention_fwd=per_fwd[1]),
+               launches_per_step=per_step)
+    seen = new_seen()
+
+    def held(name, want):
+        got = counts()
+        if got != want:
+            raise AssertionError(f"s2d {name}: launches {got}, want {want}")
+        for k, v in got.items():
+            totals[k] += v
+        return got
+
+    def forward_launches(n):
+        return dict(gn_act_fwd=n * per_fwd[0], gn_act_bwd=0,
+                    qkv_attention_fwd=n * per_fwd[1], qkv_attention_bwd=0,
+                    conv3x3_hwbc=0, **NO_SPLIT)
+
+    model = unet.init(cfg, generator=torch.Generator().manual_seed(0),
+                      device=DEV)
+    x = torch.randn((8, cfg.image_size, cfg.image_size, cfg.in_channels),
+                    generator=gen, device=DEV)
+    t = torch.linspace(1, cfg.max_period - 1, 8, device=DEV).round()
+    outs, device_ms = {}, {}
+    with torch.no_grad():
+        for mode, space in (("on", "s2d"), ("off", "pixel")):
+            for name, dtype in (("f32", torch.float32),
+                                ("bf16", torch.bfloat16)):
+                net = model.to_compute(dtype)
+                with s2d_mode(mode):
+                    reset_counts()
+                    with recording(seen) if mode == "on" else \
+                            contextlib.nullcontext():
+                        y = net(x, t)
+                    torch.cuda.synchronize()
+                    if mode == "on":
+                        held(f"forward {name}", forward_launches(1))
+                    device_ms[f"{space}_{name}"] = graph_ms(
+                        lambda: net(x, t), reps=3)
+                if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+                    raise AssertionError(f"{space} forward {name}: bad shape "
+                                         "or non-finite output")
+                outs[space, name] = y.float()
+    f32_err = compare(outs["s2d", "f32"], outs["pixel", "f32"],
+                      dict(atol=FORWARD_ATOL, rtol=0.0),
+                      "s2d forward f32 against pixel space")
+    pixel_bf16 = (outs["pixel", "bf16"] - outs["pixel", "f32"]).abs().max()
+    s2d_bf16 = (outs["s2d", "bf16"] - outs["pixel", "f32"]).abs().max()
+    if not s2d_bf16 <= S2D_BF16_FACTOR * pixel_bf16:
+        raise AssertionError(f"s2d forward bf16: {s2d_bf16.item()} from the "
+                             f"f32 pixel forward, pixel bf16 "
+                             f"{pixel_bf16.item()}")
+    out["forward"] = dict(
+        batch=8, f32_max_abs_err=f32_err, atol=FORWARD_ATOL,
+        bf16_from_f32_pixel=dict(s2d=s2d_bf16.item(),
+                                 pixel=pixel_bf16.item(),
+                                 factor=S2D_BF16_FACTOR),
+        device_ms=device_ms)
+    del outs
+
+    # one float32 step's loss and gradients, then one step_with either way
+    diffusion = GaussianDiffusion.create(
+        named_beta_schedule("linear", cfg.max_period), device=DEV)
+    tc = TrainConfig(batch_size=TRAIN_BATCH, lr=1e-3)
+    grad_fn = trainer._make_grad_fn(
+        trainer.make_loss_fn(cfg, diffusion, torch.float32), tc)
+    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    batch = torch.rand(shape, generator=gen, device=DEV) * 2 - 1
+    tt = torch.randint(0, cfg.max_period, (TRAIN_BATCH,), generator=gen,
+                       device=DEV)
+    noise = torch.randn(shape, generator=gen, device=DEV)
+    with s2d_mode("on"):
+        reset_counts()
+        with recording(seen):
+            loss, grads = grad_fn(model, batch, tt, noise)
+        torch.cuda.synchronize()
+        held("f32 step", per_step)
+    ploss, pgrads = grad_fn(model, batch, tt, noise)
+    loss, ploss = loss.item(), ploss.item()
+    rel = abs(loss - ploss) / abs(ploss)
+    if not (math.isfinite(loss) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"s2d step f32: loss {loss} against {ploss} in "
+                             "pixel space")
+    grad_err = max(compare(g, p, dict(atol=TRAIN_GRAD_ATOL, rtol=0.0),
+                           f"s2d step f32 gradient {i}")
+                   for i, (g, p) in enumerate(zip(grads, pgrads)))
+    del grads, pgrads
+    _, step_with = trainer.make_train_step(cfg, tc, diffusion, DEV)
+    step_losses = {}
+    for mode in ("on", "off"):
+        state = trainer.init_state(copy.deepcopy(model))
+        with s2d_mode(mode):
+            step_losses[mode] = step_with(state, batch, tt, noise)[1].item()
+        del state
+    step_rel = abs(step_losses["on"] - step_losses["off"]) / abs(
+        step_losses["off"])
+    if not step_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"s2d step_with f32: losses {step_losses}")
+    out["train_step"] = dict(
+        batch=TRAIN_BATCH, loss=loss, pixel_loss=ploss, loss_rel_err=rel,
+        loss_rtol=TRAIN_LOSS_RTOL, grad_max_abs_err=grad_err,
+        grad_atol=TRAIN_GRAD_ATOL, step_with_losses=step_losses,
+        step_with_loss_rel_err=step_rel)
+    del model, batch, tt, noise
+    free_graphs()
+
+    # the captured bf16 + EMA step over ten batches, either way
+    tc16 = TrainConfig(batch_size=TRAIN_BATCH, **TRAIN_CONFIGS["bf16"])
+    pixels = torch.randint(0, 256, (10,) + shape, generator=gen, device=DEV,
+                           dtype=torch.uint8)
+    steps = {}
+    for mode, space in (("on", "s2d"), ("off", "pixel")):
+        with s2d_mode(mode):
+            state = trainer.init_state(
+                unet.init(cfg, generator=torch.Generator().manual_seed(0),
+                          device=DEV), ema_rate=tc16.ema_rate)
+            multi = trainer.make_multi_step(cfg, tc16, diffusion, DEV,
+                                            input_u8=True)
+            reset_counts()
+            with recording(seen) if mode == "on" else \
+                    contextlib.nullcontext():
+                losses = multi(state, pixels)[1].tolist()
+            torch.cuda.synchronize()
+        if mode == "on":
+            held("captured bf16 step",
+                 {k: 10 * v for k, v in per_step.items()})
+            if multi.graph.held != per_step:
+                raise AssertionError(f"s2d captured step: holds "
+                                     f"{multi.graph.held}")
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{space} captured step: losses {losses}")
+        steps[space] = dict(replay_ms=replay_ms(multi.graph),
+                            held=multi.graph.held, losses=losses)
+        del multi, state
+        free_graphs()
+    out["captured_step"] = dict(
+        batch=TRAIN_BATCH, config="bf16 + EMA 0.999, uint8 input",
+        replay_ms=steps["s2d"]["replay_ms"],
+        pixel_replay_ms=steps["pixel"]["replay_ms"],
+        pixel_replay_ms_graphs_phase=pixel_replay_ms, **steps,
+        level0_ops=s2d_op_times(gen))
+    del pixels
+
+    # the training CLI, bf16 + EMA, chunked, 20 steps
+    data = os.path.join(tmp, "train.bin")
+    images = np.random.default_rng(0).integers(
+        0, 256, (256, cfg.in_channels, cfg.image_size, cfg.image_size),
+        dtype=np.uint8)
+    write_bin(data, images.astype(np.float32) / 127.5 - 1.0)
+    log = os.path.join(tmp, "log.txt")
+    with s2d_mode("on"):
+        reset_counts()
+        t0 = time.perf_counter()
+        with recording(seen), contextlib.redirect_stdout(io.StringIO()):
+            state = train_cli.main(
+                ["--data_file", data, "--device", str(DEV), "--batch_size",
+                 str(TRAIN_BATCH), "--compute_dtype", "bfloat16",
+                 "--ema_rate", "0.999", "--iterations", "20",
+                 "--log_interval", "10", "--save_interval", "20",
+                 "--output_dir", os.path.join(tmp, "models"), "--log_file",
+                 log])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    got = held("cli.train", {k: 20 * v for k, v in per_step.items()})
+    with open(log) as f:
+        text = f.read()
+    lines = LOG_LINE.findall(text)
+    logged = [float(loss) for _, loss, _ in lines]
+    if ("H2D encoding: uint8" not in text or state.step != 20
+            or [int(s) for s, _, _ in lines] != [10, 20]
+            or not all(map(math.isfinite, logged))):
+        raise AssertionError(f"s2d cli.train: log {text[-400:]}")
+    ms = float(lines[-1][2])  # the last interval: warm
+    replay = steps["s2d"]["replay_ms"]
+    out["train"] = dict(
+        run="bf16 + EMA, chunked (captured), 0->20", batch=TRAIN_BATCH,
+        logged_losses=logged, ms_per_step=ms,
+        images_per_s=TRAIN_BATCH / ms * 1e3, device_ms_per_step=replay,
+        idle_share=1.0 - replay / ms,
+        peak_mib=trainer.device_peak_memory_mib(DEV), seconds=seconds,
+        launches=got,
+        pixel={k: pixel_run[k] for k in ("ms_per_step", "images_per_s",
+                                         "device_ms_per_step", "idle_share",
+                                         "peak_mib")})
+    del state
+    free_graphs()
+
+    # serving: DDIM-10 f32 B=8 through cli.generate.run, both modes
+    path = os.path.join(tmp, "model.bin")
+    ckpt_io.save(path, ckpt_io.Checkpoint(
+        params=unet.init(cfg, generator=torch.Generator().manual_seed(0),
+                         device=DEV), cfg=cfg, batch_size=8))
+    floats, requests = {}, {}
+    saved_to_uint8 = generate.to_uint8
+    try:
+        for mode, space in (("on", "s2d"), ("off", "pixel")):
+            def keep(images, space=space):
+                floats[space] = images.float().clone()
+                return saved_to_uint8(images)
+
+            generate.to_uint8 = keep
+            seconds = []
+            with s2d_mode(mode):
+                reset_counts()
+                # twice: the first request of a mode pays the set-up of
+                # its convolutions at this batch and type
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    with recording(seen) if mode == "on" else \
+                            contextlib.nullcontext():
+                        images = generate.run(generate.parse_args(
+                            ["--model_filename", path, "--device", "cuda",
+                             "--sampler", "ddim", "--ddim_steps",
+                             str(S2D_SERVING_STEPS), "--batch_size", "8",
+                             "--compute_dtype", "float32"]))
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t0)
+                requests[space] = dict(first_seconds=seconds[0],
+                                       seconds=seconds[1],
+                                       pixel_mean=float(images.mean()))
+                if mode == "on":
+                    requests[space]["launches"] = held(
+                        "ddim10 f32", forward_launches(2 * S2D_SERVING_STEPS))
+            if images.shape != (8, cfg.image_size, cfg.image_size,
+                                cfg.out_channels):
+                raise AssertionError(f"s2d ddim10: images {images.shape}")
+    finally:
+        generate.to_uint8 = saved_to_uint8
+    out["serving"] = dict(
+        request=f"ddim{S2D_SERVING_STEPS}_b8_f32", atol=FORWARD_ATOL,
+        max_abs_err=compare(floats["s2d"], floats["pixel"],
+                            dict(atol=FORWARD_ATOL, rtol=0.0),
+                            "s2d DDIM-10 f32 against pixel space"),
+        **requests)
+    free_graphs()
+    out["kernel_inputs"] = check_seen_shapes(seen, gen)
+    return out
+
+
+# The `input_pipeline` phase: scripts.profile_input_pipeline at its defaults
+# (bf16, B=32, k=100, EMA 0.999) over this many chunks, on a .bin of this
+# many seeded images.
+PIPELINE_CHUNKS, PIPELINE_IMAGES = 4, 1024
+
+
+def drive_input_pipeline(tmp, totals):
+    """`python -m unet_tpu_torch.scripts.profile_input_pipeline` (its
+    `main`, in this process) on a `.bin` of `PIPELINE_IMAGES` seeded images
+    at `UnetConfig()`'s size: the chunked path's host phases per step and
+    the dispatch split into launch, draws and the rest.  Every step it ran
+    (through the captured step's calls and the bare replays) must have made
+    one captured step's launches; they are added to `totals`."""
+    cfg = UnetConfig()
+    data = os.path.join(tmp, "pipeline.bin")
+    images = np.random.default_rng(2).integers(
+        0, 256, (PIPELINE_IMAGES, cfg.in_channels, cfg.image_size,
+                 cfg.image_size), dtype=np.uint8)
+    write_bin(data, images.astype(np.float32) / 127.5 - 1.0)
+    del images
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        result = profile_input_pipeline.main(
+            ["--data_file", data, "--chunks", str(PIPELINE_CHUNKS),
+             "--device", "cuda"])
+    torch.cuda.synchronize()
+    steps = result["steps"] + result["bare_replays"]
+    got, want = counts(), {k: steps * v for k, v in
+                           launches_per_step(cfg, False, 1).items()}
+    if (got != want or result["dispatch_split_ms_per_step"] is None
+            or not all(map(math.isfinite, result["losses"]))):
+        raise AssertionError(f"input pipeline: launches {got}, want {want}; "
+                             f"{result}")
+    for k, v in got.items():
+        totals[k] += v
+    free_graphs()
+    return dict(result, launches=got)
 
 
 # The `cli` phase.  Data path: 50 steps at a log interval of 10; the
@@ -3056,6 +3453,24 @@ def main() -> None:
         other = drive_head_size(tmp, totals, gen)
     emit({"phase": "head_size", "model": f"UnetConfig() ImageNet-64, full "
           f"depth, num_head_channels={OTHER_HEAD_SIZE}", **other,
+          "launches_with_the_runs_before": dict(totals)})
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        s2d = drive_s2d(tmp, totals, gen,
+                        captured["captured_steps"]["bf16"]["replay_ms"],
+                        next(r for r in runs if r["run"] == "bf16"))
+    emit({"phase": "s2d", "model": "UnetConfig() ImageNet-64, full depth, "
+          "level 0 in patch space", **s2d,
+          "seconds": time.perf_counter() - t0,
+          "launches_with_the_runs_before": dict(totals)})
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pipeline = drive_input_pipeline(tmp, totals)
+    emit({"phase": "input_pipeline", "model": "UnetConfig() ImageNet-64, "
+          f"full depth, B={TRAIN_BATCH} bfloat16 + EMA", **pipeline,
+          "seconds": time.perf_counter() - t0,
           "launches_with_the_runs_before": dict(totals)})
 
     reset_counts()

@@ -38,7 +38,10 @@ def test_port_files_were_found():
             "unet_tpu_torch/cli/prepare_data.py",
             "unet_tpu_torch/parallel/__init__.py",
             "unet_tpu_torch/parallel/distributed.py",
-            "unet_tpu_torch/parallel/mesh.py"} <= names
+            "unet_tpu_torch/parallel/mesh.py",
+            "unet_tpu_torch/ops/s2d.py",
+            "unet_tpu_torch/scripts/profile_input_pipeline.py",
+            "unet_tpu_torch/scripts/make_demo_dataset.py"} <= names
 
 
 @pytest.mark.parametrize(

@@ -13,9 +13,12 @@ moments and EMA after two AdamW steps (lr 1e-4) within 5e-4 of one process
 so reduction-order noise on a gradient near 0 can move it by that much),
 losses 1e-5 relative; microbatches against the full batch as
 tests/test_parallel.py holds them; images 1e-4.  World size 1 gives the
-one-device step's bits.
+one-device step's bits.  With level 0 in patch space (UNET_TPU_TORCH_S2D=on
+in the ranks' environment, `set_s2d_mode("on")` here) 2 ranks hold the one
+process in that mode to the same bars.
 """
 
+import contextlib
 import json
 import sys
 
@@ -35,6 +38,7 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
 from unet_tpu_torch.diffusion.sampler import make_sampler
 from unet_tpu_torch.io import checkpoint as port_ckpt
 from unet_tpu_torch.io import convert
+from unet_tpu_torch.models import unet
 from unet_tpu_torch.parallel import distributed
 from unet_tpu_torch.parallel import mesh as pmesh
 from unet_tpu_torch.training import trainer
@@ -68,12 +72,10 @@ def _inputs(world):
         labels=rng.integers(0, 10, size=(2, B)))
 
 
-@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
-def ranks(request, tmp_path_factory):
-    """The results of one run of the worker at a world size, its inputs,
-    and the sizes each rank kept."""
-    world = request.param
-    out = tmp_path_factory.mktemp(f"world{world}")
+def _run_worker(world, out, env=None):
+    """The results of one run of the worker at a world size (each rank's
+    environment extended by `env`), its inputs, and the sizes each rank
+    kept."""
     inputs = _inputs(world)
     np.savez(out / "inputs.npz", **inputs)
     _, cfg = configs()
@@ -89,11 +91,36 @@ def ranks(request, tmp_path_factory):
                  str(out / "spec.json"), str(r)] for r in range(world)]
 
     codes, text = run_ranks(argvs, [out / f"rank{r}.log"
-                                    for r in range(world)])
+                                    for r in range(world)], env=env)
     assert codes == [0] * world, text[-4000:]
     results = dict(np.load(out / "results.npz"))
     sizes = [json.load(open(out / f"sizes{r}.json")) for r in range(world)]
     return world, inputs, results, sizes
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=["world2", "world4"])
+def ranks(request, tmp_path_factory):
+    world = request.param
+    return _run_worker(world, tmp_path_factory.mktemp(f"world{world}"))
+
+
+@pytest.fixture(scope="module")
+def s2d_ranks(tmp_path_factory):
+    """The worker's run at 2 ranks with level 0 in patch space."""
+    return _run_worker(2, tmp_path_factory.mktemp("world2_s2d"),
+                       env={"UNET_TPU_TORCH_S2D": "on"})
+
+
+@contextlib.contextmanager
+def _s2d_on():
+    """Level 0 in patch space in this process; the mode before is restored
+    after."""
+    saved = unet._S2D_MODE
+    unet.set_s2d_mode("on")
+    try:
+        yield
+    finally:
+        unet.set_s2d_mode(saved)
 
 
 def _names(cfg, num_classes=None):
@@ -220,6 +247,28 @@ def test_parallel_sampler_equals_make_sampler(ranks):
     want = make_sampler(cfg, _diffusion(), batch_size=inputs["batch"].shape[0],
                         num_steps=5)(model, torch.Generator().manual_seed(0))
     np.testing.assert_allclose(results["sampler"], want.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["dp", "fsdp", "micro", "sampler"])
+def test_s2d_ranks_equal_one_process_in_s2d(s2d_ranks, name):
+    """DP, FSDP, DP with microbatches and `make_parallel_sampler` with
+    level 0 in patch space against the one process in that mode."""
+    _, inputs, results, sizes = s2d_ranks
+    _, cfg = configs()
+    assert [rank_sizes["s2d"] for rank_sizes in sizes] == [True, True]
+    with _s2d_on():
+        if name == "sampler":
+            model = convert.params_from_flat(inputs["weights"], cfg,
+                                             device="cpu")
+            want = make_sampler(cfg, _diffusion(),
+                                batch_size=inputs["batch"].shape[0],
+                                num_steps=5)(
+                model, torch.Generator().manual_seed(0))
+            np.testing.assert_allclose(results["sampler"], want.numpy(),
+                                       atol=1e-4)
+            return
+        state, losses = _one_process(inputs)
+    _assert_state_near(results, name, state, losses, _names(cfg), 5e-4)
 
 
 @pytest.fixture

@@ -14,7 +14,10 @@ runs, on its rows of the global batch:
   DP with microbatches of one row), seeded draws, with the EMA;
 * `cond`: two class-conditional DP steps with label dropout;
 * `sampler`: a 5-step DDPM chain of `make_parallel_sampler`, gathered;
-* `mesh_model_2`: the place of the rank on `make_mesh(model=2)`.
+* `mesh_model_2`: the place of the rank on `make_mesh(model=2)`;
+* `s2d`: whether the model ran level 0 in patch space
+  (`models.unet._use_s2d`, on when the rank's environment sets
+  UNET_TPU_TORCH_S2D=on).
 
 Rank 0 writes the whole vectors (`host_state`) and the losses to
 `out/results.npz`; every rank writes the sizes of the vectors it keeps to
@@ -72,6 +75,7 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
                                                named_beta_schedule)
 from unet_tpu_torch.diffusion.sampler import make_parallel_sampler
 from unet_tpu_torch.io import convert
+from unet_tpu_torch.models import unet
 from unet_tpu_torch.ops import functional as F
 from unet_tpu_torch.parallel import distributed
 from unet_tpu_torch.parallel import mesh as pmesh
@@ -158,6 +162,7 @@ def run(spec, rank, world):
     train("cond", num_classes=10)
 
     mesh2 = pmesh.make_mesh(model=2)  # the model axis, laid out
+    sizes["s2d"] = unet._use_s2d(cfg)
     sizes["mesh_model_2"] = dict(data=mesh2.data, model=mesh2.model,
                                  data_rank=mesh2.data_rank,
                                  model_rank=mesh2.model_rank)

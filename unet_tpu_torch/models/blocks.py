@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from unet_tpu_torch.ops import functional as F
+from unet_tpu_torch.ops import s2d as S
 from unet_tpu_torch.parallel import tensor
 
 
@@ -131,28 +132,54 @@ class ResBlock(nn.Module):
             "gn2.scale": tensor.ROWS, "gn2.bias": tensor.ROWS,
             "conv2.w": tensor.COLUMNS, "conv2.b": tensor.FIRST}
 
-    def forward(self, x, emb):
-        h = self.gn1(x)
+    def forward(self, x, emb, s2d=False):
+        """With `s2d`, x is a space-to-depth tensor (B, H/2, W/2, 4Cin) and
+        every op runs in patch space with pixel-space semantics
+        (ops/s2d.py): the GroupNorms through `group_norm_silu_s2d`, the 3x3
+        convolutions through `conv2d_s2d`, the skip through `conv1x1_s2d`,
+        the embedding tiled over the four phases.  Only a whole block that
+        does not resample runs so."""
+        spatial = self.gn1.spatial
+        if s2d and (self.up or self.down or self.shard is not None
+                    or (spatial is not None and spatial.size > 1)):
+            raise ValueError("a ResBlock runs in patch space only whole and "
+                             "without resampling")
+        gn, conv, skip, tile = _S2D_OPS if s2d else _PIXEL_OPS
+        h = gn(self.gn1, x)
         if self.up:
             h, x = F.upsample_nearest_2x(h), F.upsample_nearest_2x(x)
         elif self.down:
             h, x = F.avg_pool_2x(h), F.avg_pool_2x(x)
-        h = self.conv1(tensor.copy_to_model(h, self.shard))
+        h = conv(self.conv1, tensor.copy_to_model(h, self.shard))
 
         e = self.emb(tensor.copy_to_model(F.silu(emb), self.shard))
         if self.scale_shift_norm:
             scale, shift = e.chunk(2, dim=-1)
-            h = self.gn2(h, act="none")
-            h = h * (1.0 + scale[:, None, None, :]) + shift[:, None, None, :]
+            h = gn(self.gn2, h, "none")
+            h = (h * (1.0 + tile(scale)[:, None, None, :])
+                 + tile(shift)[:, None, None, :])
             h = F.silu(h)
         else:
-            h = h + e[:, None, None, :]
-            h = self.gn2(h)
-        h = tensor.reduce_from_model(self.conv2(h), self.shard)
+            h = h + tile(e)[:, None, None, :]
+            h = gn(self.gn2, h)
+        h = tensor.reduce_from_model(conv(self.conv2, h), self.shard)
 
         if hasattr(self, "skip"):
-            x = self.skip(x)
+            x = skip(self.skip, x)
         return x + h
+
+
+# A ResBlock's (GroupNorm, 3x3 conv, 1x1 skip, per-channel vector) in pixel
+# space and in patch space (`ResBlock.forward`'s `s2d`).
+_PIXEL_OPS = (lambda norm, h, act="silu": norm(h, act=act),
+              lambda conv, h: conv(h), lambda conv, h: conv(h),
+              lambda v: v)
+_S2D_OPS = (lambda norm, h, act="silu": S.group_norm_silu_s2d(
+                h, norm.scale, norm.bias, num_groups=norm.num_groups,
+                eps=norm.eps, act=act),
+            lambda conv, h: S.conv2d_s2d(h, conv.w, conv.b),
+            lambda conv, h: S.conv1x1_s2d(h, conv.w, conv.b),
+            S.tile_phases)
 
 
 class AttentionBlock(nn.Module):

@@ -8,13 +8,15 @@ addresses the same parameter in both packages.  `init` and `apply` mirror the
 JAX functions of those names: `apply` casts the parameters to the compute
 type once, inside the autograd graph, and with `remat` recomputes each layer
 group in the backward (`torch.utils.checkpoint`, as the JAX package wraps
-each group in `jax.checkpoint`).  No space-to-depth path.
+each group in `jax.checkpoint`).  Level 0 runs in pixel space or, under
+`set_s2d_mode("on")`, in patch space (ops/s2d.py), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import torch
@@ -24,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.models import blocks
 from unet_tpu_torch.ops import functional as F
+from unet_tpu_torch.ops import s2d as S
 from unet_tpu_torch.parallel import tensor
 
 # Layer kinds appearing in a plan:
@@ -135,6 +138,65 @@ def fwd_flops(cfg: UnetConfig, batch_size: int = 1) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Space-to-depth execution of level 0 (ops/s2d.py): an alternate, off by
+# default.  The JAX package keeps it for the TPU's 128-lane matrix unit,
+# which level 0's 64 channels half fill; the card has no such lanes, and
+# what it costs here is measured by chip_smoke.py (PERF.md).
+
+_S2D_MODES = ("off", "on", "auto")
+_S2D_MODE = "off"
+
+
+def set_s2d_mode(name: str) -> None:
+    """Select level 0's execution: "off" (pixel space, the default), "on"
+    (patch space wherever `s2d_supported`, on any device) or "auto", which
+    in the JAX package means patch space for bfloat16 on a TPU; the port
+    never runs on a TPU, so "auto" is pixel space on every device.  The
+    mode is read when a forward runs, so set it before the first step, or
+    the capture of a step or a sampler chain, that should follow it.  Also
+    read from UNET_TPU_TORCH_S2D when this module is imported."""
+    global _S2D_MODE
+    if name not in _S2D_MODES:
+        raise ValueError(f"unknown space-to-depth mode {name!r}: one of "
+                         f"{_S2D_MODES}")
+    _S2D_MODE = name
+
+
+set_s2d_mode(os.environ.get("UNET_TPU_TORCH_S2D", "off"))
+
+
+def s2d_supported(cfg: UnetConfig) -> bool:
+    """Patch-space level 0 needs an even image with a >= 2x2 patch grid, a
+    level below it (the down and up boundaries convert between the spaces)
+    and no attention at ds=1 (attention stays in pixel space)."""
+    return (cfg.image_size % 2 == 0 and cfg.image_size // 2 >= 2
+            and cfg.num_levels >= 2 and 1 not in cfg.attention_ds)
+
+
+def _use_s2d(cfg: UnetConfig) -> bool:
+    """Whether level 0 runs in patch space now: mode "on" and supported."""
+    return _S2D_MODE == "on" and s2d_supported(cfg)
+
+
+def group_modes(cfg: UnetConfig, s2d: bool):
+    """(input column's, output column's) mode of each group of the plan
+    (`LayerGroup.forward`): with `s2d`, "s2d" for level 0's groups (conv_in,
+    its ResBlocks, its "down"; the output column's last num_res_blocks + 1),
+    "to_s2d" for the level-1 group whose "up" feeds level 0, "normal" for
+    the rest; without it "normal" for every group."""
+    plan = build_plan(cfg)
+    n_in, n_out = len(plan.input_blocks), len(plan.output_blocks)
+    if not s2d:
+        return ("normal",) * n_in, ("normal",) * n_out
+    level0 = cfg.num_res_blocks + 1
+    ins = tuple("s2d" if i <= level0 else "normal" for i in range(n_in))
+    outs = tuple("s2d" if i >= n_out - level0 else
+                 "to_s2d" if i == n_out - level0 - 1 else "normal"
+                 for i in range(n_out))
+    return ins, outs
+
+
+# ---------------------------------------------------------------------------
 # Modules
 
 
@@ -156,19 +218,28 @@ class LayerGroup(nn.Module):
             elif kind == "attn":
                 self.attn = _attn(layer, cfg, generator, shard, spatial)
 
-    def forward(self, h, emb):
+    def forward(self, h, emb, mode="normal"):
+        """mode: "normal" (pixel space), "s2d" (the whole group in patch
+        space: its "down" takes s2d input and gives pixel space) or
+        "to_s2d" (pixel space, but a trailing "up" gives s2d output); see
+        `group_modes`."""
+        in_s2d = mode == "s2d"
         for layer in self.layers:
             kind = layer[0]
             if kind == "conv_in":
-                h = self.conv(h)
+                h = (S.conv2d_s2d(h, self.conv.w, self.conv.b) if in_s2d
+                     else self.conv(h))
             elif kind == "res":
-                h = self.res(h, emb)
+                h = self.res(h, emb, s2d=in_s2d)
             elif kind == "attn":
+                if in_s2d:
+                    raise ValueError("attention runs in pixel space only")
                 h = self.attn(h)
             elif kind == "down":
-                h = F.avg_pool_2x(h)
+                h = S.avg_pool_2x_from_s2d(h) if in_s2d else F.avg_pool_2x(h)
             elif kind == "up":
-                h = F.upsample_nearest_2x(h)
+                h = (S.upsample_2x_to_s2d(h) if mode == "to_s2d"
+                     else F.upsample_nearest_2x(h))
         return h
 
 
@@ -210,7 +281,12 @@ class UNet(nn.Module):
     `out.conv` among them, every GroupNorm, `out.gn` among them, and every
     attention layer exchange over the model group.  The image's lowest
     resolution must divide by N, so that every level's slice is whole and
-    every pooled slice even."""
+    every pooled slice even.
+
+    Level 0 runs in patch space when `_use_s2d` says so at the call
+    (`set_s2d_mode`); a model split over model ranks (`shard` or
+    `spatial` of more than one rank) refuses that mode: space-to-depth is
+    not ported to the model axis."""
 
     def __init__(self, cfg: UnetConfig, num_classes: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, shard=None,
@@ -219,6 +295,10 @@ class UNet(nn.Module):
         if shard is not None and spatial is not None:
             raise ValueError("tp and spatial both use the model axis")
         self.cfg = cfg
+        # over one model rank nothing splits (the DP and FSDP steps build
+        # the model with a shard of size 1)
+        self.model_axis = any(s is not None and s.size > 1
+                              for s in (shard, spatial))
         self.num_classes = num_classes
         plan = build_plan(cfg)
         ted = cfg.time_embed_dim
@@ -300,16 +380,31 @@ class UNet(nn.Module):
                               dict(module.named_parameters()), args,
                               use_reentrant=False, preserve_rng_state=False)
 
-        h = x
+        s2d = _use_s2d(cfg)
+        if s2d and self.model_axis:
+            raise ValueError(
+                "space-to-depth (set_s2d_mode / UNET_TPU_TORCH_S2D 'on') is "
+                "not ported to the model axis (tensor parallel or spatial "
+                "sharding); run this model with it off")
+        in_modes, out_modes = group_modes(cfg, s2d)
+        h = S.space_to_depth(x) if s2d else x
         skips = []
-        for group in self.input:
-            h = run(group, h, emb)
+        for group, mode in zip(self.input, in_modes):
+            h = run(group, h, emb, mode)
             skips.append(h)
         h = run(self.middle.res1, h, emb)
         h = run(self.middle.attn, h)
         h = run(self.middle.res2, h, emb)
-        for group in self.output:
-            h = run(group, torch.cat([h, skips.pop()], dim=-1), emb)
+        for group, mode in zip(self.output, out_modes):
+            skip = skips.pop()
+            h = (S.concat_channels(h, skip) if mode == "s2d"
+                 else torch.cat([h, skip], dim=-1))
+            h = run(group, h, emb, mode)
+        if s2d:
+            gn, conv = self.out.gn, self.out.conv
+            h = S.group_norm_silu_s2d(h, gn.scale, gn.bias,
+                                      num_groups=gn.num_groups, eps=gn.eps)
+            return S.depth_to_space(S.conv2d_s2d(h, conv.w, conv.b))
         return self.out.conv(self.out.gn(h))
 
 
