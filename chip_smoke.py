@@ -152,8 +152,13 @@ object per line:
      tolerances stated at `TP_LR`), the leaves each rank keeps whole
      bit-equal on both, and every kernel input of the split model (such as
      GroupNorm at (32,64,64,32) in 16 groups and attention at
-     (32,256,288) with 3 heads) held against its plain version.  Launch
-     counts held exactly per rank.
+     (32,256,288) with 3 heads) held against its plain version.  Then the
+     same for one float32 entry (2 steps) with level 0 in patch space
+     (`set_s2d_mode("on")` around it alone): at axis 1 TP and tp x fsdp
+     bit-equal to the one-device flat s2d step, each replay's device
+     time; at axis 2 the gradient and steps against the one-device s2d
+     ones, the split gn2 on the free view of its patch rows.  Launch
+     counts held exactly per rank, as many in patch space.
  14. `spatial_parallel`: spatial sharding (`unet_tpu_torch/parallel/
      spatial.py`, the model axis's other use), the default model at the
      global batch 32.  The split GroupNorm's four kernels (`gn_stats`,
@@ -171,8 +176,13 @@ object per line:
      initial parameters leaf by leaf and 3 bf16 and 2 f32 eager steps
      against one device's, every vector bit-equal on both ranks, and every
      kernel input (the split GroupNorm at half height, K1 and K2 on the
-     gathered rows) held against its plain version.  Launch counts held
-     exactly per rank (no whole K4 or K5 in a split step).
+     gathered rows) held against its plain version.  Then one float32
+     entry in patch space, as in `tensor_parallel`: at axis 1 bit-equal to
+     the one-device flat s2d step, its replay's device time; at axis 2
+     the gradient and steps against the one-device s2d ones (a halo of one
+     patch row, the split GroupNorm on the free view of the rank's patch
+     rows).  Launch counts held exactly per rank (no whole K4 or K5 in a
+     split step, in either space).
  15. `conv_checks` and `conv`: the kernel-benchmark path.  The
      implicit-GEMM 3x3 convolution (the port of the JAX package's experiment
      scripts/conv_proto.py; where C and O are multiples of 8 on the tensor
@@ -2497,6 +2507,38 @@ TP_F32_GRAD_RTOL = 1e-4
 TP_BF16_GRAD_FACTOR = 1.5
 TP_RANKS = 2
 TP_RANK_LIMIT_S = 300
+# The model axis phases' entries: PARALLEL_BITS in pixel space, then one
+# float32 entry with level 0 in patch space (mode "on" around it alone).
+S2D_BITS = ("s2d_f32", "float32", 2)
+MODEL_AXIS_BITS = PARALLEL_BITS + (S2D_BITS,)
+
+
+def model_axis_bits():
+    """MODEL_AXIS_BITS, the loop's body for each entry run in its space:
+    patch space for the s2d entry (the mode restored when the body ends),
+    the caller's (pixel space) for the others."""
+    for name, dtype, steps in MODEL_AXIS_BITS:
+        with (s2d_mode("on") if name == S2D_BITS[0]
+              else contextlib.nullcontext()):
+            yield name, dtype, steps
+
+
+def space_f32_grad(one_grads, name):
+    """The one-device float32 gradient of the space (pixel or patch) of the
+    entry `name`: the yardstick of its gradient at model axis 2."""
+    return one_grads[S2D_BITS[0] if name == S2D_BITS[0] else "f32"][1]
+
+
+def ranks_seen(ranks, names):
+    """The kernel inputs the ranks noted for the entries `names` (each
+    rank's JSON `seen`), as one `new_seen()`."""
+    seen = new_seen()
+    for rank in ranks:
+        for name in names:
+            for k, v in rank["seen"][name].items():
+                seen[k] |= {tuple(tuple(a) if isinstance(a, list) else a
+                                  for a in entry) for entry in v}
+    return seen
 
 
 def tp_config(dtype: str) -> TrainConfig:
@@ -2540,13 +2582,14 @@ def leaf_rel_err(got, want, unravel) -> float:
 def tensor_parallel_rank(spec_path: str, rank: int) -> None:
     """One rank of the phase's two-rank run (a child process of
     `drive_tensor_parallel`): a process group over gloo on card 0, the mesh
-    data 1 x model 2, and for each of `PARALLEL_BITS` the TP step's loss
-    and gradient at the initial parameters (`tp_grad_inputs`, gathered into
-    the whole vector) and then the eager TP steps from the phase's model,
-    seed and batches, kernel inputs recorded; cuDNN as the CLI leaves it.
-    Writes the losses, the launch counts, the shapes and the seconds to
-    `rank<r>.json`, the rank's vector to `<name><r>.npy` and (rank 0) the
-    whole gradient to `<name>_grad.npy` beside the spec."""
+    data 1 x model 2, and for each of `MODEL_AXIS_BITS` (the last in patch
+    space) the TP step's loss and gradient at the initial parameters
+    (`tp_grad_inputs`, gathered into the whole vector) and then the eager
+    TP steps from the phase's model, seed and batches, kernel inputs
+    recorded by entry; cuDNN as the CLI leaves it.  Writes the losses, the
+    launch counts, the shapes and the seconds to `rank<r>.json`, the rank's
+    vector to `<name><r>.npy` and (rank 0) the whole gradient to
+    `<name>_grad.npy` beside the spec."""
     with open(spec_path) as f:
         spec = json.load(f)
     out_dir = os.path.dirname(spec_path)
@@ -2559,8 +2602,8 @@ def tensor_parallel_rank(spec_path: str, rank: int) -> None:
         cfg = UnetConfig()
         diffusion = GaussianDiffusion.create(
             named_beta_schedule("linear", cfg.max_period), device=DEV)
-        record, seen = {}, new_seen()
-        for name, dtype, steps in PARALLEL_BITS:
+        record, seen = {}, {}
+        for name, dtype, steps in model_axis_bits():
             net = tp_model(cfg)
             tc = tp_config(dtype)
             step = pmesh.make_parallel_train_step(cfg, tc, mesh, diffusion,
@@ -2587,7 +2630,8 @@ def tensor_parallel_rank(spec_path: str, rank: int) -> None:
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with eager_steps(), recording(seen):
+            seen[name] = new_seen()
+            with eager_steps(), recording(seen[name]):
                 losses = step(state, batches)[1].tolist()
             torch.cuda.synchronize()
             record[name] = dict(
@@ -2598,7 +2642,8 @@ def tensor_parallel_rank(spec_path: str, rank: int) -> None:
                     state.flat.detach().cpu().numpy())
             del step, state, net
             free_graphs()
-        record["seen"] = {k: sorted(v) for k, v in seen.items()}
+        record["seen"] = {name: {k: sorted(v) for k, v in entry.items()}
+                          for name, entry in seen.items()}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(record, f)
     finally:
@@ -2622,12 +2667,14 @@ def drive_tensor_parallel(tmp, totals, gen):
       gradients, losses and parameters within the tolerances above, and
       the leaves each rank keeps whole bit-equal over the two; every kernel
       input the split model gave the kernels held against its plain
-      version (`check_seen_shapes`).
+      version (`check_seen_shapes`);
+    * both again for `S2D_BITS`, 2 float32 steps with level 0 in patch
+      space, against the one-device flat s2d step and gradient.
     Launch counts are held exactly (per rank: a split block launches the
-    kernels of a whole one) and added to `totals`.  Returns the phase's
-    record and the one-device references (losses and state after the
-    steps, gradients, the bf16 control) that the `spatial_parallel` phase
-    holds its steps against too."""
+    kernels of a whole one, in either space) and added to `totals`.
+    Returns the phase's record and the one-device references (losses and
+    state after the steps, gradients, the bf16 control) that the
+    `spatial_parallel` phase holds its steps against too."""
     cfg = UnetConfig()
     per_step = launches_per_step(cfg, False, 1)
     diffusion = GaussianDiffusion.create(
@@ -2652,7 +2699,7 @@ def drive_tensor_parallel(tmp, totals, gen):
     try:
         mesh = pmesh.make_mesh(model=1)
         steps_record = {}
-        for name, dtype, steps in PARALLEL_BITS:
+        for name, dtype, steps in model_axis_bits():
             tc = tp_config(dtype)
             net = tp_model(cfg)
             flat, unravel = trainer.flatten_state(net, seed=6)
@@ -2743,7 +2790,7 @@ def drive_tensor_parallel(tmp, totals, gen):
                  cudnn_deterministic=False,
                  seconds=time.perf_counter() - t0)
     whole = layouts[0].whole
-    f32_loss, f32_grad = one_grads["f32"]
+    f32_grad = one_grads["f32"][1]
     # the one-device bfloat16 run's own distance from the float32 one: the
     # gradient (worst leaf) and the losses of the steps both runs take
     control = dict(
@@ -2751,12 +2798,13 @@ def drive_tensor_parallel(tmp, totals, gen):
         losses=max(abs(a - b) / abs(b) for a, b in zip(
             one_device["bf16"][0], one_device["f32"][0])))
     axis2["bf16_against_f32_one_device"] = control
-    for name, dtype, steps in PARALLEL_BITS:
+    for name, dtype, steps in MODEL_AXIS_BITS:
         want, want_flat = one_device[name][:2]
         got = ranks[0][name]["losses"]
         if any(rank[name]["losses"] != got for rank in ranks):
             raise AssertionError(f"tensor_parallel {name}: the ranks' "
                                  f"losses differ: {ranks}")
+        f32_grad = space_f32_grad(one_grads, name)
         grad = torch.from_numpy(np.load(os.path.join(tmp, f"{name}_grad.npy")))
         if dtype == "float32":
             rtol, grad_rtol = TP_F32_LOSS_RTOL, TP_F32_GRAD_RTOL
@@ -2811,24 +2859,25 @@ def drive_tensor_parallel(tmp, totals, gen):
             whole_size=sum(whole.sizes),
             seconds_per_step=[rank[name]["seconds_per_step"]
                               for rank in ranks])
-    seen = new_seen()
-    for rank in ranks:
-        for k, v in rank["seen"].items():
-            seen[k] |= {tuple(tuple(a) if isinstance(a, list) else a
-                              for a in entry) for entry in v}
-    # the first ResBlock's gn2 on its half of the channels, and every
-    # attention layer on half its heads (UnetConfig(): (32,64,64,32) in 16
-    # groups; (32,256,288) and (32,64,384), 3 and 4 heads)
+    # the first ResBlock's gn2 on its half of the channels (in patch space
+    # through the free view), and every attention layer on half its heads
+    # (UnetConfig(): (32,64,64,32) in 16 groups; (32,256,288) and
+    # (32,64,384), 3 and 4 heads), in either space
     width = cfg.model_channels * cfg.channel_mult[0] // TP_RANKS
     gn2 = ((TRAIN_BATCH, cfg.image_size, cfg.image_size, width),
            cfg.gn_num_groups // TP_RANKS)
     heads = {w // cfg.num_head_channels // TP_RANKS
              for w in unet.attention_widths(cfg)}
-    if (gn2 not in {(e[0], e[1]) for e in seen["gn_fwd"]}
-            or heads != {e[1] for e in seen["attn_fwd"]}):
-        raise AssertionError(f"tensor_parallel: the split model handed the "
-                             f"kernels {seen}, not {gn2} and {heads} heads")
-    axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(seen, gen)
+    for names in (["bf16", "f32"], [S2D_BITS[0]]):
+        seen = ranks_seen(ranks, names)
+        if (gn2 not in {(e[0], e[1]) for e in seen["gn_fwd"]}
+                or heads != {e[1] for e in seen["attn_fwd"]}):
+            raise AssertionError(f"tensor_parallel {names}: the split model "
+                                 f"handed the kernels {seen}, not {gn2} and "
+                                 f"{heads} heads")
+    axis2["s2d_kernel_inputs"] = {k: sorted(v) for k, v in seen.items()}
+    axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(
+        ranks_seen(ranks, [n for n, _, _ in MODEL_AXIS_BITS]), gen)
     out["model_axis_2_one_card"] = axis2
     return out, dict(one_device=one_device, one_grads=one_grads,
                      control=control)
@@ -3029,11 +3078,11 @@ def check_split_kernels(gen):
 def spatial_parallel_rank(spec_path: str, rank: int) -> None:
     """One rank of the `spatial_parallel` phase's two-rank run (a child
     process of `drive_spatial_parallel`): a process group over gloo on card
-    0, the mesh data 1 x model 2, and for each of `PARALLEL_BITS` the
-    spatial step's loss and gradient at the initial parameters
-    (`tp_grad_inputs`) and then the eager spatial steps from the phase's
-    model, seed and batches, kernel inputs recorded; cuDNN as the CLI
-    leaves it.  Writes the losses, the launch counts, the shapes and the
+    0, the mesh data 1 x model 2, and for each of `MODEL_AXIS_BITS` (the
+    last in patch space) the spatial step's loss and gradient at the
+    initial parameters (`tp_grad_inputs`) and then the eager spatial steps
+    from the phase's model, seed and batches, kernel inputs recorded by
+    entry; cuDNN as the CLI leaves it.  Writes the losses, the launch counts, the shapes and the
     seconds to `rank<r>.json`, the rank's vectors to `<name><r>.npz` and
     (rank 0) the gradient to `<name>_grad.npy` beside the spec."""
     with open(spec_path) as f:
@@ -3048,8 +3097,8 @@ def spatial_parallel_rank(spec_path: str, rank: int) -> None:
         cfg = UnetConfig()
         diffusion = GaussianDiffusion.create(
             named_beta_schedule("linear", cfg.max_period), device=DEV)
-        record, seen = {}, new_seen()
-        for name, dtype, steps in PARALLEL_BITS:
+        record, seen = {}, {}
+        for name, dtype, steps in model_axis_bits():
             net = tp_model(cfg)
             step = pmesh.make_parallel_train_step(
                 cfg, tp_config(dtype), mesh, diffusion, spatial=True,
@@ -3066,7 +3115,8 @@ def spatial_parallel_rank(spec_path: str, rank: int) -> None:
             reset_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with eager_steps(), recording(seen):
+            seen[name] = new_seen()
+            with eager_steps(), recording(seen[name]):
                 losses = step(state, batches)[1].tolist()
             torch.cuda.synchronize()
             record[name] = dict(
@@ -3077,7 +3127,8 @@ def spatial_parallel_rank(spec_path: str, rank: int) -> None:
                      m=state.m.cpu().numpy(), v=state.v.cpu().numpy())
             del step, state, net
             free_graphs()
-        record["seen"] = {k: sorted(v) for k, v in seen.items()}
+        record["seen"] = {name: {k: sorted(v) for k, v in entry.items()}
+                          for name, entry in seen.items()}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(record, f)
     finally:
@@ -3111,7 +3162,9 @@ def drive_spatial_parallel(tmp, totals, gen, refs):
       bars at SP_RANKS, every vector bit-equal on both ranks; every kernel
       input the ranks gave the kernels held against its plain version
       (`check_seen_shapes`: the split GroupNorm at half height, K1 and K2
-      at the gathered rows).
+      at the gathered rows);
+    * (b) and (c) again for `S2D_BITS` in patch space, against the
+      one-device flat s2d step and gradient.
     Launch counts are held exactly per rank and added to `totals`."""
     cfg = UnetConfig()
     per_step = launches_per_step(cfg, False, 1)
@@ -3137,7 +3190,7 @@ def drive_spatial_parallel(tmp, totals, gen, refs):
     try:
         mesh = pmesh.make_mesh(model=1)
         axis1 = {}
-        for name, dtype, steps in PARALLEL_BITS:
+        for name, dtype, steps in model_axis_bits():
             net = tp_model(cfg)
             step = pmesh.make_parallel_train_step(
                 cfg, tp_config(dtype), mesh, diffusion, spatial=True,
@@ -3197,14 +3250,14 @@ def drive_spatial_parallel(tmp, totals, gen, refs):
     axis2 = dict(backend="gloo (CUDA tensors through the host)",
                  cudnn_deterministic=False, seconds=time.perf_counter() - t0,
                  bf16_against_f32_one_device=control)
-    f32_grad = one_grads["f32"][1]
     sp_step = spatial_launches_per_step(cfg)
-    for name, dtype, steps in PARALLEL_BITS:
+    for name, dtype, steps in MODEL_AXIS_BITS:
         want = one_device[name][0]
         got = ranks[0][name]["losses"]
         if any(rank[name]["losses"] != got for rank in ranks):
             raise AssertionError(f"spatial_parallel {name}: the ranks' "
                                  f"losses differ: {ranks}")
+        f32_grad = space_f32_grad(one_grads, name)
         grad = torch.from_numpy(np.load(os.path.join(tmp, f"{name}_grad.npy")))
         if dtype == "float32":
             rtol, grad_rtol = TP_F32_LOSS_RTOL, TP_F32_GRAD_RTOL
@@ -3245,27 +3298,29 @@ def drive_spatial_parallel(tmp, totals, gen, refs):
             every_vector_bit_equal_on_both_ranks=True,
             seconds_per_step=[rank[name]["seconds_per_step"]
                               for rank in ranks])
-    seen = new_seen()
-    for rank in ranks:
-        for k, v in rank["seen"].items():
-            seen[k] |= {tuple(tuple(a) if isinstance(a, list) else a
-                              for a in entry) for entry in v}
     # the split GroupNorm at half height (the first: (32, 32, 64, 64) in 32
-    # groups over 2 ranks), no whole GroupNorm, and attention on the
-    # gathered rows of every attention layer ((32, 256, 576) and
-    # (32, 64, 768))
+    # groups over 2 ranks; in patch space through the free view of the
+    # rank's patch rows), no whole GroupNorm, and attention on the gathered
+    # rows of every attention layer ((32, 256, 576) and (32, 64, 768)), in
+    # either space
     half = (TRAIN_BATCH, cfg.image_size // SP_RANKS, cfg.image_size,
             cfg.model_channels)
     gathered = {(TRAIN_BATCH, (cfg.image_size // ds) ** 2, 3 * w)
                 for ds, w in zip(sorted(cfg.attention_ds),
                                  sorted(set(unet.attention_widths(cfg))))}
-    if (half not in {e[0] for e in seen["sgn_fwd"]}
-            or {e[4] for e in seen["sgn_fwd"] | seen["sgn_bwd"]} != {SP_RANKS}
-            or seen["gn_fwd"] or seen["gn_bwd"]
-            or {e[0] for e in seen["attn_fwd"]} != gathered):
-        raise AssertionError(f"spatial_parallel: the ranks handed the "
-                             f"kernels {seen}, not {half} and {gathered}")
-    axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(seen, gen)
+    for names in (["bf16", "f32"], [S2D_BITS[0]]):
+        seen = ranks_seen(ranks, names)
+        if (half not in {e[0] for e in seen["sgn_fwd"]}
+                or {e[4] for e in seen["sgn_fwd"] | seen["sgn_bwd"]}
+                != {SP_RANKS}
+                or seen["gn_fwd"] or seen["gn_bwd"]
+                or {e[0] for e in seen["attn_fwd"]} != gathered):
+            raise AssertionError(f"spatial_parallel {names}: the ranks "
+                                 f"handed the kernels {seen}, not {half} "
+                                 f"and {gathered}")
+    axis2["s2d_kernel_inputs"] = {k: sorted(v) for k, v in seen.items()}
+    axis2["kernel_inputs_of_the_steps"] = check_seen_shapes(
+        ranks_seen(ranks, [n for n, _, _ in MODEL_AXIS_BITS]), gen)
     out["model_axis_2_one_card"] = axis2
     return out
 

@@ -8,12 +8,17 @@ float32 2e-3 forward and 1e-3 for the parameter gradients
 (tests/test_model.py's), bfloat16 within 1.5x the JAX package's own
 bfloat16 distance from float32; the port's patch space against its own
 pixel space 1e-4 / 2e-3 (tests/test_s2d.py's); a train step's loss 1e-5
-relative and its parameters 1e-3.  Every JAX function that takes the mode is traced with both
-packages set to "on" and the modes restored after (JAX reads it when it
-traces).
+relative and its parameters 1e-3.  Every JAX function that takes the
+mode is traced with both packages set to "on" and the modes restored after
+(JAX reads it when it traces).  The model axis in patch space runs in
+tests/test_torch_spatial_parallel.py and tests/test_torch_tensor_parallel.py;
+here, in one process, the pieces a TP rank expands and the bias it may
+lack, and the CLI's flag rules.
 """
 
-import contextlib
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -35,24 +40,10 @@ from unet_tpu_torch.diffusion.gaussian import (GaussianDiffusion,
 from unet_tpu_torch.io import checkpoint as port_ckpt
 from unet_tpu_torch.models import unet as port_unet
 from unet_tpu_torch.ops import s2d as PS
-from unet_tpu_torch.parallel.tensor import Shard
 from unet_tpu_torch.training import trainer
 
-from tests.torch_port_util import TINY, both_models, configs, j2n, t2n
-
-
-@contextlib.contextmanager
-def s2d_on():
-    """Both packages in mode "on" within the block, their modes restored
-    after."""
-    saved = jax_unet._S2D_MODE, port_unet._S2D_MODE
-    jax_unet.set_s2d_mode("on")
-    port_unet.set_s2d_mode("on")
-    try:
-        yield
-    finally:
-        jax_unet.set_s2d_mode(saved[0])
-        port_unet.set_s2d_mode(saved[1])
+from tests.torch_port_util import (ROOT, TINY, both_models, configs, j2n,
+                                   s2d_on, t2n)
 
 
 def _hwio_to_oihw(w):
@@ -323,24 +314,75 @@ def test_s2d_train_step_with_matches_jax():
 
 
 # ---------------------------------------------------------------------------
-# the model axis refuses the mode
+# the model axis (the multi-rank runs: tests/test_torch_spatial_parallel.py,
+# tests/test_torch_tensor_parallel.py)
 
-@pytest.mark.parametrize("axis", ["shard", "spatial"])
-def test_model_axis_refuses_s2d(axis):
-    _, cfg = configs()
-    model = port_unet.UNet(cfg, **{axis: Shard(size=2, index=0)})
-    x = torch.zeros(1, 16, 16, 3)
-    with s2d_on(), pytest.raises(ValueError, match="not ported to the "
-                                 "model axis"):
-        model(x, torch.zeros(1))
+@pytest.mark.parametrize("split", ["rows", "columns"])
+def test_expand_weights_of_a_ranks_piece_is_its_part_of_the_whole(split):
+    """Under TP a split ResBlock expands its rank's piece of a kernel: of
+    conv1's output rows, the (phase, o) rows of the whole expansion that
+    hold the rank's channels; of conv2's input columns, the (phase, i)
+    columns.  Bit for bit (a gather)."""
+    w = torch.from_numpy(_hwio_to_oihw(_normal(np.random.default_rng(8),
+                                               (3, 3, 6, 8))))
+    whole = PS.expand_weights(w)
+    n = 2
+    for m in range(n):
+        if split == "rows":
+            O = w.shape[0]
+            piece = PS.expand_weights(w[m * O // n:(m + 1) * O // n])
+            want = whole[torch.cat([torch.arange(q * O + m * O // n,
+                                                 q * O + (m + 1) * O // n)
+                                    for q in range(4)])]
+        else:
+            I = w.shape[1]
+            piece = PS.expand_weights(w[:, m * I // n:(m + 1) * I // n])
+            want = whole[:, torch.cat([torch.arange(p * I + m * I // n,
+                                                    p * I + (m + 1) * I // n)
+                                       for p in range(4)])]
+        np.testing.assert_array_equal(t2n(piece), t2n(want))
+
+
+def test_conv2d_s2d_without_bias_equals_a_zero_bias():
+    """A row-parallel conv2 on a model rank but the first has no bias."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(_normal(rng, (2, 4, 3, 24)))
+    w = torch.from_numpy(_hwio_to_oihw(_normal(rng, (3, 3, 6, 5), 0.2)))
+    np.testing.assert_array_equal(
+        t2n(PS.conv2d_s2d(x, w, None)),
+        t2n(PS.conv2d_s2d(x, w, torch.zeros(5))))
 
 
 @pytest.mark.parametrize("flag", ["--tensor_parallel", "--spatial_parallel"])
-def test_cli_refuses_the_model_axis_with_s2d(tmp_path, flag):
-    argv = ["--data_file", str(tmp_path / "d.bin"), "--device", "cpu",
-            "--image_size", "16", "--num_channels", "32",
-            "--channel_mult", "1,2", "--num_res_blocks", "1",
-            "--attention_resolutions", "8", "--num_devices", "2", flag, "2"]
-    with s2d_on(), pytest.raises(SystemExit) as exit_:
-        port_cli.main(argv)
-    assert "not ported to the model axis" in str(exit_.value)
+def test_cli_takes_the_model_axis_with_s2d(tmp_path, flag):
+    """As the JAX CLI: UNET_TPU_TORCH_S2D=on passes the flag rules with a
+    model axis of 2, with and without --fsdp."""
+    model = ["--data_file", str(tmp_path / "d.bin"), "--device", "cpu",
+             "--image_size", "16", "--num_channels", "32",
+             "--channel_mult", "1,2", "--num_res_blocks", "1",
+             "--attention_resolutions", "8", flag, "2"]
+    with s2d_on():
+        assert port_unet._use_s2d(port_cli.model_config_from_args(
+            port_cli.create_argparser().parse_args(model)))
+        for extra, ranks in ((["--num_devices", "2"], 2),
+                             (["--num_devices", "4", "--fsdp", "true"], 4)):
+            port_cli._reject_bad_combos(
+                port_cli.create_argparser().parse_args(model + extra), ranks)
+
+
+def test_an_unknown_environment_mode_acts_as_auto():
+    """An unknown UNET_TPU_TORCH_S2D is "auto" when the module is imported,
+    as the JAX package reads an unknown UNET_TPU_S2D: pixel space off a
+    TPU.  `set_s2d_mode` still refuses the name."""
+    code = ("from unet_tpu_torch.models import unet\n"
+            "from unet_tpu_torch.config import UnetConfig\n"
+            "print(unet._S2D_MODE, unet._use_s2d(UnetConfig()))\n"
+            "try:\n"
+            "    unet.set_s2d_mode('bogus')\n"
+            "except ValueError:\n"
+            "    print('refused')\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+        env=dict(os.environ, UNET_TPU_TORCH_S2D="bogus")).stdout.split()
+    assert out == ["auto", "False", "refused"], out

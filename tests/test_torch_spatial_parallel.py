@@ -23,6 +23,13 @@ the JAX package's single-device `value_and_grad`; after two AdamW steps
 with the EMA, the losses within 1e-5 relative of one process and the
 state within 5e-4 (tests/test_torch_parallel.py's bars); every vector
 bit-equal over the model ranks of a data index.
+
+Every mesh also runs level 0 in patch space (the worker's `s2d` job,
+`set_s2d_mode("on")` around it alone): the loss and gradient against the
+JAX package's single-device s2d `value_and_grad` (both packages in mode
+"on" while JAX traces), at the same bars; on data 1 x model 2 the
+patch-space ops on a rank's patch rows against the whole ops, and two s2d
+steps with remat and microbatches against the one-process s2d run.
 """
 
 import json
@@ -48,16 +55,19 @@ from unet_tpu_torch.io import checkpoint as port_ckpt
 from unet_tpu_torch.io import convert
 from unet_tpu_torch.models import unet as port_unet
 from unet_tpu_torch.ops import functional as F
+from unet_tpu_torch.ops import s2d as S
 from unet_tpu_torch.ops.kernels import groupnorm as port_gn
 from unet_tpu_torch.parallel import spatial as sp
 from unet_tpu_torch.parallel import tensor
 from unet_tpu_torch.training import trainer
 
 from tests import torch_dist_worker as worker
-from tests.torch_port_util import TINY, configs, flat_weights, run_ranks
+from tests.torch_port_util import (TINY, configs, flat_weights, run_ranks,
+                                   s2d_on)
 
 T_STEPS = 1000
 B = 4  # the global batch
+
 
 
 def _gn_inputs(rng, shape):
@@ -211,13 +221,17 @@ def inputs():
         mod_conv_b=rng.standard_normal(16, dtype=np.float32) * 0.1,
         mod_conv_dy=rng.standard_normal((2, 8, 6, 16), dtype=np.float32),
         mod_qkv=rng.standard_normal((2, 48, 96), dtype=np.float32),
-        mod_attn_dy=rng.standard_normal((2, 48, 32), dtype=np.float32))
+        mod_attn_dy=rng.standard_normal((2, 48, 32), dtype=np.float32),
+        mod_conv_s2d_dy=rng.standard_normal((2, 4, 3, 64), dtype=np.float32),
+        mod_gn_s2d_dy=rng.standard_normal((2, 4, 3, 128), dtype=np.float32))
 
 
 # Two runs of the worker: 2 ranks, and 4 ranks that take two meshes in
-# turn (one set of processes, to keep the file's time down).
-SPAWNS = {"world2": [("data1_model2", 2, ["modules", "remat"])],
-          "world4": [("data2_model2", 2, []), ("data1_model4", 4, [])]}
+# turn (one set of processes, to keep the file's time down).  Every mesh
+# runs the `s2d` job too (level 0 in patch space).
+SPAWNS = {"world2": [("data1_model2", 2, ["modules", "remat", "s2d"])],
+          "world4": [("data2_model2", 2, ["s2d"]),
+                     ("data1_model4", 4, ["s2d"])]}
 MESHES = {name: (spawn, model) for spawn, meshes in SPAWNS.items()
           for name, model, _ in meshes}
 
@@ -274,10 +288,10 @@ def _diffusion():
                                     device="cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_grad(inputs):
+def _jax_grad(inputs):
     """The JAX package's single-device loss and gradient at the global
-    batch (torch-order flat vector)."""
+    batch (torch-order flat vector), in the JAX package's current s2d
+    mode."""
     jcfg, _ = configs()
     params = jax_ckpt.unflatten_params(inputs["weights"], jcfg, None)
     jd = jax_gaussian.GaussianDiffusion.create(
@@ -289,18 +303,25 @@ def jax_grad(inputs):
     return float(loss), jax_ckpt.flatten_params(grad, jcfg)
 
 
-def test_spatial_loss_and_gradient_equal_the_jax_single_device(
-        ranks, jax_grad, inputs):
-    """The loss and the gradient of the spatial step (and of spatial x fsdp
-    where there is a data axis) are one device's at the global batch: a
-    gradient of gamma and beta counted once per model rank, or a halo's
-    gradient left behind, would be off by about its own size."""
-    want_loss, want = jax_grad
+@pytest.fixture(scope="module")
+def jax_grad(inputs):
+    return _jax_grad(inputs)
+
+
+@pytest.fixture(scope="module")
+def jax_s2d_grad(inputs):
+    """`jax_grad` with level 0 in patch space (both packages' mode "on"
+    while the JAX function traces, restored after)."""
+    with s2d_on():
+        return _jax_grad(inputs)
+
+
+def _assert_grads(ranks, want_loss, want, inputs, prefix=""):
     _, cfg = configs()
     views = trainer.Unravel(convert.params_from_flat(
         inputs["weights"], cfg, device="cpu"))
     names = ["spatial"] + (["spatialfsdp"] if ranks["data"] > 1 else [])
-    for name in names:
+    for name in (prefix + n for n in names):
         results = ranks["results"]
         np.testing.assert_allclose(float(results[f"{name}_grad_loss"]),
                                    want_loss, rtol=1e-5, err_msg=name)
@@ -308,6 +329,23 @@ def test_spatial_loss_and_gradient_equal_the_jax_single_device(
         np.testing.assert_allclose(
             port_ckpt.flatten_tensors(list(got.values())), want, atol=1e-5,
             err_msg=name)
+
+
+def test_spatial_loss_and_gradient_equal_the_jax_single_device(
+        ranks, jax_grad, inputs):
+    """The loss and the gradient of the spatial step (and of spatial x fsdp
+    where there is a data axis) are one device's at the global batch: a
+    gradient of gamma and beta counted once per model rank, or a halo's
+    gradient left behind, would be off by about its own size."""
+    _assert_grads(ranks, *jax_grad, inputs)
+
+
+def test_s2d_spatial_loss_and_gradient_equal_the_jax_single_device_s2d(
+        ranks, jax_s2d_grad, inputs):
+    """The same with level 0 in patch space on both sides: the patch rows'
+    halo (one patch row, two pixel rows, from each neighbour) and the
+    split GroupNorm on the free view give one device's s2d gradient."""
+    _assert_grads(ranks, *jax_s2d_grad, inputs, prefix="s2d_")
 
 
 def _one_process(inputs):
@@ -338,6 +376,12 @@ def one_process(inputs):
     return _one_process(inputs)
 
 
+@pytest.fixture(scope="module")
+def one_process_s2d(inputs):
+    with s2d_on():
+        return _one_process(inputs)
+
+
 def test_spatial_steps_equal_one_process_at_the_global_batch(
         ranks, one_process):
     """Two AdamW steps with the EMA (spatial; spatial x fsdp where there is
@@ -354,6 +398,24 @@ def test_spatial_steps_equal_one_process_at_the_global_batch(
             np.testing.assert_allclose(results[f"{name}_{part}"],
                                        one_process[part], atol=5e-4,
                                        err_msg=f"{name} {part}")
+
+
+def test_s2d_remat_steps_equal_one_process_in_s2d(spawned, one_process_s2d):
+    """On data 1 x model 2, in patch space: two AdamW steps with remat and
+    microbatches of one row (the recompute repeats the halo and GroupNorm
+    collectives) follow the one-process s2d run at the global batch, and
+    leave the same bits on both model ranks."""
+    out = spawned("world2") / "data1_model2"
+    results = dict(np.load(out / "results.npz"))
+    np.testing.assert_allclose(results["s2d_remat_losses"],
+                               one_process_s2d["losses"], rtol=1e-5)
+    got = [np.load(out / f"s2d_remat{r}.npz") for r in range(2)]
+    for part in ("flat", "m", "v", "ema"):
+        np.testing.assert_allclose(results[f"s2d_remat_{part}"],
+                                   one_process_s2d[part], atol=5e-4,
+                                   err_msg=part)
+        np.testing.assert_array_equal(got[1][part], got[0][part],
+                                      err_msg=part)
 
 
 def test_every_vector_is_bit_equal_over_the_model_ranks(ranks):
@@ -405,6 +467,30 @@ def test_ops_on_a_ranks_rows_equal_the_whole_ops(inputs, spawned):
             inputs["mod_gn_dy"], [inputs["mod_gamma"], inputs["mod_beta"]])
     whole("attn", lambda a: F.qkv_attention(a, 2), inputs["mod_qkv"],
           inputs["mod_attn_dy"], [])
+
+
+def test_s2d_ops_on_a_ranks_patch_rows_equal_the_whole_ops(inputs, spawned):
+    """On data 1 x model 2: the patch-space 3x3 convolution with its halo
+    of one patch row and GroupNorm(+SiLU) on the free view, each on its
+    rank's patch rows, gathered, equal the whole ops forward and backward,
+    and each parameter's gradient summed over the ranks is the whole op's
+    (within 1e-6 of each tensor's largest value)."""
+    got = dict(np.load(spawned("world2") / "data1_model2" / "results.npz"))
+    xs = S.space_to_depth(torch.from_numpy(inputs["mod_x"])).numpy()
+    for name, fn, dy, params in (
+            ("conv_s2d", S.conv2d_s2d, inputs["mod_conv_s2d_dy"],
+             [inputs["mod_conv_w"], inputs["mod_conv_b"]]),
+            ("gn_s2d", lambda a, g, b: S.group_norm_silu_s2d(
+                a, g, b, num_groups=8), inputs["mod_gn_s2d_dy"],
+             [inputs["mod_gamma"], inputs["mod_beta"]])):
+        x = torch.from_numpy(xs).requires_grad_()
+        params = [torch.from_numpy(p).requires_grad_() for p in params]
+        y = fn(x, *params)
+        y.backward(torch.from_numpy(dy))
+        want = {f"{name}_y": y, f"{name}_dx": x.grad}
+        want.update({f"{name}_dp{i}": p.grad for i, p in enumerate(params)})
+        for key, value in want.items():
+            _close(got[key], value.detach(), 1e-6)
 
 
 # --- the CLI ----------------------------------------------------------------

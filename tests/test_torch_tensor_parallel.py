@@ -15,6 +15,12 @@ tp x fsdp where there is a data axis); after two AdamW
 steps with the EMA, parameters, moments and EMA within 5e-4 of one process
 and losses within 1e-5 relative (tests/test_torch_parallel.py's bars); the
 leaves a rank keeps whole bit-equal over the model ranks.
+
+Every mesh also runs level 0 in patch space (the worker's `s2d` job,
+`set_s2d_mode("on")` around it alone): the TP (tp x fsdp with a data
+axis) loss and gradient against the JAX package's single-device s2d
+`value_and_grad`, and on data 1 x model 2 two s2d steps with remat and
+microbatches against the one-process s2d run, at the same bars.
 """
 
 import json
@@ -46,7 +52,8 @@ from unet_tpu_torch.parallel import tensor
 from unet_tpu_torch.training import trainer
 
 from tests import torch_dist_worker as worker
-from tests.torch_port_util import (TINY, configs, flat_weights, run_ranks)
+from tests.torch_port_util import (TINY, configs, flat_weights, run_ranks,
+                                   s2d_on)
 
 T_STEPS = 1000
 B = 4  # the global batch
@@ -75,9 +82,11 @@ def inputs():
 
 
 # Two runs of the worker: 2 ranks, and 4 ranks that take two meshes in
-# turn (one set of processes, to keep the file's time down).
-SPAWNS = {"world2": [("data1_model2", 2, ["remat", "cond"])],
-          "world4": [("data2_model2", 2, []), ("data1_model4", 4, [])]}
+# turn (one set of processes, to keep the file's time down).  Every mesh
+# runs the `s2d` job too (level 0 in patch space).
+SPAWNS = {"world2": [("data1_model2", 2, ["remat", "cond", "s2d"])],
+          "world4": [("data2_model2", 2, ["s2d"]),
+                     ("data1_model4", 4, ["s2d"])]}
 MESHES = {name: (spawn, model) for spawn, meshes in SPAWNS.items()
           for name, model, _ in meshes}
 
@@ -137,10 +146,10 @@ def _diffusion():
                                     device="cpu")
 
 
-@pytest.fixture(scope="module")
-def jax_grad(inputs):
+def _jax_grad(inputs):
     """The JAX package's single-device loss and gradient at the global
-    batch (torch-order flat vector)."""
+    batch (torch-order flat vector), in the JAX package's current s2d
+    mode."""
     jcfg, _ = _cfgs()
     params = jax_ckpt.unflatten_params(inputs["weights"], jcfg, None)
     jd = jax_gaussian.GaussianDiffusion.create(
@@ -152,17 +161,42 @@ def jax_grad(inputs):
     return float(loss), jax_ckpt.flatten_params(grad, jcfg)
 
 
-def test_tp_loss_and_gradient_equal_the_jax_single_device(ranks, jax_grad,
-                                                         inputs):
-    want_loss, want = jax_grad
-    np.testing.assert_allclose(float(ranks["results"]["grad_loss"]),
+@pytest.fixture(scope="module")
+def jax_grad(inputs):
+    return _jax_grad(inputs)
+
+
+@pytest.fixture(scope="module")
+def jax_s2d_grad(inputs):
+    """`jax_grad` with level 0 in patch space (both packages' mode "on"
+    while the JAX function traces, restored after)."""
+    with s2d_on():
+        return _jax_grad(inputs)
+
+
+def _assert_grad(ranks, want_loss, want, inputs, prefix=""):
+    np.testing.assert_allclose(float(ranks["results"][f"{prefix}grad_loss"]),
                                want_loss, rtol=1e-5)
     _, cfg = _cfgs()
     views = trainer.Unravel(convert.params_from_flat(
         inputs["weights"], cfg, device="cpu"))(
-            torch.from_numpy(ranks["results"]["grad"]))
+            torch.from_numpy(ranks["results"][f"{prefix}grad"]))
     np.testing.assert_allclose(
         port_ckpt.flatten_tensors(list(views.values())), want, atol=1e-5)
+
+
+def test_tp_loss_and_gradient_equal_the_jax_single_device(ranks, jax_grad,
+                                                         inputs):
+    _assert_grad(ranks, *jax_grad, inputs)
+
+
+def test_s2d_tp_loss_and_gradient_equal_the_jax_single_device_s2d(
+        ranks, jax_s2d_grad, inputs):
+    """The same with level 0 in patch space on both sides (TP, and tp x
+    fsdp where there is a data axis): each rank expands its piece of conv1
+    and conv2, normalises its channels through the free view, and the
+    partial products' sum is one device's s2d gradient."""
+    _assert_grad(ranks, *jax_s2d_grad, inputs, prefix="s2d_")
 
 
 def _one_process(inputs, num_classes=None):
@@ -202,6 +236,21 @@ def one_process(inputs):
     return {None: _one_process(inputs), 10: _one_process(inputs, 10)}
 
 
+def test_s2d_tp_remat_steps_equal_one_process_in_s2d(spawned, inputs):
+    """On data 1 x model 2, in patch space: two TP steps with remat and
+    microbatches of one row (the recompute repeats the model group's
+    all-reduces) follow the one-process s2d run at the global batch."""
+    results = dict(np.load(spawned("world2") / "data1_model2"
+                           / "results.npz"))
+    with s2d_on():
+        want = _one_process(inputs)
+    np.testing.assert_allclose(results["s2d_remat_losses"], want["losses"],
+                               rtol=1e-5)
+    for part in ("flat", "m", "v", "ema"):
+        np.testing.assert_allclose(results[f"s2d_remat_{part}"], want[part],
+                                   atol=5e-4, err_msg=part)
+
+
 def test_tp_and_tp_fsdp_equal_one_process_at_the_global_batch(
         ranks, one_process):
     results = ranks["results"]
@@ -209,7 +258,7 @@ def test_tp_and_tp_fsdp_equal_one_process_at_the_global_batch(
     if ranks["data"] > 1:
         runs["tpfsdp"] = None
     runs.update({job: (10 if job == "cond" else None)
-                 for job in ranks["jobs"]})
+                 for job in ranks["jobs"] if job in ("remat", "cond")})
     for name, num_classes in runs.items():
         want = one_process[num_classes]
         np.testing.assert_allclose(results[f"{name}_losses"],

@@ -34,7 +34,10 @@ tensor-parallel jobs instead (`run_tp`), on each mesh it names in turn
   whole, after each model rank moved its copies of them by its own amount;
 * `tp`, `tpfsdp` (with a data axis over 1), and where named `remat` (TP
   with remat and microbatches of one row) and `cond` (class-conditional
-  TP with label dropout): two steps each, seeded draws, with the EMA.
+  TP with label dropout): two steps each, seeded draws, with the EMA;
+* `s2d` (where named): level 0 in patch space (`models.unet.set_s2d_mode`
+  "on" around these runs alone, restored after): the `grad` job's loss
+  and whole gradient, and with `remat` also named its two steps.
 
 Into out/<mesh name>/, rank 0 writes the whole vectors and the losses
 (`results.npz`); every rank writes its own vector after `tp` (to hold
@@ -48,21 +51,28 @@ turn (name, model axis, extra jobs):
 
 * `modules` (where named): a 3x3 convolution, GroupNorm(+SiLU) and
   GroupNorm alone, and attention on the rank's rows of the spec's module
-  inputs, forward and backward; the outputs and input gradients gathered
-  over the model ranks, the parameters' gradients summed over them;
+  inputs, and the patch-space convolution and GroupNorm(+SiLU)
+  (`ops/s2d.py`) on the rank's patch rows, forward and backward; the
+  outputs and input gradients gathered over the model ranks, the
+  parameters' gradients summed over them;
 * `grad`: the global-mean loss and reduced gradient of the spatial step,
   and with a data axis over 1 of the spatial x fsdp step, whole;
 * `spatial`, `spatialfsdp` (with a data axis over 1), and where named
   `remat` (with remat and microbatches of one row): two steps each,
-  seeded draws, with the EMA.
+  seeded draws, with the EMA;
+* `s2d` (where named): level 0 in patch space (mode "on" around these
+  runs alone, restored after): the `grad` job again, and with `remat`
+  also named its two steps.
 
 Into out/<mesh name>/, rank 0 writes the results (`results.npz`); every
 rank writes its vectors after each run of steps (`<run><rank>.npz`), to
-hold them against the other model ranks'.
+hold them against the other model ranks'.  The `s2d` job's results carry
+the prefix `s2d_`.
 
 This module imports torch and the port only.
 """
 
+import contextlib
 import json
 import os
 import sys
@@ -77,6 +87,7 @@ from unet_tpu_torch.diffusion.sampler import make_parallel_sampler
 from unet_tpu_torch.io import convert
 from unet_tpu_torch.models import unet
 from unet_tpu_torch.ops import functional as F
+from unet_tpu_torch.ops import s2d as S
 from unet_tpu_torch.parallel import distributed
 from unet_tpu_torch.parallel import mesh as pmesh
 from unet_tpu_torch.parallel import spatial as sp
@@ -85,6 +96,17 @@ from unet_tpu_torch.training import trainer
 # the steps of `dp`, `fsdp`, `micro` and `cond`
 STEPS = dict(batch_size=None, lr=1e-4, weight_decay=0.01, ema_rate=0.9)
 SEED = 5
+
+
+@contextlib.contextmanager
+def s2d_on():
+    """Level 0 in patch space within the block, the mode restored after."""
+    saved = unet._S2D_MODE
+    unet.set_s2d_mode("on")
+    try:
+        yield
+    finally:
+        unet.set_s2d_mode(saved)
 
 
 def main(spec_path: str, rank: int) -> None:
@@ -208,19 +230,26 @@ def tp_jobs(cfg, inputs, diffusion, mesh, jobs, rank, out_dir):
             cfg, num_classes, device="cpu")
 
     # the gradient of tp x fsdp where there is a data axis, else of TP
-    params, fsdp = model(), mesh.data > 1
-    step = pmesh.make_parallel_train_step(
-        cfg, TrainConfig(batch_size=local), mesh, diffusion, tp=True,
-        fsdp=fsdp, example_params=params)
-    state = pmesh.init_state(trainer.Unravel(params), params, mesh, tp=True,
-                             fsdp=fsdp)
-    loss, grad = step.value_and_grad(state, batch, inputs["t"],
-                                     inputs["noise"])
+    fsdp = mesh.data > 1
+
+    def whole_grad(prefix=""):
+        params = model()
+        step = pmesh.make_parallel_train_step(
+            cfg, TrainConfig(batch_size=local), mesh, diffusion, tp=True,
+            fsdp=fsdp, example_params=params)
+        state = pmesh.init_state(trainer.Unravel(params), params, mesh,
+                                 tp=True, fsdp=fsdp)
+        loss, grad = step.value_and_grad(state, batch, inputs["t"],
+                                         inputs["noise"])
+        placement = state.placement
+        grad, = distributed.replicate([grad], placement.size,
+                                      placement.sharded, placement.group)
+        out[f"{prefix}grad_loss"] = loss.numpy()
+        out[f"{prefix}grad"] = state.layout.gather(grad).numpy()
+        return step, state
+
+    step, state = whole_grad()
     placement = state.placement
-    grad, = distributed.replicate([grad], placement.size, placement.sharded,
-                                  placement.group)
-    out["grad_loss"] = loss.numpy()
-    out["grad"] = state.layout.gather(grad).numpy()
     # each model rank moves its copies of the leaves kept whole by its own
     # amount: their reduced gradients must still agree over the model ranks
     kept = state.layout.kept()
@@ -262,6 +291,11 @@ def tp_jobs(cfg, inputs, diffusion, mesh, jobs, rank, out_dir):
             train("remat", remat=True, microbatch=1)
         elif job == "cond":
             train("cond", num_classes=10)
+    if "s2d" in jobs:
+        with s2d_on():
+            whole_grad("s2d_")
+            if "remat" in jobs:
+                train("s2d_remat", remat=True, microbatch=1)
 
     with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
         json.dump(dict(data=mesh.data, model=mesh.model,
@@ -317,6 +351,13 @@ def module_jobs(inputs, shard):
             x, inputs["mod_gn_dy"], [inputs["mod_gamma"], inputs["mod_beta"]])
     check("attn", lambda a: F.qkv_attention(a, 2, shard),
           torch.from_numpy(inputs["mod_qkv"]), inputs["mod_attn_dy"], [])
+    xs = S.space_to_depth(x)  # a rank's patch rows are its rows' patches
+    check("conv_s2d", lambda a, w, b: S.conv2d_s2d(a, w, b, shard=shard),
+          xs, inputs["mod_conv_s2d_dy"],
+          [inputs["mod_conv_w"], inputs["mod_conv_b"]])
+    check("gn_s2d", lambda a, g, b: S.group_norm_silu_s2d(
+        a, g, b, num_groups=8, shard=shard),
+        xs, inputs["mod_gn_s2d_dy"], [inputs["mod_gamma"], inputs["mod_beta"]])
     return out
 
 
@@ -344,27 +385,39 @@ def spatial_jobs(cfg, inputs, diffusion, mesh, jobs, rank, out_dir):
 
     fsdps = [("spatial", False)] + ([("spatialfsdp", True)]
                                     if mesh.data > 1 else [])
-    for name, fsdp in fsdps:
-        step, state = make(fsdp)
-        loss, grad = step.value_and_grad(state, batch, inputs["t"],
-                                         inputs["noise"])
-        placement = state.placement
-        grad, = distributed.replicate([grad], placement.size,
-                                      placement.sharded, placement.group)
-        out[f"{name}_grad_loss"], out[f"{name}_grad"] = loss.numpy(), \
-            grad.numpy()
-    runs = fsdps + [("remat", False)] * ("remat" in jobs)
-    for name, fsdp in runs:
-        extra = dict(remat=True, microbatch=1) if name == "remat" else {}
-        step, state = make(fsdp, **extra)
-        state, losses = step(state, chunk)
-        flat, m, v, ema = pmesh.host_state(state)
-        out.update({f"{name}_losses": losses.numpy(),
-                    f"{name}_flat": flat.numpy(), f"{name}_m": m.numpy(),
-                    f"{name}_v": v.numpy(), f"{name}_ema": ema.numpy()})
-        np.savez(os.path.join(out_dir, f"{name}{rank}.npz"),
-                 flat=state.flat.detach().numpy(), m=state.m.numpy(),
-                 v=state.v.numpy(), ema=state.ema.numpy())
+
+    def grads(prefix=""):
+        for name, fsdp in fsdps:
+            step, state = make(fsdp)
+            loss, grad = step.value_and_grad(state, batch, inputs["t"],
+                                             inputs["noise"])
+            placement = state.placement
+            grad, = distributed.replicate([grad], placement.size,
+                                          placement.sharded, placement.group)
+            out[f"{prefix}{name}_grad_loss"] = loss.numpy()
+            out[f"{prefix}{name}_grad"] = grad.numpy()
+
+    def steps(runs, prefix=""):
+        for name, fsdp in runs:
+            extra = dict(remat=True, microbatch=1) if name == "remat" else {}
+            step, state = make(fsdp, **extra)
+            state, losses = step(state, chunk)
+            flat, m, v, ema = pmesh.host_state(state)
+            name = prefix + name
+            out.update({f"{name}_losses": losses.numpy(),
+                        f"{name}_flat": flat.numpy(), f"{name}_m": m.numpy(),
+                        f"{name}_v": v.numpy(), f"{name}_ema": ema.numpy()})
+            np.savez(os.path.join(out_dir, f"{name}{rank}.npz"),
+                     flat=state.flat.detach().numpy(), m=state.m.numpy(),
+                     v=state.v.numpy(), ema=state.ema.numpy())
+
+    grads()
+    remat = [("remat", False)] * ("remat" in jobs)
+    steps(fsdps + remat)
+    if "s2d" in jobs:
+        with s2d_on():
+            grads("s2d_")
+            steps(remat, "s2d_")
     with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
         json.dump(dict(data=mesh.data, model=mesh.model,
                        data_rank=mesh.data_rank, model_rank=mesh.model_rank),

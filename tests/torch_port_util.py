@@ -5,6 +5,7 @@ both sides as numpy arrays; everything runs on the CPU, where the port's
 kernel wrappers take their plain versions.
 """
 
+import contextlib
 import os
 import subprocess
 import time
@@ -14,6 +15,7 @@ import torch
 
 from unet_tpu.config import UnetConfig as JaxConfig
 from unet_tpu.io import checkpoint as jax_ckpt
+from unet_tpu.models import unet as jax_unet
 from unet_tpu_torch.config import UnetConfig
 from unet_tpu_torch.io import checkpoint as port_ckpt
 from unet_tpu_torch.io import convert
@@ -54,6 +56,20 @@ def flat_weights(cfg: UnetConfig, num_classes=None, seed=0) -> np.ndarray:
             a = 0.1 * a
         chunks.append(a.ravel())
     return np.concatenate(chunks).astype(np.float32)
+
+
+@contextlib.contextmanager
+def s2d_on():
+    """Both packages in mode "on" within the block, their modes restored
+    after (JAX reads its mode when it traces)."""
+    saved = jax_unet._S2D_MODE, port_unet._S2D_MODE
+    jax_unet.set_s2d_mode("on")
+    port_unet.set_s2d_mode("on")
+    try:
+        yield
+    finally:
+        jax_unet.set_s2d_mode(saved[0])
+        port_unet.set_s2d_mode(saved[1])
 
 
 def both_models(jcfg, cfg, num_classes=None, seed=0):

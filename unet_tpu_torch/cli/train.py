@@ -77,8 +77,9 @@ so a run resumes under any layout.  Each rank needs a device of its own:
 two NCCL ranks cannot share a card.
 
 UNET_TPU_TORCH_S2D=on runs the model's level 0 in patch space
-(`models.unet.set_s2d_mode`, ops/s2d.py) on one device and under DP and
-FSDP; the model axis refuses it (not ported there).
+(`models.unet.set_s2d_mode`, ops/s2d.py) on one device, under DP and FSDP,
+and on the model axis (`--tensor_parallel`, `--spatial_parallel`, with or
+without `--fsdp`), as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -301,9 +302,6 @@ def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
         for flag in ("host_rng", "log_norms"):
             bad(getattr(args, flag),
                 f"--{flag} is only wired for single-device runs")
-    bad(model_axis > 1 and unet._use_s2d(model_config_from_args(args)),
-        "space-to-depth (UNET_TPU_TORCH_S2D=on) is not ported to the model "
-        "axis: --tensor_parallel and --spatial_parallel run with it off")
     if args.spatial_parallel > 1:  # the port's own rule
         cfg = model_config_from_args(args)
         step = 2 ** (len(cfg.channel_mult) - 1)

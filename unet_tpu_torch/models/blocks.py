@@ -137,13 +137,14 @@ class ResBlock(nn.Module):
         every op runs in patch space with pixel-space semantics
         (ops/s2d.py): the GroupNorms through `group_norm_silu_s2d`, the 3x3
         convolutions through `conv2d_s2d`, the skip through `conv1x1_s2d`,
-        the embedding tiled over the four phases.  Only a whole block that
-        does not resample runs so."""
-        spatial = self.gn1.spatial
-        if s2d and (self.up or self.down or self.shard is not None
-                    or (spatial is not None and spatial.size > 1)):
-            raise ValueError("a ResBlock runs in patch space only whole and "
-                             "without resampling")
+        the embedding tiled over the four phases.  The model axis splits
+        it as in pixel space (`shard`: conv1's rows, gn2's channels and
+        conv2's columns are the rank's, in the (phase, c) layout of its
+        channels; `spatial`: the 3x3 convolutions and GroupNorms on the
+        rank's patch rows).  A block that resamples does not run so."""
+        if s2d and (self.up or self.down):
+            raise ValueError("a ResBlock runs in patch space only without "
+                             "resampling")
         gn, conv, skip, tile = _S2D_OPS if s2d else _PIXEL_OPS
         h = gn(self.gn1, x)
         if self.up:
@@ -176,8 +177,9 @@ _PIXEL_OPS = (lambda norm, h, act="silu": norm(h, act=act),
               lambda v: v)
 _S2D_OPS = (lambda norm, h, act="silu": S.group_norm_silu_s2d(
                 h, norm.scale, norm.bias, num_groups=norm.num_groups,
-                eps=norm.eps, act=act),
-            lambda conv, h: S.conv2d_s2d(h, conv.w, conv.b),
+                eps=norm.eps, act=act, shard=norm.spatial),
+            lambda conv, h: S.conv2d_s2d(h, conv.w, conv.b,
+                                         shard=conv.spatial),
             lambda conv, h: S.conv1x1_s2d(h, conv.w, conv.b),
             S.tile_phases)
 

@@ -154,7 +154,8 @@ def set_s2d_mode(name: str) -> None:
     never runs on a TPU, so "auto" is pixel space on every device.  The
     mode is read when a forward runs, so set it before the first step, or
     the capture of a step or a sampler chain, that should follow it.  Also
-    read from UNET_TPU_TORCH_S2D when this module is imported."""
+    read from UNET_TPU_TORCH_S2D when this module is imported, where an
+    unknown value acts as "auto" (the JAX package's UNET_TPU_S2D does)."""
     global _S2D_MODE
     if name not in _S2D_MODES:
         raise ValueError(f"unknown space-to-depth mode {name!r}: one of "
@@ -162,7 +163,8 @@ def set_s2d_mode(name: str) -> None:
     _S2D_MODE = name
 
 
-set_s2d_mode(os.environ.get("UNET_TPU_TORCH_S2D", "off"))
+_ENV_MODE = os.environ.get("UNET_TPU_TORCH_S2D", "off")
+set_s2d_mode(_ENV_MODE if _ENV_MODE in _S2D_MODES else "auto")
 
 
 def s2d_supported(cfg: UnetConfig) -> bool:
@@ -227,7 +229,8 @@ class LayerGroup(nn.Module):
         for layer in self.layers:
             kind = layer[0]
             if kind == "conv_in":
-                h = (S.conv2d_s2d(h, self.conv.w, self.conv.b) if in_s2d
+                h = (S.conv2d_s2d(h, self.conv.w, self.conv.b,
+                                  shard=self.conv.spatial) if in_s2d
                      else self.conv(h))
             elif kind == "res":
                 h = self.res(h, emb, s2d=in_s2d)
@@ -284,9 +287,13 @@ class UNet(nn.Module):
     every pooled slice even.
 
     Level 0 runs in patch space when `_use_s2d` says so at the call
-    (`set_s2d_mode`); a model split over model ranks (`shard` or
-    `spatial` of more than one rank) refuses that mode: space-to-depth is
-    not ported to the model axis."""
+    (`set_s2d_mode`), whole or split over model ranks: under `spatial` a
+    rank's patch rows are its pixel rows in patch form (its level-0
+    height H/N is even, since the lowest resolution divides by N and
+    patch space needs a level below level 0), and its 3x3 convolutions
+    and GroupNorms exchange over the model group as in pixel space; under
+    `shard` level 0's split ResBlocks run their rank's piece in patch
+    space (ops/s2d.py)."""
 
     def __init__(self, cfg: UnetConfig, num_classes: Optional[int] = None,
                  generator: Optional[torch.Generator] = None, shard=None,
@@ -295,10 +302,6 @@ class UNet(nn.Module):
         if shard is not None and spatial is not None:
             raise ValueError("tp and spatial both use the model axis")
         self.cfg = cfg
-        # over one model rank nothing splits (the DP and FSDP steps build
-        # the model with a shard of size 1)
-        self.model_axis = any(s is not None and s.size > 1
-                              for s in (shard, spatial))
         self.num_classes = num_classes
         plan = build_plan(cfg)
         ted = cfg.time_embed_dim
@@ -381,11 +384,6 @@ class UNet(nn.Module):
                               use_reentrant=False, preserve_rng_state=False)
 
         s2d = _use_s2d(cfg)
-        if s2d and self.model_axis:
-            raise ValueError(
-                "space-to-depth (set_s2d_mode / UNET_TPU_TORCH_S2D 'on') is "
-                "not ported to the model axis (tensor parallel or spatial "
-                "sharding); run this model with it off")
         in_modes, out_modes = group_modes(cfg, s2d)
         h = S.space_to_depth(x) if s2d else x
         skips = []
@@ -403,8 +401,10 @@ class UNet(nn.Module):
         if s2d:
             gn, conv = self.out.gn, self.out.conv
             h = S.group_norm_silu_s2d(h, gn.scale, gn.bias,
-                                      num_groups=gn.num_groups, eps=gn.eps)
-            return S.depth_to_space(S.conv2d_s2d(h, conv.w, conv.b))
+                                      num_groups=gn.num_groups, eps=gn.eps,
+                                      shard=gn.spatial)
+            return S.depth_to_space(S.conv2d_s2d(h, conv.w, conv.b,
+                                                 shard=conv.spatial))
         return self.out.conv(self.out.gn(h))
 
 

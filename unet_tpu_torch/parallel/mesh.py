@@ -497,6 +497,8 @@ def make_parallel_train_step(cfg: UnetConfig, tc: TrainConfig, mesh: Mesh,
             unravel = trainer.Unravel(unet.UNet(
                 example_params.cfg, example_params.num_classes,
                 spatial=shard))
+        # in patch space a rank's rows make whole patch rows (`space_to_depth`
+        # refuses an odd count): the CLI's rule makes them a multiple of 2
         height = sp.rows_of(cfg.image_size, shard)
     size = placement.size
     if placement.padded == size:

@@ -24,9 +24,12 @@ Functions whose backward is the exact adjoint of their forward:
   the attention work of one rank's rows.
 
 1x1 convolutions, pooling, upsampling, the skip concatenation and the time
-MLP stay local.  Each rank's parameter gradient is the part of its own
-rows (the step sums it over the ranks).  Over one model rank nothing
-is exchanged: the model is the one-device model.
+MLP stay local.  With level 0 in patch space (ops/s2d.py) a rank holds its
+rows' 2x2 patches: a 3x3 convolution's halo is one patch row (two pixel
+rows), and a GroupNorm runs on the free view of the rank's patch rows.
+Each rank's parameter gradient is the part of its own rows (the step sums
+it over the ranks).  Over one model rank nothing is exchanged: the model
+is the one-device model.
 
 Collectives: `distributed.all_gather` and `dist.all_reduce` only.  Every
 rank makes the same collectives in the same order, forward and backward

@@ -24,6 +24,10 @@ collectives over the model group (`Shard.group`):
   heads, with `qkv` cut by head so that the rank's piece is packed
   [q | k | v] as the kernels take it.
 
+A split ResBlock at level 0 in patch space (ops/s2d.py) splits the same
+way: its rank's pieces of conv1 and conv2 are expanded for patch space
+inside the forward, and its channels lie in the (phase, c) layout.
+
 Every other leaf (conv_in, the time MLP, gn1, attention's gn, the skip
 convs, the blocks that do not split, the head) is whole on every model
 rank.  The ranks compute its gradient each on its own, and the card's
