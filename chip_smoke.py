@@ -10,14 +10,17 @@ object per line:
      the seconds the kernels took to build from unet_tpu_torch/csrc/, with
      ptxas's registers of each kernel instantiation and the most bytes any
      kernel spills (a spill, a build log that names no kernel, or one that
-     lacks an attention kernel at a head size of `HEAD_SIZES` or a
-     tensor-core convolution, fails the run).
+     lacks an attention kernel at a tile width of `HEAD_SIZES`, a chunked
+     attention kernel or a tensor-core convolution, fails the run).
   2. `kernel_checks`: each hand-written kernel (GroupNorm and attention,
      forward and backward) against its plain PyTorch version on the card,
      float32 and bfloat16, at the shapes the U-Net gives it in sampling and
      in training (attention also at head sizes 16 and 64, and both at the
      shapes of a block split over two model ranks), with the kernel's, the plain version's and a library
-     call's time and the least time the card could take.  Each is timed
+     call's time and the least time the card could take; then attention
+     forward and backward at head sizes from 7 to 256 (`ATTN_HEAD_SHAPES`,
+     untimed but for the four of `ATTN_HEAD_TIMED`), each with its
+     layout (tile width or chunks) and `work_ratio`.  Each is timed
      twice after warm-up: as it is called (CUDA events around a loop of
      calls) and on the device alone (the same calls replayed from a CUDA
      graph).  Every repetition reads the same input, so the cache is warm.
@@ -79,9 +82,14 @@ object per line:
      held against its plain version at every distinct shape those steps
      hand it.
   8. `head_size`: the training and sampling CLIs at the default model with
-     64 channels a head: both refuse head size 48 on the card before they
-     build a model; 3 bfloat16 steps at B=32 with a checkpoint, then a DDIM-10
-     request at B=4 from it, with exact launch counts and finite losses.
+     128 channels a head (one head of 192, two of 128: the chunked
+     kernels): both refuse head size 48 (five heads of a width of 256) and
+     288 at --num_channels 96 (a head of 288, past the kernels) on the card
+     before they build a model; 3 bfloat16 steps at B=32 with a
+     checkpoint, then a DDIM-10 request at B=4 from it, and one float32
+     step against the plain versions (the `train_step` bars), with exact
+     launch counts, finite losses and images, and every kernel input of
+     the runs held against its plain version.
   9. `s2d`: space-to-depth level 0 (`UNET_TPU_TORCH_S2D=on`,
      `models.unet.set_s2d_mode`, `unet_tpu_torch/ops/s2d.py`) at the
      default model, full width and depth, against pixel space on the
@@ -367,6 +375,22 @@ GN_BWD_SHAPES = [(32, 64, 64, 64), (32, 64, 64, 128), (32, 32, 32, 320),
 ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
                    (2, 100, 64, 2), (32, 256, 192, 12), (32, 256, 192, 3),
                    (32, 64, 256, 4), (32, 256, 96, 3)]
+# Head sizes beyond the default model's 32 (B, T, C, NH), each untimed
+# but for `ATTN_HEAD_TIMED`: the default model at `--num_head_channels 128`
+# (one head of 192 at ds 4, two of 128 at ds 8: the `head_size` phase's
+# model); Improved DDPM's ImageNet-64 widths at 128 (heads of 128); heads
+# of 72 (`--num_channels 96 --num_head_channels 64`, width 288); Stable
+# Diffusion 1.x's 40, 80 and 160; DDPM's CIFAR-10 head of 256; then 48, 12,
+# 8 and 7 at a ragged T (bfloat16 copies in pieces of 16, 8, 16 and 2
+# bytes).  The backward also at the trainer's batch at the first two.
+ATTN_HEAD_SHAPES = [(8, 256, 192, 1), (8, 64, 256, 2), (8, 256, 384, 3),
+                    (8, 64, 512, 4), (4, 256, 288, 4), (4, 1024, 320, 8),
+                    (4, 256, 640, 8), (2, 64, 1280, 8), (8, 256, 256, 1),
+                    (2, 100, 96, 2), (2, 100, 36, 3), (2, 100, 24, 3),
+                    (2, 100, 21, 3)]
+ATTN_HEAD_BWD_SHAPES = [(32, 256, 192, 1), (32, 64, 256, 2)]
+ATTN_HEAD_TIMED = {"fwd": [(8, 256, 192, 1), (8, 64, 256, 2)],
+                   "bwd": [(32, 256, 192, 1), (32, 64, 256, 2)]}
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
 # ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
 # columns), a single pixel, and C = 3, which is no multiple of 8 and so
@@ -382,10 +406,16 @@ CONV_TOL = GN_TOL
 # The case the `kernels` line reports: conv_proto's and bench_ops's headline
 # (check_conv also times the float32 case at its shape).
 CONV_HEADLINE = dict(shape=[64, 64, 32, 192, 64], dtype="torch.bfloat16")
-# The head size of the second training and sampling run (`drive_head_size`),
-# and one the kernels are not compiled for, which both CLIs must refuse on
-# the card before they build a model.
-OTHER_HEAD_SIZE, UNCOMPILED_HEAD_SIZE = 64, 48
+# The head size of the second training and sampling run (`drive_head_size`:
+# one head of 192 and two of 128 at the default model's widths), and the
+# (--num_head_channels, --num_channels) both CLIs must refuse on the card
+# before they build a model, each with the (channels, mult) of a small
+# checkpoint of the same attention width for `generate`: 48 at widths 192
+# and 256 (256 // 48 = 5 heads do not split 256, which the JAX package
+# cannot run either), and 288 at widths 288 and 384 (heads of 288 and 384,
+# past the kernels' 256; the JAX package runs it).
+OTHER_HEAD_SIZE = 128
+REFUSED_HEADS = [(48, 64, 64, (1, 4)), (288, 96, 96, (1, 3))]
 
 
 def emit(obj) -> None:
@@ -500,40 +530,54 @@ def check_groupnorm(gen):
     return cases
 
 
+def attention_fwd_case(B, T, C, NH, dtype, gen, timed=True):
+    """The forward kernel against its plain version at one shape and type,
+    twice for equal bits; with `timed` beside the library and the bound."""
+    qkv = torch.randn((B, T, 3 * C), generator=gen, device=DEV).to(dtype)
+    out = qkv_attention_fwd(qkv, NH)
+    again = qkv_attention_fwd(qkv, NH)
+    torch.cuda.synchronize()
+    what = f"qkv_attention_fwd {(B, T, C, NH)} {dtype}"
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: a rerun gave other bits")
+    want = qkv_attention_plain(qkv, NH)
+    tol = attention_tol(want)
+    err = compare(out, want, tol, what)
+    # what the tolerance's absolute part has to cover
+    beyond = ((out.float() - want.float()).abs()
+              - 2.0 ** -7 * want.float().abs()).max().item()
+    rms = want.float().square().mean().sqrt().item()
+    HS = C // NH
+    case = dict(shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
+                route=attn_mod.route(dtype),
+                layout=list(attn_mod.kernel_layout(HS, dtype)),
+                work_ratio=attn_mod.work_ratio(HS, dtype, False),
+                max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
+                out_rms=rms)
+    if timed:
+        q, k, v = (a.transpose(1, 2) for a in
+                   qkv.view(B, T, 3, NH, HS).unbind(2))
+        item = qkv.element_size()
+        bound_ms, bound_by = bound(4 * B * T * C * item,
+                                   4 * B * NH * T * T * HS, dtype)
+        case.update(**timings(
+            lambda: qkv_attention_fwd(qkv, NH),
+            lambda: qkv_attention_plain(qkv, NH),
+            lambda: TF.scaled_dot_product_attention(q, k, v)),
+            bound_ms=bound_ms, bound_by=bound_by)
+    return case
+
+
 def check_attention(gen):
+    """`ATTN_SHAPES` timed, then `ATTN_HEAD_SHAPES`, timed where
+    `ATTN_HEAD_TIMED` names them."""
     cases = []
-    for B, T, C, NH in ATTN_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn((B, T, 3 * C), generator=gen, device=DEV
-                              ).to(dtype)
-            out = qkv_attention_fwd(qkv, NH)
-            again = qkv_attention_fwd(qkv, NH)
-            torch.cuda.synchronize()
-            what = f"qkv_attention_fwd {(B, T, C, NH)} {dtype}"
-            if not torch.equal(out, again):
-                raise AssertionError(f"{what}: a rerun gave other bits")
-            want = qkv_attention_plain(qkv, NH)
-            tol = attention_tol(want)
-            err = compare(out, want, tol, what)
-            # what the tolerance's absolute part has to cover
-            beyond = ((out.float() - want.float()).abs()
-                      - 2.0 ** -7 * want.float().abs()).max().item()
-            rms = want.float().square().mean().sqrt().item()
-            HS = C // NH
-            q, k, v = (a.transpose(1, 2) for a in
-                       qkv.view(B, T, 3, NH, HS).unbind(2))
-            item = qkv.element_size()
-            bound_ms, bound_by = bound(4 * B * T * C * item,
-                                       4 * B * NH * T * T * HS, dtype)
-            cases.append(dict(
-                shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
-                route=attn_mod.route(dtype), max_abs_err=err, tol=tol,
-                err_beyond_one_bf16_step=beyond, out_rms=rms,
-                **timings(
-                    lambda: qkv_attention_fwd(qkv, NH),
-                    lambda: qkv_attention_plain(qkv, NH),
-                    lambda: TF.scaled_dot_product_attention(q, k, v)),
-                bound_ms=bound_ms, bound_by=bound_by))
+    for shapes, timed in ((ATTN_SHAPES, ATTN_SHAPES),
+                          (ATTN_HEAD_SHAPES, ATTN_HEAD_TIMED["fwd"])):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                cases.append(attention_fwd_case(*shape, dtype, gen,
+                                                timed=shape in timed))
     return cases
 
 
@@ -611,51 +655,67 @@ def check_groupnorm_bwd(gen):
     return cases
 
 
+def attention_bwd_case(B, T, C, NH, dtype, gen, timed=True):
+    """The backward kernels against their plain version at one shape and
+    type, twice for equal bits; with `timed` beside autograd through the
+    library and the bound."""
+    qkv = torch.randn((B, T, 3 * C), generator=gen, device=DEV).to(dtype)
+    dout = torch.randn((B, T, C), generator=gen, device=DEV).to(dtype)
+    got = qkv_attention_bwd(qkv, dout, NH)
+    again = qkv_attention_bwd(qkv, dout, NH)
+    torch.cuda.synchronize()
+    what = f"qkv_attention_bwd {(B, T, C, NH)} {dtype}"
+    if not torch.equal(got, again):
+        raise AssertionError(f"{what}: a rerun gave other bits")
+    want = qkv_attention_bwd_plain(qkv, dout, NH)
+    tol = attention_bwd_tol(want)
+    err = compare(got, want, tol, what)
+    beyond = ((got.float() - want.float()).abs()
+              - 2.0 ** -7 * want.float().abs()).max().item()
+    rms = want.float().square().mean().sqrt().item()
+    HS = C // NH
+    case = dict(shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
+                route=attn_mod.route(dtype),
+                layout=list(attn_mod.kernel_layout(HS, dtype)),
+                work_ratio=attn_mod.work_ratio(HS, dtype, True),
+                max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
+                out_rms=rms)
+    if timed:
+        stream = side_stream()
+        with torch.cuda.stream(stream):
+            ql = qkv.detach().requires_grad_()
+            q, k, v = (a.transpose(1, 2) for a in
+                       ql.view(B, T, 3, NH, HS).unbind(2))
+            out = TF.scaled_dot_product_attention(q, k, v)
+        dol = dout.view(B, T, NH, HS).transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(out, ql, dol, retain_graph=True)
+
+        item = qkv.element_size()
+        # qkv and dout read, d(qkv) written; five T x T x HS products per
+        # head (scores, dp, dq, dk, dv)
+        bound_ms, bound_by = bound(7 * B * T * C * item,
+                                   10 * B * NH * T * T * HS, dtype)
+        case.update(**timings(lambda: qkv_attention_bwd(qkv, dout, NH),
+                              lambda: qkv_attention_bwd_plain(qkv, dout, NH),
+                              library, stream),
+                    bound_ms=bound_ms, bound_by=bound_by)
+        del out
+    return case
+
+
 def check_attention_bwd(gen):
+    """`ATTN_BWD_SHAPES` timed, then `ATTN_HEAD_SHAPES` and
+    `ATTN_HEAD_BWD_SHAPES`, timed where `ATTN_HEAD_TIMED` names them."""
     cases = []
-    for B, T, C, NH in ATTN_BWD_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            qkv = torch.randn((B, T, 3 * C), generator=gen, device=DEV
-                              ).to(dtype)
-            dout = torch.randn((B, T, C), generator=gen, device=DEV).to(dtype)
-            got = qkv_attention_bwd(qkv, dout, NH)
-            again = qkv_attention_bwd(qkv, dout, NH)
-            torch.cuda.synchronize()
-            what = f"qkv_attention_bwd {(B, T, C, NH)} {dtype}"
-            if not torch.equal(got, again):
-                raise AssertionError(f"{what}: a rerun gave other bits")
-            want = qkv_attention_bwd_plain(qkv, dout, NH)
-            tol = attention_bwd_tol(want)
-            err = compare(got, want, tol, what)
-            beyond = ((got.float() - want.float()).abs()
-                      - 2.0 ** -7 * want.float().abs()).max().item()
-            rms = want.float().square().mean().sqrt().item()
-            HS = C // NH
-            stream = side_stream()
-            with torch.cuda.stream(stream):
-                ql = qkv.detach().requires_grad_()
-                q, k, v = (a.transpose(1, 2) for a in
-                           ql.view(B, T, 3, NH, HS).unbind(2))
-                out = TF.scaled_dot_product_attention(q, k, v)
-            dol = dout.view(B, T, NH, HS).transpose(1, 2)
-
-            def library():
-                return torch.autograd.grad(out, ql, dol, retain_graph=True)
-
-            item = qkv.element_size()
-            # qkv and dout read, d(qkv) written; five T x T x HS products
-            # per head (scores, dp, dq, dk, dv)
-            bound_ms, bound_by = bound(7 * B * T * C * item,
-                                       10 * B * NH * T * T * HS, dtype)
-            cases.append(dict(
-                shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
-                route=attn_mod.route(dtype), max_abs_err=err, tol=tol,
-                err_beyond_one_bf16_step=beyond, out_rms=rms,
-                **timings(lambda: qkv_attention_bwd(qkv, dout, NH),
-                          lambda: qkv_attention_bwd_plain(qkv, dout, NH),
-                          library, stream),
-                bound_ms=bound_ms, bound_by=bound_by))
-            del out
+    for shapes, timed in ((ATTN_BWD_SHAPES, ATTN_BWD_SHAPES),
+                          (ATTN_HEAD_SHAPES + ATTN_HEAD_BWD_SHAPES,
+                           ATTN_HEAD_TIMED["bwd"])):
+        for shape in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                cases.append(attention_bwd_case(*shape, dtype, gen,
+                                                timed=shape in timed))
     return cases
 
 
@@ -794,12 +854,15 @@ def check_seen_shapes(seen, gen):
 
 
 # Instantiations the build log must list (`_build.kernel_instance` names):
-# every attention kernel at every head size, the four tensor-core
+# every attention kernel at every tile width and the chunked ones (heads
+# past 64) in both types, the four tensor-core
 # convolutions (bf16 `wgmma` and float32 3xTF32, 64 and 128 columns).
 REQUIRED_INSTANCES = [
     f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
     for k in ("fwd_tf32", "bwd_dq_tf32", "bwd_dkv_tf32", "fwd_mma",
               "bwd_dq_mma", "bwd_dkv_mma")] + [
+    f"qkv_attention_{k}_chunked_kernel<{t}>" for t in ("__nv_bfloat16", "float")
+    for k in ("fwd", "bwd_dq", "bwd_dkv")] + [
     f"conv3x3_hwbc_{k}_kernel<{bn}>" for k in ("wgmma", "tf32")
     for bn in (64, 128)]
 
@@ -1104,12 +1167,11 @@ def check_captured_chain(path, gen):
                 bits_equal=bool(torch.equal(captured, eager)))
 
 
-def check_train_step(gen):
-    """One float32 step of the default model at the trainer's batch: loss
-    and gradients on the kernels against the same on the plain versions;
-    then ten `step_with` steps on one fixed batch, t and noise, whose loss
-    must fall."""
-    cfg = UnetConfig()
+def step_against_plain(cfg, gen):
+    """One float32 step of `cfg` at the trainer's batch: loss and every
+    gradient on the kernels against the same on the plain versions (the
+    kernels' launches held to one step's); returns the model, the step's
+    inputs and the record."""
     model = unet.init(cfg, generator=torch.Generator().manual_seed(2),
                       device=DEV)
     diffusion = GaussianDiffusion.create(
@@ -1122,7 +1184,11 @@ def check_train_step(gen):
     t = torch.randint(0, cfg.max_period, (TRAIN_BATCH,), generator=gen,
                       device=DEV)
     noise = torch.randn(shape, generator=gen, device=DEV)
+    reset_counts()
     loss, grads = grad_fn(model, batch, t, noise)
+    launches = counts()
+    if launches != launches_per_step(cfg, False, 1):
+        raise AssertionError(f"train step f32: launches {launches}")
     with plain_versions():
         ploss, pgrads = grad_fn(model, batch, t, noise)
     loss, ploss = loss.item(), ploss.item()
@@ -1134,18 +1200,27 @@ def check_train_step(gen):
                            f"train step f32 gradient {i}")
                    for i, (g, p) in enumerate(zip(grads, pgrads)))
     grad_max = max(p.abs().max().item() for p in pgrads)
-    del grads, pgrads
+    return model, tc, diffusion, (batch, t, noise), dict(
+        batch=TRAIN_BATCH, loss=loss, plain_loss=ploss, loss_rel_err=rel,
+        loss_rtol=TRAIN_LOSS_RTOL, grad_max_abs_err=grad_err,
+        grad_atol=TRAIN_GRAD_ATOL, grad_max_abs=grad_max, launches=launches)
 
+
+def check_train_step(gen):
+    """One float32 step of the default model at the trainer's batch: loss
+    and gradients on the kernels against the same on the plain versions;
+    then ten `step_with` steps on one fixed batch, t and noise, whose loss
+    must fall."""
+    cfg = UnetConfig()
+    model, tc, diffusion, (batch, t, noise), record = step_against_plain(
+        cfg, gen)
     state = trainer.init_state(model)
     _, step_with = trainer.make_train_step(cfg, tc, diffusion, DEV)
     losses = torch.stack([step_with(state, batch, t, noise)[1]
                           for _ in range(10)]).tolist()
     if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"ten steps on one batch: losses {losses}")
-    return dict(batch=TRAIN_BATCH, loss=loss, plain_loss=ploss,
-                loss_rel_err=rel, loss_rtol=TRAIN_LOSS_RTOL,
-                grad_max_abs_err=grad_err, grad_atol=TRAIN_GRAD_ATOL,
-                grad_max_abs=grad_max, ten_step_losses=losses)
+    return dict(**record, ten_step_losses=losses)
 
 
 # The training configurations of the `train` phase, as `TrainConfig`s: the
@@ -1444,13 +1519,17 @@ def drive_train(tmp, totals, gen, step_ms):
 
 def drive_head_size(tmp, totals, gen):
     """The training and sampling CLIs at `UnetConfig()` with
-    `OTHER_HEAD_SIZE` channels a head: both refuse `UNCOMPILED_HEAD_SIZE`
-    on the card before they build a model; then `cli.train.main` takes 3
-    bfloat16 steps at B=32 and saves a checkpoint, and `cli.generate.run`
-    answers one DDIM-10 request at B=4 from it.  Launch counts per step and
-    per model call are held exactly, the losses and images must be finite,
-    and each kernel is held against its plain version at every shape the
-    two runs hand it.  Adds the launches to `totals`."""
+    `OTHER_HEAD_SIZE` channels a head (one head of 192 at ds 4, two of 128
+    at ds 8: the chunked kernels).  Both CLIs refuse each of
+    `REFUSED_HEADS` on the card before they build a model; then
+    `cli.train.main` takes 3 bfloat16 steps at B=32 and saves a
+    checkpoint, `cli.generate.run` answers one DDIM-10 request at B=4 from
+    it, and one float32 step at B=32 holds its loss and every gradient on
+    the kernels against the plain versions (the `train_step` bars).
+    Launch counts per step and per model call are held exactly, the losses
+    and images must be finite, and each kernel is held against its plain
+    version at every shape the runs hand it.  Adds the launches to
+    `totals`."""
     cfg = dataclasses.replace(UnetConfig(), num_head_channels=OTHER_HEAD_SIZE)
     data = os.path.join(tmp, "train.bin")
     pixels = np.random.default_rng(1).uniform(
@@ -1464,30 +1543,36 @@ def drive_head_size(tmp, totals, gen):
                 "--compute_dtype", "bfloat16", "--output_dir",
                 os.path.join(tmp, "models"), "--log_file", log, *flags]
 
-    # an uncompiled head size is refused before any model exists
+    # refused before any model exists
     reset_counts()
-    refused = {}
-    try:
-        train_cli.main(train_argv(UNCOMPILED_HEAD_SIZE, "--iterations", "1"))
-    except SystemExit as e:
-        refused["train"] = str(e)
-    # generate reads the head size from the checkpoint: a small one will do
-    small = UnetConfig(model_channels=32, channel_mult=(1, 2), image_size=16,
-                       num_res_blocks=1, attention_ds=(2,),
-                       num_head_channels=UNCOMPILED_HEAD_SIZE)
-    ckpt_48 = os.path.join(tmp, "hs48.bin")
-    ckpt_io.save(ckpt_48, ckpt_io.Checkpoint(
-        params=unet.init(small, generator=torch.Generator().manual_seed(3),
-                         device="cpu"), cfg=small, batch_size=4))
-    with contextlib.redirect_stderr(io.StringIO()) as err:
+    refused = []
+    for head_size, channels, small_channels, small_mult in REFUSED_HEADS:
+        case = dict(num_head_channels=head_size, num_channels=channels)
         try:
-            generate.run(generate.parse_args(
-                ["--model_filename", ckpt_48, "--device", "cuda"]))
-        except SystemExit:
-            refused["generate"] = err.getvalue().strip().splitlines()[-1]
-    if set(refused) != {"train", "generate"} or any(counts().values()):
-        raise AssertionError(f"head size {UNCOMPILED_HEAD_SIZE} on the card: "
-                             f"refused by {sorted(refused)}, {counts()}")
+            train_cli.main(train_argv(head_size, "--num_channels",
+                                      str(channels), "--iterations", "1"))
+        except SystemExit as e:
+            case["train"] = str(e)
+        # generate reads the head size from the checkpoint: a small model
+        # with the same attention width will do
+        small = UnetConfig(model_channels=small_channels,
+                           channel_mult=small_mult, image_size=16,
+                           num_res_blocks=1, attention_ds=(2,),
+                           num_head_channels=head_size)
+        path = os.path.join(tmp, f"hs{head_size}.bin")
+        ckpt_io.save(path, ckpt_io.Checkpoint(
+            params=unet.init(small, generator=torch.Generator().manual_seed(3),
+                             device="cpu"), cfg=small, batch_size=4))
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            try:
+                generate.run(generate.parse_args(
+                    ["--model_filename", path, "--device", "cuda"]))
+            except SystemExit:
+                case["generate"] = err.getvalue().strip().splitlines()[-1]
+        if not {"train", "generate"} <= set(case) or any(counts().values()):
+            raise AssertionError(f"head size {head_size} on the card: "
+                                 f"{case}, {counts()}")
+        refused.append(case)
 
     seen = new_seen()
     t0 = time.perf_counter()
@@ -1528,21 +1613,29 @@ def drive_head_size(tmp, totals, gen):
                        qkv_attention_fwd=10 * attn_per_fwd,
                        qkv_attention_bwd=0, conv3x3_hwbc=0, **NO_SPLIT)
     shape = (4, cfg.image_size, cfg.image_size, cfg.out_channels)
-    if got_sample != want_sample or images.shape != shape:
+    if (got_sample != want_sample or images.shape != shape
+            or not np.isfinite(images).all()):
         raise AssertionError(f"ddim10 at head size {OTHER_HEAD_SIZE}: "
                              f"launches {got_sample}, images {images.shape}")
     for k, v in got_sample.items():
         totals[k] += v
     heads = sorted({shape[2] // 3 // n for shape, n in seen["attn_fwd"]})
-    if heads != [OTHER_HEAD_SIZE]:
+    if heads != sorted({w // (w // OTHER_HEAD_SIZE)
+                        for w in unet.attention_widths(cfg)}):
         raise AssertionError(f"the runs' head sizes {heads}")
-    return dict(head_size=OTHER_HEAD_SIZE, refused=refused,
+
+    with recording(seen):
+        model, *_, step = step_against_plain(cfg, gen)
+    for k, v in step["launches"].items():
+        totals[k] += v
+    del model
+    return dict(head_size=OTHER_HEAD_SIZE, heads_run=heads, refused=refused,
                 train=dict(batch=TRAIN_BATCH, steps=3, logged_losses=losses,
                            seconds=train_seconds, launches=got),
                 sample=dict(request="ddim10_b4_bf16", shape=list(images.shape),
                             seconds=sample_seconds, launches=got_sample,
                             pixel_mean=float(images.mean())),
-                kernel_inputs=check_seen_shapes(seen, gen))
+                f32_step=step, kernel_inputs=check_seen_shapes(seen, gen))
 
 
 # The `s2d` phase: space-to-depth level 0 against pixel space.  bfloat16: the

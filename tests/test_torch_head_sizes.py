@@ -1,8 +1,10 @@
 """Head sizes other than the default model's 32: the attention kernels'
-plain versions against the Pallas kernels at head sizes 16 and 64, the
-head sizes the CUDA kernels are compiled for, and the CLIs' refusal of any
-other head size on a CUDA device (before a model is built; the CPU takes
-any head size, as the JAX package does).
+plain versions against the Pallas kernels from head size 7 to 256 (the
+CUDA kernels take 1 to 256: tiles 16, 32 or 64 wide up to 64, chunks of 64
+columns beyond), the port's head rule against the JAX package's (refused
+exactly where the JAX package's attention raises, and on a CUDA device a
+head wider than 256), the CLIs' refusals before a model is built, and the
+whole model at head sizes that leave one head of 96 or four of 24.
 
 The Pallas kernels run in interpret mode (automatic off a TPU), as
 tests/test_pallas.py runs them; the port's wrappers get CPU tensors and so
@@ -10,17 +12,23 @@ take their plain versions.  Tolerances are those of the existing attention
 cases: tests/test_torch_kernels_plain.py for the forward (float32 2e-5;
 bfloat16 1e-3 absolute plus one bfloat16 step relative) and
 tests/test_torch_kernels_bwd.py for the backward (float32 3e-5 absolute and
-1e-4 relative, bfloat16 3e-2 absolute).
+1e-4 relative, bfloat16 3e-2 absolute); the whole model tests/test_model.py's
+2e-3 (forward) and 1e-3 (gradients).
 """
 
+import contextlib
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from unet_tpu.io import checkpoint as jax_ckpt
+from unet_tpu.models import unet as jax_unet
+from unet_tpu.ops import functional as jax_functional
 from unet_tpu.ops.pallas import attention as jax_attn
 from unet_tpu_torch.cli import generate
 from unet_tpu_torch.cli import train as train_cli
@@ -30,7 +38,7 @@ from unet_tpu_torch.io import checkpoint as port_ckpt
 from unet_tpu_torch.models import unet as port_unet
 from unet_tpu_torch.ops.kernels import attention as port_attn
 
-from tests.torch_port_util import TINY, j2n, t2n
+from tests.torch_port_util import TINY, both_models, configs, j2n, t2n
 
 FWD_TOL = {"float32": dict(atol=2e-5),
            "bfloat16": dict(atol=1e-3, rtol=2.0 ** -7)}
@@ -41,11 +49,20 @@ TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 ATTENTION_CU = (Path(__file__).resolve().parents[1] / "unet_tpu_torch"
                 / "csrc" / "attention.cu")
 
-# (B, T, C, NH): head sizes 16 and 64; T = 72 leaves a ragged 64-row tile.
+# (B, T, C, NH): head sizes 16 and 64, the tiles' widths; then T = 72,
+# which leaves a ragged 64-row tile, at 12 (an odd number of 8-byte pieces
+# in bfloat16), 40 (a 64-wide tile), and 72, 128, 192, 256 (chunked: 2, 2,
+# 3 and 4 chunks of 64 columns).
 SHAPES = [pytest.param(2, 64, 64, 4, id="HS16"),
           pytest.param(2, 64, 128, 2, id="HS64"),
           pytest.param(1, 72, 128, 8, id="HS16-T72"),
-          pytest.param(1, 72, 192, 3, id="HS64-T72")]
+          pytest.param(1, 72, 192, 3, id="HS64-T72"),
+          pytest.param(1, 72, 36, 3, id="HS12-T72"),
+          pytest.param(1, 72, 80, 2, id="HS40-T72"),
+          pytest.param(1, 72, 144, 2, id="HS72-T72"),
+          pytest.param(1, 72, 128, 1, id="HS128-T72"),
+          pytest.param(1, 72, 192, 1, id="HS192-T72"),
+          pytest.param(1, 72, 256, 1, id="HS256-T72")]
 
 
 @pytest.mark.parametrize("B,T,C,NH", SHAPES)
@@ -77,22 +94,84 @@ def test_attention_bwd_vs_pallas_at_other_head_sizes(B, T, C, NH, dtype):
 
 
 def test_head_sizes_are_the_sources_instantiations():
-    """The wrapper's HEAD_SIZES are the cases of the launchers' dispatch in
-    csrc/attention.cu, each instantiating the kernels at its own size."""
-    cases = re.findall(r"case (\d+): return f\(std::integral_constant<int, "
-                       r"(\d+)>\(\)\);", ATTENTION_CU.read_text())
+    """The wrapper's HEAD_SIZES are the tile widths of the launchers'
+    dispatch in csrc/attention.cu, each instantiating the kernels at its
+    own width, and its CHUNK and MAX_HEAD_SIZE the chunked kernels'
+    (csrc/attention.cuh)."""
+    src = ATTENTION_CU.read_text()
+    shared = ATTENTION_CU.with_suffix(".cuh").read_text()
+    cases = re.findall(r"if \(hs <= (\d+)\) return f\(std::integral_constant"
+                       r"<int, (\d+)>\(\)\);", src)
     assert cases and all(a == b for a, b in cases)
-    assert tuple(sorted(int(a) for a, _ in cases)) == port_attn.HEAD_SIZES
+    assert tuple(int(a) for a, _ in cases) == port_attn.HEAD_SIZES
     assert all(hs % 16 == 0 for hs in port_attn.HEAD_SIZES)  # mma k-steps
+    chunk = int(re.search(r"constexpr int CH = (\d+);", shared).group(1))
+    chunks = int(re.search(r"constexpr int MAX_CHUNKS = (\d+);",
+                           shared).group(1))
+    narrow = int(re.search(r"constexpr int NARROW_MAX = (\d+);",
+                           shared).group(1))
+    assert chunk == port_attn.CHUNK and narrow == max(port_attn.HEAD_SIZES)
+    assert chunk * chunks == port_attn.MAX_HEAD_SIZE
 
 
-@pytest.mark.parametrize("widths, head_size, fault", [
-    ([192, 192, 256], 32, None), ([192, 256], 64, None), ([64], 16, None),
-    ([192, 256], 48, "head sizes"), ([96, 192], 64, "does not divide"),
-    ([32], 64, "does not divide")])
-def test_head_size_fault(widths, head_size, fault):
-    got = port_attn.head_size_fault(widths, head_size)
+@pytest.mark.parametrize("head_size, dtype, layout, fwd, bwd", [
+    (8, "bfloat16", ("tile", 16), 2.0, 2.0),
+    (32, "bfloat16", ("tile", 32), 1.0, 1.0),
+    (40, "bfloat16", ("tile", 64), 1.6, 1.6),
+    (64, "float32", ("tile", 64), 1.0, 1.0),
+    (12, "float32", ("tile", 16), 16 / 12, 16 / 12),
+    (12, "bfloat16", ("chunked", 1), 32 / 24, 16 * 9 / 108),
+    (7, "float32", ("chunked", 1), 16 / 14, 8 * 9 / 63),
+    (72, "bfloat16", ("chunked", 2), 240 / 144, 1200 / 648),
+    (72, "float32", ("chunked", 2), 1.5, 15 / 9),
+    (96, "bfloat16", ("chunked", 2), 1.5, 15 / 9),
+    (192, "bfloat16", ("chunked", 3), 2.0, 21 / 9),
+    (256, "float32", ("chunked", 4), 2.5, 3.0),
+    (257, "bfloat16", None, None, None)])
+def test_kernel_layout_and_work_ratio(head_size, dtype, layout, fwd, bwd):
+    """A tile pads the head to its width and takes rows of a multiple of
+    16 bytes; the chunked kernels take the rest, a head's n blocks each
+    redoing its scores (HS 72 in bfloat16: k-steps of 16 over 64 + 8
+    columns, 80 deep, 2 x 80 + 80 against 2 x 72 forward, 6 x 2 x 80 + 3 x
+    80 against 9 x 72 backward)."""
+    assert port_attn.kernel_layout(head_size, TDT[dtype]) == layout
+    if layout is not None:
+        assert port_attn.work_ratio(head_size, TDT[dtype],
+                                    False) == pytest.approx(fwd)
+        assert port_attn.work_ratio(head_size, TDT[dtype],
+                                    True) == pytest.approx(bwd)
+
+
+@pytest.mark.parametrize("widths, head_size, cuda, fault", [
+    ([192, 192, 256], 32, True, None), ([192, 256], 64, True, None),
+    ([64], 16, True, None), ([96], 64, True, None),      # one head of 96
+    ([192, 256], 128, True, None),  # one head of 192, two of 128
+    ([288], 64, True, None),        # four heads of 72
+    ([192, 256], 48, True, "do not split"),  # 256 // 48 = 5 heads
+    ([192, 256], 48, False, "do not split"),
+    ([32], 64, False, "no head"), ([64], 128, True, "no head"),
+    ([288, 384], 288, True, "at most 256"),  # heads of 288 and 384
+    ([288, 384], 288, False, None), ([64], 0, False, "not positive")])
+def test_head_size_fault(widths, head_size, cuda, fault):
+    got = port_attn.head_size_fault(widths, head_size, cuda=cuda)
     assert (got is None) if fault is None else (fault in got)
+
+
+@pytest.mark.parametrize("width", [32, 64, 96, 192, 256, 288])
+def test_head_rule_is_the_jax_packages(width):
+    """On the CPU the port refuses exactly the head sizes at which the JAX
+    package's attention raises (its einsum route: no head divides by zero,
+    heads that do not split the width fail the reshape), with the JAX
+    model's own head count, width // head_size."""
+    for head_size in (1, 7, 24, 40, 48, 64, 72, 128, 192, 288, 400):
+        qkv = jnp.zeros((1, 2, 3 * width), jnp.float32)
+        try:
+            jax_functional.qkv_attention(qkv, width // head_size)
+            raised = False
+        except (ZeroDivisionError, TypeError, ValueError):
+            raised = True
+        fault = port_attn.head_size_fault([width], head_size, cuda=False)
+        assert raised == (fault is not None), (width, head_size, fault)
 
 
 def test_attention_widths_of_the_default_model():
@@ -100,19 +179,27 @@ def test_attention_widths_of_the_default_model():
     assert len(widths) == 11 and set(widths) == {192, 256}
 
 
+class FakeCuda:
+    """A CUDA tensor's attributes, for `_check_cuda` on a CPU-only
+    machine (the device check comes first)."""
+
+    device = torch.device("cuda")
+    dtype = torch.bfloat16
+
+    def __init__(self, shape):
+        self.shape = shape
+
+    def is_contiguous(self):
+        return True
+
+
 def test_cuda_wrapper_refuses_an_uncompiled_head_size():
-    """On a CPU-only machine the refusal comes before any CUDA call: the
-    device check comes first, so a CUDA tensor is faked by its attributes."""
-    class FakeCuda:
-        device = torch.device("cuda")
-        dtype = torch.bfloat16
-        shape = (2, 8, 3 * 96)
-
-        def is_contiguous(self):
-            return True
-
-    with pytest.raises(ValueError, match="head sizes"):
-        port_attn._check_cuda(FakeCuda(), 2)  # HS = 48
+    """Heads of 1 to 256 reach the kernels; a head of 288 (width 288, one
+    head) is past them and refused before any CUDA call."""
+    for C, NH in ((288, 4), (96, 2), (21, 3), (256, 1), (7, 7), (2048, 8)):
+        port_attn._check_cuda(FakeCuda((2, 8, 3 * C)), NH)
+    with pytest.raises(ValueError, match="at most 256"):
+        port_attn._check_cuda(FakeCuda((2, 8, 3 * 288)), 1)
 
 
 def _train_flags(tmp_path, head_size, device, channels=96, mult="1,2"):
@@ -128,25 +215,44 @@ def _train_flags(tmp_path, head_size, device, channels=96, mult="1,2"):
             "--log_file", str(tmp_path / "log.txt")]
 
 
-@pytest.fixture
-def no_model_built(monkeypatch):
-    """Fails the test if a model is built or a checkpoint's weights load."""
+@contextlib.contextmanager
+def no_weights_read():
+    """Within the block, building a model or loading a checkpoint's weights
+    fails the test."""
     def refuse(*args, **kwargs):
         raise AssertionError("a model was built")
-    monkeypatch.setattr(port_unet, "init", refuse)
-    monkeypatch.setattr(port_ckpt, "load", refuse)
+    saved = port_unet.init, port_ckpt.load
+    port_unet.init = port_ckpt.load = refuse
+    try:
+        yield
+    finally:
+        port_unet.init, port_ckpt.load = saved
 
 
-@pytest.mark.parametrize("head_size, channels, mult", [
-    (48, 96, "1,2"), (64, 32, "1,3")])
+@pytest.fixture
+def no_model_built():
+    """Fails the test if a model is built or a checkpoint's weights load."""
+    with no_weights_read():
+        yield
+
+
+@pytest.mark.parametrize("head_size, channels, mult, fault", [
+    (48, 128, "1,2", "do not split"), (288, 96, "1,3", "at most 256")])
 def test_train_refuses_a_head_size_on_cuda_before_any_work(
-        tmp_path, head_size, channels, mult, no_model_built):
-    """48 is compiled for no kernel; 64 does not divide the attention width
-    96 of --num_channels 32 --channel_mult 1,3.  No data file is needed to
-    be refused."""
-    with pytest.raises(SystemExit, match="head size"):
+        tmp_path, head_size, channels, mult, fault, no_model_built):
+    """48 at the attention width 256 of --num_channels 128 gives five heads,
+    which do not split it (the JAX package cannot run it either); 288 at
+    width 288 is one head of 288, past the kernels.  No data file is needed
+    to be refused."""
+    with pytest.raises(SystemExit, match=fault):
         train_cli.main(_train_flags(tmp_path, head_size, "cuda", channels,
                                     mult))
+
+
+def test_train_refuses_on_the_cpu_what_the_jax_package_cannot_run(
+        tmp_path, no_model_built):
+    with pytest.raises(SystemExit, match="do not split"):
+        train_cli.main(_train_flags(tmp_path, 48, "cpu", 128))
 
 
 def test_train_takes_head_size_48_on_the_cpu(tmp_path):
@@ -170,13 +276,25 @@ def hs48_file(tmp_path):
     return path
 
 
+@pytest.mark.parametrize("channels, mult, head_size, fault", [
+    (128, (1, 2), 48, "do not split"), (96, (1, 3), 288, "at most 256")])
 def test_generate_refuses_head_size_48_on_cuda_before_loading(
-        hs48_file, no_model_built, capsys):
-    args = generate.parse_args(["--model_filename", hs48_file, "--device",
+        tmp_path, channels, mult, head_size, fault, capsys):
+    """Width 256 at 48 (five heads, which do not split it) and width 288 at
+    288 (one head, past the kernels), read from the checkpoint's header
+    before any weights load."""
+    cfg = UnetConfig(**{**TINY, "model_channels": channels,
+                        "channel_mult": mult, "num_head_channels": head_size})
+    path = str(tmp_path / "m.bin")
+    port_ckpt.save(path, port_ckpt.Checkpoint(
+        params=port_unet.init(cfg, generator=torch.Generator().manual_seed(0),
+                              device="cpu"), cfg=cfg, batch_size=2))
+    args = generate.parse_args(["--model_filename", path, "--device",
                                 "cuda", "--sampler", "ddim"])
-    with pytest.raises(SystemExit) as e:
-        generate.run(args)
-    assert e.value.code == 2 and "head sizes" in capsys.readouterr().err
+    with no_weights_read():
+        with pytest.raises(SystemExit) as e:
+            generate.run(args)
+    assert e.value.code == 2 and fault in capsys.readouterr().err
 
 
 def test_generate_takes_head_size_48_on_the_cpu(hs48_file):
@@ -190,3 +308,32 @@ def test_read_config_is_the_header_load_reads(hs48_file):
     cfg = port_ckpt.read_config(hs48_file)
     assert cfg == port_ckpt.load(hs48_file, device="cpu").cfg
     assert cfg.num_head_channels == 48 and cfg.model_channels == 96
+
+
+@pytest.mark.parametrize("head_size", [64, 24])
+def test_whole_model_at_other_head_sizes(head_size):
+    """TINY at channel_mult (1, 3): attention at width 96 (every GroupNorm
+    width a multiple of 32), one head of 96 at 64 channels a head, four of
+    24 at 24.  The port's forward and the gradients of a squared error on
+    the CPU against the JAX package's, at tests/test_model.py's bars."""
+    jcfg, cfg = configs(channel_mult=(1, 3), num_head_channels=head_size)
+    assert set(port_unet.attention_widths(cfg)) == {96}
+    params, model, _ = both_models(jcfg, cfg, seed=5)
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 16, 16, 3), dtype=np.float32)
+    t = np.array([11.0, 700.0], np.float32)
+    target = rng.standard_normal(x.shape, dtype=np.float32)
+
+    def jloss(p):
+        out = jax_unet.apply(p, jcfg, jnp.asarray(x), jnp.asarray(t))
+        return jnp.mean(jnp.square(out - jnp.asarray(target))), out
+
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
+    out = port_unet.apply(model, torch.from_numpy(x), torch.from_numpy(t))
+    loss = (out - torch.from_numpy(target)).square().mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    np.testing.assert_allclose(t2n(out.detach()), j2n(jout), atol=2e-3)
+    np.testing.assert_allclose(port_ckpt.flatten_tensors(grads),
+                               jax_ckpt.flatten_params(jgrads, jcfg),
+                               atol=1e-3)

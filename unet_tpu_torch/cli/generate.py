@@ -74,13 +74,14 @@ def run(args: argparse.Namespace) -> np.ndarray:
     program as `parser.error` does."""
     error = _parser().error
     device = torch.device(args.device)
-    if device.type == "cuda":  # before any weights reach the device
-        cfg = ckpt_io.read_config(args.model_filename)
-        fault = attention.head_size_fault(unet.attention_widths(cfg),
-                                          cfg.num_head_channels)
-        if fault is not None:
-            error(f"{args.model_filename}: {fault} on --device "
-                  f"{args.device} (the CPU takes any head size)")
+    # the JAX package's head rule, and on the card the kernels' widest head,
+    # before any weights are read
+    cfg = ckpt_io.read_config(args.model_filename)
+    fault = attention.head_size_fault(unet.attention_widths(cfg),
+                                      cfg.num_head_channels,
+                                      cuda=device.type == "cuda")
+    if fault is not None:
+        error(f"{args.model_filename}: {fault} (--device {args.device})")
     ckpt = ckpt_io.load(args.model_filename, device=device)
     schedule = args.noise_schedule or ckpt.noise_schedule or "linear"
     diffusion = GaussianDiffusion.create(

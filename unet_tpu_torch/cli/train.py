@@ -347,13 +347,13 @@ def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
             "--num_shards is assigned per process automatically in "
             "multi-process runs; leave it at 1 (explicit sharding "
             "requires --shard_index <rank>, distinct per process)")
-    if device.type == "cuda":
-        fault = attention.head_size_fault(
-            unet.attention_widths(model_config_from_args(args)),
-            args.num_head_channels)
-        bad(fault is not None, f"{fault} on --device {args.device} "
-            f"(--num_head_channels {args.num_head_channels}, --num_channels "
-            f"{args.num_channels}; the CPU takes any head size)")
+    # the JAX package's head rule, and on the card the kernels' widest head
+    fault = attention.head_size_fault(
+        unet.attention_widths(model_config_from_args(args)),
+        args.num_head_channels, cuda=device.type == "cuda")
+    bad(fault is not None, f"{fault} (--num_head_channels "
+        f"{args.num_head_channels}, --num_channels {args.num_channels}, "
+        f"--device {args.device})")
 
 
 def _chunked(args, tc: TrainConfig, start_step: int) -> bool:

@@ -103,80 +103,70 @@
 // fragments in registers with no shuffle.  At HS = 64 the backward kernels
 // take a tile's scores half at a time (registers).
 //
-// Head sizes.  Every kernel is a template on HS, compiled for HS = 16, 32
-// and 64 (`with_head_size`, the launchers' dispatch on C / NH); each is a
-// multiple of the bf16 mma's k-step of 16.  In bfloat16, at HS = 16 a
-// score's B fragment is one `ldmatrix.x2`; at 64 the products take four
-// k-steps, and a tile row is 144 bytes (two 64-row tiles of k and v, 36 KB,
-// stay static shared memory).
+// Head sizes.  The JAX package takes any head size hs = C / NH; these
+// kernels take every hs from 1 to 256, by two designs.
+//
+// A head of up to 64 columns whose row is a multiple of 16 bytes (hs a
+// multiple of 8 in bfloat16, of 4 in float32) takes the kernels here,
+// templates on the tile width HS = 16, 32 or 64 (`with_head_size`): the
+// first width at or above hs.  Its columns hs .. HS - 1 are zero in the
+// staged tiles (the 16-byte copies fill them) and in the own rows'
+// fragments, so they add exact zeros to every score; the outputs' columns
+// past hs are never written.  In bfloat16, at HS = 16 a score's B fragment
+// is one `ldmatrix.x2`; at 64 the products take four k-steps, and a tile
+// row is 144 bytes (two 64-row tiles of k and v, 36 KB, stay static shared
+// memory).
+//
+// Every other head (attention_chunked.cu: wider than 64, or a row of
+// another length) is cut into nd = ceil(hs / 64) chunks of 64 columns
+// (CH): kept in registers, the own rows and the outputs of a 256-wide head
+// would take 255 registers a thread many times over, and staged whole, a
+// float32 ring would take more shared memory than a block has.  A block
+// owns 64 rows and one chunk c of the output columns (grid.y = NH * nd) and
+// holds its own rows whole in shared memory, read a k-step at a time
+// (`ldmatrix`, or 32-bit loads in float32); the other side streams through
+// the two-tile ring a chunk of 64 x 64 at a time.  Every block recomputes
+// the hs-deep scores (nd times the score products in all), over its chunks
+// in the order c + 1, ..., c (mod nd), so that the chunk its output needs
+// (v's, k's, or qs's and dout's chunk c) is the ring's last tile of each
+// tile of keys or queries; k-steps wholly past hs are skipped.  Registers
+// stay those of a 64-wide head: the scores, dp and two 16 x 64
+// accumulators at most.  Its copies take, once per launch, the widest
+// piece of 16, 8, 4 or 2 bytes that every head's row starts on (the lowest
+// set bit of hs * itemsize): 8- and 4-byte `cp.async`, or for an odd hs in
+// bfloat16 plain 2-byte loads and stores into the ring; an odd hs stores
+// its outputs one value at a time.
 
-#include <math.h>
-#include <stdint.h>
-
-#include <mutex>
-#include <set>
-#include <type_traits>
-#include <utility>
-
-#include "common.cuh"
+#include "attention.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
 // bfloat16 on the tensor cores.
 
-using bf16 = __nv_bfloat16;
-
-constexpr int WARPS = 4;                     // warps of a block, 16 rows each
-constexpr int THREADS = WARPS * 32;
-constexpr int TILE = WARPS * 16;             // a block's rows, and the rows of a shared tile
-constexpr int STAGES = 2;                    // tiles in the cp.async ring
-constexpr float LOG2E = 1.4426950408889634f;
-
 // A shared tile row: HS values + 8 of padding (LD<HS> in all), so that the
 // eight rows one `ldmatrix` phase reads start in eight different 16-byte
 // bank groups (rows of 48, 80 and 144 bytes at HS = 16, 32, 64).
 template <int HS> constexpr int LD = HS + 8;
 
-// 2^x by the special-function unit (`ex2.approx.ftz`): relative error about
-// 2^-22, results below 2^-126 flushed to 0.  On the card it gave the same
-// output bits as exp2f at every shape chip_smoke.py checks, and a faster
-// backward.
-__device__ __forceinline__ float exp2_approx(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// Copies rows [r0, r0 + TILE) of one head's HS columns (row r at src + r *
-// stride) into a padded tile; rows at or past n are zero-filled.
-template <int HS>
-__device__ __forceinline__ void tile_async(bf16 (*dst)[LD<HS>], const bf16* src, size_t stride,
-                                           int r0, int n) {
-#pragma unroll
-    for (int e = threadIdx.x; e < TILE * HS / 8; e += THREADS) {
-        const int r = e / (HS / 8), c = e % (HS / 8) * 8;
-        const bool valid = r0 + r < n;
-        cp_async16(&dst[r][c], src + (size_t)(valid ? r0 + r : 0) * stride + c, valid);
-    }
-}
-
-// Keys and values [k0, k0 + TILE) of the head whose q starts at q_head.
+// Keys and values [k0, k0 + TILE) of the head whose q starts at q_head, its
+// hs columns in tiles HS wide.
 template <int HS>
 __device__ __forceinline__ void kv_tile_async(bf16 (*k_s)[LD<HS>], bf16 (*v_s)[LD<HS>],
                                               const bf16* q_head, int C, size_t stride, int k0,
-                                              int T_len) {
-    tile_async<HS>(k_s, q_head + C, stride, k0, T_len);
-    tile_async<HS>(v_s, q_head + 2 * C, stride, k0, T_len);
+                                              int T_len, int hs) {
+    copy_rows_w<bf16, 16>(&k_s[0][0], LD<HS>, HS, q_head + C, stride, k0, T_len, hs);
+    copy_rows_w<bf16, 16>(&v_s[0][0], LD<HS>, HS, q_head + 2 * C, stride, k0, T_len, hs);
 }
 
 // The A fragments of the warp's 16 rows (lane 4g + t: rows `row` = first +
-// g and row + 8) over the head's HS columns, in HS / 16 k-steps of 16, read
-// straight from device memory; rows at or past n are zero.  With SCALE each
-// value is multiplied by `scale` and rounded to bf16 (qs).
+// g and row + 8) over the head's hs columns, in HS / 16 k-steps of 16, read
+// straight from device memory; rows at or past n and columns at or past hs
+// are zero (hs is a multiple of 8).  With SCALE each value is multiplied by
+// `scale` and rounded to bf16 (qs).
 template <int HS, bool SCALE>
 __device__ __forceinline__ void a_frags(uint32_t (&a)[HS / 16][4], const bf16* src,
-                                        size_t stride, int row, int n, float scale) {
+                                        size_t stride, int row, int n, int hs, float scale) {
     const int t = threadIdx.x & 3;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -185,10 +175,11 @@ __device__ __forceinline__ void a_frags(uint32_t (&a)[HS / 16][4], const bf16* s
         for (int ks = 0; ks < HS / 16; ++ks) {
 #pragma unroll
             for (int half = 0; half < 2; ++half) {
+                const int c = 16 * ks + 8 * half + 2 * t;
                 uint32_t v = 0;
-                if (r < n) {
+                if (r < n && c < hs) {
                     const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-                        src + (size_t)r * stride + 16 * ks + 8 * half + 2 * t);
+                        src + (size_t)r * stride + c);
                     if (SCALE) {
                         const float2 f = __bfloat1622float2(x);
                         v = pack_bf16(f.x * scale, f.y * scale);
@@ -247,66 +238,28 @@ __device__ __forceinline__ void cols_product(float (&acc)[HS / 8][4], const uint
     }
 }
 
-// The accumulator fragment of n-tile j (rows g, g + 8; columns 2t, 2t + 1)
-// as half of the A fragment of k-step j / 2 of the next product.
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], int j, float c0, float c1, float c2,
-                                       float c3) {
-    a[j >> 1][(j & 1) * 2] = pack_bf16(c0, c1);
-    a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(c2, c3);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Writes the warp's 16 x HS float32 accumulator times `mul`, rounded to
-// bf16, to rows `row` and row + 8 (lane 4g + t: row = first + g) of dst
-// (row r at dst + r * stride); rows at or past n are skipped.
-template <int HS>
-__device__ __forceinline__ void store_rows(bf16* dst, size_t stride, int row, int n,
-                                           const float (&acc)[HS / 8][4], float mul0,
-                                           float mul1) {
-    const int t = threadIdx.x & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r = row + 8 * i;
-        if (r >= n) continue;
-        const float mul = i ? mul1 : mul0;
-#pragma unroll
-        for (int j = 0; j < HS / 8; ++j)
-            *reinterpret_cast<uint32_t*>(dst + (size_t)r * stride + 8 * j + 2 * t) =
-                pack_bf16(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
-    }
-}
-
 // Forward: one block per (batch, head, TILE queries).
 template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T_len,
-                             int C, float scale) {
+                             int C, int hs, float scale) {
     __shared__ __align__(128) bf16 k_s[STAGES][TILE][LD<HS>];
     __shared__ __align__(128) bf16 v_s[STAGES][TILE][LD<HS>];
     const int h = blockIdx.y, b = blockIdx.z;
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
-    const bf16* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
+    const bf16* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
     const int ntiles = (T_len + TILE - 1) / TILE;
 
     for (int it = 0; it < STAGES - 1; ++it) {
         if (it < ntiles)
-            kv_tile_async<HS>(k_s[it], v_s[it], q_head, C, stride, it * TILE, T_len);
+            kv_tile_async<HS>(k_s[it], v_s[it], q_head, C, stride, it * TILE, T_len, hs);
         cp_async_commit();
     }
 
     uint32_t qf[HS / 16][4];
-    a_frags<HS, true>(qf, q_head, stride, row, T_len, scale);
+    a_frags<HS, true>(qf, q_head, stride, row, T_len, hs, scale);
     float o[HS / 8][4] = {};
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
@@ -314,7 +267,7 @@ qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ou
         const int buf = it % STAGES, ahead = it + STAGES - 1;
         if (ahead < ntiles)
             kv_tile_async<HS>(k_s[ahead % STAGES], v_s[ahead % STAGES], q_head, C, stride,
-                              ahead * TILE, T_len);
+                              ahead * TILE, T_len, hs);
         cp_async_commit();
         cp_async_wait<STAGES - 1>();
         __syncthreads();
@@ -364,8 +317,8 @@ qkv_attention_fwd_mma_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ ou
         __syncthreads();  // the tile has been consumed before it is refilled
     }
 
-    store_rows<HS>(out + (size_t)b * T_len * C + (size_t)h * HS, C, row, T_len, o,
-                   1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
+    store_acc<bf16, HS / 8>(out + (size_t)b * T_len * C + (size_t)h * hs, C, row, T_len, o, hs,
+                            false, 1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
 }
 
 // Backward, kernel 1: one block per (batch, head, TILE queries).  Two
@@ -376,26 +329,26 @@ template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                                 bf16* __restrict__ dqkv, float* __restrict__ stats, int T_len,
-                                int C, int NH, float scale) {
+                                int C, int NH, int hs, float scale) {
     __shared__ __align__(128) bf16 k_s[STAGES][TILE][LD<HS>];
     __shared__ __align__(128) bf16 v_s[STAGES][TILE][LD<HS>];
     const int h = blockIdx.y, b = blockIdx.z;
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
-    const bf16* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
-    const bf16* o_head = dout + (size_t)b * T_len * C + (size_t)h * HS;
+    const bf16* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
+    const bf16* o_head = dout + (size_t)b * T_len * C + (size_t)h * hs;
     const int ntiles = (T_len + TILE - 1) / TILE;
 
     for (int it = 0; it < STAGES - 1; ++it) {  // iteration it sweeps tile it % ntiles
         if (it < 2 * ntiles)
-            kv_tile_async<HS>(k_s[it], v_s[it], q_head, C, stride, it % ntiles * TILE, T_len);
+            kv_tile_async<HS>(k_s[it], v_s[it], q_head, C, stride, it % ntiles * TILE, T_len, hs);
         cp_async_commit();
     }
 
     uint32_t qf[HS / 16][4], of[HS / 16][4];
-    a_frags<HS, true>(qf, q_head, stride, row, T_len, scale);
-    a_frags<HS, false>(of, o_head, C, row, T_len, 0.f);
+    a_frags<HS, true>(qf, q_head, stride, row, T_len, hs, scale);
+    a_frags<HS, false>(of, o_head, C, row, T_len, hs, 0.f);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
     float mL[2], inv_l[2], D[2];
     float dq[HS / 8][4] = {};
@@ -404,7 +357,7 @@ qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __rest
         const int buf = it % STAGES, tile = it % ntiles, ahead = it + STAGES - 1;
         if (ahead < 2 * ntiles)
             kv_tile_async<HS>(k_s[ahead % STAGES], v_s[ahead % STAGES], q_head, C, stride,
-                              ahead % ntiles * TILE, T_len);
+                              ahead % ntiles * TILE, T_len, hs);
         cp_async_commit();
         cp_async_wait<STAGES - 1>();
         __syncthreads();
@@ -469,8 +422,8 @@ qkv_attention_bwd_dq_mma_kernel(const bf16* __restrict__ qkv, const bf16* __rest
         __syncthreads();
     }
 
-    store_rows<HS>(dqkv + (size_t)b * T_len * stride + (size_t)h * HS, stride, row, T_len, dq,
-                   scale, scale);
+    store_acc<bf16, HS / 8>(dqkv + (size_t)b * T_len * stride + (size_t)h * hs, stride, row,
+                            T_len, dq, hs, false, scale, scale);
     if (t == 0) {
         const size_t plane = (size_t)gridDim.z * NH * T_len;
         float* st = stats + ((size_t)b * NH + h) * T_len;
@@ -492,9 +445,9 @@ template <int HS>
 __device__ __forceinline__ void q_tile_async(bf16 (*q_s)[LD<HS>], bf16 (*o_s)[LD<HS>],
                                              float (*st_s)[TILE], const bf16* q_head,
                                              const bf16* o_head, const float* st, size_t stride,
-                                             int C, size_t plane, int q0, int T_len) {
-    tile_async<HS>(q_s, q_head, stride, q0, T_len);
-    tile_async<HS>(o_s, o_head, C, q0, T_len);
+                                             int C, size_t plane, int q0, int T_len, int hs) {
+    copy_rows_w<bf16, 16>(&q_s[0][0], LD<HS>, HS, q_head, stride, q0, T_len, hs);
+    copy_rows_w<bf16, 16>(&o_s[0][0], LD<HS>, HS, o_head, (size_t)C, q0, T_len, hs);
     for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
         const int k = e / TILE, i = e % TILE;
         const bool valid = q0 + i < T_len;
@@ -510,7 +463,7 @@ template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                                  bf16* __restrict__ dqkv, const float* __restrict__ stats,
-                                 int T_len, int C, int NH, float scale) {
+                                 int T_len, int C, int NH, int hs, float scale) {
     __shared__ __align__(128) bf16 q_s[STAGES][TILE][LD<HS>];
     __shared__ __align__(128) bf16 o_s[STAGES][TILE][LD<HS>];
     __shared__ __align__(16) float st_s[STAGES][3][TILE];  // m, 1 / l, D of the tile's queries
@@ -519,45 +472,34 @@ qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __res
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
     const size_t plane = (size_t)gridDim.z * NH * T_len;
-    const bf16* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
-    const bf16* o_head = dout + (size_t)b * T_len * C + (size_t)h * HS;
+    const bf16* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
+    const bf16* o_head = dout + (size_t)b * T_len * C + (size_t)h * hs;
     const float* st = stats + ((size_t)b * NH + h) * T_len;
     const int ntiles = (T_len + TILE - 1) / TILE;
 
     for (int it = 0; it < STAGES - 1; ++it) {
         if (it < ntiles)
             q_tile_async<HS>(q_s[it], o_s[it], st_s[it], q_head, o_head, st, stride, C, plane,
-                             it * TILE, T_len);
+                             it * TILE, T_len, hs);
         cp_async_commit();
     }
 
     uint32_t kf[HS / 16][4], vf[HS / 16][4];
-    a_frags<HS, false>(kf, q_head + C, stride, row, T_len, 0.f);
-    a_frags<HS, false>(vf, q_head + 2 * C, stride, row, T_len, 0.f);
+    a_frags<HS, false>(kf, q_head + C, stride, row, T_len, hs, 0.f);
+    a_frags<HS, false>(vf, q_head + 2 * C, stride, row, T_len, hs, 0.f);
     float dk[HS / 8][4] = {}, dv[HS / 8][4] = {};
 
     for (int it = 0; it < ntiles; ++it) {
         const int buf = it % STAGES, q0 = it * TILE, ahead = it + STAGES - 1;
         if (ahead < ntiles)
             q_tile_async<HS>(q_s[ahead % STAGES], o_s[ahead % STAGES], st_s[ahead % STAGES],
-                             q_head, o_head, st, stride, C, plane, ahead * TILE, T_len);
+                             q_head, o_head, st, stride, C, plane, ahead * TILE, T_len, hs);
         cp_async_commit();
         cp_async_wait<STAGES - 1>();
         // qs = round(q * scale), once per staged value: each thread scales
-        // the 16-byte pieces it copied itself, which the wait made visible
-        // to it; the barrier then shows them to the block.
-#pragma unroll
-        for (int e = threadIdx.x; e < TILE * HS / 8; e += THREADS) {
-            uint4* piece = reinterpret_cast<uint4*>(&q_s[buf][e / (HS / 8)][e % (HS / 8) * 8]);
-            uint4 v = *piece;
-            uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-                const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[k]));
-                w[k] = pack_bf16(f.x * scale, f.y * scale);
-            }
-            *piece = v;
-        }
+        // the pieces it copied itself, which the wait made visible to it;
+        // the barrier then shows them to the block.
+        scale_rows_w<bf16, 16>(&q_s[buf][0][0], LD<HS>, HS, scale);
         __syncthreads();
 
         float s[8][4], dp[8][4];
@@ -589,9 +531,9 @@ qkv_attention_bwd_dkv_mma_kernel(const bf16* __restrict__ qkv, const bf16* __res
         __syncthreads();
     }
 
-    bf16* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * HS;
-    store_rows<HS>(k_out, stride, row, T_len, dk, 1.f, 1.f);
-    store_rows<HS>(k_out + C, stride, row, T_len, dv, 1.f, 1.f);
+    bf16* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * hs;
+    store_acc<bf16, HS / 8>(k_out, stride, row, T_len, dk, hs, false, 1.f, 1.f);
+    store_acc<bf16, HS / 8>(k_out + C, stride, row, T_len, dv, hs, false, 1.f, 1.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -621,26 +563,23 @@ constexpr int F32_DKV_BYTES = F32_RING_BYTES<HS> + STAGES * 3 * TILE * (int)size
 // (k, v, dk, dv: 128 registers a thread) and the group's s and dp fit.
 template <int HS> constexpr int GROUP = HS < 64 ? 8 : 4;
 
-// Copies rows [r0, r0 + TILE) of one head's HS columns (row r at src + r *
-// stride) into a padded float32 tile; rows at or past n are zero-filled.
+// Copies rows [r0, r0 + TILE) of one head's hs columns (row r at src + r *
+// stride; hs a multiple of 4) into a float32 tile HS wide; rows at or past
+// n and columns at or past hs are zero-filled.
 template <int HS>
 __device__ __forceinline__ void tile_async_f32(float (*dst)[LDF<HS>], const float* src,
-                                               size_t stride, int r0, int n) {
-#pragma unroll
-    for (int e = threadIdx.x; e < TILE * HS / 4; e += THREADS) {
-        const int r = e / (HS / 4), c = e % (HS / 4) * 4;
-        const bool valid = r0 + r < n;
-        cp_async16(&dst[r][c], src + (size_t)(valid ? r0 + r : 0) * stride + c, valid);
-    }
+                                               size_t stride, int r0, int n, int hs) {
+    copy_rows_w<float, 16>(&dst[0][0], LDF<HS>, HS, src, stride, r0, n, hs);
 }
 
 // The A fragments of the warp's 16 rows (lane 4g + t: rows `row` = first +
-// g and row + 8) over the head's HS columns, in HS / 8 k-steps of 8, as
+// g and row + 8) over the head's hs columns, in HS / 8 k-steps of 8, as
 // floats times `mul`, read straight from device memory; rows at or past n
-// are zero.  Each k-step is split into its TF32 pair where it is used.
+// and columns at or past hs are zero.  Each k-step is split into its TF32
+// pair where it is used.
 template <int HS>
 __device__ __forceinline__ void a_frags_f32(float (&a)[HS / 8][4], const float* src,
-                                            size_t stride, int row, int n, float mul) {
+                                            size_t stride, int row, int n, int hs, float mul) {
     const int t = threadIdx.x & 3;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -649,8 +588,10 @@ __device__ __forceinline__ void a_frags_f32(float (&a)[HS / 8][4], const float* 
 #pragma unroll
         for (int ks = 0; ks < HS / 8; ++ks)
 #pragma unroll
-            for (int half = 0; half < 2; ++half)
-                a[ks][i + 2 * half] = r < n ? p[8 * ks + 4 * half] * mul : 0.f;
+            for (int half = 0; half < 2; ++half) {
+                const int c = 8 * ks + 4 * half;
+                a[ks][i + 2 * half] = r < n && c + t < hs ? p[c] * mul : 0.f;
+            }
     }
 }
 
@@ -728,39 +669,6 @@ __device__ __forceinline__ void cols_step_f32(float (&acc)[HS / 8][4], const flo
     }
 }
 
-// Scores of keys at or past T_len set to -inf, in NJ n-tiles whose first
-// key is k0 (lane 4g + t: keys k0 + 8j + 2t and k0 + 8j + 2t + 1).
-template <int NJ>
-__device__ __forceinline__ void mask_keys(float (&s)[NJ][4], int k0, int T_len) {
-    if (k0 + 8 * NJ <= T_len) return;
-    const int t = threadIdx.x & 3;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-            if (k0 + 8 * j + 2 * t + (e & 1) >= T_len) s[j][e] = -INFINITY;
-}
-
-// Writes the warp's 16 x HS float32 accumulator times `mul` to rows `row`
-// and row + 8 (lane 4g + t: row = first + g) of dst (row r at dst + r *
-// stride); rows at or past n are skipped.
-template <int HS>
-__device__ __forceinline__ void store_rows_f32(float* dst, size_t stride, int row, int n,
-                                               const float (&acc)[HS / 8][4], float mul0,
-                                               float mul1) {
-    const int t = threadIdx.x & 3;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int r = row + 8 * i;
-        if (r >= n) continue;
-        const float mul = i ? mul1 : mul0;
-#pragma unroll
-        for (int j = 0; j < HS / 8; ++j)
-            *reinterpret_cast<float2*>(dst + (size_t)r * stride + 8 * j + 2 * t) =
-                make_float2(acc[j][2 * i] * mul, acc[j][2 * i + 1] * mul);
-    }
-}
-
 // The two rings of float32 tiles in dynamic shared memory.
 template <int HS> using F32Ring = float (*)[TILE][LDF<HS>];
 
@@ -769,7 +677,7 @@ template <int HS> using F32Ring = float (*)[TILE][LDF<HS>];
 template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_fwd_tf32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int T_len,
-                              int C, float scale) {
+                              int C, int hs, float scale) {
     extern __shared__ __align__(128) float smem_f32[];
     const F32Ring<HS> k_s = reinterpret_cast<F32Ring<HS>>(smem_f32);
     const F32Ring<HS> v_s = k_s + STAGES;
@@ -777,27 +685,27 @@ qkv_attention_fwd_tf32_kernel(const float* __restrict__ qkv, float* __restrict__
     const int lane = threadIdx.x & 31;
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
-    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
+    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
     const int ntiles = (T_len + TILE - 1) / TILE;
 
     for (int it = 0; it < STAGES - 1; ++it) {
         if (it < ntiles) {
-            tile_async_f32<HS>(k_s[it], q_head + C, stride, it * TILE, T_len);
-            tile_async_f32<HS>(v_s[it], q_head + 2 * C, stride, it * TILE, T_len);
+            tile_async_f32<HS>(k_s[it], q_head + C, stride, it * TILE, T_len, hs);
+            tile_async_f32<HS>(v_s[it], q_head + 2 * C, stride, it * TILE, T_len, hs);
         }
         cp_async_commit();
     }
 
     float qf[HS / 8][4];
-    a_frags_f32<HS>(qf, q_head, stride, row, T_len, scale);
+    a_frags_f32<HS>(qf, q_head, stride, row, T_len, hs, scale);
     float o[HS / 8][4] = {};
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     for (int it = 0; it < ntiles; ++it) {
         const int buf = it % STAGES, ahead = it + STAGES - 1;
         if (ahead < ntiles) {
-            tile_async_f32<HS>(k_s[ahead % STAGES], q_head + C, stride, ahead * TILE, T_len);
-            tile_async_f32<HS>(v_s[ahead % STAGES], q_head + 2 * C, stride, ahead * TILE, T_len);
+            tile_async_f32<HS>(k_s[ahead % STAGES], q_head + C, stride, ahead * TILE, T_len, hs);
+            tile_async_f32<HS>(v_s[ahead % STAGES], q_head + 2 * C, stride, ahead * TILE, T_len, hs);
         }
         cp_async_commit();
         cp_async_wait<STAGES - 1>();
@@ -838,8 +746,8 @@ qkv_attention_fwd_tf32_kernel(const float* __restrict__ qkv, float* __restrict__
         __syncthreads();  // the tile has been consumed before it is refilled
     }
 
-    store_rows_f32<HS>(out + (size_t)b * T_len * C + (size_t)h * HS, C, row, T_len, o,
-                       1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
+    store_acc<float, HS / 8>(out + (size_t)b * T_len * C + (size_t)h * hs, C, row, T_len, o, hs,
+                             false, 1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
 }
 
 // Backward, kernel 1: one block per (batch, head, TILE queries), as the
@@ -852,7 +760,7 @@ template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_bwd_dq_tf32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                                  float* __restrict__ dqkv, float* __restrict__ stats, int T_len,
-                                 int C, int NH, float scale) {
+                                 int C, int NH, int hs, float scale) {
     constexpr int G = GROUP<HS>;
     extern __shared__ __align__(128) float smem_f32[];
     const F32Ring<HS> k_s = reinterpret_cast<F32Ring<HS>>(smem_f32);
@@ -861,21 +769,21 @@ qkv_attention_bwd_dq_tf32_kernel(const float* __restrict__ qkv, const float* __r
     const int lane = threadIdx.x & 31, t = lane & 3;
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
-    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
-    const float* o_head = dout + (size_t)b * T_len * C + (size_t)h * HS;
+    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
+    const float* o_head = dout + (size_t)b * T_len * C + (size_t)h * hs;
     const int ntiles = (T_len + TILE - 1) / TILE;
 
     for (int it = 0; it < STAGES - 1; ++it) {  // iteration it sweeps tile it % ntiles
         if (it < 2 * ntiles) {
-            tile_async_f32<HS>(k_s[it], q_head + C, stride, it % ntiles * TILE, T_len);
-            tile_async_f32<HS>(v_s[it], q_head + 2 * C, stride, it % ntiles * TILE, T_len);
+            tile_async_f32<HS>(k_s[it], q_head + C, stride, it % ntiles * TILE, T_len, hs);
+            tile_async_f32<HS>(v_s[it], q_head + 2 * C, stride, it % ntiles * TILE, T_len, hs);
         }
         cp_async_commit();
     }
 
     float qf[HS / 8][4], of[HS / 8][4];
-    a_frags_f32<HS>(qf, q_head, stride, row, T_len, scale);
-    a_frags_f32<HS>(of, o_head, C, row, T_len, 1.f);
+    a_frags_f32<HS>(qf, q_head, stride, row, T_len, hs, scale);
+    a_frags_f32<HS>(of, o_head, C, row, T_len, hs, 1.f);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
     float mL[2], inv_l[2], D[2];
     float dq[HS / 8][4] = {};
@@ -884,8 +792,8 @@ qkv_attention_bwd_dq_tf32_kernel(const float* __restrict__ qkv, const float* __r
         const int buf = it % STAGES, tile = it % ntiles, ahead = it + STAGES - 1;
         if (ahead < 2 * ntiles) {
             const int k0 = ahead % ntiles * TILE;
-            tile_async_f32<HS>(k_s[ahead % STAGES], q_head + C, stride, k0, T_len);
-            tile_async_f32<HS>(v_s[ahead % STAGES], q_head + 2 * C, stride, k0, T_len);
+            tile_async_f32<HS>(k_s[ahead % STAGES], q_head + C, stride, k0, T_len, hs);
+            tile_async_f32<HS>(v_s[ahead % STAGES], q_head + 2 * C, stride, k0, T_len, hs);
         }
         cp_async_commit();
         cp_async_wait<STAGES - 1>();
@@ -946,8 +854,8 @@ qkv_attention_bwd_dq_tf32_kernel(const float* __restrict__ qkv, const float* __r
         __syncthreads();
     }
 
-    store_rows_f32<HS>(dqkv + (size_t)b * T_len * stride + (size_t)h * HS, stride, row, T_len, dq,
-                       scale, scale);
+    store_acc<float, HS / 8>(dqkv + (size_t)b * T_len * stride + (size_t)h * hs, stride, row,
+                             T_len, dq, hs, false, scale, scale);
     if (t == 0) {
         const size_t plane = (size_t)gridDim.z * NH * T_len;
         float* st = stats + ((size_t)b * NH + h) * T_len;
@@ -971,7 +879,7 @@ template <int HS>
 __global__ void __launch_bounds__(THREADS)
 qkv_attention_bwd_dkv_tf32_kernel(const float* __restrict__ qkv, const float* __restrict__ dout,
                                   float* __restrict__ dqkv, const float* __restrict__ stats,
-                                  int T_len, int C, int NH, float scale) {
+                                  int T_len, int C, int NH, int hs, float scale) {
     constexpr int G = GROUP<HS>;
     extern __shared__ __align__(128) float smem_f32[];
     const F32Ring<HS> q_s = reinterpret_cast<F32Ring<HS>>(smem_f32);
@@ -982,16 +890,16 @@ qkv_attention_bwd_dkv_tf32_kernel(const float* __restrict__ qkv, const float* __
     const int row = blockIdx.x * TILE + (threadIdx.x >> 5) * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
     const size_t plane = (size_t)gridDim.z * NH * T_len;
-    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * HS;
-    const float* o_head = dout + (size_t)b * T_len * C + (size_t)h * HS;
+    const float* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
+    const float* o_head = dout + (size_t)b * T_len * C + (size_t)h * hs;
     const float* st = stats + ((size_t)b * NH + h) * T_len;
     const int ntiles = (T_len + TILE - 1) / TILE;
 
     // Query tile [q0, q0 + TILE): q, dout and the rows' m, 1 / l and D; rows
     // at or past T_len zero-filled.
     auto stage = [&](int buf, int q0) {
-        tile_async_f32<HS>(q_s[buf], q_head, stride, q0, T_len);
-        tile_async_f32<HS>(o_s[buf], o_head, C, q0, T_len);
+        tile_async_f32<HS>(q_s[buf], q_head, stride, q0, T_len, hs);
+        tile_async_f32<HS>(o_s[buf], o_head, C, q0, T_len, hs);
         for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
             const int k = e / TILE, i = e % TILE;
             const bool valid = q0 + i < T_len;
@@ -1004,8 +912,8 @@ qkv_attention_bwd_dkv_tf32_kernel(const float* __restrict__ qkv, const float* __
     }
 
     float kf[HS / 8][4], vf[HS / 8][4];
-    a_frags_f32<HS>(kf, q_head + C, stride, row, T_len, 1.f);
-    a_frags_f32<HS>(vf, q_head + 2 * C, stride, row, T_len, 1.f);
+    a_frags_f32<HS>(kf, q_head + C, stride, row, T_len, hs, 1.f);
+    a_frags_f32<HS>(vf, q_head + 2 * C, stride, row, T_len, hs, 1.f);
     float dk[HS / 8][4] = {}, dv[HS / 8][4] = {};
 
     for (int it = 0; it < ntiles; ++it) {
@@ -1014,18 +922,9 @@ qkv_attention_bwd_dkv_tf32_kernel(const float* __restrict__ qkv, const float* __
         cp_async_commit();
         cp_async_wait<STAGES - 1>();
         // qs = q * scale, once per staged value: each thread scales the
-        // 16-byte pieces it copied itself, which the wait made visible to
-        // it; the barrier then shows them to the block.
-#pragma unroll
-        for (int e = threadIdx.x; e < TILE * HS / 4; e += THREADS) {
-            float4* piece = reinterpret_cast<float4*>(&q_s[buf][e / (HS / 4)][e % (HS / 4) * 4]);
-            float4 v = *piece;
-            v.x *= scale;
-            v.y *= scale;
-            v.z *= scale;
-            v.w *= scale;
-            *piece = v;
-        }
+        // pieces it copied itself, which the wait made visible to it; the
+        // barrier then shows them to the block.
+        scale_rows_w<float, 16>(&q_s[buf][0][0], LDF<HS>, HS, scale);
         __syncthreads();
 
 #pragma unroll 1
@@ -1057,73 +956,61 @@ qkv_attention_bwd_dkv_tf32_kernel(const float* __restrict__ qkv, const float* __
         __syncthreads();
     }
 
-    float* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * HS;
-    store_rows_f32<HS>(k_out, stride, row, T_len, dk, 1.f, 1.f);
-    store_rows_f32<HS>(k_out + C, stride, row, T_len, dv, 1.f, 1.f);
+    float* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * hs;
+    store_acc<float, HS / 8>(k_out, stride, row, T_len, dk, hs, false, 1.f, 1.f);
+    store_acc<float, HS / 8>(k_out + C, stride, row, T_len, dv, hs, false, 1.f, 1.f);
 }
 
-// Calls f(std::integral_constant<int, HS>()) for the head size HS = hs if
-// the kernels are compiled for it; cudaErrorInvalidValue otherwise.  These
-// cases are the head sizes the kernels take (ops/kernels/attention.py's
-// HEAD_SIZES): each a multiple of the mma's k-step of 16.
+// Calls f(std::integral_constant<int, HS>()) for the width HS of the
+// kernels above that takes a head of hs <= NARROW_MAX columns: the first of
+// their instantiations at or above hs (ops/kernels/attention.py's
+// HEAD_SIZES), each a multiple of the mma's k-step of 16.
 template <class F>
 int with_head_size(int hs, F&& f) {
-    switch (hs) {
-        case 16: return f(std::integral_constant<int, 16>());
-        case 32: return f(std::integral_constant<int, 32>());
-        case 64: return f(std::integral_constant<int, 64>());
-        default: return (int)cudaErrorInvalidValue;
-    }
+    if (hs <= 16) return f(std::integral_constant<int, 16>());
+    if (hs <= 32) return f(std::integral_constant<int, 32>());
+    if (hs <= 64) return f(std::integral_constant<int, 64>());
+    return (int)cudaErrorInvalidValue;
 }
 
-// A head size the kernels are not compiled for is refused by
-// `with_head_size`.
+// Heads the kernels above do not take: wider than NARROW_MAX, or a row that
+// is no multiple of 16 bytes (their copies' piece).
+bool chunked(int hs, int is_bf16) {
+    return hs > NARROW_MAX || hs * (is_bf16 ? 2 : 4) % 16 != 0;
+}
+
 bool bad_shape(int B, int T_len, int C, int NH) {
     return B <= 0 || T_len <= 0 || NH <= 0 || C % NH != 0 || B > 65535 || NH > 65535;
-}
-
-// The kernels, per device, whose dynamic shared memory limit is set.
-std::mutex g_mutex;
-std::set<std::pair<int, const void*>> g_prepared;
-
-// Before a kernel's first launch on a device: allow it `bytes` of dynamic
-// shared memory (beyond the 48 KB a launch may take without asking).
-template <typename... Params>
-cudaError_t allow_smem(void (*kernel)(Params...), int bytes) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    const std::pair<int, const void*> key(device, reinterpret_cast<const void*>(kernel));
-    std::lock_guard<std::mutex> lock(g_mutex);
-    if (g_prepared.count(key)) return cudaSuccess;
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess) g_prepared.insert(key);
-    return err;
 }
 
 }  // namespace
 
 // qkv: (B, T, 3C) contiguous, out: (B, T, C) contiguous, both 16-byte
-// aligned, C == NH * HS with HS one of the compiled head sizes (16, 32, 64),
-// B and NH at most 65535; scale is 1 / sqrt(HS), given by the caller so that
-// it is the same float the plain version multiplies by.  Returns the CUDA
-// error code of the launch (0 = success).
+// aligned, C == NH * hs with 1 <= hs <= 256 (up to 64 columns of a multiple
+// of 16 bytes the kernels of width `with_head_size`, any other head the
+// chunked ones, NH * ceil(hs / 64) at most 65535 there), B and NH at most
+// 65535; scale is 1 / sqrt(hs), given by the caller so that it is the same
+// float the plain version multiplies by.  Returns the CUDA error code of
+// the launch (0 = success).
 extern "C" int unet_qkv_attention_fwd(const void* qkv, void* out, int B, int T_len, int C,
                                       int NH, float scale, int is_bf16, cudaStream_t stream) {
     if (bad_shape(B, T_len, C, NH)) return (int)cudaErrorInvalidValue;
-    return with_head_size(C / NH, [&](auto hs) {
-        constexpr int HS = decltype(hs)::value;
+    const int hs = C / NH;
+    if (chunked(hs, is_bf16))
+        return attention_fwd_chunked(qkv, out, B, T_len, C, NH, scale, is_bf16, stream);
+    return with_head_size(hs, [&](auto width) {
+        constexpr int HS = decltype(width)::value;
         if (is_bf16) {
             const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
             qkv_attention_fwd_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
-                static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T_len, C, scale);
+                static_cast<const bf16*>(qkv), static_cast<bf16*>(out), T_len, C, hs, scale);
         } else {
             const cudaError_t err =
                 allow_smem(qkv_attention_fwd_tf32_kernel<HS>, F32_RING_BYTES<HS>);
             if (err != cudaSuccess) return (int)err;
             const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
             qkv_attention_fwd_tf32_kernel<HS><<<grid, THREADS, F32_RING_BYTES<HS>, stream>>>(
-                static_cast<const float*>(qkv), static_cast<float*>(out), T_len, C, scale);
+                static_cast<const float*>(qkv), static_cast<float*>(out), T_len, C, hs, scale);
         }
         return (int)cudaGetLastError();
     });
@@ -1138,8 +1025,12 @@ extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* d
                                       float* stats, int B, int T_len, int C, int NH, float scale,
                                       int is_bf16, cudaStream_t stream) {
     if (bad_shape(B, T_len, C, NH)) return (int)cudaErrorInvalidValue;
-    return with_head_size(C / NH, [&](auto hs) {
-        constexpr int HS = decltype(hs)::value;
+    const int hs = C / NH;
+    if (chunked(hs, is_bf16))
+        return attention_bwd_chunked(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, is_bf16,
+                                     stream);
+    return with_head_size(hs, [&](auto width) {
+        constexpr int HS = decltype(width)::value;
         cudaError_t err;
         if (is_bf16) {
             const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
@@ -1147,10 +1038,10 @@ extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* d
             const bf16* dy = static_cast<const bf16*>(dout);
             bf16* dx = static_cast<bf16*>(dqkv);
             qkv_attention_bwd_dq_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
-                x, dy, dx, stats, T_len, C, NH, scale);
+                x, dy, dx, stats, T_len, C, NH, hs, scale);
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
             qkv_attention_bwd_dkv_mma_kernel<HS><<<grid, THREADS, 0, stream>>>(
-                x, dy, dx, stats, T_len, C, NH, scale);
+                x, dy, dx, stats, T_len, C, NH, hs, scale);
         } else {
             const float* x = static_cast<const float*>(qkv);
             const float* dy = static_cast<const float*>(dout);
@@ -1162,10 +1053,10 @@ extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* d
                 return (int)err;
             const dim3 grid((T_len + TILE - 1) / TILE, NH, B);
             qkv_attention_bwd_dq_tf32_kernel<HS><<<grid, THREADS, F32_RING_BYTES<HS>, stream>>>(
-                x, dy, dx, stats, T_len, C, NH, scale);
+                x, dy, dx, stats, T_len, C, NH, hs, scale);
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
             qkv_attention_bwd_dkv_tf32_kernel<HS><<<grid, THREADS, F32_DKV_BYTES<HS>, stream>>>(
-                x, dy, dx, stats, T_len, C, NH, scale);
+                x, dy, dx, stats, T_len, C, NH, hs, scale);
         }
         return (int)cudaGetLastError();
     });

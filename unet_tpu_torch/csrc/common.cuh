@@ -50,7 +50,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
                  : "memory");
 }
 
-// 4 bytes from global to shared memory, asynchronously; zeros if !valid.
+// 8 and 4 bytes from global to shared memory, asynchronously; zeros if
+// !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(valid ? 8 : 0)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                  "l"(src), "r"(valid ? 4 : 0)

@@ -26,8 +26,13 @@ tests/test_torch_tf32.py).  A warp owns 16 query (or key) rows, four warps
 (64 rows) a block; the other side is staged in shared memory by
 `cp.async`, with an online softmax in registers; the scores never reach
 device memory and any T is taken (the ragged tile is masked).  The kernels
-are compiled for the head sizes in `HEAD_SIZES`; the plain version takes
-any.
+take every head size from 1 to `MAX_HEAD_SIZE`: a head of up to 64 columns
+whose row is a multiple of 16 bytes in tiles of the first width of
+`HEAD_SIZES` at or above it (the columns past the head size zero); any
+other head in chunks of `CHUNK` columns (csrc/attention_chunked.cu), a
+block a chunk of the output, each block recomputing the whole head's scores
+(`kernel_layout` says which a head takes).  The plain version takes any
+head size.
 
 The backward recomputes the scores from qkv in two kernels that need no
 order between blocks: one for dq and the rows' softmax statistics (two
@@ -43,23 +48,73 @@ import torch
 
 from unet_tpu_torch.ops.kernels import _build
 
-# The head sizes csrc/attention.cu is compiled for (`with_head_size` there).
+# The tile widths csrc/attention.cu's kernels are compiled for
+# (`with_head_size` there); other heads go in chunks of CHUNK columns (`CH`
+# in csrc/attention.cuh), at most MAX_HEAD_SIZE (`CH * MAX_CHUNKS`).
 HEAD_SIZES = (16, 32, 64)
+CHUNK = 64
+MAX_HEAD_SIZE = 256
 
 
-def head_size_fault(widths, head_size):
-    """Why the kernels cannot run attention at these channel widths with
-    `head_size` channels a head (the model's `num_head_channels`), or None
-    if they can: each width must split into heads of exactly `head_size`,
-    one of `HEAD_SIZES`.  The CLIs ask this before they build a model on a
-    CUDA device; on the CPU the plain version takes any head size."""
-    if head_size not in HEAD_SIZES:
-        return (f"the attention kernels take head sizes {HEAD_SIZES}, "
-                f"not {head_size}")
+def kernel_layout(head_size, dtype):
+    """How the kernels take a head of `head_size` columns of `dtype`:
+    ("tile", W), a block's rows in tiles W wide (the first of `HEAD_SIZES`
+    at or above it; a row of a multiple of 16 bytes), or ("chunked", n),
+    the head in n chunks of `CHUNK` columns, one block a chunk of the
+    output.  None past `MAX_HEAD_SIZE`."""
+    if head_size > MAX_HEAD_SIZE:
+        return None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if head_size * itemsize % 16 == 0:
+        for width in HEAD_SIZES:
+            if head_size <= width:
+                return ("tile", width)
+    return ("chunked", -(-head_size // CHUNK))
+
+
+def work_ratio(head_size, dtype, backward):
+    """The tensor-core work the kernels do for a head of `head_size`
+    columns over the same products exactly `head_size` deep and wide (1.0:
+    nothing wasted).  A tile W wide does every product over W columns.
+    Chunked, each of the head's n blocks does the score products over the
+    whole head (forward: s; backward: s and dp twice in the dq kernel, once
+    in the dk/dv kernel) and the output products over its own chunk (out;
+    dq, dk and dv), both k-step by k-step: 16 columns in bfloat16, 8 in
+    float32."""
+    kind, n = kernel_layout(head_size, dtype)
+    if kind == "tile":
+        return n / head_size
+    step = 16 if dtype == torch.bfloat16 else 8
+    depth = sum(-(-min(CHUNK, head_size - d * CHUNK) // step) * step
+                for d in range(n))
+    scores, outputs = (6, 3) if backward else (1, 1)
+    return ((scores * n + outputs) * depth
+            / ((scores + outputs) * head_size))
+
+
+def head_size_fault(widths, head_size, cuda=True):
+    """Why attention cannot run at these channel widths with `head_size`
+    channels a head (the model's `num_head_channels`), or None if it can.
+    The JAX package's rule (unet_tpu/models/blocks.py: `num_heads = C //
+    head_size`, each head C // num_heads wide): a width is refused where it
+    gives no head or heads that do not split it, exactly where the JAX
+    package's attention raises; with `cuda` also a head wider than
+    `MAX_HEAD_SIZE`, past the kernels.  The CLIs ask this before they build
+    a model, `_check_cuda` before a launch."""
+    if head_size < 1:
+        return f"head size {head_size} is not positive"
     for width in sorted(set(widths)):
-        if width % head_size:
-            return (f"head size {head_size} does not divide the attention "
-                    f"width {width}")
+        heads = width // head_size
+        if heads == 0:
+            return (f"attention width {width} is narrower than a head of "
+                    f"{head_size}: no head")
+        if width % heads:
+            return (f"{heads} heads (width {width} // head size "
+                    f"{head_size}) do not split the attention width {width}")
+        if cuda and width // heads > MAX_HEAD_SIZE:
+            return (f"the attention kernels take heads of at most "
+                    f"{MAX_HEAD_SIZE} channels, not {width // heads} (width "
+                    f"{width}, {heads} head{'s' * (heads > 1)})")
     return None
 
 
@@ -106,12 +161,14 @@ def _check_cuda(qkv, num_heads):
         raise ValueError("qkv must be contiguous")
     B, T, C3 = qkv.shape
     C = C3 // 3
-    if C // num_heads not in HEAD_SIZES:
-        raise ValueError(f"the kernel takes head sizes {HEAD_SIZES}, got "
-                         f"{C // num_heads} (C={C}, {num_heads} heads)")
+    fault = head_size_fault([C], C // num_heads)
+    if fault is not None:
+        raise ValueError(f"{fault} (C={C}, {num_heads} heads)")
     if B == 0 or T == 0:
         raise ValueError(f"empty input {tuple(qkv.shape)}")
-    if B > 65535 or num_heads > 65535:
+    kind, n = kernel_layout(C // num_heads, qkv.dtype)
+    blocks_y = num_heads * (n if kind == "chunked" else 1)
+    if B > 65535 or blocks_y > 65535:
         raise ValueError(f"the kernel does not take B={B}, NH={num_heads}")
 
 
@@ -119,8 +176,8 @@ def qkv_attention_fwd(qkv, num_heads):
     """Multi-head attention over qkv (B, T, 3C) -> (B, T, C).
 
     A CUDA tensor goes to the hand-written kernel (float32 or bfloat16,
-    contiguous, a head size of `HEAD_SIZES`) or raises; only a CPU tensor
-    takes the plain version."""
+    contiguous, a head size of at most `MAX_HEAD_SIZE`) or raises; only a
+    CPU tensor takes the plain version."""
     _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads)
