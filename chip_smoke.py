@@ -18,9 +18,11 @@ object per line:
      in training (attention also at head sizes 16 and 64, and both at the
      shapes of a block split over two model ranks), with the kernel's, the plain version's and a library
      call's time and the least time the card could take; then attention
-     forward and backward at head sizes from 7 to 256 (`ATTN_HEAD_SHAPES`,
-     untimed but for the four of `ATTN_HEAD_TIMED`), each with its
-     layout (tile width or chunks) and `work_ratio`.  Each is timed
+     forward and backward at head sizes from 7 to 4160 (`ATTN_HEAD_SHAPES`,
+     untimed but for the eight of `ATTN_HEAD_TIMED`), each with its
+     layout (tile width, chunks, or cluster and groups) and `work_ratio`;
+     each timed attention case names the backend the library call
+     (`scaled_dot_product_attention`) ran.  Each is timed
      twice after warm-up: as it is called (CUDA events around a loop of
      calls) and on the device alone (the same calls replayed from a CUDA
      graph).  Every repetition reads the same input, so the cache is warm.
@@ -83,13 +85,25 @@ object per line:
      hand it.
   8. `head_size`: the training and sampling CLIs at the default model with
      128 channels a head (one head of 192, two of 128: the chunked
-     kernels): both refuse head size 48 (five heads of a width of 256) and
-     288 at --num_channels 96 (a head of 288, past the kernels) on the card
-     before they build a model; 3 bfloat16 steps at B=32 with a
-     checkpoint, then a DDIM-10 request at B=4 from it, and one float32
-     step against the plain versions (the `train_step` bars), with exact
-     launch counts, finite losses and images, and every kernel input of
-     the runs held against its plain version.
+     kernels): both refuse head size 48 (five heads of a width of 256) on
+     the card before they build a model, and both take 288 at
+     --num_channels 96 (heads of 288 and 384: the cluster kernels; one
+     bfloat16 step at B=32, a DDIM-2 request from a small checkpoint); 3
+     bfloat16 steps at B=32 with a checkpoint, then a DDIM-10 request at
+     B=4 from it, and one float32 step against the plain versions (the
+     `train_step` bars), with exact launch counts, finite losses and
+     images, and every kernel input of the runs held against its plain
+     version.
+  8b. `wide_head`: DDPM's 256x256 model (Ho et al. 2020: C=128, mult
+     1,1,2,2,4,4, two res blocks, single-head attention at 16x16; here one
+     head of 512, the cluster kernels) at full width and depth: 3 bfloat16
+     steps of `cli.train.main` at B=8 on 16 seeded images with a
+     checkpoint, a DDIM-10 request at B=2 through `cli.generate.run` from
+     it, one float32 step at B=8 against the plain versions (the
+     `train_step` bars); 6 K1 launches a forward and 6 K2 a step, every
+     count exact, finite losses and images, every kernel input held
+     against its plain version; ms/step, peak MiB and the parameter
+     count, each also on a line of its own.
   9. `s2d`: space-to-depth level 0 (`UNET_TPU_TORCH_S2D=on`,
      `models.unet.set_s2d_mode`, `unet_tpu_torch/ops/s2d.py`) at the
      default model, full width and depth, against pixel space on the
@@ -382,15 +396,27 @@ ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
 # of 72 (`--num_channels 96 --num_head_channels 64`, width 288); Stable
 # Diffusion 1.x's 40, 80 and 160; DDPM's CIFAR-10 head of 256; then 48, 12,
 # 8 and 7 at a ragged T (bfloat16 copies in pieces of 16, 8, 16 and 2
-# bytes).  The backward also at the trainer's batch at the first two.
+# bytes).  Then the cluster kernels (heads wider than 256): DDPM's 256 x
+# 256 models' one head of 512 at 16 x 16 and in the middle block at 8 x 8
+# (the `wide_head` phase's model, B=8); 288 and 384 (`--num_channels 96
+# --num_head_channels 288`); 2048 (a full cluster of 8, four chunks a
+# block); 4160 (65 chunks: nine groups of clusters, each block streaming
+# its own chunks); 257 and 514 at a ragged T (bfloat16 copies in pieces of
+# 2 and 4 bytes; 514 in two groups).  The backward also at the trainer's
+# batch at the first two.
 ATTN_HEAD_SHAPES = [(8, 256, 192, 1), (8, 64, 256, 2), (8, 256, 384, 3),
                     (8, 64, 512, 4), (4, 256, 288, 4), (4, 1024, 320, 8),
                     (4, 256, 640, 8), (2, 64, 1280, 8), (8, 256, 256, 1),
                     (2, 100, 96, 2), (2, 100, 36, 3), (2, 100, 24, 3),
-                    (2, 100, 21, 3)]
+                    (2, 100, 21, 3),
+                    (8, 256, 512, 1), (8, 64, 512, 1), (4, 256, 288, 1),
+                    (4, 256, 1152, 3), (2, 64, 2048, 1), (1, 64, 4160, 1),
+                    (2, 100, 771, 3), (2, 100, 1542, 3)]
 ATTN_HEAD_BWD_SHAPES = [(32, 256, 192, 1), (32, 64, 256, 2)]
-ATTN_HEAD_TIMED = {"fwd": [(8, 256, 192, 1), (8, 64, 256, 2)],
-                   "bwd": [(32, 256, 192, 1), (32, 64, 256, 2)]}
+ATTN_HEAD_TIMED = {"fwd": [(8, 256, 192, 1), (8, 64, 256, 2),
+                           (8, 256, 512, 1), (8, 64, 512, 1)],
+                   "bwd": [(32, 256, 192, 1), (32, 64, 256, 2),
+                           (8, 256, 512, 1), (8, 64, 512, 1)]}
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
 # ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
 # columns), a single pixel, and C = 3, which is no multiple of 8 and so
@@ -407,15 +433,16 @@ CONV_TOL = GN_TOL
 # (check_conv also times the float32 case at its shape).
 CONV_HEADLINE = dict(shape=[64, 64, 32, 192, 64], dtype="torch.bfloat16")
 # The head size of the second training and sampling run (`drive_head_size`:
-# one head of 192 and two of 128 at the default model's widths), and the
+# one head of 192 and two of 128 at the default model's widths); the
 # (--num_head_channels, --num_channels) both CLIs must refuse on the card
 # before they build a model, each with the (channels, mult) of a small
 # checkpoint of the same attention width for `generate`: 48 at widths 192
 # and 256 (256 // 48 = 5 heads do not split 256, which the JAX package
-# cannot run either), and 288 at widths 288 and 384 (heads of 288 and 384,
-# past the kernels' 256; the JAX package runs it).
+# cannot run either); and the same for a head both take, 288 at widths 288
+# and 384 (heads of 288 and 384, the cluster kernels).
 OTHER_HEAD_SIZE = 128
-REFUSED_HEADS = [(48, 64, 64, (1, 4)), (288, 96, 96, (1, 3))]
+REFUSED_HEADS = [(48, 64, 64, (1, 4))]
+ACCEPTED_HEAD = (288, 96, 96, (1, 3))
 
 
 def emit(obj) -> None:
@@ -454,6 +481,25 @@ def timings(kernel, plain, library, library_stream=None) -> dict:
             out[f"{name}_ms"] = time_ms(fn)
             out[f"{name}_graph_ms"] = graph_ms(fn, stream=stream)
     return out
+
+
+def sdpa_backend(fn) -> dict:
+    """Which of `scaled_dot_product_attention`'s backends the call `fn`
+    makes ran, read from the names of the kernels it launched
+    (`torch.profiler`): "flash", "cudnn", "efficient" (memory-efficient),
+    or "math" (no fused attention kernel: matmuls and a softmax)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    text = " ".join(names).lower()
+    backend = ("flash" if "flash" in text else "cudnn" if "cudnn" in text
+               else "efficient" if "fmha" in text or "efficient" in text
+               else "math")
+    return dict(library_backend=backend, library_kernels=names[:6])
 
 
 def side_stream():
@@ -564,7 +610,8 @@ def attention_fwd_case(B, T, C, NH, dtype, gen, timed=True):
             lambda: qkv_attention_fwd(qkv, NH),
             lambda: qkv_attention_plain(qkv, NH),
             lambda: TF.scaled_dot_product_attention(q, k, v)),
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by,
+            **sdpa_backend(lambda: TF.scaled_dot_product_attention(q, k, v)))
     return case
 
 
@@ -701,6 +748,8 @@ def attention_bwd_case(B, T, C, NH, dtype, gen, timed=True):
                               lambda: qkv_attention_bwd_plain(qkv, dout, NH),
                               library, stream),
                     bound_ms=bound_ms, bound_by=bound_by)
+        with torch.cuda.stream(stream):
+            case.update(**sdpa_backend(library))
         del out
     return case
 
@@ -854,14 +903,16 @@ def check_seen_shapes(seen, gen):
 
 
 # Instantiations the build log must list (`_build.kernel_instance` names):
-# every attention kernel at every tile width and the chunked ones (heads
-# past 64) in both types, the four tensor-core
-# convolutions (bf16 `wgmma` and float32 3xTF32, 64 and 128 columns).
+# every attention kernel at every tile width, the chunked ones (heads past
+# 64) and the cluster ones (heads past 256) in both types, the four
+# tensor-core convolutions (bf16 `wgmma` and float32 3xTF32, 64 and 128
+# columns).
 REQUIRED_INSTANCES = [
     f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
     for k in ("fwd_tf32", "bwd_dq_tf32", "bwd_dkv_tf32", "fwd_mma",
               "bwd_dq_mma", "bwd_dkv_mma")] + [
-    f"qkv_attention_{k}_chunked_kernel<{t}>" for t in ("__nv_bfloat16", "float")
+    f"qkv_attention_{k}_{route}_kernel<{t}>"
+    for t in ("__nv_bfloat16", "float") for route in ("chunked", "wide")
     for k in ("fwd", "bwd_dq", "bwd_dkv")] + [
     f"conv3x3_hwbc_{k}_kernel<{bn}>" for k in ("wgmma", "tf32")
     for bn in (64, 128)]
@@ -1167,21 +1218,21 @@ def check_captured_chain(path, gen):
                 bits_equal=bool(torch.equal(captured, eager)))
 
 
-def step_against_plain(cfg, gen):
-    """One float32 step of `cfg` at the trainer's batch: loss and every
-    gradient on the kernels against the same on the plain versions (the
-    kernels' launches held to one step's); returns the model, the step's
-    inputs and the record."""
+def step_against_plain(cfg, gen, batch_size=TRAIN_BATCH):
+    """One float32 step of `cfg` at the trainer's batch (or `batch_size`):
+    loss and every gradient on the kernels against the same on the plain
+    versions (the kernels' launches held to one step's); returns the model,
+    the step's inputs and the record."""
     model = unet.init(cfg, generator=torch.Generator().manual_seed(2),
                       device=DEV)
     diffusion = GaussianDiffusion.create(
         named_beta_schedule("linear", cfg.max_period), device=DEV)
-    tc = TrainConfig(batch_size=TRAIN_BATCH, lr=1e-3)
+    tc = TrainConfig(batch_size=batch_size, lr=1e-3)
     grad_fn = trainer._make_grad_fn(
         trainer.make_loss_fn(cfg, diffusion, torch.float32), tc)
-    shape = (TRAIN_BATCH, cfg.image_size, cfg.image_size, cfg.in_channels)
+    shape = (batch_size, cfg.image_size, cfg.image_size, cfg.in_channels)
     batch = torch.rand(shape, generator=gen, device=DEV) * 2 - 1
-    t = torch.randint(0, cfg.max_period, (TRAIN_BATCH,), generator=gen,
+    t = torch.randint(0, cfg.max_period, (batch_size,), generator=gen,
                       device=DEV)
     noise = torch.randn(shape, generator=gen, device=DEV)
     reset_counts()
@@ -1201,7 +1252,7 @@ def step_against_plain(cfg, gen):
                    for i, (g, p) in enumerate(zip(grads, pgrads)))
     grad_max = max(p.abs().max().item() for p in pgrads)
     return model, tc, diffusion, (batch, t, noise), dict(
-        batch=TRAIN_BATCH, loss=loss, plain_loss=ploss, loss_rel_err=rel,
+        batch=batch_size, loss=loss, plain_loss=ploss, loss_rel_err=rel,
         loss_rtol=TRAIN_LOSS_RTOL, grad_max_abs_err=grad_err,
         grad_atol=TRAIN_GRAD_ATOL, grad_max_abs=grad_max, launches=launches)
 
@@ -1524,12 +1575,13 @@ def drive_head_size(tmp, totals, gen):
     `REFUSED_HEADS` on the card before they build a model; then
     `cli.train.main` takes 3 bfloat16 steps at B=32 and saves a
     checkpoint, `cli.generate.run` answers one DDIM-10 request at B=4 from
-    it, and one float32 step at B=32 holds its loss and every gradient on
-    the kernels against the plain versions (the `train_step` bars).
-    Launch counts per step and per model call are held exactly, the losses
-    and images must be finite, and each kernel is held against its plain
-    version at every shape the runs hand it.  Adds the launches to
-    `totals`."""
+    it; both take `ACCEPTED_HEAD` (one bfloat16 step at B=32, a DDIM-2
+    request at B=2 from a small checkpoint of the same width), and one
+    float32 step at B=32 holds its loss and every gradient on the kernels
+    against the plain versions (the `train_step` bars).  Launch counts per
+    step and per model call are held exactly, the losses and images must
+    be finite, and each kernel is held against its plain version at every
+    shape the runs hand it.  Adds the launches to `totals`."""
     cfg = dataclasses.replace(UnetConfig(), num_head_channels=OTHER_HEAD_SIZE)
     data = os.path.join(tmp, "train.bin")
     pixels = np.random.default_rng(1).uniform(
@@ -1543,6 +1595,19 @@ def drive_head_size(tmp, totals, gen):
                 "--compute_dtype", "bfloat16", "--output_dir",
                 os.path.join(tmp, "models"), "--log_file", log, *flags]
 
+    def small_checkpoint(head_size, small_channels, small_mult):
+        """generate reads the head size from the checkpoint: a small model
+        with the same attention width will do."""
+        small = UnetConfig(model_channels=small_channels,
+                           channel_mult=small_mult, image_size=16,
+                           num_res_blocks=1, attention_ds=(2,),
+                           num_head_channels=head_size)
+        path = os.path.join(tmp, f"hs{head_size}.bin")
+        ckpt_io.save(path, ckpt_io.Checkpoint(
+            params=unet.init(small, generator=torch.Generator().manual_seed(3),
+                             device="cpu"), cfg=small, batch_size=4))
+        return small, path
+
     # refused before any model exists
     reset_counts()
     refused = []
@@ -1553,16 +1618,7 @@ def drive_head_size(tmp, totals, gen):
                                       str(channels), "--iterations", "1"))
         except SystemExit as e:
             case["train"] = str(e)
-        # generate reads the head size from the checkpoint: a small model
-        # with the same attention width will do
-        small = UnetConfig(model_channels=small_channels,
-                           channel_mult=small_mult, image_size=16,
-                           num_res_blocks=1, attention_ds=(2,),
-                           num_head_channels=head_size)
-        path = os.path.join(tmp, f"hs{head_size}.bin")
-        ckpt_io.save(path, ckpt_io.Checkpoint(
-            params=unet.init(small, generator=torch.Generator().manual_seed(3),
-                             device="cpu"), cfg=small, batch_size=4))
+        _, path = small_checkpoint(head_size, small_channels, small_mult)
         with contextlib.redirect_stderr(io.StringIO()) as err:
             try:
                 generate.run(generate.parse_args(
@@ -1624,18 +1680,170 @@ def drive_head_size(tmp, totals, gen):
                         for w in unet.attention_widths(cfg)}):
         raise AssertionError(f"the runs' head sizes {heads}")
 
+    # taken: heads of 288 and 384, and of 288 in the small checkpoint
+    head_size, channels, small_channels, small_mult = ACCEPTED_HEAD
+    wide = dataclasses.replace(cfg, model_channels=channels,
+                               num_head_channels=head_size)
+    small, path = small_checkpoint(head_size, small_channels, small_mult)
+    reset_counts()
+    with recording(seen), contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(train_argv(
+            head_size, "--num_channels", str(channels), "--iterations", "1",
+            "--log_interval", "1", "--save_interval", "1", "--output_dir",
+            os.path.join(tmp, f"hs{head_size}"), "--log_file",
+            os.path.join(tmp, f"hs{head_size}.txt")))
+        small_images = generate.run(generate.parse_args(
+            ["--model_filename", path, "--device", str(DEV), "--sampler",
+             "ddim", "--ddim_steps", "2", "--batch_size", "2",
+             "--compute_dtype", "bfloat16"]))
+    torch.cuda.synchronize()
+    got_wide = counts()
+    want_wide = launches_per_step(wide, False, 1)
+    want_wide["gn_act_fwd"] += 2 * launches_per_forward(small)[0]
+    want_wide["qkv_attention_fwd"] += 2 * launches_per_forward(small)[1]
+    with open(os.path.join(tmp, f"hs{head_size}.txt")) as f:
+        wide_lines = LOG_LINE.findall(f.read())
+    if (got_wide != want_wide or state.step != 1 or len(wide_lines) != 1
+            or not math.isfinite(float(wide_lines[0][1]))
+            or not np.isfinite(small_images).all()):
+        raise AssertionError(f"head size {head_size} on the card: launches "
+                             f"{got_wide}, want {want_wide}; log "
+                             f"{wide_lines}")
+    for k, v in got_wide.items():
+        totals[k] += v
+    del state
+    accepted = dict(num_head_channels=head_size, num_channels=channels,
+                    heads=sorted({w // (w // head_size)
+                                  for w in unet.attention_widths(wide)}),
+                    train_loss=float(wide_lines[0][1]),
+                    sample_shape=list(small_images.shape), launches=got_wide)
+
     with recording(seen):
         model, *_, step = step_against_plain(cfg, gen)
     for k, v in step["launches"].items():
         totals[k] += v
     del model
     return dict(head_size=OTHER_HEAD_SIZE, heads_run=heads, refused=refused,
+                accepted=accepted,
                 train=dict(batch=TRAIN_BATCH, steps=3, logged_losses=losses,
                            seconds=train_seconds, launches=got),
                 sample=dict(request="ddim10_b4_bf16", shape=list(images.shape),
                             seconds=sample_seconds, launches=got_sample,
                             pixel_mean=float(images.mean())),
                 f32_step=step, kernel_inputs=check_seen_shapes(seen, gen))
+
+
+# The `wide_head` phase: DDPM's 256 x 256 models (Ho et al. 2020,
+# arXiv:2006.11239; CelebA-HQ, LSUN church and bedroom: ch 128, mult
+# 1,1,2,2,4,4, two res blocks a level, single-head attention at 16 x 16)
+# in the CLIs' flags, one head of 512 (the cluster kernels) in two input
+# blocks and three output blocks at 16 x 16 and the middle block at 8 x 8.
+DDPM256_FLAGS = ["--image_size", "256", "--num_channels", "128",
+                 "--channel_mult", "1,1,2,2,4,4", "--num_res_blocks", "2",
+                 "--attention_resolutions", "16", "--num_head_channels",
+                 "512"]
+WIDE_BATCH = 8
+WIDE_STEPS = 3
+
+
+def drive_wide_head(tmp, totals, gen):
+    """DDPM-256 at full width and depth (random weights from a seed) on
+    the training and serving paths: `cli.train.main` takes `WIDE_STEPS`
+    bfloat16 steps at B=8 on a `.bin` of 16 seeded 256 x 256 images and
+    saves a checkpoint, `cli.generate.run` answers one DDIM-10 request at
+    B=2 from it, and one float32 step at B=8 holds its loss and every
+    gradient on the kernels against the plain versions (the `train_step`
+    bars).  6 K1 launches a forward and 6 K2 a step, every launch count
+    exact, finite losses and images, and every kernel input of the runs
+    held against its plain version.  Adds the launches to `totals`."""
+    cfg = train_cli.model_config_from_args(
+        train_cli.create_argparser().parse_args(DDPM256_FLAGS))
+    widths = unet.attention_widths(cfg)
+    gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
+    if widths != [512] * 6 or attn_per_fwd != 6:
+        raise AssertionError(f"DDPM-256: attention widths {widths}")
+    data = os.path.join(tmp, "ddpm256.bin")
+    pixels = np.random.default_rng(4).uniform(
+        -1, 1, (16, cfg.in_channels, cfg.image_size, cfg.image_size))
+    write_bin(data, pixels.astype(np.float32))
+    log = os.path.join(tmp, "log.txt")
+    seen = new_seen()
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with recording(seen), contextlib.redirect_stdout(io.StringIO()):
+        state = train_cli.main(
+            ["--data_file", data, "--device", str(DEV), "--batch_size",
+             str(WIDE_BATCH), "--compute_dtype", "bfloat16", "--iterations",
+             str(WIDE_STEPS), "--log_interval", "1", "--save_interval",
+             str(WIDE_STEPS), "--output_dir", os.path.join(tmp, "models"),
+             "--log_file", log, *DDPM256_FLAGS])
+    torch.cuda.synchronize()
+    train_seconds = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    got = counts()
+    want = {k: WIDE_STEPS * v
+            for k, v in launches_per_step(cfg, False, 1).items()}
+    with open(log) as f:
+        lines = LOG_LINE.findall(f.read())
+    losses = [float(loss) for _, loss, _ in lines]
+    if (got != want or state.step != WIDE_STEPS
+            or [int(step) for step, _, _ in lines]
+            != list(range(1, WIDE_STEPS + 1))
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"DDPM-256 train: launches {got}, want {want}; "
+                             f"log {lines}")
+    for k, v in got.items():
+        totals[k] += v
+    del state
+    free_graphs()
+
+    path = os.path.join(tmp, "models", f"model_{WIDE_STEPS}.bin")
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(seen):
+        images = generate.run(generate.parse_args(
+            ["--model_filename", path, "--device", str(DEV), "--sampler",
+             "ddim", "--ddim_steps", "10", "--batch_size", "2",
+             "--compute_dtype", "bfloat16"]))
+    torch.cuda.synchronize()
+    sample_seconds = time.perf_counter() - t0
+    got_sample = counts()
+    want_sample = dict(gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
+                       qkv_attention_fwd=10 * attn_per_fwd,
+                       qkv_attention_bwd=0, conv3x3_hwbc=0, **NO_SPLIT)
+    shape = (2, cfg.image_size, cfg.image_size, cfg.out_channels)
+    if (got_sample != want_sample or images.shape != shape
+            or not np.isfinite(images).all()):
+        raise AssertionError(f"DDPM-256 ddim10: launches {got_sample}, "
+                             f"images {images.shape}")
+    for k, v in got_sample.items():
+        totals[k] += v
+    free_graphs()
+
+    with recording(seen):
+        model, *_, step = step_against_plain(cfg, gen, WIDE_BATCH)
+    for k, v in step["launches"].items():
+        totals[k] += v
+    del model
+    free_graphs()
+    heads = sorted({shape[2] // 3 // n for shape, n in seen["attn_fwd"]})
+    if heads != [512]:
+        raise AssertionError(f"DDPM-256: the runs' head sizes {heads}")
+    return dict(
+        flags=" ".join(DDPM256_FLAGS), attention_widths=widths,
+        layout={str(dt): list(attn_mod.kernel_layout(512, dt))
+                for dt in (torch.float32, torch.bfloat16)},
+        params=ckpt_io.num_params(cfg), launches_per_forward=dict(
+            gn_act_fwd=gn_per_fwd, qkv_attention_fwd=attn_per_fwd),
+        train=dict(batch=WIDE_BATCH, steps=WIDE_STEPS, logged_losses=losses,
+                   ms_per_step=float(lines[-1][2]), peak_mib=peak_mib,
+                   seconds=train_seconds, launches=got),
+        sample=dict(request="ddim10_b2_bf16", shape=list(images.shape),
+                    seconds=sample_seconds, launches=got_sample,
+                    pixel_mean=float(images.mean())),
+        f32_step=step, kernel_inputs=check_seen_shapes(seen, gen))
 
 
 # The `s2d` phase: space-to-depth level 0 against pixel space.  bfloat16: the
@@ -3602,6 +3810,17 @@ def main() -> None:
     emit({"phase": "head_size", "model": f"UnetConfig() ImageNet-64, full "
           f"depth, num_head_channels={OTHER_HEAD_SIZE}", **other,
           "launches_with_the_runs_before": dict(totals)})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wide = drive_wide_head(tmp, totals, gen)
+    emit({"phase": "wide_head", "model": "DDPM 256x256 (CelebA-HQ/LSUN), "
+          "full width and depth, one head of 512", **wide,
+          "seconds": time.perf_counter() - t0,
+          "launches_with_the_runs_before": dict(totals)})
+    for key, value in (("ms_per_step", wide["train"]["ms_per_step"]),
+                       ("peak_mib", wide["train"]["peak_mib"]),
+                       ("params", wide["params"])):
+        emit({"wide_head": key, "value": value})
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:

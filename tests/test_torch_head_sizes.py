@@ -1,10 +1,12 @@
 """Head sizes other than the default model's 32: the attention kernels'
-plain versions against the Pallas kernels from head size 7 to 256 (the
-CUDA kernels take 1 to 256: tiles 16, 32 or 64 wide up to 64, chunks of 64
-columns beyond), the port's head rule against the JAX package's (refused
-exactly where the JAX package's attention raises, and on a CUDA device a
-head wider than 256), the CLIs' refusals before a model is built, and the
-whole model at head sizes that leave one head of 96 or four of 24.
+plain versions against the Pallas kernels from head size 7 to 514 (the
+CUDA kernels take every head: tiles 16, 32 or 64 wide up to 64, chunks of
+64 columns up to 256, clusters of blocks beyond), the port's head rule
+against the JAX package's (refused exactly where the JAX package's
+attention raises, on the CPU and on a CUDA device alike), the CLIs'
+refusals before a model is built and their acceptance of heads wider than
+256, and the whole model at head sizes that leave one head of 96, four of
+24 or one of 288.
 
 The Pallas kernels run in interpret mode (automatic off a TPU), as
 tests/test_pallas.py runs them; the port's wrappers get CPU tensors and so
@@ -52,7 +54,8 @@ ATTENTION_CU = (Path(__file__).resolve().parents[1] / "unet_tpu_torch"
 # (B, T, C, NH): head sizes 16 and 64, the tiles' widths; then T = 72,
 # which leaves a ragged 64-row tile, at 12 (an odd number of 8-byte pieces
 # in bfloat16), 40 (a 64-wide tile), and 72, 128, 192, 256 (chunked: 2, 2,
-# 3 and 4 chunks of 64 columns).
+# 3 and 4 chunks of 64 columns), then 288, 512 and 514 (clusters of 5, 8
+# and 5 blocks; 514 in two groups of clusters, bfloat16 in 4-byte pieces).
 SHAPES = [pytest.param(2, 64, 64, 4, id="HS16"),
           pytest.param(2, 64, 128, 2, id="HS64"),
           pytest.param(1, 72, 128, 8, id="HS16-T72"),
@@ -62,7 +65,10 @@ SHAPES = [pytest.param(2, 64, 64, 4, id="HS16"),
           pytest.param(1, 72, 144, 2, id="HS72-T72"),
           pytest.param(1, 72, 128, 1, id="HS128-T72"),
           pytest.param(1, 72, 192, 1, id="HS192-T72"),
-          pytest.param(1, 72, 256, 1, id="HS256-T72")]
+          pytest.param(1, 72, 256, 1, id="HS256-T72"),
+          pytest.param(1, 72, 288, 1, id="HS288-T72"),
+          pytest.param(1, 72, 512, 1, id="HS512-T72"),
+          pytest.param(1, 72, 1542, 3, id="HS514-T72")]
 
 
 @pytest.mark.parametrize("B,T,C,NH", SHAPES)
@@ -96,8 +102,10 @@ def test_attention_bwd_vs_pallas_at_other_head_sizes(B, T, C, NH, dtype):
 def test_head_sizes_are_the_sources_instantiations():
     """The wrapper's HEAD_SIZES are the tile widths of the launchers'
     dispatch in csrc/attention.cu, each instantiating the kernels at its
-    own width, and its CHUNK and MAX_HEAD_SIZE the chunked kernels'
-    (csrc/attention.cuh)."""
+    own width, its CHUNK and MAX_CHUNKS the chunked kernels' and its
+    MAX_CLUSTER the cluster kernels' (csrc/attention.cuh), and the
+    launchers send a head wider than CHUNK * MAX_CHUNKS to the cluster
+    kernels (csrc/attention_wide.cu)."""
     src = ATTENTION_CU.read_text()
     shared = ATTENTION_CU.with_suffix(".cuh").read_text()
     cases = re.findall(r"if \(hs <= (\d+)\) return f\(std::integral_constant"
@@ -110,8 +118,17 @@ def test_head_sizes_are_the_sources_instantiations():
                            shared).group(1))
     narrow = int(re.search(r"constexpr int NARROW_MAX = (\d+);",
                            shared).group(1))
+    cluster = int(re.search(r"constexpr int MAX_CLUSTER = (\d+);",
+                            shared).group(1))
     assert chunk == port_attn.CHUNK and narrow == max(port_attn.HEAD_SIZES)
-    assert chunk * chunks == port_attn.MAX_HEAD_SIZE
+    assert chunks == port_attn.MAX_CHUNKS and cluster == port_attn.MAX_CLUSTER
+    assert cluster <= 8  # the portable cluster size: no attribute asked
+    assert src.count("if (hs > CH * MAX_CHUNKS)") == 2
+    assert "return attention_fwd_wide(" in src
+    assert "return attention_bwd_wide(" in src
+    wide = ATTENTION_CU.with_name("attention_wide.cu").read_text()
+    assert "const int nd = (hs + CH - 1) / CH, per = (nd + MAX_CLUSTER - 1) " \
+        "/ MAX_CLUSTER;" in wide and "return {per, (nd + per - 1) / per};" in wide
 
 
 @pytest.mark.parametrize("head_size, dtype, layout, fwd, bwd", [
@@ -127,33 +144,48 @@ def test_head_sizes_are_the_sources_instantiations():
     (96, "bfloat16", ("chunked", 2), 1.5, 15 / 9),
     (192, "bfloat16", ("chunked", 3), 2.0, 21 / 9),
     (256, "float32", ("chunked", 4), 2.5, 3.0),
-    (257, "bfloat16", None, None, None)])
+    (257, "bfloat16", ("cluster", 5, 1), 272 / 257, 272 / 257),
+    (288, "float32", ("cluster", 5, 1), 1.0, 1.0),
+    (288, "bfloat16", ("cluster", 5, 1), 1.0, 1.0),
+    (512, "float32", ("cluster", 8, 1), 1.0, 1.0),
+    (512, "bfloat16", ("cluster", 8, 1), 1.0, 1.0),
+    (2048, "float32", ("cluster", 8, 4), 2.5, 3.0),
+    (2048, "bfloat16", ("cluster", 8, 4), 2.5, 3.0),
+    (4160, "float32", ("cluster", 8, 9), 5.0, 57 / 9),
+    (4160, "bfloat16", ("cluster", 8, 9), 5.0, 57 / 9)])
 def test_kernel_layout_and_work_ratio(head_size, dtype, layout, fwd, bwd):
     """A tile pads the head to its width and takes rows of a multiple of
-    16 bytes; the chunked kernels take the rest, a head's n blocks each
-    redoing its scores (HS 72 in bfloat16: k-steps of 16 over 64 + 8
-    columns, 80 deep, 2 x 80 + 80 against 2 x 72 forward, 6 x 2 x 80 + 3 x
-    80 against 9 x 72 backward)."""
+    16 bytes; the chunked kernels take the rest up to 256, a head's n
+    blocks each redoing its scores (HS 72 in bfloat16: k-steps of 16 over
+    64 + 8 columns, 80 deep, 2 x 80 + 80 against 2 x 72 forward, 6 x 2 x 80
+    + 3 x 80 against 9 x 72 backward); a wider head takes clusters of up to
+    8 blocks that share its scores, once for up to 8 chunks (512 columns:
+    nothing wasted), `per` times in as many groups of clusters beyond (HS
+    4160, 65 chunks: 9 groups of 8 blocks, the scores 9 times: 10 / 2
+    forward, 57 / 9 backward; HS 257 in bfloat16: 256 + one k-step of 16
+    deep)."""
     assert port_attn.kernel_layout(head_size, TDT[dtype]) == layout
-    if layout is not None:
-        assert port_attn.work_ratio(head_size, TDT[dtype],
-                                    False) == pytest.approx(fwd)
-        assert port_attn.work_ratio(head_size, TDT[dtype],
-                                    True) == pytest.approx(bwd)
+    assert port_attn.work_ratio(head_size, TDT[dtype],
+                                False) == pytest.approx(fwd)
+    assert port_attn.work_ratio(head_size, TDT[dtype],
+                                True) == pytest.approx(bwd)
 
 
-@pytest.mark.parametrize("widths, head_size, cuda, fault", [
-    ([192, 192, 256], 32, True, None), ([192, 256], 64, True, None),
-    ([64], 16, True, None), ([96], 64, True, None),      # one head of 96
-    ([192, 256], 128, True, None),  # one head of 192, two of 128
-    ([288], 64, True, None),        # four heads of 72
-    ([192, 256], 48, True, "do not split"),  # 256 // 48 = 5 heads
-    ([192, 256], 48, False, "do not split"),
-    ([32], 64, False, "no head"), ([64], 128, True, "no head"),
-    ([288, 384], 288, True, "at most 256"),  # heads of 288 and 384
-    ([288, 384], 288, False, None), ([64], 0, False, "not positive")])
-def test_head_size_fault(widths, head_size, cuda, fault):
-    got = port_attn.head_size_fault(widths, head_size, cuda=cuda)
+@pytest.mark.parametrize("widths, head_size, fault", [
+    ([192, 192, 256], 32, None), ([192, 256], 64, None),
+    ([64], 16, None), ([96], 64, None),      # one head of 96
+    ([192, 256], 128, None),  # one head of 192, two of 128
+    ([288], 64, None),        # four heads of 72
+    ([192, 256], 48, "do not split"),  # 256 // 48 = 5 heads
+    ([256], 48, "do not split"),
+    ([32], 64, "no head"), ([64], 128, "no head"),
+    ([288, 384], 288, None),  # heads of 288 and 384
+    ([512] * 6, 512, None),   # DDPM's 256 x 256 models: one head of 512
+    ([64], 0, "not positive")])
+def test_head_size_fault(widths, head_size, fault):
+    """The same rule for the CPU and a CUDA device: the kernels take every
+    head the JAX package runs."""
+    got = port_attn.head_size_fault(widths, head_size)
     assert (got is None) if fault is None else (fault in got)
 
 
@@ -170,7 +202,7 @@ def test_head_rule_is_the_jax_packages(width):
             raised = False
         except (ZeroDivisionError, TypeError, ValueError):
             raised = True
-        fault = port_attn.head_size_fault([width], head_size, cuda=False)
+        fault = port_attn.head_size_fault([width], head_size)
         assert raised == (fault is not None), (width, head_size, fault)
 
 
@@ -194,12 +226,15 @@ class FakeCuda:
 
 
 def test_cuda_wrapper_refuses_an_uncompiled_head_size():
-    """Heads of 1 to 256 reach the kernels; a head of 288 (width 288, one
-    head) is past them and refused before any CUDA call."""
-    for C, NH in ((288, 4), (96, 2), (21, 3), (256, 1), (7, 7), (2048, 8)):
+    """Every head reaches the kernels, a head of 288 (width 288, one head)
+    among them; what is refused before any CUDA call is a launch past the
+    grid's limits: 40,000 heads of 576 columns, two groups of clusters
+    each, want 80,000 > 65,535 blocks on grid.y."""
+    for C, NH in ((288, 4), (96, 2), (21, 3), (256, 1), (7, 7), (2048, 8),
+                  (288, 1), (4160, 1)):
         port_attn._check_cuda(FakeCuda((2, 8, 3 * C)), NH)
-    with pytest.raises(ValueError, match="at most 256"):
-        port_attn._check_cuda(FakeCuda((2, 8, 3 * 288)), 1)
+    with pytest.raises(ValueError, match="does not take"):
+        port_attn._check_cuda(FakeCuda((2, 8, 3 * 576 * 40000)), 40000)
 
 
 def _train_flags(tmp_path, head_size, device, channels=96, mult="1,2"):
@@ -237,16 +272,22 @@ def no_model_built():
 
 
 @pytest.mark.parametrize("head_size, channels, mult, fault", [
-    (48, 128, "1,2", "do not split"), (288, 96, "1,3", "at most 256")])
+    (48, 128, "1,2", "do not split"), (288, 96, "1,3", None)])
 def test_train_refuses_a_head_size_on_cuda_before_any_work(
         tmp_path, head_size, channels, mult, fault, no_model_built):
     """48 at the attention width 256 of --num_channels 128 gives five heads,
-    which do not split it (the JAX package cannot run it either); 288 at
-    width 288 is one head of 288, past the kernels.  No data file is needed
-    to be refused."""
-    with pytest.raises(SystemExit, match=fault):
-        train_cli.main(_train_flags(tmp_path, head_size, "cuda", channels,
-                                    mult))
+    which do not split it (the JAX package cannot run it either): refused,
+    no data file needed.  288 at width 288 is one head of 288, which the
+    kernels take: the run goes on to build its model."""
+    flags = _train_flags(tmp_path, head_size, "cuda", channels, mult)
+    if fault is not None:
+        with pytest.raises(SystemExit, match=fault):
+            train_cli.main(flags)
+        return
+    write_bin(str(tmp_path / "data.bin"), np.zeros((2, 3, 16, 16),
+                                                   np.float32))
+    with pytest.raises(AssertionError, match="a model was built"):
+        train_cli.main(flags)
 
 
 def test_train_refuses_on_the_cpu_what_the_jax_package_cannot_run(
@@ -277,12 +318,12 @@ def hs48_file(tmp_path):
 
 
 @pytest.mark.parametrize("channels, mult, head_size, fault", [
-    (128, (1, 2), 48, "do not split"), (96, (1, 3), 288, "at most 256")])
+    (128, (1, 2), 48, "do not split"), (96, (1, 3), 288, None)])
 def test_generate_refuses_head_size_48_on_cuda_before_loading(
         tmp_path, channels, mult, head_size, fault, capsys):
-    """Width 256 at 48 (five heads, which do not split it) and width 288 at
-    288 (one head, past the kernels), read from the checkpoint's header
-    before any weights load."""
+    """Width 256 at 48 (five heads, which do not split it), read from the
+    checkpoint's header, is refused before any weights load; width 288 at
+    288 (one head, which the kernels take) goes on to load them."""
     cfg = UnetConfig(**{**TINY, "model_channels": channels,
                         "channel_mult": mult, "num_head_channels": head_size})
     path = str(tmp_path / "m.bin")
@@ -291,6 +332,11 @@ def test_generate_refuses_head_size_48_on_cuda_before_loading(
                               device="cpu"), cfg=cfg, batch_size=2))
     args = generate.parse_args(["--model_filename", path, "--device",
                                 "cuda", "--sampler", "ddim"])
+    if fault is None:
+        with no_weights_read():
+            with pytest.raises(AssertionError, match="a model was built"):
+                generate.run(args)
+        return
     with no_weights_read():
         with pytest.raises(SystemExit) as e:
             generate.run(args)
@@ -322,6 +368,36 @@ def test_whole_model_at_other_head_sizes(head_size):
     rng = np.random.default_rng(6)
     x = rng.standard_normal((2, 16, 16, 3), dtype=np.float32)
     t = np.array([11.0, 700.0], np.float32)
+    target = rng.standard_normal(x.shape, dtype=np.float32)
+
+    def jloss(p):
+        out = jax_unet.apply(p, jcfg, jnp.asarray(x), jnp.asarray(t))
+        return jnp.mean(jnp.square(out - jnp.asarray(target))), out
+
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(jloss, has_aux=True))(
+        params)
+    out = port_unet.apply(model, torch.from_numpy(x), torch.from_numpy(t))
+    loss = (out - torch.from_numpy(target)).square().mean()
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    np.testing.assert_allclose(t2n(out.detach()), j2n(jout), atol=2e-3)
+    np.testing.assert_allclose(port_ckpt.flatten_tensors(grads),
+                               jax_ckpt.flatten_params(jgrads, jcfg),
+                               atol=1e-3)
+
+
+def test_whole_model_at_a_head_wider_than_256():
+    """TINY at channel_mult (1, 9): attention at width 288 (9 channels a
+    group) in an input, the middle and two output blocks, one head of 288
+    at 288 channels a head (the cluster kernels on a CUDA device).  The
+    port's forward and the gradients of a squared error on the CPU against
+    the JAX package's, at tests/test_model.py's bars."""
+    jcfg, cfg = configs(channel_mult=(1, 9), num_head_channels=288)
+    assert port_unet.attention_widths(cfg) == [288] * 4
+    assert port_attn.kernel_layout(288, torch.float32) == ("cluster", 5, 1)
+    params, model, _ = both_models(jcfg, cfg, seed=7)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 16, 16, 3), dtype=np.float32)
+    t = np.array([5.0, 900.0], np.float32)
     target = rng.standard_normal(x.shape, dtype=np.float32)
 
     def jloss(p):

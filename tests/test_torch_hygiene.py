@@ -155,7 +155,7 @@ def test_build_step_reports_the_compilers_output(monkeypatch, tmp_path):
     text = str(e.value)
     assert "no such instruction" in text and "exit 3" in text
     assert ("groupnorm.cu" in text and "attention.cu" in text
-            and "conv3x3.cu" in text)
+            and "conv3x3.cu" in text and "attention_wide.cu" in text)
     assert list((tmp_path / "build").iterdir()) == []
 
 
@@ -264,11 +264,31 @@ def test_sources_and_digest():
     from unet_tpu_torch.ops.kernels import _build
     names = [p.name for p in _build.sources()]
     assert names == sorted(names)
-    assert {"attention.cu", "conv3x3.cu", "groupnorm.cu"} <= set(names)
+    assert {"attention.cu", "attention_chunked.cu", "attention_wide.cu",
+            "conv3x3.cu", "groupnorm.cu"} <= set(names)
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     tag = _build._digest(_build.sources())
     assert tag == _build._digest(_build.sources()) and len(tag) == 16
+
+
+CSRC_FILES = sorted((ROOT / "unet_tpu_torch" / "csrc").glob("*.cu*"))
+
+
+@pytest.mark.parametrize("path", CSRC_FILES, ids=lambda p: p.name)
+def test_kernel_sources_include_no_framework_header(path):
+    """Every CUDA source and header of the port (attention_wide.cu among
+    them) has a plain C interface: no PyTorch, Python or JAX header, so a
+    build takes seconds."""
+    includes = re.findall(r'#include\s*[<"]([^>"]+)[>"]', path.read_text())
+    assert includes and not [
+        h for h in includes if h.split("/")[0] in (
+            "torch", "ATen", "c10", "pybind11", "Python.h", "jax", "xla")]
+
+
+def test_the_attention_sources_are_found():
+    assert {"attention.cu", "attention_chunked.cu", "attention_wide.cu",
+            "attention.cuh", "common.cuh"} <= {p.name for p in CSRC_FILES}
 
 
 def test_check_launch_passes_zero():

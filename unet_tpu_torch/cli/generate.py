@@ -74,12 +74,11 @@ def run(args: argparse.Namespace) -> np.ndarray:
     program as `parser.error` does."""
     error = _parser().error
     device = torch.device(args.device)
-    # the JAX package's head rule, and on the card the kernels' widest head,
+    # the JAX package's head rule (the kernels take every head it runs),
     # before any weights are read
     cfg = ckpt_io.read_config(args.model_filename)
     fault = attention.head_size_fault(unet.attention_widths(cfg),
-                                      cfg.num_head_channels,
-                                      cuda=device.type == "cuda")
+                                      cfg.num_head_channels)
     if fault is not None:
         error(f"{args.model_filename}: {fault} (--device {args.device})")
     ckpt = ckpt_io.load(args.model_filename, device=device)

@@ -347,10 +347,10 @@ def _reject_bad_combos(args, ranks: int = 1, multiproc: bool = False
             "--num_shards is assigned per process automatically in "
             "multi-process runs; leave it at 1 (explicit sharding "
             "requires --shard_index <rank>, distinct per process)")
-    # the JAX package's head rule, and on the card the kernels' widest head
+    # the JAX package's head rule (the kernels take every head it runs)
     fault = attention.head_size_fault(
         unet.attention_widths(model_config_from_args(args)),
-        args.num_head_channels, cuda=device.type == "cuda")
+        args.num_head_channels)
     bad(fault is not None, f"{fault} (--num_head_channels "
         f"{args.num_head_channels}, --num_channels {args.num_channels}, "
         f"--device {args.device})")

@@ -103,8 +103,8 @@
 // fragments in registers with no shuffle.  At HS = 64 the backward kernels
 // take a tile's scores half at a time (registers).
 //
-// Head sizes.  The JAX package takes any head size hs = C / NH; these
-// kernels take every hs from 1 to 256, by two designs.
+// Head sizes.  The JAX package takes any head size hs = C / NH; so do these
+// kernels, by three designs.
 //
 // A head of up to 64 columns whose row is a multiple of 16 bytes (hs a
 // multiple of 8 in bfloat16, of 4 in float32) takes the kernels here,
@@ -136,6 +136,15 @@
 // set bit of hs * itemsize): 8- and 4-byte `cp.async`, or for an odd hs in
 // bfloat16 plain 2-byte loads and stores into the ring; an odd hs stores
 // its outputs one value at a time.
+//
+// A head wider than 256 columns (attention_wide.cu) takes the chunked
+// kernels' tiles and products, but the blocks that share a tile of rows
+// share its scores: a thread-block cluster of up to MAX_CLUSTER blocks,
+// each taking the score products over its own chunks only and adding the
+// cluster's partial 64 x 64 tiles through distributed shared memory in rank
+// order, then one output chunk; a head of more than MAX_CLUSTER chunks in
+// as many groups of clusters as a block has chunks, each group recomputing
+// the scores for its output chunks.
 
 #include "attention.cuh"
 
@@ -973,8 +982,9 @@ int with_head_size(int hs, F&& f) {
     return (int)cudaErrorInvalidValue;
 }
 
-// Heads the kernels above do not take: wider than NARROW_MAX, or a row that
-// is no multiple of 16 bytes (their copies' piece).
+// Heads of up to CH * MAX_CHUNKS the kernels above do not take: wider than
+// NARROW_MAX, or a row that is no multiple of 16 bytes (their copies'
+// piece).
 bool chunked(int hs, int is_bf16) {
     return hs > NARROW_MAX || hs * (is_bf16 ? 2 : 4) % 16 != 0;
 }
@@ -986,9 +996,10 @@ bool bad_shape(int B, int T_len, int C, int NH) {
 }  // namespace
 
 // qkv: (B, T, 3C) contiguous, out: (B, T, C) contiguous, both 16-byte
-// aligned, C == NH * hs with 1 <= hs <= 256 (up to 64 columns of a multiple
-// of 16 bytes the kernels of width `with_head_size`, any other head the
-// chunked ones, NH * ceil(hs / 64) at most 65535 there), B and NH at most
+// aligned, C == NH * hs with hs >= 1 (up to 64 columns of a multiple of 16
+// bytes the kernels of width `with_head_size`, any other head of up to 256
+// the chunked ones, NH * ceil(hs / 64) at most 65535 there, a wider head the
+// cluster kernels, NH times the groups at most 65535), B and NH at most
 // 65535; scale is 1 / sqrt(hs), given by the caller so that it is the same
 // float the plain version multiplies by.  Returns the CUDA error code of
 // the launch (0 = success).
@@ -996,6 +1007,8 @@ extern "C" int unet_qkv_attention_fwd(const void* qkv, void* out, int B, int T_l
                                       int NH, float scale, int is_bf16, cudaStream_t stream) {
     if (bad_shape(B, T_len, C, NH)) return (int)cudaErrorInvalidValue;
     const int hs = C / NH;
+    if (hs > CH * MAX_CHUNKS)
+        return attention_fwd_wide(qkv, out, B, T_len, C, NH, scale, is_bf16, stream);
     if (chunked(hs, is_bf16))
         return attention_fwd_chunked(qkv, out, B, T_len, C, NH, scale, is_bf16, stream);
     return with_head_size(hs, [&](auto width) {
@@ -1026,6 +1039,9 @@ extern "C" int unet_qkv_attention_bwd(const void* qkv, const void* dout, void* d
                                       int is_bf16, cudaStream_t stream) {
     if (bad_shape(B, T_len, C, NH)) return (int)cudaErrorInvalidValue;
     const int hs = C / NH;
+    if (hs > CH * MAX_CHUNKS)
+        return attention_bwd_wide(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, is_bf16,
+                                  stream);
     if (chunked(hs, is_bf16))
         return attention_bwd_chunked(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, is_bf16,
                                      stream);

@@ -1,5 +1,5 @@
-// Attention forward and backward for the heads attention.cu's kernels do
-// not take, every one of up to 256 columns (CH * MAX_CHUNKS): wider than 64
+// Attention forward and backward for the heads of up to 256 columns (CH *
+// MAX_CHUNKS) that attention.cu's kernels do not take: wider than 64
 // columns, or a row that is no multiple of 16 bytes (a bfloat16 head of 7,
 // 12 or 36 columns).  The head is cut into chunks of CH columns, the
 // block's own rows whole in shared memory, the other side streamed a chunk
@@ -10,47 +10,8 @@
 
 namespace {
 
-// `copy_rows_w` with the piece the launcher chose for the launch (16, 8, 4
-// or, bfloat16 only, 2 bytes): the same branch in every thread.
-template <typename E>
-__device__ __forceinline__ void copy_rows(E* dst, int ld, int width, const E* src, size_t stride,
-                                          int r0, int n, int cols, int piece) {
-    if (piece == 16) {
-        copy_rows_w<E, 16>(dst, ld, width, src, stride, r0, n, cols);
-    } else if (piece == 8) {
-        copy_rows_w<E, 8>(dst, ld, width, src, stride, r0, n, cols);
-    } else if constexpr (sizeof(E) == 4) {
-        copy_rows_w<E, 4>(dst, ld, width, src, stride, r0, n, cols);
-    } else if (piece == 4) {
-        copy_rows_w<E, 4>(dst, ld, width, src, stride, r0, n, cols);
-    } else {
-        copy_rows_w<E, 2>(dst, ld, width, src, stride, r0, n, cols);
-    }
-}
-
-template <typename E>
-__device__ __forceinline__ void scale_rows(E* dst, int ld, int width, float scale, int piece) {
-    if (piece == 16) {
-        scale_rows_w<E, 16>(dst, ld, width, scale);
-    } else if (piece == 8) {
-        scale_rows_w<E, 8>(dst, ld, width, scale);
-    } else if constexpr (sizeof(E) == 4) {
-        scale_rows_w<E, 4>(dst, ld, width, scale);
-    } else if (piece == 4) {
-        scale_rows_w<E, 4>(dst, ld, width, scale);
-    } else {
-        scale_rows_w<E, 2>(dst, ld, width, scale);
-    }
-}
-
-// A chunk tile row: CH values + the padding of attention.cu's tiles at HS = 64
-// (LD<64>, LDF<64>), without bank conflicts for the same reasons.  The own
-// rows' tile takes nd chunks + the same padding: a row is 16 bytes past a
-// multiple of 128 at every nd.
-template <typename E> constexpr int CPAD = sizeof(E) == 2 ? 8 : 4;
-template <typename E> constexpr int LDC = CH + CPAD<E>;
-template <typename E> using ChunkRing = E (*)[TILE][LDC<E>];
-
+// The own rows' tile takes nd chunks + the padding of a chunk tile: a row is
+// 16 bytes past a multiple of 128 at every nd.
 template <typename E> __host__ __device__ constexpr int own_ld(int nd) {
     return nd * CH + CPAD<E>;
 }
@@ -62,113 +23,6 @@ template <typename E> __host__ __device__ constexpr int own_ld(int nd) {
 template <typename E> constexpr int chunked_smem_bytes(int own, int nd, bool stats) {
     return (own * TILE * own_ld<E>(nd) + 2 * STAGES * TILE * LDC<E>) * (int)sizeof(E) +
            (stats ? STAGES * 3 * TILE * (int)sizeof(float) : 0);
-}
-
-__device__ __forceinline__ void zero_acc(float (&a)[8][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
-}
-
-// acc += a tile^T over the chunk's first `cols` columns, for the warp's 16
-// own rows a (row r at own + r * ld, from shared memory: `ldmatrix`) and a
-// chunk tile whose rows are the product's n index: scores from k or qs, dp
-// from v or dout.  k-steps at or past cols are skipped (the chunk's columns
-// past hs are zero on both sides).
-__device__ __forceinline__ void chunk_scores(float (&acc)[8][4], const bf16* own, int ld,
-                                             const bf16 (*tile)[LDC<bf16>], int cols) {
-    const int lane = threadIdx.x & 31;
-    const bf16* a_row = own + ((threadIdx.x >> 5) * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
-#pragma unroll
-    for (int ks = 0; ks < CH / 16; ++ks) {
-        if (16 * ks >= cols) break;
-        uint32_t a[4];
-        ldsm_x4(a, a_row + 16 * ks);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-            uint32_t b[2];
-            ldsm_x2(b, &tile[8 * j + (lane & 7)][16 * ks + ((lane >> 3) & 1) * 8]);
-            mma_bf16(acc[j], a, b[0], b[1]);
-        }
-    }
-}
-
-// The same in 3xTF32: the own rows' A fragment by 32-bit loads (lane 4g + t:
-// rows g, g + 8, columns t, t + 4; rows ld apart fall in banks 4g + t), the
-// tile's as `rows_product_f32` reads it.
-__device__ __forceinline__ void chunk_scores(float (&acc)[8][4], const float* own, int ld,
-                                             const float (*tile)[LDC<float>], int cols) {
-    const int lane = threadIdx.x & 31;
-    const float* a_row = own + ((threadIdx.x >> 5) * 16 + (lane >> 2)) * ld + (lane & 3);
-#pragma unroll
-    for (int ks = 0; ks < CH / 8; ++ks) {
-        if (8 * ks >= cols) break;
-        const float* p = a_row + 8 * ks;
-        uint32_t ah[4], al[4];
-        split_tf32(p[0], ah[0], al[0]);
-        split_tf32(p[8 * ld], ah[1], al[1]);
-        split_tf32(p[4], ah[2], al[2]);
-        split_tf32(p[8 * ld + 4], ah[3], al[3]);
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) {
-            uint32_t b[4];
-            ldsm_x4(b, &tile[8 * j + (lane & 7) + (lane >> 4) * 8][8 * ks + ((lane >> 3) & 1) * 4]);
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                uint32_t bh[2], bl[2];
-                split_tf32(__uint_as_float(b[2 * jj]), bh[0], bl[0]);
-                split_tf32(__uint_as_float(b[2 * jj + 1]), bh[1], bl[1]);
-                mma_3xtf32(acc[j + jj], ah, al, bh, bl);
-            }
-        }
-    }
-}
-
-// acc += p tile over the tile's first `cols` columns, for the warp's 16 x
-// TILE fragment p (the accumulator of `chunk_scores`, float32) and a chunk
-// tile whose rows are the product's k index: out += p v, dq += ds k, dv +=
-// p^T dout, dk += ds^T qs.  In bfloat16 p is rounded and packed into A
-// fragments (`cols_product`); n-tiles at or past cols are skipped.
-__device__ __forceinline__ void chunk_pv(float (&acc)[8][4], const float (&p)[8][4],
-                                         const bf16 (*tile)[LDC<bf16>], int cols) {
-    const int lane = threadIdx.x & 31;
-    uint32_t pf[4][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) pack_a(pf, j, p[j][0], p[j][1], p[j][2], p[j][3]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int pp = 0; pp < CH / 16; ++pp) {
-            if (16 * pp >= cols) break;
-            uint32_t b[4];
-            ldsm_x4_trans(b, &tile[16 * kk + (lane & 7) + (lane & 8)][16 * pp + (lane >> 4) * 8]);
-            mma_bf16(acc[2 * pp], pf[kk], b[0], b[1]);
-            mma_bf16(acc[2 * pp + 1], pf[kk], b[2], b[3]);
-        }
-    }
-}
-
-// The same in 3xTF32, one k-step of 8 tile rows per n-tile of p as
-// `cols_step_f32` takes it.
-__device__ __forceinline__ void chunk_pv(float (&acc)[8][4], const float (&p)[8][4],
-                                         const float (*tile)[LDC<float>], int cols) {
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-        uint32_t ah[4], al[4];
-        split_tf32(p[kk][0], ah[0], al[0]);
-        split_tf32(p[kk][2], ah[1], al[1]);
-        split_tf32(p[kk][1], ah[2], al[2]);
-        split_tf32(p[kk][3], ah[3], al[3]);
-        const float* r = &tile[8 * kk + 2 * (lane & 3)][lane >> 2];
-#pragma unroll
-        for (int n = 0; n < CH / 8; ++n) {
-            if (8 * n >= cols) break;
-            uint32_t bh[2], bl[2];
-            split_tf32(r[8 * n], bh[0], bl[0]);
-            split_tf32(r[LDC<float> + 8 * n], bh[1], bl[1]);
-            mma_3xtf32(acc[n], ah, al, bh, bl);
-        }
-    }
 }
 
 // Forward: one block per (batch, head and chunk c, TILE queries).  The
@@ -475,15 +329,6 @@ qkv_attention_bwd_dkv_chunked_kernel(const E* __restrict__ qkv, const E* __restr
     E* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * hs + c * CH;
     store_acc<E, 8>(k_out, stride, row, T_len, dk, cols, hs & 1, 1.f, 1.f);
     store_acc<E, 8>(k_out + C, stride, row, T_len, dv, cols, hs & 1, 1.f, 1.f);
-}
-
-// The copies' piece for a head of hs values of `itemsize` bytes: the widest
-// of 16, 8, 4 and 2 bytes that divides hs * itemsize (so every row of every
-// head starts on a piece).
-int piece_bytes(int hs, int itemsize) {
-    const int bytes = hs * itemsize;
-    const int low = bytes & -bytes;
-    return low < 16 ? low : 16;
 }
 
 template <typename E>

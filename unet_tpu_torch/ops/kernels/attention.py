@@ -26,11 +26,15 @@ tests/test_torch_tf32.py).  A warp owns 16 query (or key) rows, four warps
 (64 rows) a block; the other side is staged in shared memory by
 `cp.async`, with an online softmax in registers; the scores never reach
 device memory and any T is taken (the ragged tile is masked).  The kernels
-take every head size from 1 to `MAX_HEAD_SIZE`: a head of up to 64 columns
+take every head size, as the JAX package's do: a head of up to 64 columns
 whose row is a multiple of 16 bytes in tiles of the first width of
 `HEAD_SIZES` at or above it (the columns past the head size zero); any
-other head in chunks of `CHUNK` columns (csrc/attention_chunked.cu), a
-block a chunk of the output, each block recomputing the whole head's scores
+other head of up to `CHUNK * MAX_CHUNKS` in chunks of `CHUNK` columns
+(csrc/attention_chunked.cu), a block a chunk of the output, each block
+recomputing the whole head's scores; a wider head in thread-block clusters
+of up to `MAX_CLUSTER` blocks (csrc/attention_wide.cu), each block the
+score products over its own chunks, the cluster adding the partial scores
+through distributed shared memory, then a chunk of the output each
 (`kernel_layout` says which a head takes).  The plain version takes any
 head size.
 
@@ -50,57 +54,68 @@ from unet_tpu_torch.ops.kernels import _build
 
 # The tile widths csrc/attention.cu's kernels are compiled for
 # (`with_head_size` there); other heads go in chunks of CHUNK columns (`CH`
-# in csrc/attention.cuh), at most MAX_HEAD_SIZE (`CH * MAX_CHUNKS`).
+# in csrc/attention.cuh), at most MAX_CHUNKS of them in the chunked kernels,
+# wider heads in clusters of at most MAX_CLUSTER blocks.
 HEAD_SIZES = (16, 32, 64)
 CHUNK = 64
-MAX_HEAD_SIZE = 256
+MAX_CHUNKS = 4
+MAX_CLUSTER = 8
 
 
 def kernel_layout(head_size, dtype):
     """How the kernels take a head of `head_size` columns of `dtype`:
     ("tile", W), a block's rows in tiles W wide (the first of `HEAD_SIZES`
-    at or above it; a row of a multiple of 16 bytes), or ("chunked", n),
-    the head in n chunks of `CHUNK` columns, one block a chunk of the
-    output.  None past `MAX_HEAD_SIZE`."""
-    if head_size > MAX_HEAD_SIZE:
-        return None
+    at or above it; a row of a multiple of 16 bytes); ("chunked", nd), the
+    head in nd chunks of `CHUNK` columns, one block a chunk of the output
+    (at most `MAX_CHUNKS`); or, wider, ("cluster", n, per): clusters of n
+    blocks, each block the score products over `per` chunks at most (its
+    chunks r, r + n, ...) and one chunk of the output, in `per` groups of
+    clusters (`wide_layout` in csrc/attention_wide.cu)."""
+    nd = -(-head_size // CHUNK)
+    if nd > MAX_CHUNKS:
+        per = -(-nd // MAX_CLUSTER)
+        return ("cluster", -(-nd // per), per)
     itemsize = torch.empty((), dtype=dtype).element_size()
     if head_size * itemsize % 16 == 0:
         for width in HEAD_SIZES:
             if head_size <= width:
                 return ("tile", width)
-    return ("chunked", -(-head_size // CHUNK))
+    return ("chunked", nd)
 
 
 def work_ratio(head_size, dtype, backward):
     """The tensor-core work the kernels do for a head of `head_size`
     columns over the same products exactly `head_size` deep and wide (1.0:
     nothing wasted).  A tile W wide does every product over W columns.
-    Chunked, each of the head's n blocks does the score products over the
+    Chunked, each of the head's nd blocks does the score products over the
     whole head (forward: s; backward: s and dp twice in the dq kernel, once
     in the dk/dv kernel) and the output products over its own chunk (out;
-    dq, dk and dv), both k-step by k-step: 16 columns in bfloat16, 8 in
-    float32."""
-    kind, n = kernel_layout(head_size, dtype)
+    dq, dk and dv); in clusters, each of the `per` groups does the score
+    products over the whole head once, split between its blocks, and the
+    output products over its own chunks; both k-step by k-step: 16 columns
+    in bfloat16, 8 in float32."""
+    kind, n, *rest = kernel_layout(head_size, dtype)
     if kind == "tile":
         return n / head_size
+    nd = -(-head_size // CHUNK)
     step = 16 if dtype == torch.bfloat16 else 8
     depth = sum(-(-min(CHUNK, head_size - d * CHUNK) // step) * step
-                for d in range(n))
+                for d in range(nd))
+    repeats = rest[0] if kind == "cluster" else nd
     scores, outputs = (6, 3) if backward else (1, 1)
-    return ((scores * n + outputs) * depth
+    return ((scores * repeats + outputs) * depth
             / ((scores + outputs) * head_size))
 
 
-def head_size_fault(widths, head_size, cuda=True):
+def head_size_fault(widths, head_size):
     """Why attention cannot run at these channel widths with `head_size`
     channels a head (the model's `num_head_channels`), or None if it can.
     The JAX package's rule (unet_tpu/models/blocks.py: `num_heads = C //
     head_size`, each head C // num_heads wide): a width is refused where it
     gives no head or heads that do not split it, exactly where the JAX
-    package's attention raises; with `cuda` also a head wider than
-    `MAX_HEAD_SIZE`, past the kernels.  The CLIs ask this before they build
-    a model, `_check_cuda` before a launch."""
+    package's attention raises; the kernels take every other head.  The
+    CLIs ask this before they build a model, `_check_cuda` before a
+    launch."""
     if head_size < 1:
         return f"head size {head_size} is not positive"
     for width in sorted(set(widths)):
@@ -111,10 +126,6 @@ def head_size_fault(widths, head_size, cuda=True):
         if width % heads:
             return (f"{heads} heads (width {width} // head size "
                     f"{head_size}) do not split the attention width {width}")
-        if cuda and width // heads > MAX_HEAD_SIZE:
-            return (f"the attention kernels take heads of at most "
-                    f"{MAX_HEAD_SIZE} channels, not {width // heads} (width "
-                    f"{width}, {heads} head{'s' * (heads > 1)})")
     return None
 
 
@@ -166,18 +177,25 @@ def _check_cuda(qkv, num_heads):
         raise ValueError(f"{fault} (C={C}, {num_heads} heads)")
     if B == 0 or T == 0:
         raise ValueError(f"empty input {tuple(qkv.shape)}")
-    kind, n = kernel_layout(C // num_heads, qkv.dtype)
-    blocks_y = num_heads * (n if kind == "chunked" else 1)
-    if B > 65535 or blocks_y > 65535:
-        raise ValueError(f"the kernel does not take B={B}, NH={num_heads}")
+    # grid (x, NH * y, B): x the tiles of 64 rows (a cluster's n blocks side
+    # by side), y a head's chunks or its groups of clusters
+    layout = kernel_layout(C // num_heads, qkv.dtype)
+    blocks_x = -(-T // 64)
+    if layout[0] == "cluster":
+        blocks_x, blocks_y = blocks_x * layout[1], num_heads * layout[2]
+    else:
+        blocks_y = num_heads * (layout[1] if layout[0] == "chunked" else 1)
+    if B > 65535 or blocks_y > 65535 or blocks_x > 2**31 - 1:
+        raise ValueError(f"the kernel does not take B={B}, T={T}, "
+                         f"NH={num_heads} (grid {blocks_x} x {blocks_y})")
 
 
 def qkv_attention_fwd(qkv, num_heads):
     """Multi-head attention over qkv (B, T, 3C) -> (B, T, C).
 
     A CUDA tensor goes to the hand-written kernel (float32 or bfloat16,
-    contiguous, a head size of at most `MAX_HEAD_SIZE`) or raises; only a
-    CPU tensor takes the plain version."""
+    contiguous, any head size) or raises; only a CPU tensor takes the plain
+    version."""
     _check(qkv, num_heads)
     if qkv.device.type == "cpu":
         return qkv_attention_plain(qkv, num_heads)
