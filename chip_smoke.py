@@ -19,7 +19,7 @@ object per line:
      shapes of a block split over two model ranks), with the kernel's, the plain version's and a library
      call's time and the least time the card could take; then attention
      forward and backward at head sizes from 7 to 4160 (`ATTN_HEAD_SHAPES`,
-     untimed but for the eight of `ATTN_HEAD_TIMED`), each with its
+     untimed but for the ten of `ATTN_HEAD_TIMED`), each with its
      layout (tile width, chunks, or cluster and groups) and `work_ratio`;
      each timed attention case names the backend the library call
      (`scaled_dot_product_attention`) ran.  Each is timed
@@ -29,8 +29,8 @@ object per line:
      Each GroupNorm and attention kernel runs twice at every case and must
      give the same bits again; a GroupNorm case records its cluster size
      and whether its blocks staged their rows in shared memory, an
-     attention case its route (bf16 `mma.sync`, or float32 as three TF32
-     products).
+     attention case its route (bf16 `mma.sync`, `wgmma` in the chunked
+     kernels, or float32 as three TF32 products).
   3. `forward`: one U-Net forward at each batch the requests below give the
      model (4, 8 and the doubled 16 of classifier-free guidance), the module
      on the kernels against the same module on the plain versions, and the
@@ -104,6 +104,17 @@ object per line:
      count exact, finite losses and images, every kernel input held
      against its plain version; ms/step, peak MiB and the parameter
      count, each also on a line of its own.
+  8c. `ddpm_cifar`: DDPM's CIFAR-10 model (Ho et al. 2020: C=128, mult
+     1,2,2,2, two res blocks, single-head attention at 16x16: one head of
+     256, the chunked kernels in four chunks) at full width and depth, as
+     `wide_head`: 3 bfloat16 steps of `cli.train.main` at the paper's
+     B=128 on 256 seeded 32x32 images with a checkpoint, a DDIM-10 request
+     at B=16 from it, one float32 step at B=32 against the plain versions;
+     6 K1 a forward and 6 K2 a step, counts exact, every kernel input held
+     against its plain version; ms/step, images/s, peak MiB, DDIM-10
+     seconds, and the chunked kernels' device ms a step (each kernel's
+     device-alone time at (128,256,256,1) and (128,16,256,1) times its
+     launches there) beside the step's ms.
   9. `s2d`: space-to-depth level 0 (`UNET_TPU_TORCH_S2D=on`,
      `models.unet.set_s2d_mode`, `unet_tpu_torch/ops/s2d.py`) at the
      default model, full width and depth, against pixel space on the
@@ -394,10 +405,11 @@ ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
 # (one head of 192 at ds 4, two of 128 at ds 8: the `head_size` phase's
 # model); Improved DDPM's ImageNet-64 widths at 128 (heads of 128); heads
 # of 72 (`--num_channels 96 --num_head_channels 64`, width 288); Stable
-# Diffusion 1.x's 40, 80 and 160; DDPM's CIFAR-10 head of 256; then 48, 12,
-# 8 and 7 at a ragged T (bfloat16 copies in pieces of 16, 8, 16 and 2
-# bytes).  Then the cluster kernels (heads wider than 256): DDPM's 256 x
-# 256 models' one head of 512 at 16 x 16 and in the middle block at 8 x 8
+# Diffusion 1.x's 40, 80 and 160; DDPM's CIFAR-10 head of 256 (at B=8, and
+# at the `ddpm_cifar` phase's B=128 at T = 256 and 16); then 48, 12, 8 and
+# 7 at a ragged T (bfloat16 copies in pieces of 16, 8, 16 and 2 bytes).
+# Then the cluster kernels (heads wider than 256): DDPM's 256 x 256
+# models' one head of 512 at 16 x 16 and in the middle block at 8 x 8
 # (the `wide_head` phase's model, B=8); 288 and 384 (`--num_channels 96
 # --num_head_channels 288`); 2048 (a full cluster of 8, four chunks a
 # block); 4160 (65 chunks: nine groups of clusters, each block streaming
@@ -407,16 +419,18 @@ ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
 ATTN_HEAD_SHAPES = [(8, 256, 192, 1), (8, 64, 256, 2), (8, 256, 384, 3),
                     (8, 64, 512, 4), (4, 256, 288, 4), (4, 1024, 320, 8),
                     (4, 256, 640, 8), (2, 64, 1280, 8), (8, 256, 256, 1),
-                    (2, 100, 96, 2), (2, 100, 36, 3), (2, 100, 24, 3),
-                    (2, 100, 21, 3),
+                    (128, 256, 256, 1), (128, 16, 256, 1), (2, 100, 96, 2),
+                    (2, 100, 36, 3), (2, 100, 24, 3), (2, 100, 21, 3),
                     (8, 256, 512, 1), (8, 64, 512, 1), (4, 256, 288, 1),
                     (4, 256, 1152, 3), (2, 64, 2048, 1), (1, 64, 4160, 1),
                     (2, 100, 771, 3), (2, 100, 1542, 3)]
 ATTN_HEAD_BWD_SHAPES = [(32, 256, 192, 1), (32, 64, 256, 2)]
 ATTN_HEAD_TIMED = {"fwd": [(8, 256, 192, 1), (8, 64, 256, 2),
-                           (8, 256, 512, 1), (8, 64, 512, 1)],
+                           (128, 256, 256, 1), (8, 256, 512, 1),
+                           (8, 64, 512, 1)],
                    "bwd": [(32, 256, 192, 1), (32, 64, 256, 2),
-                           (8, 256, 512, 1), (8, 64, 512, 1)]}
+                           (128, 256, 256, 1), (8, 256, 512, 1),
+                           (8, 64, 512, 1)]}
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
 # ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
 # columns), a single pixel, and C = 3, which is no multiple of 8 and so
@@ -904,18 +918,21 @@ def check_seen_shapes(seen, gen):
 
 # Instantiations the build log must list (`_build.kernel_instance` names):
 # every attention kernel at every tile width, the chunked ones (heads past
-# 64) and the cluster ones (heads past 256) in both types, the four
-# tensor-core convolutions (bf16 `wgmma` and float32 3xTF32, 64 and 128
-# columns).
+# 64) at 1 to 4 chunks and the cluster ones (heads past 256) in both types,
+# the four tensor-core convolutions (bf16 `wgmma` and float32 3xTF32, 64 and
+# 128 columns).
 REQUIRED_INSTANCES = [
     f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
     for k in ("fwd_tf32", "bwd_dq_tf32", "bwd_dkv_tf32", "fwd_mma",
               "bwd_dq_mma", "bwd_dkv_mma")] + [
-    f"qkv_attention_{k}_{route}_kernel<{t}>"
-    for t in ("__nv_bfloat16", "float") for route in ("chunked", "wide")
+    f"qkv_attention_{k}_chunked_kernel<{t},{nd}>"
+    for t in ("__nv_bfloat16", "float")
+    for nd in range(1, attn_mod.MAX_CHUNKS + 1)
     for k in ("fwd", "bwd_dq", "bwd_dkv")] + [
-    f"conv3x3_hwbc_{k}_kernel<{bn}>" for k in ("wgmma", "tf32")
-    for bn in (64, 128)]
+    f"qkv_attention_{k}_wide_kernel<{t}>"
+    for t in ("__nv_bfloat16", "float") for k in ("fwd", "bwd_dq", "bwd_dkv")
+] + [f"conv3x3_hwbc_{k}_kernel<{bn}>" for k in ("wgmma", "tf32")
+     for bn in (64, 128)]
 
 
 def reset_counts() -> None:
@@ -1746,25 +1763,28 @@ WIDE_BATCH = 8
 WIDE_STEPS = 3
 
 
-def drive_wide_head(tmp, totals, gen):
-    """DDPM-256 at full width and depth (random weights from a seed) on
-    the training and serving paths: `cli.train.main` takes `WIDE_STEPS`
-    bfloat16 steps at B=8 on a `.bin` of 16 seeded 256 x 256 images and
-    saves a checkpoint, `cli.generate.run` answers one DDIM-10 request at
-    B=2 from it, and one float32 step at B=8 holds its loss and every
-    gradient on the kernels against the plain versions (the `train_step`
-    bars).  6 K1 launches a forward and 6 K2 a step, every launch count
-    exact, finite losses and images, and every kernel input of the runs
-    held against its plain version.  Adds the launches to `totals`."""
+def drive_one_head(tmp, totals, gen, name, flags, head, batch, n_images,
+                   sample_batch, f32_batch, steps=3):
+    """A model of one head a layer (`flags`: its CLI flags; `head` columns,
+    six attention layers) at full width and depth, random weights from a
+    seed, on the training and serving paths: `cli.train.main` takes `steps`
+    bfloat16 steps at `batch` on a `.bin` of `n_images` seeded images,
+    logging every step, and saves a checkpoint; `cli.generate.run` answers
+    one DDIM-10 request at `sample_batch` from it; one float32 step at
+    `f32_batch` holds its loss and every gradient on the kernels against
+    the plain versions (the `train_step` bars).  6 K1 launches a forward
+    and 6 K2 a step, every launch count exact, finite losses and images,
+    and every kernel input of the runs held against its plain version.
+    Adds the launches to `totals`; returns the record and the config."""
     cfg = train_cli.model_config_from_args(
-        train_cli.create_argparser().parse_args(DDPM256_FLAGS))
+        train_cli.create_argparser().parse_args(flags))
     widths = unet.attention_widths(cfg)
     gn_per_fwd, attn_per_fwd = launches_per_forward(cfg)
-    if widths != [512] * 6 or attn_per_fwd != 6:
-        raise AssertionError(f"DDPM-256: attention widths {widths}")
-    data = os.path.join(tmp, "ddpm256.bin")
+    if widths != [head] * 6 or attn_per_fwd != 6:
+        raise AssertionError(f"{name}: attention widths {widths}")
+    data = os.path.join(tmp, f"{name}.bin")
     pixels = np.random.default_rng(4).uniform(
-        -1, 1, (16, cfg.in_channels, cfg.image_size, cfg.image_size))
+        -1, 1, (n_images, cfg.in_channels, cfg.image_size, cfg.image_size))
     write_bin(data, pixels.astype(np.float32))
     log = os.path.join(tmp, "log.txt")
     seen = new_seen()
@@ -1775,37 +1795,35 @@ def drive_wide_head(tmp, totals, gen):
     with recording(seen), contextlib.redirect_stdout(io.StringIO()):
         state = train_cli.main(
             ["--data_file", data, "--device", str(DEV), "--batch_size",
-             str(WIDE_BATCH), "--compute_dtype", "bfloat16", "--iterations",
-             str(WIDE_STEPS), "--log_interval", "1", "--save_interval",
-             str(WIDE_STEPS), "--output_dir", os.path.join(tmp, "models"),
-             "--log_file", log, *DDPM256_FLAGS])
+             str(batch), "--compute_dtype", "bfloat16", "--iterations",
+             str(steps), "--log_interval", "1", "--save_interval",
+             str(steps), "--output_dir", os.path.join(tmp, "models"),
+             "--log_file", log, *flags])
     torch.cuda.synchronize()
     train_seconds = time.perf_counter() - t0
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     got = counts()
-    want = {k: WIDE_STEPS * v
-            for k, v in launches_per_step(cfg, False, 1).items()}
+    want = {k: steps * v for k, v in launches_per_step(cfg, False, 1).items()}
     with open(log) as f:
         lines = LOG_LINE.findall(f.read())
     losses = [float(loss) for _, loss, _ in lines]
-    if (got != want or state.step != WIDE_STEPS
-            or [int(step) for step, _, _ in lines]
-            != list(range(1, WIDE_STEPS + 1))
+    if (got != want or state.step != steps
+            or [int(step) for step, _, _ in lines] != list(range(1, steps + 1))
             or not all(map(math.isfinite, losses))):
-        raise AssertionError(f"DDPM-256 train: launches {got}, want {want}; "
+        raise AssertionError(f"{name} train: launches {got}, want {want}; "
                              f"log {lines}")
     for k, v in got.items():
         totals[k] += v
     del state
     free_graphs()
 
-    path = os.path.join(tmp, "models", f"model_{WIDE_STEPS}.bin")
+    path = os.path.join(tmp, "models", f"model_{steps}.bin")
     reset_counts()
     t0 = time.perf_counter()
     with recording(seen):
         images = generate.run(generate.parse_args(
             ["--model_filename", path, "--device", str(DEV), "--sampler",
-             "ddim", "--ddim_steps", "10", "--batch_size", "2",
+             "ddim", "--ddim_steps", "10", "--batch_size", str(sample_batch),
              "--compute_dtype", "bfloat16"]))
     torch.cuda.synchronize()
     sample_seconds = time.perf_counter() - t0
@@ -1813,37 +1831,103 @@ def drive_wide_head(tmp, totals, gen):
     want_sample = dict(gn_act_fwd=10 * gn_per_fwd, gn_act_bwd=0,
                        qkv_attention_fwd=10 * attn_per_fwd,
                        qkv_attention_bwd=0, conv3x3_hwbc=0, **NO_SPLIT)
-    shape = (2, cfg.image_size, cfg.image_size, cfg.out_channels)
+    shape = (sample_batch, cfg.image_size, cfg.image_size, cfg.out_channels)
     if (got_sample != want_sample or images.shape != shape
             or not np.isfinite(images).all()):
-        raise AssertionError(f"DDPM-256 ddim10: launches {got_sample}, "
+        raise AssertionError(f"{name} ddim10: launches {got_sample}, "
                              f"images {images.shape}")
     for k, v in got_sample.items():
         totals[k] += v
     free_graphs()
 
     with recording(seen):
-        model, *_, step = step_against_plain(cfg, gen, WIDE_BATCH)
+        model, *_, step = step_against_plain(cfg, gen, f32_batch)
     for k, v in step["launches"].items():
         totals[k] += v
     del model
     free_graphs()
     heads = sorted({shape[2] // 3 // n for shape, n in seen["attn_fwd"]})
-    if heads != [512]:
-        raise AssertionError(f"DDPM-256: the runs' head sizes {heads}")
+    if heads != [head]:
+        raise AssertionError(f"{name}: the runs' head sizes {heads}")
+    ms_per_step = float(lines[-1][2])
     return dict(
-        flags=" ".join(DDPM256_FLAGS), attention_widths=widths,
-        layout={str(dt): list(attn_mod.kernel_layout(512, dt))
+        flags=" ".join(flags), attention_widths=widths,
+        layout={str(dt): list(attn_mod.kernel_layout(head, dt))
                 for dt in (torch.float32, torch.bfloat16)},
         params=ckpt_io.num_params(cfg), launches_per_forward=dict(
             gn_act_fwd=gn_per_fwd, qkv_attention_fwd=attn_per_fwd),
-        train=dict(batch=WIDE_BATCH, steps=WIDE_STEPS, logged_losses=losses,
-                   ms_per_step=float(lines[-1][2]), peak_mib=peak_mib,
+        train=dict(batch=batch, steps=steps, logged_losses=losses,
+                   ms_per_step=ms_per_step,
+                   images_per_s=batch / ms_per_step * 1e3, peak_mib=peak_mib,
                    seconds=train_seconds, launches=got),
-        sample=dict(request="ddim10_b2_bf16", shape=list(images.shape),
-                    seconds=sample_seconds, launches=got_sample,
-                    pixel_mean=float(images.mean())),
-        f32_step=step, kernel_inputs=check_seen_shapes(seen, gen))
+        sample=dict(request=f"ddim10_b{sample_batch}_bf16",
+                    shape=list(images.shape), seconds=sample_seconds,
+                    launches=got_sample, pixel_mean=float(images.mean())),
+        f32_step=step, kernel_inputs=check_seen_shapes(seen, gen)), cfg
+
+
+def drive_wide_head(tmp, totals, gen):
+    """DDPM-256 (`DDPM256_FLAGS`, one head of 512: the cluster kernels)
+    through `drive_one_head`: 3 bfloat16 steps at B=8 on 16 seeded 256 x
+    256 images, DDIM-10 at B=2, the float32 step at B=8."""
+    record, _ = drive_one_head(tmp, totals, gen, "ddpm256", DDPM256_FLAGS,
+                               512, WIDE_BATCH, 16, 2, WIDE_BATCH,
+                               WIDE_STEPS)
+    return record
+
+
+# The `ddpm_cifar` phase: DDPM's CIFAR-10 model (Ho et al. 2020,
+# arXiv:2006.11239; diffusion_tf `unet.py`: ch 128, ch_mult (1, 2, 2, 2),
+# two res blocks a level, attention at 16 x 16) in the CLIs' flags: one
+# head of 256 (the chunked kernels, four chunks) in two input blocks and
+# three output blocks at 16 x 16 (T = 256) and the middle block at 4 x 4
+# (T = 16).  Training at the paper's batch of 128; the float32 check at 32
+# (cut from 128 to keep the phase short).
+DDPM_CIFAR_FLAGS = ["--image_size", "32", "--num_channels", "128",
+                    "--channel_mult", "1,2,2,2", "--attention_resolutions",
+                    "16", "--num_head_channels", "256"]
+CIFAR_BATCH = 128
+CIFAR_SAMPLE_BATCH = 16
+CIFAR_F32_BATCH = 32
+
+
+def drive_ddpm_cifar(tmp, totals, gen):
+    """DDPM CIFAR-10 through `drive_one_head`: 3 bfloat16 steps at B=128 on
+    256 seeded 32 x 32 images, DDIM-10 at B=16, the float32 step at B=32;
+    then the chunked kernels' device time a training step: each kernel's
+    device-alone time (`graph_ms`, bfloat16) at the step's two attention
+    shapes, (128, 256, 256, 1) and (128, 16, 256, 1), times its launches
+    there, beside the step's ms."""
+    record, cfg = drive_one_head(tmp, totals, gen, "ddpm_cifar",
+                                 DDPM_CIFAR_FLAGS, 256, CIFAR_BATCH, 256,
+                                 CIFAR_SAMPLE_BATCH, CIFAR_F32_BATCH)
+    C = record["attention_widths"][0]
+    # attention layers a forward at each T: the middle block's at the
+    # lowest resolution, the others' at 16 x 16
+    mid = (cfg.image_size // 2 ** (len(cfg.channel_mult) - 1)) ** 2
+    (ds,) = cfg.attention_ds
+    layers = {(cfg.image_size // ds) ** 2: 5, mid: 1}
+    if layers != {256: 5, 16: 1}:
+        raise AssertionError(f"DDPM CIFAR-10: attention layers {layers}")
+    kernels, total = [], 0.0
+    for T, n in sorted(layers.items(), reverse=True):
+        qkv = torch.randn((CIFAR_BATCH, T, 3 * C), generator=gen,
+                          device=DEV).to(torch.bfloat16)
+        dout = torch.randn((CIFAR_BATCH, T, C), generator=gen,
+                           device=DEV).to(torch.bfloat16)
+        qkv_attention_fwd(qkv, 1)  # graph_ms's call before the capture
+        qkv_attention_bwd(qkv, dout, 1)
+        fwd_ms = graph_ms(lambda: qkv_attention_fwd(qkv, 1))
+        bwd_ms = graph_ms(lambda: qkv_attention_bwd(qkv, dout, 1))
+        total += n * (fwd_ms + bwd_ms)
+        kernels.append(dict(shape=[CIFAR_BATCH, T, C, 1],
+                            dtype="torch.bfloat16", launches_per_step=n,
+                            fwd_graph_ms=fwd_ms, bwd_graph_ms=bwd_ms))
+    step_ms = record["train"]["ms_per_step"]
+    record["chunked_kernels"] = dict(
+        cases=kernels, device_ms_per_step=total, step_ms=step_ms,
+        share_of_step=total / step_ms)
+    return record
 
 
 # The `s2d` phase: space-to-depth level 0 against pixel space.  bfloat16: the
@@ -3821,6 +3905,13 @@ def main() -> None:
                        ("peak_mib", wide["train"]["peak_mib"]),
                        ("params", wide["params"])):
         emit({"wide_head": key, "value": value})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cifar = drive_ddpm_cifar(tmp, totals, gen)
+    emit({"phase": "ddpm_cifar", "model": "DDPM CIFAR-10 (Ho et al. 2020), "
+          "full width and depth, one head of 256", **cifar,
+          "seconds": time.perf_counter() - t0,
+          "launches_with_the_runs_before": dict(totals)})
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:

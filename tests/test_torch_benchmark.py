@@ -133,6 +133,10 @@ def test_ab_trees_reads_the_shape_lists_and_summarises():
     lists = ab_trees.shape_lists("chip_smoke.py")
     assert set(lists) == set(ab_trees.SHAPE_LISTS)
     assert (8, 64, 64, 64) in lists["GN_SHAPES"]
+    heads = ab_trees.timed_heads(lists)  # only the timed head sizes run
+    assert set(heads["ATTN_HEAD_SHAPES"]) == {
+        tuple(s) for k in ("fwd", "bwd") for s in lists["ATTN_HEAD_TIMED"][k]}
+    assert heads["ATTN_HEAD_BWD_SHAPES"] == []
     case = dict(shape=[8, 64, 64, 64], dtype="torch.bfloat16", act="silu")
     turns = [("old", {"check_groupnorm": [dict(case, kernel_graph_ms=2.0)]}),
              ("new", {"check_groupnorm": [dict(case, kernel_graph_ms=1.5)]}),

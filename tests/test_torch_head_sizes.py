@@ -19,6 +19,7 @@ tests/test_torch_kernels_bwd.py for the backward (float32 3e-5 absolute and
 """
 
 import contextlib
+import dataclasses
 import re
 from pathlib import Path
 
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from unet_tpu.cli import train as jax_train_cli
 from unet_tpu.io import checkpoint as jax_ckpt
 from unet_tpu.models import unet as jax_unet
 from unet_tpu.ops import functional as jax_functional
@@ -137,13 +139,13 @@ def test_head_sizes_are_the_sources_instantiations():
     (40, "bfloat16", ("tile", 64), 1.6, 1.6),
     (64, "float32", ("tile", 64), 1.0, 1.0),
     (12, "float32", ("tile", 16), 16 / 12, 16 / 12),
-    (12, "bfloat16", ("chunked", 1), 32 / 24, 16 * 9 / 108),
-    (7, "float32", ("chunked", 1), 16 / 14, 8 * 9 / 63),
-    (72, "bfloat16", ("chunked", 2), 240 / 144, 1200 / 648),
-    (72, "float32", ("chunked", 2), 1.5, 15 / 9),
-    (96, "bfloat16", ("chunked", 2), 1.5, 15 / 9),
-    (192, "bfloat16", ("chunked", 3), 2.0, 21 / 9),
-    (256, "float32", ("chunked", 4), 2.5, 3.0),
+    (12, "bfloat16", ("chunked", 1), 16 / 12, 16 / 12),
+    (7, "float32", ("chunked", 1), 8 / 7, 8 / 7),
+    (72, "bfloat16", ("chunked", 2), 80 / 72, 80 / 72),
+    (72, "float32", ("chunked", 2), 1.0, 1.0),
+    (96, "bfloat16", ("chunked", 2), 1.0, 1.0),
+    (192, "bfloat16", ("chunked", 3), 1.0, 1.0),
+    (256, "float32", ("chunked", 4), 1.0, 1.0),
     (257, "bfloat16", ("cluster", 5, 1), 272 / 257, 272 / 257),
     (288, "float32", ("cluster", 5, 1), 1.0, 1.0),
     (288, "bfloat16", ("cluster", 5, 1), 1.0, 1.0),
@@ -155,20 +157,85 @@ def test_head_sizes_are_the_sources_instantiations():
     (4160, "bfloat16", ("cluster", 8, 9), 5.0, 57 / 9)])
 def test_kernel_layout_and_work_ratio(head_size, dtype, layout, fwd, bwd):
     """A tile pads the head to its width and takes rows of a multiple of
-    16 bytes; the chunked kernels take the rest up to 256, a head's n
-    blocks each redoing its scores (HS 72 in bfloat16: k-steps of 16 over
-    64 + 8 columns, 80 deep, 2 x 80 + 80 against 2 x 72 forward, 6 x 2 x 80
-    + 3 x 80 against 9 x 72 backward); a wider head takes clusters of up to
-    8 blocks that share its scores, once for up to 8 chunks (512 columns:
-    nothing wasted), `per` times in as many groups of clusters beyond (HS
-    4160, 65 chunks: 9 groups of 8 blocks, the scores 9 times: 10 / 2
-    forward, 57 / 9 backward; HS 257 in bfloat16: 256 + one k-step of 16
-    deep)."""
+    16 bytes; the chunked kernels take the rest up to 256, the groups of a
+    block sharing a tile's scores, so each product is done once over the
+    head rounded up to the k-step chunk by chunk (HS 72 in bfloat16: 64 +
+    16 columns deep and wide for 72; HS 12: one k-step of 16); a wider head
+    takes clusters of up to 8 blocks that share its scores, once for up to
+    8 chunks (512 columns: nothing wasted), `per` times in as many groups
+    of clusters beyond (HS 4160, 65 chunks: 9 groups of 8 blocks, the
+    scores 9 times: 10 / 2 forward, 57 / 9 backward; HS 257 in bfloat16:
+    256 + one k-step of 16 deep)."""
     assert port_attn.kernel_layout(head_size, TDT[dtype]) == layout
     assert port_attn.work_ratio(head_size, TDT[dtype],
                                 False) == pytest.approx(fwd)
     assert port_attn.work_ratio(head_size, TDT[dtype],
                                 True) == pytest.approx(bwd)
+
+
+CHUNKED_CU = ATTENTION_CU.with_name("attention_chunked.cu")
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on an H100
+
+
+def chunked_constants():
+    """The chunked kernels' geometry as csrc/attention_chunked.cu and
+    csrc/attention.cuh declare it: {type: (ROWS, KEYS, DKV_THREADS)} and
+    {name: value} of CH, STAGES, ALIGN and SMEM_LIMIT."""
+    src = CHUNKED_CU.read_text()
+    shared = ATTENTION_CU.with_suffix(".cuh").read_text()
+    geo = {t: tuple(int(v) for v in m) for t, *m in re.findall(
+        r"template <> struct Geo<(\w+)> \{\s*static constexpr int "
+        r"ROWS = (\d+), KEYS = (\d+), DKV_THREADS = (\d+);", src)}
+    consts = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                  text).group(1))
+              for name, text in (("CH", shared), ("STAGES", shared),
+                                 ("ALIGN", src), ("SMEM_LIMIT", src))}
+    return geo, consts
+
+
+def chunked_smem(item, rows, keys, nd, groups, sides, stats, stages, align,
+                 chunk):
+    """`chunked_smem_bytes`: sides x (nd own tiles + a partial a group) +
+    2 rings x stages x nd stage tiles + the alignment slack, and the dk/dv
+    kernel's stages x 3 x keys floats of statistics (the forward's 2 x rows
+    floats of row corrections and 1 / l)."""
+    own, stage, part = rows * chunk * item, keys * chunk * item, rows * keys * 4
+    rows_floats = stages * 3 * keys if stats else 2 * rows if sides == 1 else 0
+    return (align + sides * (nd * own + groups * part)
+            + 2 * stages * nd * stage + rows_floats * 4)
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd_dq", "bwd_dkv"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_kernels_fit_in_shared_memory(dtype, kernel):
+    """Each chunked kernel's dynamic shared memory at 1 to 4 chunks, from
+    the source's own constants by the source's formula: nd groups of warps
+    (the dk/dv kernel fewer, of several chunks each, where nd groups would
+    pass DKV_THREADS: `dkv_chunks`) and a ring of at least two stages;
+    tiles start on the swizzle's period; the wrapper's rows a block are the
+    source's."""
+    geo, c = chunked_constants()
+    assert set(geo) == {"bf16", "float"} and c["SMEM_LIMIT"] == SMEM_LIMIT
+    rows, keys, dkv_threads = geo["bf16" if dtype == "bfloat16" else "float"]
+    assert port_attn.CHUNKED_ROWS[TDT[dtype]] == rows
+    assert rows % 16 == 0 and keys % 16 == 0  # warps of 16 rows; k-steps
+    item = 2 if dtype == "bfloat16" else 4
+    assert (rows * c["CH"] * item) % c["ALIGN"] == 0
+    assert (keys * c["CH"] * item) % c["ALIGN"] == 0
+    sides, stats = (1, False) if kernel == "fwd" else (2, kernel == "bwd_dkv")
+    group_threads = rows // 16 * 32
+    for nd in range(1, port_attn.MAX_CHUNKS + 1):
+        groups = nd
+        if kernel == "bwd_dkv":
+            per = -(-nd * group_threads // dkv_threads)
+            groups = -(-nd // per)
+            assert groups * group_threads <= dkv_threads
+
+        nbytes = chunked_smem(item, rows, keys, nd, groups, sides, stats,
+                              c["STAGES"], c["ALIGN"], c["CH"])
+        assert nbytes <= SMEM_LIMIT, (dtype, kernel, nd, nbytes)
+    assert c["STAGES"] >= 2
+    assert f"{nbytes:,}" in CHUNKED_CU.read_text()  # the note, nd = 4
 
 
 @pytest.mark.parametrize("widths, head_size, fault", [
@@ -356,14 +423,19 @@ def test_read_config_is_the_header_load_reads(hs48_file):
     assert cfg.num_head_channels == 48 and cfg.model_channels == 96
 
 
-@pytest.mark.parametrize("head_size", [64, 24])
-def test_whole_model_at_other_head_sizes(head_size):
+@pytest.mark.parametrize("mult, head_size, widths", [
+    pytest.param((1, 3), 64, {96}, id="64"),
+    pytest.param((1, 3), 24, {96}, id="24"),
+    pytest.param((1, 8), 256, {256}, id="256")])
+def test_whole_model_at_other_head_sizes(mult, head_size, widths):
     """TINY at channel_mult (1, 3): attention at width 96 (every GroupNorm
     width a multiple of 32), one head of 96 at 64 channels a head, four of
-    24 at 24.  The port's forward and the gradients of a squared error on
-    the CPU against the JAX package's, at tests/test_model.py's bars."""
-    jcfg, cfg = configs(channel_mult=(1, 3), num_head_channels=head_size)
-    assert set(port_unet.attention_widths(cfg)) == {96}
+    24 at 24; at (1, 8) one head across each attention layer's width 256,
+    as DDPM's CIFAR-10 model has (the chunked kernels' four chunks on a
+    CUDA device).  The port's forward and the gradients of a squared error
+    on the CPU against the JAX package's, at tests/test_model.py's bars."""
+    jcfg, cfg = configs(channel_mult=mult, num_head_channels=head_size)
+    assert set(port_unet.attention_widths(cfg)) == widths
     params, model, _ = both_models(jcfg, cfg, seed=5)
     rng = np.random.default_rng(6)
     x = rng.standard_normal((2, 16, 16, 3), dtype=np.float32)
@@ -383,6 +455,36 @@ def test_whole_model_at_other_head_sizes(head_size):
     np.testing.assert_allclose(port_ckpt.flatten_tensors(grads),
                                jax_ckpt.flatten_params(jgrads, jcfg),
                                atol=1e-3)
+
+
+# DDPM's CIFAR-10 model (Ho et al. 2020, diffusion_tf `unet.py`: ch 128,
+# ch_mult (1, 2, 2, 2), two res blocks a level, attention at 16 x 16) in
+# the CLIs' flags: one head of 256 in each of its six attention layers.
+DDPM_CIFAR10_FLAGS = ["--image_size", "32", "--num_channels", "128",
+                      "--channel_mult", "1,2,2,2", "--attention_resolutions",
+                      "16", "--num_head_channels", "256"]
+
+
+def test_ddpm_cifar10_flags_give_one_model_in_both_clis(no_model_built):
+    """Both packages' training CLIs read DDPM CIFAR-10's flags into the same
+    config fields, the same parameter order and the same attention widths
+    (six layers of one head of 256: the chunked kernels in four chunks),
+    with no model built."""
+    jcfg = jax_train_cli.model_config_from_args(
+        jax_train_cli.create_argparser().parse_args(DDPM_CIFAR10_FLAGS))
+    cfg = train_cli.model_config_from_args(
+        train_cli.create_argparser().parse_args(DDPM_CIFAR10_FLAGS))
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    assert jax_unet.param_order(jcfg) == port_unet.param_order(cfg)
+    plan = jax_unet.build_plan(jcfg)
+    jax_widths = [layer[1] for group in plan.input_blocks + (plan.middle,)
+                  + plan.output_blocks for layer in group
+                  if layer[0] == "attn"]
+    assert port_unet.attention_widths(cfg) == jax_widths == [256] * 6
+    assert port_attn.head_size_fault(jax_widths, 256) is None
+    for dtype in (torch.float32, torch.bfloat16):
+        assert port_attn.kernel_layout(256, dtype) == ("chunked", 4)
+    assert port_ckpt.num_params(cfg) == 32_648_323
 
 
 def test_whole_model_at_a_head_wider_than_256():

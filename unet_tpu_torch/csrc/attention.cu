@@ -120,25 +120,18 @@
 // Every other head (attention_chunked.cu: wider than 64, or a row of
 // another length) is cut into nd = ceil(hs / 64) chunks of 64 columns
 // (CH): kept in registers, the own rows and the outputs of a 256-wide head
-// would take 255 registers a thread many times over, and staged whole, a
-// float32 ring would take more shared memory than a block has.  A block
-// owns 64 rows and one chunk c of the output columns (grid.y = NH * nd) and
-// holds its own rows whole in shared memory, read a k-step at a time
-// (`ldmatrix`, or 32-bit loads in float32); the other side streams through
-// the two-tile ring a chunk of 64 x 64 at a time.  Every block recomputes
-// the hs-deep scores (nd times the score products in all), over its chunks
-// in the order c + 1, ..., c (mod nd), so that the chunk its output needs
-// (v's, k's, or qs's and dout's chunk c) is the ring's last tile of each
-// tile of keys or queries; k-steps wholly past hs are skipped.  Registers
-// stay those of a 64-wide head: the scores, dp and two 16 x 64
-// accumulators at most.  Its copies take, once per launch, the widest
-// piece of 16, 8, 4 or 2 bytes that every head's row starts on (the lowest
-// set bit of hs * itemsize): 8- and 4-byte `cp.async`, or for an odd hs in
-// bfloat16 plain 2-byte loads and stores into the ring; an odd hs stores
-// its outputs one value at a time.
+// would take 255 registers a thread many times over.  One block per tile
+// of rows holds nd groups of warps (a warpgroup on `wgmma` in bfloat16),
+// group g the score products over chunk g and chunk g of the output; the
+// groups add their partial scores in shared memory in group order, so each
+// score is computed once (attention_chunked.cu's opening note).  Its
+// copies take, once per launch, the widest piece of 16, 8, 4 or 2 bytes
+// that every head's row starts on (the lowest set bit of hs * itemsize):
+// 8- and 4-byte `cp.async`, or for an odd hs in bfloat16 plain 2-byte
+// loads and stores; an odd hs stores its outputs one value at a time.
 //
-// A head wider than 256 columns (attention_wide.cu) takes the chunked
-// kernels' tiles and products, but the blocks that share a tile of rows
+// A head wider than 256 columns (attention_wide.cu) takes chunk tiles and
+// products of 64 columns too, and the blocks that share a tile of rows
 // share its scores: a thread-block cluster of up to MAX_CLUSTER blocks,
 // each taking the score products over its own chunks only and adding the
 // cluster's partial 64 x 64 tiles through distributed shared memory in rank
@@ -998,7 +991,7 @@ bool bad_shape(int B, int T_len, int C, int NH) {
 // qkv: (B, T, 3C) contiguous, out: (B, T, C) contiguous, both 16-byte
 // aligned, C == NH * hs with hs >= 1 (up to 64 columns of a multiple of 16
 // bytes the kernels of width `with_head_size`, any other head of up to 256
-// the chunked ones, NH * ceil(hs / 64) at most 65535 there, a wider head the
+// the chunked ones, a wider head the
 // cluster kernels, NH times the groups at most 65535), B and NH at most
 // 65535; scale is 1 / sqrt(hs), given by the caller so that it is the same
 // float the plain version multiplies by.  Returns the CUDA error code of

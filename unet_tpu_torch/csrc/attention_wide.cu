@@ -6,10 +6,9 @@
 // and dv).
 //
 // Bound on an H100: as attention.cu says, device memory at the U-Net's T =
-// 64 and 256 in bfloat16, the operations from T = 256 in float32.  What the
-// chunked kernels waste grows with the head: each of a head's nd blocks
-// recomputes the whole head's scores, (nd + 1) / 2 times the forward's work.
-// Here the blocks that share a head's rows share its scores instead.
+// 64 and 256 in bfloat16, the operations from T = 256 in float32, so the
+// blocks that share a head's rows share its scores (as the groups of a
+// block do in attention_chunked.cu), each score computed once.
 //
 // Design.  One thread-block cluster of n blocks (at most MAX_CLUSTER, the
 // portable size) per (batch, head, 64-row tile, group g).  The head is cut

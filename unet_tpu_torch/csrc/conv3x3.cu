@@ -237,20 +237,6 @@ template <int BN> __host__ __device__ constexpr size_t wg_smem_bytes() {
     return (size_t)WG_STAGES * (A_BYTES + WG_BK * BN * 2) + 1024;
 }
 
-// A shared-memory matrix descriptor of `wgmma` for a tile in the 128-byte
-// swizzled layout: rows of 128 bytes, 16-byte chunk c of row r at r * 128 +
-// ((c ^ r % 8) << 4), 8-row groups 1024 bytes apart (SBO); LBO is the
-// distance between 64-column atoms of an N-major operand.
-__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo_bytes) {
-    return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16 |
-           (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
-}
-
-// The byte offset of 16-byte chunk c of row r in the swizzled layout.
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-    return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
-}
-
 // d += a b over k = 16 for a 64-row A (K-major) and an N-column B (N-major),
 // both in shared memory; d is the warpgroup's 64 x N float32 accumulator.
 template <int N>
@@ -297,21 +283,6 @@ __device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint
             "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
           : "l"(a), "l"(b)
           : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Makes this thread's shared-memory writes (cp.async) visible to `wgmma`,
-// which reads through the async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <int BN>

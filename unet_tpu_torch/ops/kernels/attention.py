@@ -17,8 +17,13 @@ byte, below the card's 295 at the U-Net's T = 64 and 256, so device memory
 bounds both there.  In float32 (4-byte values) it is T/4 and 5T/14
 against 49 for 3xTF32 (165 TFLOP/s), the card's fastest product that keeps
 the float32 bar: device memory bounds T = 64, the operations T = 256.
-Every product is a tensor-core `mma.sync` (`route`): bf16 tiles in
-bfloat16; in float32 three TF32 products per product (3xTF32: each operand
+So at DDPM CIFAR-10's one head of 256 at T = 256, B = 128 (the chunked
+kernels), the forward's bound is 0.0200 ms in bfloat16 (bytes) and 0.0521
+in float32 (operations), the backward's 0.0350 and 0.1301: a kernel that
+computed each score more than once would spend work these bounds have no
+room for, which is why the chunked kernels share a tile's scores.
+Every product is on the tensor cores (`route`): bf16 tiles in bfloat16
+(`mma.sync`; `wgmma` in the chunked kernels); in float32 three TF32 products per product (3xTF32: each operand
 split into a TF32 pair hi + lo, a b taken as a_hi b_lo + a_lo b_hi + a_hi
 b_hi, which leaves out about 2^-22 of each product and so keeps the 2e-5
 float32 bar, where one TF32 product misses it by about 20x; see
@@ -30,10 +35,13 @@ take every head size, as the JAX package's do: a head of up to 64 columns
 whose row is a multiple of 16 bytes in tiles of the first width of
 `HEAD_SIZES` at or above it (the columns past the head size zero); any
 other head of up to `CHUNK * MAX_CHUNKS` in chunks of `CHUNK` columns
-(csrc/attention_chunked.cu), a block a chunk of the output, each block
-recomputing the whole head's scores; a wider head in thread-block clusters
-of up to `MAX_CLUSTER` blocks (csrc/attention_wide.cu), each block the
-score products over its own chunks, the cluster adding the partial scores
+(csrc/attention_chunked.cu): one block per tile of `CHUNKED_ROWS` rows,
+one group of warps a chunk (a warpgroup in bfloat16, on `wgmma`), each
+group the score products over its own chunk, the block adding the
+partial scores in shared memory in group order, then each group its own
+chunk of the output; a wider head in thread-block clusters of up to
+`MAX_CLUSTER` blocks (csrc/attention_wide.cu), each block the score
+products over its own chunks, the cluster adding the partial scores
 through distributed shared memory, then a chunk of the output each
 (`kernel_layout` says which a head takes).  The plain version takes any
 head size.
@@ -55,22 +63,26 @@ from unet_tpu_torch.ops.kernels import _build
 # The tile widths csrc/attention.cu's kernels are compiled for
 # (`with_head_size` there); other heads go in chunks of CHUNK columns (`CH`
 # in csrc/attention.cuh), at most MAX_CHUNKS of them in the chunked kernels,
-# wider heads in clusters of at most MAX_CLUSTER blocks.
+# wider heads in clusters of at most MAX_CLUSTER blocks.  The chunked
+# kernels' blocks take CHUNKED_ROWS rows (`Geo` in
+# csrc/attention_chunked.cu).
 HEAD_SIZES = (16, 32, 64)
 CHUNK = 64
 MAX_CHUNKS = 4
 MAX_CLUSTER = 8
+CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 32}
 
 
 def kernel_layout(head_size, dtype):
     """How the kernels take a head of `head_size` columns of `dtype`:
     ("tile", W), a block's rows in tiles W wide (the first of `HEAD_SIZES`
     at or above it; a row of a multiple of 16 bytes); ("chunked", nd), the
-    head in nd chunks of `CHUNK` columns, one block a chunk of the output
-    (at most `MAX_CHUNKS`); or, wider, ("cluster", n, per): clusters of n
-    blocks, each block the score products over `per` chunks at most (its
-    chunks r, r + n, ...) and one chunk of the output, in `per` groups of
-    clusters (`wide_layout` in csrc/attention_wide.cu)."""
+    head in nd chunks of `CHUNK` columns (at most `MAX_CHUNKS`), one block
+    of nd groups of warps a tile of rows, group g the score products over
+    chunk g and chunk g of the output; or, wider, ("cluster", n, per):
+    clusters of n blocks, each block the score products over `per` chunks
+    at most (its chunks r, r + n, ...) and one chunk of the output, in
+    `per` groups of clusters (`wide_layout` in csrc/attention_wide.cu)."""
     nd = -(-head_size // CHUNK)
     if nd > MAX_CHUNKS:
         per = -(-nd // MAX_CLUSTER)
@@ -87,13 +99,15 @@ def work_ratio(head_size, dtype, backward):
     """The tensor-core work the kernels do for a head of `head_size`
     columns over the same products exactly `head_size` deep and wide (1.0:
     nothing wasted).  A tile W wide does every product over W columns.
-    Chunked, each of the head's nd blocks does the score products over the
-    whole head (forward: s; backward: s and dp twice in the dq kernel, once
-    in the dk/dv kernel) and the output products over its own chunk (out;
-    dq, dk and dv); in clusters, each of the `per` groups does the score
-    products over the whole head once, split between its blocks, and the
-    output products over its own chunks; both k-step by k-step: 16 columns
-    in bfloat16, 8 in float32."""
+    Chunked, the block's groups share the scores: each score product
+    (forward: s; backward: s and dp twice in the dq kernel, once in the
+    dk/dv kernel) over the whole head once, split by chunk between the
+    groups, and the output products (out; dq, dk and dv) over each group's
+    own chunk; in clusters, each of the `per` groups of clusters does the
+    score products over the whole head once, split between its blocks,
+    and the output products over its own chunks.  Both k-step by k-step,
+    the output products' width too: 16 columns in bfloat16 (`wgmma`'s N
+    in the chunked kernels), 8 in float32."""
     kind, n, *rest = kernel_layout(head_size, dtype)
     if kind == "tile":
         return n / head_size
@@ -101,7 +115,7 @@ def work_ratio(head_size, dtype, backward):
     step = 16 if dtype == torch.bfloat16 else 8
     depth = sum(-(-min(CHUNK, head_size - d * CHUNK) // step) * step
                 for d in range(nd))
-    repeats = rest[0] if kind == "cluster" else nd
+    repeats = rest[0] if kind == "cluster" else 1
     scores, outputs = (6, 3) if backward else (1, 1)
     return ((scores * repeats + outputs) * depth
             / ((scores + outputs) * head_size))
@@ -131,8 +145,9 @@ def head_size_fault(widths, head_size):
 
 def route(dtype):
     """The tensor-core route the launchers take for a call of this type:
-    "bf16" (`mma.sync` on bf16 operands) or "3xtf32" (float32 as three TF32
-    products; csrc/attention.cu's `*_tf32_kernel`s)."""
+    "bf16" (bf16 operands: `mma.sync`, `wgmma` in the chunked kernels) or
+    "3xtf32" (float32 as three TF32 `mma.sync` products;
+    csrc/attention.cu's `*_tf32_kernel`s)."""
     return "bf16" if dtype == torch.bfloat16 else "3xtf32"
 
 
@@ -177,14 +192,13 @@ def _check_cuda(qkv, num_heads):
         raise ValueError(f"{fault} (C={C}, {num_heads} heads)")
     if B == 0 or T == 0:
         raise ValueError(f"empty input {tuple(qkv.shape)}")
-    # grid (x, NH * y, B): x the tiles of 64 rows (a cluster's n blocks side
-    # by side), y a head's chunks or its groups of clusters
+    # grid (x, y, B): x the tiles of rows (a cluster's n blocks side by
+    # side), y the heads (times the groups of clusters)
     layout = kernel_layout(C // num_heads, qkv.dtype)
-    blocks_x = -(-T // 64)
+    rows = CHUNKED_ROWS[qkv.dtype] if layout[0] == "chunked" else 64
+    blocks_x, blocks_y = -(-T // rows), num_heads
     if layout[0] == "cluster":
         blocks_x, blocks_y = blocks_x * layout[1], num_heads * layout[2]
-    else:
-        blocks_y = num_heads * (layout[1] if layout[0] == "chunked" else 1)
     if B > 65535 or blocks_y > 65535 or blocks_x > 2**31 - 1:
         raise ValueError(f"the kernel does not take B={B}, T={T}, "
                          f"NH={num_heads} (grid {blocks_x} x {blocks_y})")

@@ -9,12 +9,15 @@ Each turn starts one child process in the tree it names, which imports that
 tree's `chip_smoke.py` (so its package and its kernels, built from its own
 sources), sets the shape lists that the checks read (`GN_SHAPES`,
 `GN_BWD_SHAPES`, `TP_GN_CASES`, `ATTN_SHAPES`, `ATTN_BWD_SHAPES`,
-`CONV_SHAPES`, `SPLIT_SHAPES`) to those of the current directory's
-`chip_smoke.py`, and runs the named check functions.  A check returns a
+`CONV_SHAPES`, `SPLIT_SHAPES`, `ATTN_HEAD_SHAPES`, `ATTN_HEAD_BWD_SHAPES`,
+`ATTN_HEAD_TIMED`) to those of the current directory's `chip_smoke.py`,
+and runs the named check functions.  A check returns a
 list of cases, or one list per kernel (`check_split_kernels`: `{kernel:
 cases}`); only the timed cases, those with `kernel_graph_ms`, are compared.
 `check_conv` times both types at the shape `CONV_HEADLINE` names, so for it
-the child names each shape in turn and keeps both of its cases.
+the child names each shape in turn and keeps both of its cases.  The
+attention checks take only the head sizes that `ATTN_HEAD_TIMED` times
+(`ATTN_SHAPES` and `ATTN_BWD_SHAPES` are all timed).
 So both trees are timed at the same shapes, on the same card, in the
 order given (old, new, new, old evens out drift).  Prints one JSON object
 per turn, then one summary: per case the fastest device-alone time
@@ -32,14 +35,16 @@ import subprocess
 import sys
 
 SHAPE_LISTS = ("GN_SHAPES", "GN_BWD_SHAPES", "TP_GN_CASES", "ATTN_SHAPES",
-               "ATTN_BWD_SHAPES", "CONV_SHAPES", "SPLIT_SHAPES")
+               "ATTN_BWD_SHAPES", "CONV_SHAPES", "SPLIT_SHAPES",
+               "ATTN_HEAD_SHAPES", "ATTN_HEAD_BWD_SHAPES", "ATTN_HEAD_TIMED")
 
 _CHILD = r"""
 import json, sys, torch
 import chip_smoke as c
 lists, checks = json.loads(sys.argv[1]), sys.argv[2:]
 for name, value in lists.items():
-    setattr(c, name, [tuple(s) for s in value])
+    setattr(c, name, {k: [tuple(s) for s in v] for k, v in value.items()}
+            if isinstance(value, dict) else [tuple(s) for s in value])
 c.functional.set_f32_precision("highest")
 c._build.load()
 gen = torch.Generator(device=c.DEV).manual_seed(0)
@@ -69,6 +74,14 @@ def shape_lists(path: str) -> dict:
                 and getattr(node.targets[0], "id", None) in SHAPE_LISTS):
             lists[node.targets[0].id] = ast.literal_eval(node.value)
     return lists
+
+
+def timed_heads(lists: dict) -> dict:
+    """The lists with the attention head sizes cut to those that
+    `ATTN_HEAD_TIMED` times: only timed cases are compared."""
+    timed = lists["ATTN_HEAD_TIMED"]
+    return dict(lists, ATTN_HEAD_BWD_SHAPES=[], ATTN_HEAD_SHAPES=sorted(
+        set(map(tuple, timed["fwd"])) | set(map(tuple, timed["bwd"]))))
 
 
 def case_key(check: str, kernel: str, case: dict) -> str:
@@ -121,7 +134,7 @@ def main(argv=None) -> None:
                         help="chip_smoke.py functions that return cases")
     parser.add_argument("--out", help="also write every line to this file")
     args = parser.parse_args(argv)
-    lists = shape_lists("chip_smoke.py")
+    lists = timed_heads(shape_lists("chip_smoke.py"))
     lines, turns = [], []
     for i, tree in enumerate(args.trees):
         result = run_turn(tree, lists, args.checks)
