@@ -19,7 +19,7 @@ object per line:
      shapes of a block split over two model ranks), with the kernel's, the plain version's and a library
      call's time and the least time the card could take; then attention
      forward and backward at head sizes from 7 to 4160 (`ATTN_HEAD_SHAPES`,
-     untimed but for the ten of `ATTN_HEAD_TIMED`), each with its
+     untimed but for those of `ATTN_HEAD_TIMED`), each with its
      layout (tile width, chunks, or cluster and groups) and `work_ratio`;
      each timed attention case names the backend the library call
      (`scaled_dot_product_attention`) ran.  Each is timed
@@ -97,13 +97,15 @@ object per line:
   8b. `wide_head`: DDPM's 256x256 model (Ho et al. 2020: C=128, mult
      1,1,2,2,4,4, two res blocks, single-head attention at 16x16; here one
      head of 512, the cluster kernels) at full width and depth: 3 bfloat16
-     steps of `cli.train.main` at B=8 on 16 seeded images with a
-     checkpoint, a DDIM-10 request at B=2 through `cli.generate.run` from
-     it, one float32 step at B=8 against the plain versions (the
-     `train_step` bars); 6 K1 launches a forward and 6 K2 a step, every
-     count exact, finite losses and images, every kernel input held
-     against its plain version; ms/step, peak MiB and the parameter
-     count, each also on a line of its own.
+     steps of `cli.train.main` at the paper's B=64 on 128 seeded images
+     with a checkpoint, a DDIM-10 request at B=2 through
+     `cli.generate.run` from it, one float32 step at B=8 against the plain
+     versions (the `train_step` bars); 6 K1 launches a forward and 6 K2 a
+     step, every count exact, finite losses and images, every kernel input
+     held against its plain version; ms/step, peak MiB and the parameter
+     count, each also on a line of its own, and the cluster kernels'
+     device ms a step (each kernel's device-alone time at (64,256,512,1)
+     and (64,64,512,1) times its launches there) beside the step's ms.
   8c. `ddpm_cifar`: DDPM's CIFAR-10 model (Ho et al. 2020: C=128, mult
      1,2,2,2, two res blocks, single-head attention at 16x16: one head of
      256, the chunked kernels in four chunks) at full width and depth, as
@@ -409,13 +411,14 @@ ATTN_BWD_SHAPES = [(32, 256, 192, 6), (32, 64, 256, 8), (16, 256, 192, 6),
 # at the `ddpm_cifar` phase's B=128 at T = 256 and 16); then 48, 12, 8 and
 # 7 at a ragged T (bfloat16 copies in pieces of 16, 8, 16 and 2 bytes).
 # Then the cluster kernels (heads wider than 256): DDPM's 256 x 256
-# models' one head of 512 at 16 x 16 and in the middle block at 8 x 8
-# (the `wide_head` phase's model, B=8); 288 and 384 (`--num_channels 96
-# --num_head_channels 288`); 2048 (a full cluster of 8, four chunks a
-# block); 4160 (65 chunks: nine groups of clusters, each block streaming
-# its own chunks); 257 and 514 at a ragged T (bfloat16 copies in pieces of
-# 2 and 4 bytes; 514 in two groups).  The backward also at the trainer's
-# batch at the first two.
+# models' one head of 512 at 16 x 16 and in the middle block at 8 x 8, at
+# B=8 and at the `wide_head` phase's B=64 (one, two and four chunks a
+# block, `kernel_layout`'s grid-size rule); 288 and 384 (`--num_channels 96
+# --num_head_channels 288`), and 288 at B=32 (three chunks a block in
+# bfloat16); 2048 (a full cluster of 8); 4160 (65 chunks: nine groups of
+# clusters, each block's own rows streamed through the ring); 257 and 514
+# at a ragged T (bfloat16 copies in pieces of 2 and 4 bytes; 514 in two
+# groups).  The backward also at the trainer's batch at the first two.
 ATTN_HEAD_SHAPES = [(8, 256, 192, 1), (8, 64, 256, 2), (8, 256, 384, 3),
                     (8, 64, 512, 4), (4, 256, 288, 4), (4, 1024, 320, 8),
                     (4, 256, 640, 8), (2, 64, 1280, 8), (8, 256, 256, 1),
@@ -423,14 +426,17 @@ ATTN_HEAD_SHAPES = [(8, 256, 192, 1), (8, 64, 256, 2), (8, 256, 384, 3),
                     (2, 100, 36, 3), (2, 100, 24, 3), (2, 100, 21, 3),
                     (8, 256, 512, 1), (8, 64, 512, 1), (4, 256, 288, 1),
                     (4, 256, 1152, 3), (2, 64, 2048, 1), (1, 64, 4160, 1),
-                    (2, 100, 771, 3), (2, 100, 1542, 3)]
+                    (2, 100, 771, 3), (2, 100, 1542, 3), (64, 256, 512, 1),
+                    (64, 64, 512, 1), (32, 256, 288, 1)]
 ATTN_HEAD_BWD_SHAPES = [(32, 256, 192, 1), (32, 64, 256, 2)]
 ATTN_HEAD_TIMED = {"fwd": [(8, 256, 192, 1), (8, 64, 256, 2),
                            (128, 256, 256, 1), (8, 256, 512, 1),
-                           (8, 64, 512, 1)],
+                           (8, 64, 512, 1), (64, 256, 512, 1),
+                           (64, 64, 512, 1)],
                    "bwd": [(32, 256, 192, 1), (32, 64, 256, 2),
                            (128, 256, 256, 1), (8, 256, 512, 1),
-                           (8, 64, 512, 1)]}
+                           (8, 64, 512, 1), (64, 256, 512, 1),
+                           (64, 64, 512, 1)]}
 # The convolution at the six (H, W, B, C, O) of conv_proto's bench, then
 # ragged ones: odd sizes (and O = 40, short of the tensor-core kernel's 64
 # columns), a single pixel, and C = 3, which is no multiple of 8 and so
@@ -608,10 +614,11 @@ def attention_fwd_case(B, T, C, NH, dtype, gen, timed=True):
               - 2.0 ** -7 * want.float().abs()).max().item()
     rms = want.float().square().mean().sqrt().item()
     HS = C // NH
+    tiles = attn_mod.row_tiles(B, T, NH, dtype)
     case = dict(shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
                 route=attn_mod.route(dtype),
-                layout=list(attn_mod.kernel_layout(HS, dtype)),
-                work_ratio=attn_mod.work_ratio(HS, dtype, False),
+                layout=list(attn_mod.kernel_layout(HS, dtype, tiles)),
+                work_ratio=attn_mod.work_ratio(HS, dtype, False, tiles),
                 max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
                 out_rms=rms)
     if timed:
@@ -735,10 +742,11 @@ def attention_bwd_case(B, T, C, NH, dtype, gen, timed=True):
               - 2.0 ** -7 * want.float().abs()).max().item()
     rms = want.float().square().mean().sqrt().item()
     HS = C // NH
+    tiles = attn_mod.row_tiles(B, T, NH, dtype)
     case = dict(shape=[B, T, C, NH], head_size=HS, dtype=str(dtype),
                 route=attn_mod.route(dtype),
-                layout=list(attn_mod.kernel_layout(HS, dtype)),
-                work_ratio=attn_mod.work_ratio(HS, dtype, True),
+                layout=list(attn_mod.kernel_layout(HS, dtype, tiles)),
+                work_ratio=attn_mod.work_ratio(HS, dtype, True, tiles),
                 max_abs_err=err, tol=tol, err_beyond_one_bf16_step=beyond,
                 out_rms=rms)
     if timed:
@@ -918,9 +926,10 @@ def check_seen_shapes(seen, gen):
 
 # Instantiations the build log must list (`_build.kernel_instance` names):
 # every attention kernel at every tile width, the chunked ones (heads past
-# 64) at 1 to 4 chunks and the cluster ones (heads past 256) in both types,
-# the four tensor-core convolutions (bf16 `wgmma` and float32 3xTF32, 64 and
-# 128 columns).
+# 64) at 1 to 4 chunks and the cluster ones (heads past 256) at every
+# number of chunks a block may hold (1 to `BLOCK_CHUNKS`: 4 in bfloat16, 2
+# in float32), the four tensor-core convolutions (bf16 `wgmma` and float32
+# 3xTF32, 64 and 128 columns).
 REQUIRED_INSTANCES = [
     f"qkv_attention_{k}_kernel<{hs}>" for hs in attn_mod.HEAD_SIZES
     for k in ("fwd_tf32", "bwd_dq_tf32", "bwd_dkv_tf32", "fwd_mma",
@@ -929,8 +938,11 @@ REQUIRED_INSTANCES = [
     for t in ("__nv_bfloat16", "float")
     for nd in range(1, attn_mod.MAX_CHUNKS + 1)
     for k in ("fwd", "bwd_dq", "bwd_dkv")] + [
-    f"qkv_attention_{k}_wide_kernel<{t}>"
-    for t in ("__nv_bfloat16", "float") for k in ("fwd", "bwd_dq", "bwd_dkv")
+    f"qkv_attention_{k}_wide_kernel<{t},{nd}>"
+    for t, dtype in (("__nv_bfloat16", torch.bfloat16),
+                     ("float", torch.float32))
+    for nd in range(1, attn_mod.BLOCK_CHUNKS[dtype] + 1)
+    for k in ("fwd", "bwd_dq", "bwd_dkv")
 ] + [f"conv3x3_hwbc_{k}_kernel<{bn}>" for k in ("wgmma", "tf32")
      for bn in (64, 128)]
 
@@ -1759,7 +1771,10 @@ DDPM256_FLAGS = ["--image_size", "256", "--num_channels", "128",
                  "--channel_mult", "1,1,2,2,4,4", "--num_res_blocks", "2",
                  "--attention_resolutions", "16", "--num_head_channels",
                  "512"]
-WIDE_BATCH = 8
+# Training at the paper's batch of 64 (its Appendix B); the float32 check
+# at 8 (cut to keep the phase short).
+WIDE_BATCH = 64
+WIDE_F32_BATCH = 8
 WIDE_STEPS = 3
 
 
@@ -1868,12 +1883,52 @@ def drive_one_head(tmp, totals, gen, name, flags, head, batch, n_images,
 
 def drive_wide_head(tmp, totals, gen):
     """DDPM-256 (`DDPM256_FLAGS`, one head of 512: the cluster kernels)
-    through `drive_one_head`: 3 bfloat16 steps at B=8 on 16 seeded 256 x
-    256 images, DDIM-10 at B=2, the float32 step at B=8."""
-    record, _ = drive_one_head(tmp, totals, gen, "ddpm256", DDPM256_FLAGS,
-                               512, WIDE_BATCH, 16, 2, WIDE_BATCH,
-                               WIDE_STEPS)
+    through `drive_one_head`: 3 bfloat16 steps at B=64 on 128 seeded 256 x
+    256 images, DDIM-10 at B=2, the float32 step at B=8; then the cluster
+    kernels' device time a training step (`attention_share`)."""
+    record, cfg = drive_one_head(tmp, totals, gen, "ddpm256", DDPM256_FLAGS,
+                                 512, WIDE_BATCH, 2 * WIDE_BATCH, 2,
+                                 WIDE_F32_BATCH, WIDE_STEPS)
+    record["cluster_kernels"] = attention_share(record, cfg, WIDE_BATCH, gen)
     return record
+
+
+def attention_share(record, cfg, batch, gen):
+    """The attention kernels' device time a bfloat16 training step of a
+    model of one head a layer (`drive_one_head`'s record and config):
+    each kernel's device-alone time (`graph_ms`) at the step's attention
+    shapes, the five layers at the attention resolution and the middle
+    block's at the lowest, times its launches there, beside the step's
+    ms."""
+    C = record["attention_widths"][0]
+    # attention layers a forward at each T: the middle block's at the
+    # lowest resolution, the others' at the attention resolution
+    mid = (cfg.image_size // 2 ** (len(cfg.channel_mult) - 1)) ** 2
+    (ds,) = cfg.attention_ds
+    layers = {(cfg.image_size // ds) ** 2: 5, mid: 1}
+    if sum(layers.values()) != 6:
+        raise AssertionError(f"attention layers {layers}")
+    kernels, total = [], 0.0
+    for T, n in sorted(layers.items(), reverse=True):
+        qkv = torch.randn((batch, T, 3 * C), generator=gen,
+                          device=DEV).to(torch.bfloat16)
+        dout = torch.randn((batch, T, C), generator=gen,
+                           device=DEV).to(torch.bfloat16)
+        qkv_attention_fwd(qkv, 1)  # graph_ms's call before the capture
+        qkv_attention_bwd(qkv, dout, 1)
+        fwd_ms = graph_ms(lambda: qkv_attention_fwd(qkv, 1))
+        bwd_ms = graph_ms(lambda: qkv_attention_bwd(qkv, dout, 1))
+        total += n * (fwd_ms + bwd_ms)
+        kernels.append(dict(
+            shape=[batch, T, C, 1], dtype="torch.bfloat16",
+            layout=list(attn_mod.kernel_layout(C, torch.bfloat16,
+                                               attn_mod.row_tiles(
+                                                   batch, T, 1,
+                                                   torch.bfloat16))),
+            launches_per_step=n, fwd_graph_ms=fwd_ms, bwd_graph_ms=bwd_ms))
+    step_ms = record["train"]["ms_per_step"]
+    return dict(cases=kernels, device_ms_per_step=total, step_ms=step_ms,
+                share_of_step=total / step_ms)
 
 
 # The `ddpm_cifar` phase: DDPM's CIFAR-10 model (Ho et al. 2020,
@@ -1901,32 +1956,8 @@ def drive_ddpm_cifar(tmp, totals, gen):
     record, cfg = drive_one_head(tmp, totals, gen, "ddpm_cifar",
                                  DDPM_CIFAR_FLAGS, 256, CIFAR_BATCH, 256,
                                  CIFAR_SAMPLE_BATCH, CIFAR_F32_BATCH)
-    C = record["attention_widths"][0]
-    # attention layers a forward at each T: the middle block's at the
-    # lowest resolution, the others' at 16 x 16
-    mid = (cfg.image_size // 2 ** (len(cfg.channel_mult) - 1)) ** 2
-    (ds,) = cfg.attention_ds
-    layers = {(cfg.image_size // ds) ** 2: 5, mid: 1}
-    if layers != {256: 5, 16: 1}:
-        raise AssertionError(f"DDPM CIFAR-10: attention layers {layers}")
-    kernels, total = [], 0.0
-    for T, n in sorted(layers.items(), reverse=True):
-        qkv = torch.randn((CIFAR_BATCH, T, 3 * C), generator=gen,
-                          device=DEV).to(torch.bfloat16)
-        dout = torch.randn((CIFAR_BATCH, T, C), generator=gen,
-                           device=DEV).to(torch.bfloat16)
-        qkv_attention_fwd(qkv, 1)  # graph_ms's call before the capture
-        qkv_attention_bwd(qkv, dout, 1)
-        fwd_ms = graph_ms(lambda: qkv_attention_fwd(qkv, 1))
-        bwd_ms = graph_ms(lambda: qkv_attention_bwd(qkv, dout, 1))
-        total += n * (fwd_ms + bwd_ms)
-        kernels.append(dict(shape=[CIFAR_BATCH, T, C, 1],
-                            dtype="torch.bfloat16", launches_per_step=n,
-                            fwd_graph_ms=fwd_ms, bwd_graph_ms=bwd_ms))
-    step_ms = record["train"]["ms_per_step"]
-    record["chunked_kernels"] = dict(
-        cases=kernels, device_ms_per_step=total, step_ms=step_ms,
-        share_of_step=total / step_ms)
+    record["chunked_kernels"] = attention_share(record, cfg, CIFAR_BATCH,
+                                                gen)
     return record
 
 

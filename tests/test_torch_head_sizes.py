@@ -107,7 +107,8 @@ def test_head_sizes_are_the_sources_instantiations():
     own width, its CHUNK and MAX_CHUNKS the chunked kernels' and its
     MAX_CLUSTER the cluster kernels' (csrc/attention.cuh), and the
     launchers send a head wider than CHUNK * MAX_CHUNKS to the cluster
-    kernels (csrc/attention_wide.cu)."""
+    kernels (csrc/attention_wide.cu), whose `wide_layout` is the rule
+    `kernel_layout` mirrors, at its BLOCK_CHUNKS and MIN_BLOCKS."""
     src = ATTENTION_CU.read_text()
     shared = ATTENTION_CU.with_suffix(".cuh").read_text()
     cases = re.findall(r"if \(hs <= (\d+)\) return f\(std::integral_constant"
@@ -129,8 +130,21 @@ def test_head_sizes_are_the_sources_instantiations():
     assert "return attention_fwd_wide(" in src
     assert "return attention_bwd_wide(" in src
     wide = ATTENTION_CU.with_name("attention_wide.cu").read_text()
-    assert "const int nd = (hs + CH - 1) / CH, per = (nd + MAX_CLUSTER - 1) " \
-        "/ MAX_CLUSTER;" in wide and "return {per, (nd + per - 1) / per};" in wide
+    layout = wide[wide.index("inline WideLayout wide_layout("):]
+    layout = layout[:layout.index("\n}\n")]
+    for line in ("for (int c = most; c > 1; c /= 2) {",
+                 "const int n = (nd + c - 1) / c;",
+                 "if (n <= MAX_CLUSTER && row_tiles * n >= min_blocks) "
+                 "return {n, 1, (nd + n - 1) / n};",
+                 "const int n = nd < MAX_CLUSTER ? nd : MAX_CLUSTER;",
+                 "return {n, (nd + n - 1) / n, 1};"):
+        assert line in layout, line
+    most = re.search(r"constexpr int MOST_CHUNKS = sizeof\(E\) == 2 \? (\d+) : "
+                     r"(\d+);", wide).groups()
+    assert tuple(map(int, most)) == (port_attn.BLOCK_CHUNKS[torch.bfloat16],
+                                     port_attn.BLOCK_CHUNKS[torch.float32])
+    assert int(re.search(r"constexpr int MIN_BLOCKS = (\d+);",
+                         wide).group(1)) == port_attn.MIN_BLOCKS
 
 
 @pytest.mark.parametrize("head_size, dtype, layout, fwd, bwd", [
@@ -146,26 +160,30 @@ def test_head_sizes_are_the_sources_instantiations():
     (96, "bfloat16", ("chunked", 2), 1.0, 1.0),
     (192, "bfloat16", ("chunked", 3), 1.0, 1.0),
     (256, "float32", ("chunked", 4), 1.0, 1.0),
-    (257, "bfloat16", ("cluster", 5, 1), 272 / 257, 272 / 257),
-    (288, "float32", ("cluster", 5, 1), 1.0, 1.0),
-    (288, "bfloat16", ("cluster", 5, 1), 1.0, 1.0),
-    (512, "float32", ("cluster", 8, 1), 1.0, 1.0),
-    (512, "bfloat16", ("cluster", 8, 1), 1.0, 1.0),
-    (2048, "float32", ("cluster", 8, 4), 2.5, 3.0),
-    (2048, "bfloat16", ("cluster", 8, 4), 2.5, 3.0),
-    (4160, "float32", ("cluster", 8, 9), 5.0, 57 / 9),
-    (4160, "bfloat16", ("cluster", 8, 9), 5.0, 57 / 9)])
+    (257, "bfloat16", ("cluster", 2, 1, 3), 272 / 257, 272 / 257),
+    (288, "float32", ("cluster", 3, 1, 2), 1.0, 1.0),
+    (288, "bfloat16", ("cluster", 2, 1, 3), 1.0, 1.0),
+    (512, "float32", ("cluster", 4, 1, 2), 1.0, 1.0),
+    (512, "bfloat16", ("cluster", 2, 1, 4), 1.0, 1.0),
+    (2048, "float32", ("cluster", 8, 4, 1), 2.5, 3.0),
+    (2048, "bfloat16", ("cluster", 8, 1, 4), 1.0, 1.0),
+    (4160, "float32", ("cluster", 8, 9, 1), 5.0, 57 / 9),
+    (4160, "bfloat16", ("cluster", 8, 9, 1), 5.0, 57 / 9)])
 def test_kernel_layout_and_work_ratio(head_size, dtype, layout, fwd, bwd):
     """A tile pads the head to its width and takes rows of a multiple of
     16 bytes; the chunked kernels take the rest up to 256, the groups of a
     block sharing a tile's scores, so each product is done once over the
     head rounded up to the k-step chunk by chunk (HS 72 in bfloat16: 64 +
     16 columns deep and wide for 72; HS 12: one k-step of 16); a wider head
-    takes clusters of up to 8 blocks that share its scores, once for up to
-    8 chunks (512 columns: nothing wasted), `per` times in as many groups
-    of clusters beyond (HS 4160, 65 chunks: 9 groups of 8 blocks, the
-    scores 9 times: 10 / 2 forward, 57 / 9 backward; HS 257 in bfloat16:
-    256 + one k-step of 16 deep)."""
+    takes clusters of blocks of up to 4 chunks (bfloat16) or 2 (float32),
+    spread as evenly as the blocks allow (HS 288 in bfloat16: 3 + 2), that
+    share its scores, once for up to 8 blocks' worth (2048 columns in
+    bfloat16: nothing wasted), beyond that at one chunk a block in `per`
+    groups of clusters that each recompute them (HS 4160, 65 chunks: 9
+    groups of 8 blocks, the scores 9 times: 10 / 2 forward, 57 / 9
+    backward; float32 at 2048: 4 groups; HS 257 in bfloat16: 256 + one
+    k-step of 16 deep).  These are the layouts of a launch of at least
+    MIN_BLOCKS blocks at any chunks a block (`row_tiles` None)."""
     assert port_attn.kernel_layout(head_size, TDT[dtype]) == layout
     assert port_attn.work_ratio(head_size, TDT[dtype],
                                 False) == pytest.approx(fwd)
@@ -173,23 +191,50 @@ def test_kernel_layout_and_work_ratio(head_size, dtype, layout, fwd, bwd):
                                 True) == pytest.approx(bwd)
 
 
+@pytest.mark.parametrize("B, T, dtype, layout", [
+    (1, 64, "bfloat16", (8, 1, 1)), (2, 100, "bfloat16", (8, 1, 1)),
+    (8, 64, "bfloat16", (8, 1, 1)), (8, 256, "bfloat16", (2, 1, 4)),
+    (64, 64, "bfloat16", (2, 1, 4)), (64, 256, "bfloat16", (2, 1, 4)),
+    (1, 64, "float32", (8, 1, 1)), (2, 100, "float32", (8, 1, 1)),
+    (8, 64, "float32", (4, 1, 2)), (8, 256, "float32", (4, 1, 2)),
+    (64, 64, "float32", (4, 1, 2)), (64, 256, "float32", (4, 1, 2))])
+def test_cluster_layout_at_every_launch(B, T, dtype, layout):
+    """The grid-size rule at DDPM 256 x 256's one head of 512 (8 chunks):
+    a block takes the most of 4 (bfloat16) or 2 (float32) chunks, then 2,
+    that leaves the launch MIN_BLOCKS blocks (B * ceil(T / rows) tiles of
+    rows, 64 rows a tile in bfloat16 and 32 in float32, times n), else one;
+    whatever it takes, one group of clusters holds the head, so each score
+    is computed once: work_ratio 1.0 in both directions.  At 2048 columns
+    (32 chunks) a block of 4 chunks (bfloat16, a large launch) does the
+    same; fewer chunks a block take groups of clusters that recompute."""
+    dt = TDT[dtype]
+    tiles = port_attn.row_tiles(B, T, 1, dt)
+    assert port_attn.kernel_layout(512, dt, tiles) == ("cluster", *layout)
+    n, _, chunks = layout
+    assert chunks == 1 or tiles * n >= port_attn.MIN_BLOCKS
+    for backward in (False, True):
+        assert port_attn.work_ratio(512, dt, backward,
+                                    tiles) == pytest.approx(1.0)
+    wide = port_attn.kernel_layout(2048, dt, tiles)
+    ratio = port_attn.work_ratio(2048, dt, False, tiles)
+    assert (ratio == pytest.approx(1.0)) == (wide == ("cluster", 8, 1, 4))
+
+
 CHUNKED_CU = ATTENTION_CU.with_name("attention_chunked.cu")
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may have on an H100
 
 
 def chunked_constants():
-    """The chunked kernels' geometry as csrc/attention_chunked.cu and
-    csrc/attention.cuh declare it: {type: (ROWS, KEYS, DKV_THREADS)} and
-    {name: value} of CH, STAGES, ALIGN and SMEM_LIMIT."""
-    src = CHUNKED_CU.read_text()
+    """The chunked and cluster kernels' block geometry as csrc/attention.cuh
+    declares it: {type: (ROWS, KEYS, DKV_THREADS)} and {name: value} of CH,
+    STAGES, ALIGN and SMEM_LIMIT."""
     shared = ATTENTION_CU.with_suffix(".cuh").read_text()
     geo = {t: tuple(int(v) for v in m) for t, *m in re.findall(
         r"template <> struct Geo<(\w+)> \{\s*static constexpr int "
-        r"ROWS = (\d+), KEYS = (\d+), DKV_THREADS = (\d+);", src)}
+        r"ROWS = (\d+), KEYS = (\d+), DKV_THREADS = (\d+);", shared)}
     consts = {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                  text).group(1))
-              for name, text in (("CH", shared), ("STAGES", shared),
-                                 ("ALIGN", src), ("SMEM_LIMIT", src))}
+                                  shared).group(1))
+              for name in ("CH", "STAGES", "ALIGN", "SMEM_LIMIT")}
     return geo, consts
 
 
@@ -236,6 +281,89 @@ def test_chunked_kernels_fit_in_shared_memory(dtype, kernel):
         assert nbytes <= SMEM_LIMIT, (dtype, kernel, nd, nbytes)
     assert c["STAGES"] >= 2
     assert f"{nbytes:,}" in CHUNKED_CU.read_text()  # the note, nd = 4
+
+
+WIDE_CU = ATTENTION_CU.with_name("attention_wide.cu")
+
+
+def wide_smem(item, rows, keys, nd, sides, streamed, stats, ring, align,
+              chunk):
+    """`wide_smem_bytes`: the staged own tiles (sides x nd, ROWS x 64) +
+    ring slots of 2 x nd stage tiles (KEYS x 64) and, streamed, the own
+    tiles + sides x 3 partials of ROWS x KEYS floats (mine[2] and sum) + the
+    dk/dv kernel's ring x 3 x keys floats of m, 1 / l and D + the
+    alignment slack."""
+    own, stage, part = rows * chunk * item, keys * chunk * item, rows * keys * 4
+    return (align + (0 if streamed else sides * nd * own)
+            + ring * (2 * nd * stage + (sides * nd * own if streamed else 0))
+            + 3 * sides * part + (ring * 3 * keys * 4 if stats else 0))
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "bwd_dq", "bwd_dkv"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cluster_kernels_fit_in_shared_memory(dtype, kernel):
+    """Each cluster kernel's dynamic shared memory at every chunk count a
+    block may hold (1 to MOST_CHUNKS; at one chunk also with the own rows
+    streamed through the ring, as heads past one cluster take them), from
+    the sources' constants by the source's formula: a ring of at least
+    three items (one in the score products, one waiting for its output
+    products, one in flight), every tile and partial on the swizzle's
+    period; the opening note's figures are the largest."""
+    geo, c = chunked_constants()
+    wide = WIDE_CU.read_text()
+    ring = int(re.search(r"constexpr int RING = (\d+);", wide).group(1))
+    most = dict(zip(("bfloat16", "float32"), map(int, re.search(
+        r"constexpr int MOST_CHUNKS = sizeof\(E\) == 2 \? (\d+) : (\d+);",
+        wide).groups())))[dtype]
+    assert most == port_attn.BLOCK_CHUNKS[TDT[dtype]] and ring >= 3
+    rows, keys, _ = geo["bf16" if dtype == "bfloat16" else "float"]
+    item = 2 if dtype == "bfloat16" else 4
+    for tile in (rows * c["CH"] * item, keys * c["CH"] * item, rows * keys * 4):
+        assert tile % c["ALIGN"] == 0
+    sides, stats = (1, False) if kernel == "fwd" else (2, kernel == "bwd_dkv")
+    for nd in range(1, most + 1):
+        for streamed in (False, True) if nd == 1 else (False,):
+            nbytes = wide_smem(item, rows, keys, nd, sides, streamed, stats,
+                               ring, c["ALIGN"], c["CH"])
+            assert nbytes <= SMEM_LIMIT, (dtype, kernel, nd, streamed, nbytes)
+    nbytes = wide_smem(item, rows, keys, most, sides, False, stats, ring,
+                       c["ALIGN"], c["CH"])
+    assert f"{nbytes:,}" in wide  # the note, at the most chunks a block
+
+
+# DDPM's 256 x 256 models (Ho et al. 2020: CelebA-HQ, LSUN; ch 128, ch_mult
+# (1, 1, 2, 2, 4, 4), two res blocks a level, attention at 16 x 16) in the
+# CLIs' flags: one head of 512 in each of its six attention layers.
+DDPM256_FLAGS = ["--image_size", "256", "--num_channels", "128",
+                 "--channel_mult", "1,1,2,2,4,4", "--num_res_blocks", "2",
+                 "--attention_resolutions", "16", "--num_head_channels",
+                 "512"]
+
+
+def test_ddpm256_flags_give_one_model_in_both_clis(no_model_built):
+    """Both packages' training CLIs read DDPM 256 x 256's flags into the same
+    config fields, the same parameter order and the same attention widths
+    (six layers of one head of 512: the cluster kernels), with no model
+    built; at the paper's batch of 64 a block of the cluster takes four
+    chunks in bfloat16 (two blocks a cluster) and the scores are computed
+    once."""
+    jcfg = jax_train_cli.model_config_from_args(
+        jax_train_cli.create_argparser().parse_args(DDPM256_FLAGS))
+    cfg = train_cli.model_config_from_args(
+        train_cli.create_argparser().parse_args(DDPM256_FLAGS))
+    assert dataclasses.asdict(jcfg) == dataclasses.asdict(cfg)
+    assert jax_unet.param_order(jcfg) == port_unet.param_order(cfg)
+    plan = jax_unet.build_plan(jcfg)
+    jax_widths = [layer[1] for group in plan.input_blocks + (plan.middle,)
+                  + plan.output_blocks for layer in group
+                  if layer[0] == "attn"]
+    assert port_unet.attention_widths(cfg) == jax_widths == [512] * 6
+    assert port_attn.head_size_fault(jax_widths, 512) is None
+    tiles = port_attn.row_tiles(64, 256, 1, torch.bfloat16)
+    assert port_attn.kernel_layout(512, torch.bfloat16, tiles) == (
+        "cluster", 2, 1, 4)
+    assert port_attn.work_ratio(512, torch.bfloat16, True, tiles) == 1.0
+    assert port_ckpt.num_params(cfg) == 103_790_723
 
 
 @pytest.mark.parametrize("widths, head_size, fault", [
@@ -295,13 +423,14 @@ class FakeCuda:
 def test_cuda_wrapper_refuses_an_uncompiled_head_size():
     """Every head reaches the kernels, a head of 288 (width 288, one head)
     among them; what is refused before any CUDA call is a launch past the
-    grid's limits: 40,000 heads of 576 columns, two groups of clusters
-    each, want 80,000 > 65,535 blocks on grid.y."""
+    grid's limits: 14,000 heads of 2112 columns (33 chunks: more than a
+    cluster of 8 blocks of 4 chunks holds, so 5 groups of clusters of one
+    chunk a block) want 70,000 > 65,535 blocks on grid.y."""
     for C, NH in ((288, 4), (96, 2), (21, 3), (256, 1), (7, 7), (2048, 8),
                   (288, 1), (4160, 1)):
         port_attn._check_cuda(FakeCuda((2, 8, 3 * C)), NH)
     with pytest.raises(ValueError, match="does not take"):
-        port_attn._check_cuda(FakeCuda((2, 8, 3 * 576 * 40000)), 40000)
+        port_attn._check_cuda(FakeCuda((2, 8, 3 * 2112 * 14000)), 14000)
 
 
 def _train_flags(tmp_path, head_size, device, channels=96, mult="1,2"):
@@ -495,7 +624,7 @@ def test_whole_model_at_a_head_wider_than_256():
     the JAX package's, at tests/test_model.py's bars."""
     jcfg, cfg = configs(channel_mult=(1, 9), num_head_channels=288)
     assert port_unet.attention_widths(cfg) == [288] * 4
-    assert port_attn.kernel_layout(288, torch.float32) == ("cluster", 5, 1)
+    assert port_attn.kernel_layout(288, torch.float32) == ("cluster", 3, 1, 2)
     params, model, _ = both_models(jcfg, cfg, seed=7)
     rng = np.random.default_rng(8)
     x = rng.standard_normal((2, 16, 16, 3), dtype=np.float32)

@@ -130,14 +130,17 @@
 // 8- and 4-byte `cp.async`, or for an odd hs in bfloat16 plain 2-byte
 // loads and stores; an odd hs stores its outputs one value at a time.
 //
-// A head wider than 256 columns (attention_wide.cu) takes chunk tiles and
-// products of 64 columns too, and the blocks that share a tile of rows
-// share its scores: a thread-block cluster of up to MAX_CLUSTER blocks,
-// each taking the score products over its own chunks only and adding the
-// cluster's partial 64 x 64 tiles through distributed shared memory in rank
-// order, then one output chunk; a head of more than MAX_CLUSTER chunks in
-// as many groups of clusters as a block has chunks, each group recomputing
-// the scores for its output chunks.
+// A head wider than 256 columns (attention_wide.cu) is cut into the same
+// chunks, and a thread-block cluster of up to MAX_CLUSTER such blocks
+// shares a tile of rows: each block the score products over its run of
+// chunks, its groups' partials summed in shared memory, then one partial a
+// block added up through distributed shared memory in rank order (the
+// cluster barrier split around the next stage's products), and each group
+// its output chunk; up to 4 chunks a block in bfloat16 and 2 in float32,
+// fewer where the launch would have fewer blocks than SMs; a head of more
+// chunks than one cluster holds at one chunk a block in as many groups of
+// clusters as that takes, each group recomputing the scores for its
+// output chunks.
 
 #include "attention.cuh"
 

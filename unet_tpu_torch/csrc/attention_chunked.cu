@@ -87,113 +87,11 @@
 
 namespace {
 
-// A block's geometry by type: ROWS own rows (a group's: 16 a warp), KEYS
-// rows of the other side a stage, at most DKV_THREADS threads a block of
-// the dk/dv kernel (`dkv_chunks`).
-template <typename E> struct Geo;
-template <> struct Geo<bf16> {
-    static constexpr int ROWS = 64, KEYS = 32, DKV_THREADS = 384;
-};
-template <> struct Geo<float> {
-    static constexpr int ROWS = 32, KEYS = 32, DKV_THREADS = 256;
-};
-
-constexpr int ALIGN = 1024;  // the swizzle's period: tiles start 1024-byte aligned
-
-// The tiles of the chunked kernels of type E.
-template <typename E> struct Tiles {
-    using Elem = E;
-    static constexpr int ROWS = Geo<E>::ROWS, KEYS = Geo<E>::KEYS;
-    static constexpr int GT = ROWS / 16 * 32;             // threads of a group
-    static constexpr int NJ = KEYS / 8;                   // n-tiles of a warp's scores
-    static constexpr int RB = CH * (int)sizeof(E);        // bytes of a tile row
-    static constexpr int OWN = ROWS * RB;                 // a chunk tile of own rows
-    static constexpr int STAGE = KEYS * RB;               // a chunk tile of a stage
-    static constexpr int PART = ROWS * KEYS * 4;          // a group's float32 partial
-    static constexpr int XV = PART / 16;                  // its float4s
-};
-
-constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
-
 // Dynamic shared memory of a chunked kernel (see the opening note).
 template <typename T>
 constexpr int chunked_smem_bytes(int nd, int groups, int sides, bool stats) {
     return ALIGN + sides * (nd * T::OWN + groups * T::PART) + 2 * STAGES * nd * T::STAGE +
            (stats ? STAGES * 3 * T::KEYS : sides == 1 ? 2 * T::ROWS : 0) * (int)sizeof(float);
-}
-
-// The chunks each group of the dk/dv kernel takes: one, or, where nd groups
-// would pass DKV_THREADS, as many as keep the block within it (bfloat16 at
-// four chunks: two warpgroups of two chunks, whose dk and dv take 128
-// registers a thread, where four warpgroups would have 128 in all).
-template <typename E> __host__ __device__ constexpr int dkv_chunks(int nd) {
-    return (nd * Tiles<E>::GT + Geo<E>::DKV_THREADS - 1) / Geo<E>::DKV_THREADS;
-}
-
-// The byte offset of 16-byte piece c of row r in a chunk tile: conv3x3.cu's
-// 128-byte swizzle, with rows of 256 bytes in float32.
-template <typename E> __device__ __forceinline__ uint32_t tile_at(int r, int c) {
-    if constexpr (sizeof(E) == 2) {
-        return swizzled(r, c);
-    } else {
-        return (uint32_t)(r * CH * (int)sizeof(E) + ((c ^ (r & 7)) << 4));
-    }
-}
-
-// ---------------------------------------------------------------------------
-// Copies.
-
-// Rows [r0, r0 + R) of the head's columns [0, hs) (row r at src + r *
-// stride) into ND chunk tiles of R rows (tile d at dst + d * R * RB: columns
-// 64 d ..), in pieces of W bytes by the block's NT threads; rows at or past
-// n and columns at or past hs are zero.  With SCALE, the pieces this thread
-// copied are multiplied by `scale` and rounded to E instead (qs; after the
-// thread's wait, which shows it its own copies).
-template <typename E, int ND, int R, int NT, int W, bool SCALE>
-__device__ __forceinline__ void tiles_w(unsigned char* dst, const E* src, size_t stride, int r0,
-                                        int n, int hs, float scale) {
-    constexpr int V = W / (int)sizeof(E);  // values a piece
-    constexpr int PR = CH / V;             // pieces a tile row
-#pragma unroll 2
-    for (int e = threadIdx.x; e < ND * R * PR; e += NT) {
-        const int d = e / (R * PR), r = e / PR % R, p = e % PR;
-        unsigned char* to = dst + d * R * CH * (int)sizeof(E) + tile_at<E>(r, p * W >> 4) +
-                            (p * W & 15);
-        if constexpr (SCALE) {
-            Vec<E, V> v = *reinterpret_cast<Vec<E, V>*>(to);
-#pragma unroll
-            for (int k = 0; k < V; ++k) v.v[k] = from_float<E>(to_float<E>(v.v[k]) * scale);
-            *reinterpret_cast<Vec<E, V>*>(to) = v;
-        } else {
-            const int c = d * CH + p * V;
-            const bool valid = r0 + r < n && c < hs;
-            const E* from = src + (valid ? (size_t)(r0 + r) * stride + c : 0);
-            if constexpr (W == 2) {
-                *reinterpret_cast<uint16_t*>(to) =
-                    valid ? *reinterpret_cast<const uint16_t*>(from) : 0;
-            } else {
-                cp_async_w<W>(to, from, valid);
-            }
-        }
-    }
-}
-
-// `tiles_w` with the piece the launcher chose for the launch (16, 8, 4 or,
-// bfloat16 only, 2 bytes): the same branch in every thread.
-template <typename E, int ND, int R, int NT, bool SCALE = false>
-__device__ __forceinline__ void tiles(unsigned char* dst, const E* src, size_t stride, int r0,
-                                      int n, int hs, int piece, float scale = 1.f) {
-    if (piece == 16) {
-        tiles_w<E, ND, R, NT, 16, SCALE>(dst, src, stride, r0, n, hs, scale);
-    } else if (piece == 8) {
-        tiles_w<E, ND, R, NT, 8, SCALE>(dst, src, stride, r0, n, hs, scale);
-    } else if constexpr (sizeof(E) == 4) {
-        tiles_w<E, ND, R, NT, 4, SCALE>(dst, src, stride, r0, n, hs, scale);
-    } else if (piece == 4) {
-        tiles_w<E, ND, R, NT, 4, SCALE>(dst, src, stride, r0, n, hs, scale);
-    } else {
-        tiles_w<E, ND, R, NT, 2, SCALE>(dst, src, stride, r0, n, hs, scale);
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -251,328 +149,9 @@ __device__ __forceinline__ void get_part(const float* x, int gt, float (&acc)[T:
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 products on `wgmma` (the group is one warpgroup; every thread of
-// it calls them, with the same arguments).
-
-// Keeps the compiler from moving the registers' reads and writes across the
-// asynchronous products: before `wgmma_fence` and after `wgmma_wait`.
-template <int N> __device__ __forceinline__ void pin(float (&d)[N][4]) {
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
-}
-
-// d += a b over k = 16, a 64-row A and an N-column B both K-major in
-// shared memory (the scores).
-template <int N>
-__device__ __forceinline__ void wgmma_scores(float (&d)[N / 8][4], uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_scores<32>(float (&d)[4][4], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "l"(a), "l"(b)
-        : "memory");
-}
-
-// d[0 .. N/8) += a b over k = 16, A from registers (lane 4g + t of warp w:
-// rows 16 w + g and + 8, as `mma_bf16`'s A fragment) and an N-column B
-// N-major in shared memory (the output products).
-template <int N>
-__device__ __forceinline__ void wgmma_rows(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_rows<16>(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b)
-        : "memory");
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rows<32>(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b)
-        : "memory");
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rows<48>(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23}, "
-        "{%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b)
-        : "memory");
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rows<64>(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b)
-        : "memory");
-}
-
-// acc = own tile (64 rows) x other tile (KEYS rows)^T over the chunk's
-// first `cols` columns: k-steps of 16 at or past cols are skipped (both
-// tiles are zero there).
-template <typename T, int CPW>
-__device__ __forceinline__ void scores_wgmma(float (&acc)[T::NJ][4], const unsigned char* own,
-                                             const unsigned char* other, int c0, int step,
-                                             int nd, int hs) {
-#pragma unroll
-    for (int j = 0; j < T::NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    pin(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int i = 0; i < CPW; ++i) {
-        const int c = c0 + i * step, cols = hs - c * CH;
-        if (c >= nd) break;
-        const unsigned char* a = own + c * T::OWN;
-        const unsigned char* b = other + c * T::STAGE;
-#pragma unroll
-        for (int ks = 0; ks < CH / 16; ++ks) {
-            if (16 * ks >= cols) break;
-            wgmma_scores<T::KEYS>(acc, wgmma_desc(a + 32 * ks, 16), wgmma_desc(b + 32 * ks, 16));
-        }
-    }
-    wgmma_commit();
-}
-
-// acc += p tile over the tile's KEYS rows, for the scores' accumulator p
-// (float32, rounded and packed into A fragments) and a tile whose rows are
-// the product's k index, N = cols rounded up to 16 (the tile is zero past
-// cols, and acc's columns past cols are never stored).
-template <typename T>
-__device__ __forceinline__ void output_wgmma(float (&acc)[8][4], const float (&p)[T::NJ][4],
-                                             const unsigned char* tile, int cols) {
-    constexpr int KSTEPS = T::KEYS / 16;
-    uint32_t a[KSTEPS][4];
-#pragma unroll
-    for (int j = 0; j < T::NJ; ++j) {
-        a[j >> 1][(j & 1) * 2] = pack_bf16(p[j][0], p[j][1]);
-        a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[j][2], p[j][3]);
-    }
-#pragma unroll
-    for (int k = 0; k < KSTEPS; ++k)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[k][i])::"memory");
-    pin(acc);
-    wgmma_fence();
-    const int n16 = (cols + 15) >> 4;
-#pragma unroll
-    for (int k = 0; k < KSTEPS; ++k) {
-        const uint64_t b = wgmma_desc(tile + k * 16 * 128, T::KEYS * 128);
-        if (n16 == 4) {
-            wgmma_rows<64>(acc, a[k], b);
-        } else if (n16 == 3) {
-            wgmma_rows<48>(acc, a[k], b);
-        } else if (n16 == 2) {
-            wgmma_rows<32>(acc, a[k], b);
-        } else {
-            wgmma_rows<16>(acc, a[k], b);
-        }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    pin(acc);
-}
-
-// ---------------------------------------------------------------------------
-// float32 products in 3xTF32 on `mma.sync` (each warp its 16 rows).
-
-// acc = own tile (the warp's rows 16 w ..) x other tile^T over the chunk's
-// first `cols` columns in k-steps of 8: the own rows' A fragment by 32-bit
-// loads (lane 4g + t: rows g, g + 8, columns t, t + 4), the other tile's B
-// fragments by `ldmatrix` (a float as two 16-bit halves).
-template <typename T, int CPW>
-__device__ __forceinline__ void scores_tf32(float (&acc)[T::NJ][4], const unsigned char* own_base,
-                                            const unsigned char* other_base, int c0, int step,
-                                            int nd, int hs) {
-    constexpr int NJ = T::NJ;
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int r = (threadIdx.x & (T::GT - 1)) / 32 * 16 + g;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int i = 0; i < CPW; ++i) {
-    const int c = c0 + i * step, cols = hs - c * CH;
-    if (c >= nd) break;
-    const unsigned char* own = own_base + c * T::OWN;
-    const unsigned char* other = other_base + c * T::STAGE;
-#pragma unroll
-    for (int ks = 0; ks < CH / 8; ++ks) {
-        if (8 * ks >= cols) break;
-        auto at = [&](int row, int c) {  // column 8 ks + t (c = 0) or + 4 (c = 1)
-            return *reinterpret_cast<const float*>(own + tile_at<float>(row, 2 * ks + c) + 4 * t);
-        };
-        uint32_t ah[4], al[4];
-        split_tf32(at(r, 0), ah[0], al[0]);
-        split_tf32(at(r + 8, 0), ah[1], al[1]);
-        split_tf32(at(r, 1), ah[2], al[2]);
-        split_tf32(at(r + 8, 1), ah[3], al[3]);
-        uint32_t bh[NJ][2], bl[NJ][2];
-#pragma unroll
-        for (int j = 0; j < NJ; j += 2) {
-            const int row = 8 * j + (lane & 7) + (lane >> 4) * 8;
-            uint32_t b[4];
-            ldsm_x4(b, other + tile_at<float>(row, 2 * ks + ((lane >> 3) & 1)));
-#pragma unroll
-            for (int jj = 0; jj < 2; ++jj) {
-                split_tf32(__uint_as_float(b[2 * jj]), bh[j + jj][0], bl[j + jj][0]);
-                split_tf32(__uint_as_float(b[2 * jj + 1]), bh[j + jj][1], bl[j + jj][1]);
-            }
-        }
-        // the three products of each n-tile in turn over all n-tiles, so
-        // that no product waits for the one before it on its accumulator
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_tf32(acc[j], ah, bl[j][0], bl[j][1]);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_tf32(acc[j], al, bh[j][0], bh[j][1]);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) mma_tf32(acc[j], ah, bh[j][0], bh[j][1]);
-    }
-    }
-}
-
-// acc += p tile over the tile's KEYS rows, n-tiles at or past cols skipped
-// (the three products of each n-tile in turn over the n-tiles):
-// p's accumulator holds keys 2t, 2t + 1 of its n-tile where the A fragment
-// holds k = t, t + 4, so k = t is taken as tile row 2t and k = t + 4 as row
-// 2t + 1, in A and B alike (attention.cu's float32 note).
-template <typename T>
-__device__ __forceinline__ void output_tf32(float (&acc)[8][4], const float (&p)[T::NJ][4],
-                                            const unsigned char* tile, int cols) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int kk = 0; kk < T::NJ; ++kk) {
-        uint32_t ah[4], al[4];
-        split_tf32(p[kk][0], ah[0], al[0]);
-        split_tf32(p[kk][2], ah[1], al[1]);
-        split_tf32(p[kk][1], ah[2], al[2]);
-        split_tf32(p[kk][3], ah[3], al[3]);
-        const int r = 8 * kk + 2 * t, nn = (cols + 7) / 8;
-        uint32_t bh[CH / 8][2], bl[CH / 8][2];
-#pragma unroll
-        for (int n = 0; n < CH / 8; ++n) {
-            const int c = 2 * n + (g >> 2), w = 4 * (g & 3);  // column 8 n + g
-            split_tf32(*reinterpret_cast<const float*>(tile + tile_at<float>(r, c) + w), bh[n][0],
-                       bl[n][0]);
-            split_tf32(*reinterpret_cast<const float*>(tile + tile_at<float>(r + 1, c) + w),
-                       bh[n][1], bl[n][1]);
-        }
-#pragma unroll
-        for (int n = 0; n < CH / 8; ++n)
-            if (n < nn) mma_tf32(acc[n], ah, bl[n][0], bl[n][1]);
-#pragma unroll
-        for (int n = 0; n < CH / 8; ++n)
-            if (n < nn) mma_tf32(acc[n], al, bh[n][0], bh[n][1]);
-#pragma unroll
-        for (int n = 0; n < CH / 8; ++n)
-            if (n < nn) mma_tf32(acc[n], ah, bh[n][0], bh[n][1]);
-    }
-}
-
-// The group's score product over its chunks c = c0 + step i < nd (acc =
-// the sum of own tile c x other tile c^T; the tiles of chunk c at own + c
-// OWN and other + c STAGE), by type: in bfloat16 `scores_start` issues the
-// products and `scores_done` waits for them (so the two products of the
-// backward are in flight together), in float32 `scores_start` does them.
-template <typename T, int CPW = 1>
-__device__ __forceinline__ void scores_start(float (&acc)[T::NJ][4], const unsigned char* own,
-                                             const unsigned char* other, int c0, int step,
-                                             int nd, int hs) {
-    if constexpr (sizeof(typename T::Elem) == 2) {
-        scores_wgmma<T, CPW>(acc, own, other, c0, step, nd, hs);
-    } else {
-        scores_tf32<T, CPW>(acc, own, other, c0, step, nd, hs);
-    }
-}
-
-template <typename T> __device__ __forceinline__ void scores_done(float (&acc)[T::NJ][4]) {
-    if constexpr (sizeof(typename T::Elem) == 2) {
-        wgmma_wait<0>();
-        pin(acc);
-    }
-}
-
-template <typename T>
-__device__ __forceinline__ void output_product(float (&acc)[8][4], const float (&p)[T::NJ][4],
-                                               const unsigned char* tile, int cols) {
-    if constexpr (sizeof(typename T::Elem) == 2) {
-        output_wgmma<T>(acc, p, tile, cols);
-    } else {
-        output_tf32<T>(acc, p, tile, cols);
-    }
-}
-
-// ---------------------------------------------------------------------------
 // The kernels.  In each: g the thread's group (its chunk), gt its thread in
 // the group, its rows `row` and row + 8 of the block's ROWS (lane 4g' + t of
 // warp w of the group: w * 16 + g').
-
-// The start of the dynamic shared memory, aligned to ALIGN.
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-    return raw + ((ALIGN - (smem_addr(raw) & (ALIGN - 1))) & (ALIGN - 1));
-}
-
-// The top of each step of a ring: this thread's copies of the stage have
-// landed (and, first, the own rows, of which it then scales qs's pieces
-// with `scale_own`), `wgmma` may see them, and the block's barrier shows
-// them to every thread and says every group is done with the stage before.
-template <typename E, typename F>
-__device__ __forceinline__ void stage_ready(F&& scale_own) {
-    cp_async_wait<0>();
-    scale_own();
-    if constexpr (sizeof(E) == 2) fence_proxy_async();
-    __syncthreads();
-}
 
 // Forward: a block per (ROWS queries, head, batch element).  Step kt takes
 // key tile kt (KEYS keys): the scores' partials, their sum, the online
@@ -834,9 +413,6 @@ qkv_attention_bwd_dq_chunked_kernel(const E* __restrict__ qkv, const E* __restri
 // groups of CPW chunks, `dkv_chunks`).  Each step takes the partials of s^T
 // (k qs^T) and dp^T (v dout^T) over the group's chunks and their sums, then
 // dv += p^T dout and dk += ds^T qs on the group's chunks.
-template <typename E> __host__ __device__ constexpr int dkv_threads(int nd) {
-    return (nd + dkv_chunks<E>(nd) - 1) / dkv_chunks<E>(nd) * Tiles<E>::GT;
-}
 
 template <typename E, int ND>
 __global__ void __launch_bounds__(dkv_threads<E>(ND))

@@ -6,75 +6,153 @@
 // and dv).
 //
 // Bound on an H100: as attention.cu says, device memory at the U-Net's T =
-// 64 and 256 in bfloat16, the operations from T = 256 in float32, so the
-// blocks that share a head's rows share its scores (as the groups of a
-// block do in attention_chunked.cu), each score computed once.
+// 64 and 256 in bfloat16, the operations from T = 256 in float32 (3xTF32 at
+// 165 TFLOP/s).  At DDPM 256 x 256's (64, 256, 512, 1): forward 0.0200 ms
+// bf16 (bytes), 0.0521 f32 (operations); backward 0.0350 bf16 (bytes),
+// 0.1302 f32 (operations).  So each score is computed once.
 //
-// Design.  One thread-block cluster of n blocks (at most MAX_CLUSTER, the
-// portable size) per (batch, head, 64-row tile, group g).  The head is cut
-// into nd chunks of CH columns; block r of the cluster owns the chunks r, r
-// + n, r + 2n, ... (`Share`): it takes the score products over those chunks
-// only, the partial scores of a 64 x 64 tile, and the n blocks add their
-// partials through distributed shared memory (the exchange, below), so that
-// every block holds the same bits of the tile's scores.  Each
-// block then runs the online softmax on the whole tile and takes one output
-// chunk, c = r + n g, which is its g-th own chunk and the ring's last at
-// each tile, so that the dq and dk/dv kernels take the tiles they need for
-// their output (k's, or qs's and dout's chunk c) from the products' own
-// items.  One output chunk a block keeps the registers of a 64-wide head
-// (the scores, dp and two 16 x 64 accumulators at most, as the chunked
-// kernels); a head of nd > MAX_CLUSTER chunks needs per = ceil(nd /
-// MAX_CLUSTER) groups (grid.y = NH * per), each a cluster that recomputes
-// the scores for its n output chunks: the score products are done per
-// times, once for a head of up to 8 chunks (512 columns), which is DDPM's
-// 256 x 256 model's one head of 512.  The wrapper's `kernel_layout` names n
-// and per, `work_ratio` the work over the exact head.
+// Design.  A thread-block cluster of n blocks (at most MAX_CLUSTER, the
+// portable size) shares a tile of ROWS own rows (64 in bfloat16, 32 in
+// float32; `Geo`), for one (batch element, head, group of clusters).  Each
+// block is a block of attention_chunked.cu: groups of warps (a warpgroup
+// in bfloat16, two warps in float32), each the score products over its
+// chunk(s) of CH columns (bfloat16 on `wgmma`, float32 in 3xTF32
+// `mma.sync`): the forward one group a chunk, the backward kernels at most
+// BWD_THREADS threads a block (`bwd_chunks`), the other side in stages of
+// KEYS rows.
+// The head's nd chunks are spread over the cluster as evenly as the blocks
+// allow (`span_of`: block r a run of base or base + 1 chunks, 288 columns
+// in bfloat16 as 3 + 2).  At each stage the groups' partial scores (and dp)
+// are summed in shared memory in group order, straight into the block's
+// exchange tile (`chain_part`: group 0 stores its partial, each later group
+// adds its own, a block barrier before each), and only that one ROWS x
+// KEYS float32 partial a block goes through the cluster's distributed
+// shared memory: block r adds slice r of the n blocks' tiles in rank order
+// into its `sum` tile (`reduce_slice`), then every thread reads the whole
+// sum at its own places, each slice from the block that added it
+// (`gather_sum`).  So every group of every block holds the same bits, with
+// no atomics, runs the online softmax itself and takes its own output
+// chunk (out += p v; dq += ds k; dk += ds^T qs and dv += p^T dout).
 //
-// The exchange of a tile's partials, with no atomics (`put_partial`,
-// `reduce_slice`, `gather_sums`): each block writes its partial (the
-// forward's scores; the backward's scores and dp) into a tile of its shared
-// memory in the warps' accumulator order; after the cluster's barrier
-// (release, acquire) block r adds the n partials' r-th slice in rank order
-// into a second tile; after a second barrier every block reads the whole
-// sum, each slice from the block that added it.  So a block reads two
-// tiles' worth however large the cluster, and every block holds the same
-// bits.  One tile each is enough: a block writes its partial again after
-// this exchange's second barrier, which its peers reach once they have
-// read it, and its sum after the next exchange's first barrier, which they
-// reach once they have read that; a last barrier keeps every block until
-// its peers have read its sums.
+// Hiding the exchange.  Each cluster barrier is split: a block writes stage
+// i's partial into mine[i % 2] and arrives (`barrier.cluster.arrive
+// .release`); the stage's exchange is finished at the next stage, after
+// that stage's score products (and before them the softmax and output of
+// stage i - 1): only then does the block wait (`.wait.acquire`), add its
+// slice and arrive; the groups then sum stage i + 1's partials into
+// mine[(i + 1) % 2] (`chain_part`, its block barriers) before the block
+// waits again and reads the sums.  A block writes mine[i % 2] again only
+// after waiting at stage i's second barrier, which its peers reach once
+// they have read it; its `sum` tile only after waiting at the next stage's
+// first barrier, which they reach once they have read the sums; a last
+// full barrier keeps every block until its peers have read its sums.  Since a stage's output products run a stage
+// after its score products, the tiles of the other side sit in a ring of
+// RING = 3 items (one in the products, one waiting for its output, one in
+// flight); the own rows are staged once.
 //
-// The own rows (queries in the forward and the dq kernel, keys and values in
-// the dk/dv kernel): where a block owns at most STAGES chunks they are
-// staged once (a chunk tile each) and the qs scaled there once; otherwise
-// each item of the ring brings its own chunk beside the other side's, in as
-// many tiles, so shared memory is the same either way: 137,216 bytes in the
-// float32 forward, 204,800 in the dq kernel, 206,336 in the dk/dv kernel.
-// Copies take the widest piece of 16, 8, 4 or 2 bytes that every head's row
-// starts on, as in attention_chunked.cu.
-
-#include <cooperative_groups.h>
+// Chunks a block (`wide_layout`; the wrapper's `kernel_layout` mirrors
+// it): the most of MOST_CHUNKS (4 in bfloat16, 2 in float32: shared
+// memory), then 2, then 1, that gives a cluster of at most MAX_CLUSTER
+// blocks and a launch of at least MIN_BLOCKS = 64 blocks, else one chunk a
+// block.  n = ceil(nd / chunks), ND = ceil(nd / n).  Fewer, larger blocks
+// mean fewer exchanges for the same products: on the H100 a block of four
+// chunks beat blocks of one and two down to 64 blocks a launch (half the
+// SMs; at 32 and fewer the smaller blocks won), in the backward by up to 2x
+// (utils/attn_sweep.py, PERF.md).  A head of more chunks than one cluster
+// holds at one chunk a block (more than MAX_CLUSTER) takes per = ceil(nd /
+// MAX_CLUSTER) groups of clusters of one chunk a block (grid.y = NH *
+// per), each recomputing the scores in per passes of each stage, its own
+// rows coming through the ring with each pass (the passes in the order g +
+// 1, g + 2, ..., g, so that the group's output chunk, chunk g n + r, comes
+// last): work_ratio = per in the score products.
+//
+// Shared memory (`wide_smem_bytes`; tests/test_torch_head_sizes.py reads
+// these constants): ALIGN + sides x ND own tiles (ROWS x 64 values; staged)
+// + RING x (2 x ND stage tiles, KEYS x 64, and the own tiles when
+// streamed) + kinds x 3 partials (ROWS x KEYS floats: mine[2] and sum) and
+// the dk/dv kernel's RING x 3 x KEYS floats of m, 1 / l and D; sides = 1
+// forward, 2 backward, kinds the same.  bfloat16 at four chunks: forward
+// 156,672 bytes, dq kernel 214,016, dk/dv kernel 215,168; float32 at two:
+// 128,000, 156,672 and 157,824; within the 232,448 a block may have.
 
 #include "attention.cuh"
 
-namespace cgrp = cooperative_groups;
-
 namespace {
 
-// A 64 x 64 float32 tile in the warps' accumulator order: v[j][thread]
-// holds a thread's acc[j][0..3], so neighbouring threads write and read
-// neighbouring 16 bytes.
-struct XTile {
-    float4 v[8][THREADS];
-};
-constexpr int XVECS = 8 * THREADS;  // the float4s of a tile
+constexpr int RING = 3;                   // items in the ring of the other side
+constexpr int MIN_BLOCKS = 64;            // the grid-size rule's floor (see the note)
+template <typename E> constexpr int MOST_CHUNKS = sizeof(E) == 2 ? 4 : 2;  // a block's
+constexpr int BWD_THREADS = 256;          // the most threads of a backward block
 
-// The exchange, in three steps between two cluster barriers.  Step 1: the
-// block's partial into its tile `mine`.
-__device__ __forceinline__ void put_partial(XTile* mine, const float (&acc)[8][4]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-        mine->v[j][threadIdx.x] = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+// The chunks each group of a backward kernel takes: one, or as many as keep
+// the block within BWD_THREADS (bfloat16 at three or four chunks: two
+// warpgroups, whose dq, or dk and dv, of two chunks and the scores and dp
+// of a stage fit in 255 registers a thread, where 384 or 512 threads would
+// have 170 or 128 and spill); bwd_groups of them.
+template <typename E> __host__ __device__ constexpr int bwd_chunks(int nd) {
+    return (nd * Tiles<E>::GT + BWD_THREADS - 1) / BWD_THREADS;
+}
+template <typename E> __host__ __device__ constexpr int bwd_groups(int nd) {
+    return (nd + bwd_chunks<E>(nd) - 1) / bwd_chunks<E>(nd);
+}
+
+#ifdef WIDE_PHASE_CLOCKS
+// A build with -DWIDE_PHASE_CLOCKS (utils/attn_phases.py) adds up thread
+// 0's cycles in each phase of the forward kernel's loop (`WIDE_PHASE(k)`
+// ends phase k), summed over the blocks, and counts the blocks.
+constexpr int WIDE_PHASES = 8;
+__device__ unsigned long long g_wide_clocks[WIDE_PHASES + 1];
+#define WIDE_CLOCKS_START long long clocks_[WIDE_PHASES] = {}, clock_at_ = clock64()
+#define WIDE_PHASE(k)                        \
+    do {                                     \
+        const long long t_ = clock64();      \
+        clocks_[k] += t_ - clock_at_;        \
+        clock_at_ = t_;                      \
+    } while (0)
+#define WIDE_CLOCKS_END                                                                  \
+    do {                                                                                 \
+        if (threadIdx.x == 0) {                                                          \
+            for (int k_ = 0; k_ < WIDE_PHASES; ++k_)                                     \
+                atomicAdd(&g_wide_clocks[k_], (unsigned long long)clocks_[k_]);          \
+            atomicAdd(&g_wide_clocks[WIDE_PHASES], 1ull);                                \
+        }                                                                                \
+    } while (0)
+#else
+#define WIDE_CLOCKS_START \
+    do {                  \
+    } while (0)
+#define WIDE_PHASE(k) \
+    do {              \
+    } while (0)
+#define WIDE_CLOCKS_END \
+    do {                \
+    } while (0)
+#endif
+
+// ---------------------------------------------------------------------------
+// The cluster: its barrier, split, and its distributed shared memory.
+
+__device__ __forceinline__ int cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return (int)r;
+}
+
+__device__ __forceinline__ int cluster_blocks() {
+    uint32_t n;
+    asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+    return (int)n;
+}
+
+// Every thread of the cluster's blocks arrives (its shared-memory writes
+// released) and, later, waits until all have arrived (their writes
+// acquired); a thread alternates the two.
+__device__ __forceinline__ void cluster_arrive() {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The address of `p` (in this block's shared memory) in the shared memory
@@ -96,47 +174,93 @@ __device__ __forceinline__ float4 ld_cluster(uint32_t a) {
     return v;
 }
 
-// The float4s of a tile that each block of a cluster of n adds up: block r
-// those from r * len on.
-__device__ __forceinline__ int slice_len(int n) { return (XVECS + n - 1) / n; }
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
 
-// Step 2: block r adds its slice of the n blocks' partials (`mine` in each
-// block), in rank order, into its own tile `sum`; four ranks' loads in
-// flight at a time.
-__device__ __forceinline__ void reduce_slice(const XTile* mine, XTile* sum, int n, int r) {
-    const int len = slice_len(n), end = min(XVECS, (r + 1) * len);
-#pragma unroll 1
-    for (int e = r * len + threadIdx.x; e < end; e += THREADS) {
-        const float4* here = &mine->v[0][0] + e;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 1
-        for (int q0 = 0; q0 < n; q0 += 4) {
-            float4 v[4];
+// ---------------------------------------------------------------------------
+// The exchange.  A partial is ROWS x KEYS floats in the warps' accumulator
+// order (float4 x[j * GT + gt]: a thread's acc[j][0..3]), as the chunked
+// kernels put theirs, so neighbouring threads touch neighbouring 16 bytes.
+
+// The block's G groups' partials summed in group order into x: group 0
+// stores its own, then each group in turn adds its own to what is there,
+// after a block barrier (the backward's two kinds side by side, dp's tile
+// at x + 2 XV).
+template <typename T>
+__device__ __forceinline__ void chain_put(float4* x, int gt, const float (&acc)[T::NJ][4],
+                                          bool add) {
 #pragma unroll
-            for (int q = 0; q < 4; ++q)
-                if (q0 + q < n) v[q] = ld_cluster(cluster_addr(here, q0 + q));
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-                if (q0 + q < n) {
-                    a.x += v[q].x;
-                    a.y += v[q].y;
-                    a.z += v[q].z;
-                    a.w += v[q].w;
-                }
-            }
-        }
-        (&sum->v[0][0])[e] = a;
+    for (int j = 0; j < T::NJ; ++j) {
+        float4* at = x + j * T::GT + gt;
+        const float4 v = make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        *at = add ? add4(*at, v) : v;
     }
 }
 
-// Step 3: acc = the cluster's sum of the tile, each float4 read from the
-// block that added it (`sum` in each block): every block gets the same bits.
-__device__ __forceinline__ void gather_sums(float (&acc)[8][4], const XTile* sum, int n) {
-    const int len = slice_len(n);
+template <typename T, int G>
+__device__ __forceinline__ void chain_part(float4* x, int g, int gt, const float (&s)[T::NJ][4]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-        const int e = j * THREADS + threadIdx.x;
-        const float4 v = ld_cluster(cluster_addr(&sum->v[0][0] + e, e / len));
+    for (int q = 0; q < G; ++q) {
+        if (q > 0) __syncthreads();
+        if (g == q) chain_put<T>(x, gt, s, q > 0);
+    }
+}
+
+template <typename T, int G>
+__device__ __forceinline__ void chain_part(float4* x, int g, int gt, const float (&s)[T::NJ][4],
+                                           const float (&dp)[T::NJ][4]) {
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+        if (q > 0) __syncthreads();
+        if (g == q) {
+            chain_put<T>(x, gt, s, q > 0);
+            chain_put<T>(x + 2 * T::XV, gt, dp, q > 0);
+        }
+    }
+}
+
+// The float4s of a partial that each block of a cluster of n adds up: block
+// r those from r * len on.
+template <typename T> __device__ __forceinline__ int slice_len(int n) {
+    return (T::XV + n - 1) / n;
+}
+
+// Block r adds its slice of the n blocks' partials (`mine` in each block),
+// in rank order, into its own `sum`; BATCH ranks' loads in flight at a time
+// (4; 2 in the backward kernels, where a stage's partials are still held
+// in registers: `chain_part` follows).
+template <typename T, int NT, int BATCH = 4>
+__device__ __forceinline__ void reduce_slice(const float4* mine, float4* sum, int n, int r) {
+    const int len = slice_len<T>(n), end = min(T::XV, (r + 1) * len);
+#pragma unroll 1
+    for (int e = r * len + threadIdx.x; e < end; e += NT) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+        for (int q0 = 0; q0 < n; q0 += BATCH) {
+            float4 v[BATCH];
+#pragma unroll
+            for (int q = 0; q < BATCH; ++q)
+                if (q0 + q < n) v[q] = ld_cluster(cluster_addr(mine + e, q0 + q));
+#pragma unroll
+            for (int q = 0; q < BATCH; ++q)
+                if (q0 + q < n) a = q0 + q == 0 ? v[q] : add4(a, v[q]);
+        }
+        sum[e] = a;
+    }
+}
+
+// acc = the cluster's sum of the partial at the calling thread's places,
+// each float4 read from the block that added it: every thread of every
+// block that reads a place gets the same bits.
+template <typename T>
+__device__ __forceinline__ void gather_sum(float (&acc)[T::NJ][4], const float4* sum, int n,
+                                           int gt) {
+    const int len = slice_len<T>(n);
+#pragma unroll
+    for (int j = 0; j < T::NJ; ++j) {
+        const int e = j * T::GT + gt;
+        const float4 v = ld_cluster(cluster_addr(sum + e, e / len));
         acc[j][0] = v.x;
         acc[j][1] = v.y;
         acc[j][2] = v.z;
@@ -144,477 +268,581 @@ __device__ __forceinline__ void gather_sums(float (&acc)[8][4], const XTile* sum
     }
 }
 
-// Block r's share of a head of hs columns in a cluster of n at group g: its
-// chunks r + n i, i < cnt; its output chunk c = r + n g and that chunk's
-// columns (0 where g >= cnt: no output); at each tile the ring takes its
-// chunks in the order i = (g + 1 + k) % cnt, k = 0 .. cnt - 1, chunk c last.
-struct Share {
-    int n, r, g, cnt, c, cols;
-    __device__ Share(int hs, int n_, int r_, int g_) : n(n_), r(r_), g(g_) {
-        const int nd = (hs + CH - 1) / CH;
-        cnt = (nd - r + n - 1) / n;
-        c = r + n * g;
-        cols = g < cnt ? min(CH, hs - c * CH) : 0;
-    }
-    __device__ int index(int k) const { return (g + 1 + k) % cnt; }
-    __device__ int chunk(int i) const { return r + n * i; }
+// ---------------------------------------------------------------------------
+// The layout.
+
+// Block r's chunks at pass p of a cluster of n over a head of hs columns:
+// the first, c0, and the columns of the run from it (0: none).  One group
+// of clusters (per == 1): the nd chunks spread as evenly as the blocks
+// allow, a run of base or base + 1 each.  per > 1: one chunk a block, chunk
+// p n + r.
+struct Span {
+    int c0, cols;
 };
 
-// The columns of chunk d of a head of hs.
-__device__ __forceinline__ int chunk_cols(int hs, int d) { return min(CH, hs - d * CH); }
+__device__ __forceinline__ Span span_of(int hs, int n, int r, int per, int p) {
+    const int nd = (hs + CH - 1) / CH;
+    int c0, cnt;
+    if (per == 1) {
+        const int base = nd / n, extra = nd % n;
+        c0 = r * base + min(r, extra);
+        cnt = base + (r < extra ? 1 : 0);
+    } else {
+        c0 = p * n + r;
+        cnt = c0 < nd ? 1 : 0;
+    }
+    if (cnt == 0) return {0, 0};
+    return {c0, min(cnt * CH, hs - c0 * CH)};
+}
 
-// Forward: a cluster per (batch, head and group, TILE queries).  Item `it`
-// of the ring is key tile it / cnt and the block's chunk index(it % cnt):
-// k's chunk (and, streamed, qs's), with v's chunk c at the tile's last item;
-// there the block's partial scores are complete, the cluster adds them, and
-// the online softmax and out += p v run as in attention_chunked.cu.
-template <typename E>
-__global__ void __launch_bounds__(THREADS)
+// The pass of item j of a stage for group `grp` of clusters: grp + 1 + j
+// modulo per, so that the last is pass grp, the one with the output chunk.
+__device__ __forceinline__ int pass_of(int j, int grp, int per) { return (grp + 1 + j) % per; }
+
+// Dynamic shared memory of a wide kernel (see the opening note).
+template <typename T>
+__host__ __device__ constexpr int wide_smem_bytes(int nd, int sides, bool streamed, bool stats) {
+    return ALIGN + (streamed ? 0 : sides * nd * T::OWN) +
+           RING * (2 * nd * T::STAGE + (streamed ? sides * nd * T::OWN : 0)) +
+           3 * sides * T::PART + (stats ? RING * 3 * T::KEYS * (int)sizeof(float) : 0);
+}
+
+// The regions of that memory: the staged own tiles (`sides` kinds of ND),
+// RING slots (two kinds of ND stage tiles, then, streamed, the own tiles),
+// the partials (kind k: mine[2] at mine + 2 k XV, its sum at sum + k XV)
+// and the dk/dv kernel's m, 1 / l and D of each slot.
+template <typename T> struct Smem {
+    unsigned char* own;
+    unsigned char* ring;
+    float4* mine;
+    float4* sum;
+    float* stats;
+    int slot;
+    __device__ Smem(unsigned char* raw, int nd, int sides, bool streamed) {
+        own = aligned_smem(raw);
+        ring = own + (streamed ? 0 : sides * nd * T::OWN);
+        slot = 2 * nd * T::STAGE + (streamed ? sides * nd * T::OWN : 0);
+        mine = reinterpret_cast<float4*>(ring + RING * slot);
+        sum = mine + 2 * sides * T::XV;
+        stats = reinterpret_cast<float*>(sum + sides * T::XV);
+    }
+    // item x's slot; its own tiles of kind s (streamed) or the staged ones
+    __device__ unsigned char* at(int x) const { return ring + x % RING * slot; }
+    __device__ unsigned char* own_of(int x, int s, int nd, bool streamed) const {
+        return streamed ? at(x) + 2 * nd * T::STAGE + s * nd * T::OWN : own + s * nd * T::OWN;
+    }
+};
+
+// acc += b, n-tile by n-tile (a later pass's partial scores).
+template <int NJ> __device__ __forceinline__ void add_acc(float (&a)[NJ][4], const float (&b)[NJ][4]) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[j][e] += b[j][e];
+}
+
+// The score products of item j of a stage into acc (the first pass) or
+// added to it (a later pass; per > 1 only where ND == 1).
+template <typename T, int CPW, int ND, int G>
+__device__ __forceinline__ void pass_scores(float (&acc)[T::NJ][4], const unsigned char* own,
+                                            const unsigned char* other, int g, int cols, int j) {
+    if constexpr (ND == 1) {
+        if (j > 0) {
+            float more[T::NJ][4];
+            scores_start<T, CPW>(more, own, other, g, G, ND, cols);
+            scores_done<T>(more);
+            add_acc(acc, more);
+            return;
+        }
+    }
+    scores_start<T, CPW>(acc, own, other, g, G, ND, cols);
+    scores_done<T>(acc);
+}
+
+// ---------------------------------------------------------------------------
+// The kernels.  In each: g the thread's group, gt its thread in the group,
+// its rows `row` and row + 8 of the cluster's ROWS (lane 4g' + t of warp w
+// of the group: w * 16 + g'); item x of the ring is stage x / per, pass
+// `pass_of(x % per)`; the loop runs one more item than there are, to
+// finish the last stage's exchange and output.
+
+// Forward: a cluster per (ROWS queries, head and group of clusters, batch
+// element); at one chunk a block, three blocks an SM (registers within
+// 170 a thread: on the card a block of one warpgroup ran 1.8x slower at
+// two blocks an SM).  Stage i takes key tile i (KEYS keys): the scores' partials
+// (own qs against k), their sums, the online softmax, and out[:, chunk]
+// += p v[:, chunk] for the group's chunk; v comes with the stage's last
+// pass.
+template <typename E, int ND>
+__global__ void __launch_bounds__(ND * Tiles<E>::GT, ND == 1 ? 3 : 1)
 qkv_attention_fwd_wide_kernel(const E* __restrict__ qkv, E* __restrict__ out, int T_len, int C,
                               int hs, int piece, int per, float scale) {
-    extern __shared__ __align__(128) unsigned char smem_wide[];
-    cgrp::cluster_group cluster = cgrp::this_cluster();
-    XTile* x = reinterpret_cast<XTile*>(smem_wide);  // partial scores, their sum
-    const ChunkRing<E> q_s = reinterpret_cast<ChunkRing<E>>(x + 2);
-    const ChunkRing<E> k_s = q_s + STAGES, v_s = k_s + STAGES;
-    const int n = (int)cluster.num_blocks();
-    const Share sh(hs, n, (int)cluster.block_rank(), blockIdx.y % per);
-    const bool staged = per <= STAGES;
-    const int h = blockIdx.y / per, b = blockIdx.z;
-    const int lane = threadIdx.x & 31;
-    const int q0 = blockIdx.x / n * TILE, row = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    using T = Tiles<E>;
+    constexpr int NT = ND * T::GT, NJ = T::NJ;
+    extern __shared__ unsigned char smem_wide[];
+    const bool streamed = ND == 1 && per > 1;
+    const Smem<T> sm(smem_wide, ND, 1, streamed);
+    const int n = cluster_blocks(), r = cluster_rank();
+    const int grp = blockIdx.y % per, h = blockIdx.y / per, b = blockIdx.z;
+    const int g = threadIdx.x / T::GT, gt = threadIdx.x % T::GT, lane = threadIdx.x & 31;
+    const int q0 = blockIdx.x / n * T::ROWS, row = q0 + gt / 32 * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
     const E* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
-    const int ntiles = (T_len + TILE - 1) / TILE, items = ntiles * sh.cnt;
+    const int ntiles = (T_len + T::KEYS - 1) / T::KEYS, items = ntiles * per;
+    const Span out_span = span_of(hs, n, r, per, grp);
+    const int cols = min(CH, out_span.cols - g * CH);  // the group's output chunk's (<= 0: none)
 
-    auto fetch = [&](int it) {
-        const int kt = it / sh.cnt, k = it % sh.cnt, buf = it % STAGES;
-        const int d = sh.chunk(sh.index(k)), dcols = chunk_cols(hs, d);
-        if (!staged)
-            copy_rows(&q_s[buf][0][0], LDC<E>, CH, q_head + d * CH, stride, q0, T_len, dcols,
-                      piece);
-        copy_rows(&k_s[buf][0][0], LDC<E>, CH, q_head + C + d * CH, stride, kt * TILE, T_len,
-                  dcols, piece);
-        if (k == sh.cnt - 1 && sh.cols > 0)
-            copy_rows(&v_s[buf][0][0], LDC<E>, CH, q_head + 2 * C + sh.c * CH, stride, kt * TILE,
-                      T_len, sh.cols, piece);
+    auto fetch = [&](int x) {
+        const int i = x / per, j = x % per;
+        const Span sp = span_of(hs, n, r, per, pass_of(j, grp, per));
+        unsigned char* at = sm.at(x);
+        tiles<E, ND, T::KEYS, NT>(at, q_head + C + sp.c0 * CH, stride, i * T::KEYS, T_len, sp.cols,
+                                  piece);
+        if (j == per - 1)
+            tiles<E, ND, T::KEYS, NT>(at + ND * T::STAGE, q_head + 2 * C + sp.c0 * CH, stride,
+                                      i * T::KEYS, T_len, sp.cols, piece);
+        if (streamed)
+            tiles<E, ND, T::ROWS, NT>(at + 2 * ND * T::STAGE, q_head + sp.c0 * CH, stride, q0,
+                                      T_len, sp.cols, piece);
     };
-    if (staged)
-        for (int i = 0; i < sh.cnt; ++i)
-            copy_rows(&q_s[i][0][0], LDC<E>, CH, q_head + sh.chunk(i) * CH, stride, q0, T_len,
-                      chunk_cols(hs, sh.chunk(i)), piece);
+    if (!streamed)
+        tiles<E, ND, T::ROWS, NT>(sm.own, q_head + out_span.c0 * CH, stride, q0, T_len,
+                                  out_span.cols, piece);
     fetch(0);
     cp_async_commit();
 
-    float s[8][4], o[8][4];
+    float s[NJ][4], e[NJ][4], o[8][4];
     zero_acc(o);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-    for (int it = 0; it < items; ++it) {
-        if (it + 1 < items) fetch(it + 1);
-        cp_async_commit();
-        cp_async_wait<STAGES - 1>();
-        const int kt = it / sh.cnt, k = it % sh.cnt, buf = it % STAGES;
-        const int i = sh.index(k), d = sh.chunk(i);
-        // qs, this thread's pieces: the staged chunks once, a streamed one
-        // as it arrives
-        if (!staged)
-            scale_rows(&q_s[buf][0][0], LDC<E>, CH, scale, piece);
-        else if (it == 0)
-            for (int j = 0; j < sh.cnt; ++j) scale_rows(&q_s[j][0][0], LDC<E>, CH, scale, piece);
-        __syncthreads();
-
-        if (k == 0) zero_acc(s);
-        chunk_scores(s, &q_s[staged ? i : buf][0][0], LDC<E>, k_s[buf], chunk_cols(hs, d));
-        if (k == sh.cnt - 1) {  // the block's partial of key tile kt
-            put_partial(x, s);
-            cluster.sync();
-            reduce_slice(x, x + 1, sh.n, sh.r);
-            cluster.sync();
-            gather_sums(s, x + 1, sh.n);
-            if (sh.cols > 0) {
-                mask_keys<8>(s, kt * TILE, T_len);
-                float mx[2] = {m[0], m[1]};
-#pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-                    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
-                }
-                float mL[2];
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    mx[r] = quad_max(mx[r]);  // finite: key 0 of the first tile is real
-                    const float corr = exp2_approx((m[r] - mx[r]) * LOG2E);  // 0 on the first tile
-                    m[r] = mx[r];
-                    mL[r] = mx[r] * LOG2E;
-                    l[r] *= corr;
-#pragma unroll
-                    for (int j = 0; j < 8; ++j) {
-                        o[j][2 * r] *= corr;
-                        o[j][2 * r + 1] *= corr;
-                    }
-                }
-#pragma unroll
-                for (int j = 0; j < 8; ++j)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        s[j][e] = exp2_approx(fmaf(s[j][e], LOG2E, -mL[e >> 1]));  // p
-                        l[e >> 1] += s[j][e];
-                    }
-                chunk_pv(o, s, v_s[buf], sh.cols);
-            }
+    WIDE_CLOCKS_START;
+    for (int x = 0; x <= items; ++x) {
+        const int i = x / per, j = x % per;
+        if (x < items) {
+            stage_ready<E>([&] {  // qs: the staged rows once, streamed ones as they come
+                if (streamed || x == 0)
+                    tiles<E, ND, T::ROWS, NT, true>(sm.own_of(x, 0, ND, streamed), qkv, 0, 0,
+                                                    0, 0, piece, scale);
+            });
+            WIDE_PHASE(0);
+            if (x + 1 < items) fetch(x + 1);
+            cp_async_commit();
+            const Span sp = span_of(hs, n, r, per, pass_of(j, grp, per));
+            pass_scores<T, 1, ND, ND>(s, sm.own_of(x, 0, ND, streamed), sm.at(x), g, sp.cols, j);
+            WIDE_PHASE(1);
         }
-        __syncthreads();  // the tiles have been consumed before they are refilled
+        const bool finish = j == 0 && i > 0;  // stage i - 1's exchange and output
+        const bool last = x < items && j == per - 1;  // stage i's partial is complete
+        if (last) chain_part<T, ND>(sm.mine + i % 2 * T::XV, g, gt, s);
+        WIDE_PHASE(2);
+        if (finish) {
+            cluster_wait();
+            WIDE_PHASE(3);
+            reduce_slice<T, NT>(sm.mine + (i - 1) % 2 * T::XV, sm.sum, n, r);
+            WIDE_PHASE(4);
+            cluster_arrive();
+            cluster_wait();
+            WIDE_PHASE(5);
+            gather_sum<T>(e, sm.sum, n, gt);
+            WIDE_PHASE(6);
+        }
+        if (last) cluster_arrive();
+        if (finish && cols > 0) {
+            mask_keys<NJ>(e, (i - 1) * T::KEYS, T_len);
+            float mx[2] = {m[0], m[1]};
+#pragma unroll
+            for (int k = 0; k < NJ; ++k) {
+                mx[0] = fmaxf(mx[0], fmaxf(e[k][0], e[k][1]));
+                mx[1] = fmaxf(mx[1], fmaxf(e[k][2], e[k][3]));
+            }
+            float mL[2], corr[2];
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {
+                mx[k] = quad_max(mx[k]);  // finite: key 0 of the first tile is real
+                corr[k] = exp2_approx((m[k] - mx[k]) * LOG2E);  // 0 on the first tile
+                m[k] = mx[k];
+                mL[k] = mx[k] * LOG2E;
+                l[k] *= corr[k];
+            }
+#pragma unroll
+            for (int k = 0; k < NJ; ++k)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    e[k][q] = exp2_approx(fmaf(e[k][q], LOG2E, -mL[q >> 1]));  // p
+                    l[q >> 1] += e[k][q];
+                }
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                o[k][0] *= corr[0];
+                o[k][1] *= corr[0];
+                o[k][2] *= corr[1];
+                o[k][3] *= corr[1];
+            }
+            output_product<T>(o, e, sm.at(i * per - 1) + (ND + g) * T::STAGE, cols);
+        }
+        WIDE_PHASE(7);
     }
-    cluster.sync();  // no block leaves while a peer may still read its sums
+    cluster_arrive();  // no block leaves while a peer may still read its sums
+    cluster_wait();
+    WIDE_CLOCKS_END;
 
-    if (sh.cols > 0)
-        store_acc<E, 8>(out + (size_t)b * T_len * C + (size_t)h * hs + sh.c * CH, C, row, T_len, o,
-                        sh.cols, hs & 1, 1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
+    if (cols > 0)
+        store_acc<E, 8>(out + (size_t)b * T_len * C + (size_t)h * hs + (out_span.c0 + g) * CH, C,
+                        row, T_len, o, cols, hs & 1, 1.f / quad_sum(l[0]), 1.f / quad_sum(l[1]));
 }
 
-// The backward kernels take each tile (of keys in the dq kernel, of
-// queries in the dk/dv kernel) in 2 cnt items: cnt of the score product,
-// over the block's chunks in `Share::index` order, then cnt of the dp
-// product, so that only one of the two accumulators is live while the
-// products run.  The two kinds of item have rings of their own, each
-// counted apart (its a-th item in slot a % STAGES), so that the tiles of
-// the score items' last chunk (chunk c) stay in their ring until the tile's
-// output product, which needs them.
-struct Item {
-    int tile, k, slot, last_score_slot;
-    bool dp;  // an item of the dp product
-    __device__ Item(int it, int cnt) {
-        tile = it / (2 * cnt);
-        const int j = it % (2 * cnt);
-        dp = j >= cnt;
-        k = dp ? j - cnt : j;
-        slot = (tile * cnt + k) % STAGES;
-        last_score_slot = (tile * cnt + cnt - 1) % STAGES;
-    }
-};
-
-// Backward, kernel 1: a cluster per (batch, head and group, TILE queries),
-// two sweeps over the key tiles; each tile's score items (qs's and k's
-// chunks) and dp items (dout's and v's), whose partial scores and dp the
-// cluster adds at the tile's last item; there the first sweep takes each
-// row's m, l and D, the second adds ds k to the block's chunk c of dq (k's
-// chunk c is the last score item's tile).  The blocks of group 0 and rank 0
-// write the rows' m, 1 / l and D.
-template <typename E>
-__global__ void __launch_bounds__(THREADS)
+// Backward, kernel 1: a cluster per (ROWS queries, head and group of
+// clusters, batch element), two sweeps over the key tiles in one ring as in
+// the chunked kernels.  Each stage takes the partials of s (qs k^T) and dp
+// (dout v^T) and their sums; the first sweep takes each row's m, l and D,
+// the second adds ds k[:, chunk] to each of the group's chunks of dq (G
+// groups of CPW chunks, `bwd_chunks`; k's chunks from the stage's last
+// pass).  Group 0 of rank 0 of the first group of clusters
+// writes the rows' m, 1 / l and D.
+template <typename E, int ND>
+__global__ void __launch_bounds__(bwd_groups<E>(ND) * Tiles<E>::GT, 1)
 qkv_attention_bwd_dq_wide_kernel(const E* __restrict__ qkv, const E* __restrict__ dout,
                                  E* __restrict__ dqkv, float* __restrict__ stats, int T_len, int C,
                                  int NH, int hs, int piece, int per, float scale) {
-    extern __shared__ __align__(128) unsigned char smem_wide[];
-    cgrp::cluster_group cluster = cgrp::this_cluster();
-    XTile* x = reinterpret_cast<XTile*>(smem_wide);  // partial scores, dp; their sums
-    const ChunkRing<E> q_s = reinterpret_cast<ChunkRing<E>>(x + 4);
-    const ChunkRing<E> o_s = q_s + STAGES, k_s = o_s + STAGES, v_s = k_s + STAGES;
-    const int n = (int)cluster.num_blocks();
-    const Share sh(hs, n, (int)cluster.block_rank(), blockIdx.y % per);
-    const bool staged = per <= STAGES;
-    const int h = blockIdx.y / per, b = blockIdx.z;
-    const int lane = threadIdx.x & 31, t = lane & 3;
-    const int q0 = blockIdx.x / n * TILE, row = q0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    using T = Tiles<E>;
+    constexpr int CPW = bwd_chunks<E>(ND), G = bwd_groups<E>(ND);
+    constexpr int NT = G * T::GT, NJ = T::NJ;
+    extern __shared__ unsigned char smem_wide[];
+    const bool streamed = ND == 1 && per > 1;
+    const Smem<T> sm(smem_wide, ND, 2, streamed);  // own: qs, then dout; slots: k, then v
+    const int n = cluster_blocks(), r = cluster_rank();
+    const int grp = blockIdx.y % per, h = blockIdx.y / per, b = blockIdx.z;
+    const int g = threadIdx.x / T::GT, gt = threadIdx.x % T::GT, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int q0 = blockIdx.x / n * T::ROWS, row = q0 + gt / 32 * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
     const E* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
     const E* o_head = dout + (size_t)b * T_len * C + (size_t)h * hs;
-    const int ntiles = (T_len + TILE - 1) / TILE, items = 2 * ntiles * 2 * sh.cnt;
+    const int sweep = (T_len + T::KEYS - 1) / T::KEYS, items = 2 * sweep * per;
+    const Span out_span = span_of(hs, n, r, per, grp);
 
-    auto fetch = [&](int it) {
-        const Item item(it, sh.cnt);
-        const int kt = item.tile % ntiles, d = sh.chunk(sh.index(item.k));
-        const int dcols = chunk_cols(hs, d);
-        if (!item.dp) {
-            if (!staged)
-                copy_rows(&q_s[item.slot][0][0], LDC<E>, CH, q_head + d * CH, stride, q0, T_len,
-                          dcols, piece);
-            copy_rows(&k_s[item.slot][0][0], LDC<E>, CH, q_head + C + d * CH, stride, kt * TILE,
-                      T_len, dcols, piece);
-        } else {
-            if (!staged)
-                copy_rows(&o_s[item.slot][0][0], LDC<E>, CH, o_head + d * CH, (size_t)C, q0,
-                          T_len, dcols, piece);
-            copy_rows(&v_s[item.slot][0][0], LDC<E>, CH, q_head + 2 * C + d * CH, stride,
-                      kt * TILE, T_len, dcols, piece);
-        }
+    auto own_rows = [&](unsigned char* to, const Span& sp) {
+        tiles<E, ND, T::ROWS, NT>(to, q_head + sp.c0 * CH, stride, q0, T_len, sp.cols, piece);
+        tiles<E, ND, T::ROWS, NT>(to + ND * T::OWN, o_head + sp.c0 * CH, (size_t)C, q0, T_len,
+                                  sp.cols, piece);
     };
-    if (staged)
-        for (int i = 0; i < sh.cnt; ++i) {
-            const int d = sh.chunk(i), dcols = chunk_cols(hs, d);
-            copy_rows(&q_s[i][0][0], LDC<E>, CH, q_head + d * CH, stride, q0, T_len, dcols, piece);
-            copy_rows(&o_s[i][0][0], LDC<E>, CH, o_head + d * CH, (size_t)C, q0, T_len, dcols,
-                      piece);
-        }
+    auto fetch = [&](int x) {
+        const int k0 = x / per % sweep * T::KEYS;
+        const Span sp = span_of(hs, n, r, per, pass_of(x % per, grp, per));
+        unsigned char* at = sm.at(x);
+        tiles<E, ND, T::KEYS, NT>(at, q_head + C + sp.c0 * CH, stride, k0, T_len, sp.cols, piece);
+        tiles<E, ND, T::KEYS, NT>(at + ND * T::STAGE, q_head + 2 * C + sp.c0 * CH, stride, k0,
+                                  T_len, sp.cols, piece);
+        if (streamed) own_rows(at + 2 * ND * T::STAGE, sp);
+    };
+    if (!streamed) own_rows(sm.own, out_span);
     fetch(0);
     cp_async_commit();
 
-    float s[8][4], dp[8][4], dq[8][4];
-    zero_acc(dq);
-    // Each row's running maximum, sum and sum of p dp; after sweep 1, l and
-    // dl hold 1 / l and D (fewer registers live through the products).
+    float s[NJ][4], dp[NJ][4], es[NJ][4], edp[NJ][4], dq[CPW][8][4];
+#pragma unroll
+    for (int c = 0; c < CPW; ++c) zero_acc(dq[c]);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2] = {0.f, 0.f};
-    for (int it = 0; it < items; ++it) {
-        if (it + 1 < items) fetch(it + 1);
-        cp_async_commit();
-        cp_async_wait<STAGES - 1>();
-        const Item item(it, sh.cnt);
-        const int kt = item.tile % ntiles, i = sh.index(item.k), d = sh.chunk(i);
-        const int own = staged ? i : item.slot;
-        if (!staged) {
-            if (!item.dp) scale_rows(&q_s[item.slot][0][0], LDC<E>, CH, scale, piece);
-        } else if (it == 0) {
-            for (int j = 0; j < sh.cnt; ++j) scale_rows(&q_s[j][0][0], LDC<E>, CH, scale, piece);
+    float mL[2] = {0.f, 0.f}, inv_l[2] = {0.f, 0.f}, D[2] = {0.f, 0.f};
+    for (int x = 0; x <= items; ++x) {
+        const int i = x / per, j = x % per;
+        if (x < items) {
+            stage_ready<E>([&] {
+                if (streamed || x == 0)
+                    tiles<E, ND, T::ROWS, NT, true>(sm.own_of(x, 0, ND, streamed), qkv, 0, 0,
+                                                    0, 0, piece, scale);
+            });
+            if (x + 1 < items) fetch(x + 1);
+            cp_async_commit();
+            const Span sp = span_of(hs, n, r, per, pass_of(j, grp, per));
+            const unsigned char* at = sm.at(x);
+            pass_scores<T, CPW, ND, G>(s, sm.own_of(x, 0, ND, streamed), at, g, sp.cols, j);
+            pass_scores<T, CPW, ND, G>(dp, sm.own_of(x, 1, ND, streamed), at + ND * T::STAGE, g,
+                                       sp.cols, j);
         }
-        __syncthreads();
-
-        if (!item.dp) {
-            if (item.k == 0) zero_acc(s);
-            chunk_scores(s, &q_s[own][0][0], LDC<E>, k_s[item.slot], chunk_cols(hs, d));
-            if (item.k == sh.cnt - 1) put_partial(x, s);
-        } else {
-            if (item.k == 0) zero_acc(dp);
-            chunk_scores(dp, &o_s[own][0][0], LDC<E>, v_s[item.slot], chunk_cols(hs, d));
+        const bool finish = j == 0 && i > 0;
+        const bool last = x < items && j == per - 1;
+        // the groups' sums with their block barriers between the second
+        // barrier's arrive and wait; one group's before the first's wait
+        if (G == 1 && last) chain_part<T, G>(sm.mine + i % 2 * T::XV, g, gt, s, dp);
+        if (finish) {
+            cluster_wait();
+            reduce_slice<T, NT, 2>(sm.mine + (i - 1) % 2 * T::XV, sm.sum, n, r);
+            reduce_slice<T, NT, 2>(sm.mine + (2 + (i - 1) % 2) * T::XV, sm.sum + T::XV, n, r);
+            cluster_arrive();
         }
-        if (item.dp && item.k == sh.cnt - 1) {  // the tile's partials are complete
-            put_partial(x + 1, dp);
-            cluster.sync();
-            reduce_slice(x, x + 2, sh.n, sh.r);
-            reduce_slice(x + 1, x + 3, sh.n, sh.r);
-            cluster.sync();
-            gather_sums(s, x + 2, sh.n);
-            gather_sums(dp, x + 3, sh.n);
-            mask_keys<8>(s, kt * TILE, T_len);
-            if (item.tile < ntiles) {  // sweep 1
+        if (G > 1 && last) chain_part<T, G>(sm.mine + i % 2 * T::XV, g, gt, s, dp);
+        if (finish) {
+            cluster_wait();
+            gather_sum<T>(es, sm.sum, n, gt);
+            gather_sum<T>(edp, sm.sum + T::XV, n, gt);
+        }
+        if (last) cluster_arrive();
+        if (finish) {
+            const int kt = (i - 1) % sweep;
+            mask_keys<NJ>(es, kt * T::KEYS, T_len);
+            if (i - 1 < sweep) {  // sweep 1
                 float mx[2] = {m[0], m[1]};
 #pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
-                    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+                for (int k = 0; k < NJ; ++k) {
+                    mx[0] = fmaxf(mx[0], fmaxf(es[k][0], es[k][1]));
+                    mx[1] = fmaxf(mx[1], fmaxf(es[k][2], es[k][3]));
                 }
 #pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    mx[r] = quad_max(mx[r]);
-                    const float corr = exp2_approx((m[r] - mx[r]) * LOG2E);
-                    m[r] = mx[r];
-                    l[r] *= corr;
-                    dl[r] *= corr;
+                for (int k = 0; k < 2; ++k) {
+                    mx[k] = quad_max(mx[k]);
+                    const float corr = exp2_approx((m[k] - mx[k]) * LOG2E);
+                    m[k] = mx[k];
+                    mL[k] = mx[k] * LOG2E;
+                    l[k] *= corr;
+                    dl[k] *= corr;
                 }
 #pragma unroll
-                for (int j = 0; j < 8; ++j)
+                for (int k = 0; k < NJ; ++k)
 #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const float p = exp2_approx(fmaf(s[j][e], LOG2E, -m[e >> 1] * LOG2E));
-                        l[e >> 1] += p;
-                        dl[e >> 1] = fmaf(p, dp[j][e], dl[e >> 1]);
+                    for (int q = 0; q < 4; ++q) {
+                        const float p = exp2_approx(fmaf(es[k][q], LOG2E, -mL[q >> 1]));
+                        l[q >> 1] += p;
+                        dl[q >> 1] = fmaf(p, edp[k][q], dl[q >> 1]);
                     }
-                if (kt == ntiles - 1) {  // the rows' 1 / l and D, for sweep 2
+                if (kt == sweep - 1) {  // the rows' statistics, for sweep 2
 #pragma unroll
-                    for (int r = 0; r < 2; ++r) {
-                        l[r] = 1.f / quad_sum(l[r]);
-                        dl[r] = quad_sum(dl[r]) * l[r];
+                    for (int k = 0; k < 2; ++k) {
+                        inv_l[k] = 1.f / quad_sum(l[k]);
+                        D[k] = quad_sum(dl[k]) * inv_l[k];
                     }
                 }
-            } else if (sh.cols > 0) {  // sweep 2
+            } else if (out_span.cols > g * CH) {  // sweep 2
 #pragma unroll
-                for (int j = 0; j < 8; ++j)
+                for (int k = 0; k < NJ; ++k)
 #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int r = e >> 1;
-                        const float p = exp2_approx(fmaf(s[j][e], LOG2E, -m[r] * LOG2E)) * l[r];
-                        s[j][e] = p * (dp[j][e] - dl[r]);  // ds
+                    for (int q = 0; q < 4; ++q) {
+                        const int rr = q >> 1;
+                        const float p = exp2_approx(fmaf(es[k][q], LOG2E, -mL[rr])) * inv_l[rr];
+                        es[k][q] = p * (edp[k][q] - D[rr]);  // ds
                     }
-                chunk_pv(dq, s, k_s[item.last_score_slot], sh.cols);
+                const unsigned char* at = sm.at(i * per - 1);
+#pragma unroll
+                for (int c = 0; c < CPW; ++c) {
+                    const int d = g + c * G, dcols = min(CH, out_span.cols - d * CH);
+                    if (d >= ND || dcols <= 0) break;
+                    output_product<T>(dq[c], es, at + d * T::STAGE, dcols);
+                }
             }
         }
-        __syncthreads();
     }
-    cluster.sync();  // no block leaves while a peer may still read its sums
+    cluster_arrive();  // no block leaves while a peer may still read its sums
+    cluster_wait();
 
-    if (sh.cols > 0)
-        store_acc<E, 8>(dqkv + (size_t)b * T_len * stride + (size_t)h * hs + sh.c * CH, stride,
-                        row, T_len, dq, sh.cols, hs & 1, scale, scale);
-    if (sh.g == 0 && sh.r == 0 && t == 0) {
+#pragma unroll
+    for (int c = 0; c < CPW; ++c) {
+        const int d = g + c * G, dcols = min(CH, out_span.cols - d * CH);
+        if (d >= ND || dcols <= 0) break;
+        store_acc<E, 8>(dqkv + (size_t)b * T_len * stride + (size_t)h * hs + (out_span.c0 + d) * CH,
+                        stride, row, T_len, dq[c], dcols, hs & 1, scale, scale);
+    }
+    if (grp == 0 && r == 0 && g == 0 && t == 0) {
         const size_t plane = (size_t)gridDim.z * NH * T_len;
         float* st = stats + ((size_t)b * NH + h) * T_len;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-            const int r = row + 8 * i;
-            if (r >= T_len) continue;
-            st[r] = m[i];
-            st[plane + r] = l[i];
-            st[2 * plane + r] = dl[i];
+        for (int k = 0; k < 2; ++k) {
+            const int rr = row + 8 * k;
+            if (rr >= T_len) continue;
+            st[rr] = m[k];
+            st[plane + rr] = inv_l[k];
+            st[2 * plane + rr] = D[k];
         }
     }
 }
 
-// Backward, kernel 2: a cluster per (batch, head and group, TILE keys).
-// Each query tile's score items (qs's chunk, scaled as it arrives, and, if
-// streamed, k's) and dp items (dout's and, streamed, v's; the tile's m, 1 /
-// l and D with the last); at the last item the cluster adds the partial
-// s^T and dp^T, and dv += p^T dout, dk += ds^T qs take dout's chunk c from
-// that item's tile and qs's from the last score item's.
-template <typename E>
-__global__ void __launch_bounds__(THREADS)
+// Backward, kernel 2: a cluster per (ROWS keys, head and group of clusters,
+// batch element), one sweep over the query tiles (KEYS queries a stage, qs
+// scaled as it arrives; their m, 1 / l and D with the stage's last pass).
+// Group g takes chunks g + G i of the block's run (G groups of CPW chunks,
+// `bwd_chunks`).  Each stage takes the partials of s^T (k qs^T) and dp^T
+// (v dout^T) and their sums, then dv += p^T dout and dk += ds^T qs on the
+// group's chunks.
+template <typename E, int ND>
+__global__ void __launch_bounds__(bwd_groups<E>(ND) * Tiles<E>::GT, 1)
 qkv_attention_bwd_dkv_wide_kernel(const E* __restrict__ qkv, const E* __restrict__ dout,
                                   E* __restrict__ dqkv, const float* __restrict__ stats,
                                   int T_len, int C, int NH, int hs, int piece, int per,
                                   float scale) {
-    extern __shared__ __align__(128) unsigned char smem_wide[];
-    cgrp::cluster_group cluster = cgrp::this_cluster();
-    XTile* x = reinterpret_cast<XTile*>(smem_wide);  // partial s^T, dp^T; their sums
-    const ChunkRing<E> k_s = reinterpret_cast<ChunkRing<E>>(x + 4);
-    const ChunkRing<E> v_s = k_s + STAGES, q_s = v_s + STAGES, o_s = q_s + STAGES;
-    float (*st_s)[3][TILE] = reinterpret_cast<float (*)[3][TILE]>(o_s + STAGES);  // m, 1 / l, D
-    const int n = (int)cluster.num_blocks();
-    const Share sh(hs, n, (int)cluster.block_rank(), blockIdx.y % per);
-    const bool staged = per <= STAGES;
-    const int h = blockIdx.y / per, b = blockIdx.z;
-    const int lane = threadIdx.x & 31, t = lane & 3;
-    const int k0 = blockIdx.x / n * TILE, row = k0 + (threadIdx.x >> 5) * 16 + (lane >> 2);
+    using T = Tiles<E>;
+    constexpr int CPW = bwd_chunks<E>(ND), G = bwd_groups<E>(ND);
+    constexpr int NT = G * T::GT, NJ = T::NJ;
+    extern __shared__ unsigned char smem_wide[];
+    const bool streamed = ND == 1 && per > 1;
+    const Smem<T> sm(smem_wide, ND, 2, streamed);  // own: k, then v; slots: qs, then dout
+    const int n = cluster_blocks(), r = cluster_rank();
+    const int grp = blockIdx.y % per, h = blockIdx.y / per, b = blockIdx.z;
+    const int g = threadIdx.x / T::GT, gt = threadIdx.x % T::GT, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int k0 = blockIdx.x / n * T::ROWS, row = k0 + gt / 32 * 16 + (lane >> 2);
     const size_t stride = (size_t)3 * C;
+    const size_t plane = (size_t)gridDim.z * NH * T_len;
     const E* q_head = qkv + (size_t)b * T_len * stride + (size_t)h * hs;
     const E* o_head = dout + (size_t)b * T_len * C + (size_t)h * hs;
-    const int ntiles = (T_len + TILE - 1) / TILE, items = ntiles * 2 * sh.cnt;
+    const float* st = stats + ((size_t)b * NH + h) * T_len;
+    const int ntiles = (T_len + T::KEYS - 1) / T::KEYS, items = ntiles * per;
+    const Span out_span = span_of(hs, n, r, per, grp);
 
-    auto fetch = [&](int it) {
-        const Item item(it, sh.cnt);
-        const int q0 = item.tile * TILE, d = sh.chunk(sh.index(item.k));
-        const int dcols = chunk_cols(hs, d);
-        if (!item.dp) {
-            if (!staged)
-                copy_rows(&k_s[item.slot][0][0], LDC<E>, CH, q_head + C + d * CH, stride, k0,
-                          T_len, dcols, piece);
-            copy_rows(&q_s[item.slot][0][0], LDC<E>, CH, q_head + d * CH, stride, q0, T_len,
-                      dcols, piece);
-        } else {
-            if (!staged)
-                copy_rows(&v_s[item.slot][0][0], LDC<E>, CH, q_head + 2 * C + d * CH, stride, k0,
-                          T_len, dcols, piece);
-            copy_rows(&o_s[item.slot][0][0], LDC<E>, CH, o_head + d * CH, (size_t)C, q0, T_len,
-                      dcols, piece);
-            if (item.k == sh.cnt - 1) {
-                const size_t plane = (size_t)gridDim.z * NH * T_len;
-                const float* st = stats + ((size_t)b * NH + h) * T_len;
-                for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
-                    const int kind = e / TILE, i = e % TILE;
-                    const bool valid = q0 + i < T_len;
-                    cp_async4(&st_s[item.slot][kind][i], st + kind * plane + (valid ? q0 + i : 0),
-                              valid);
-                }
+    auto own_rows = [&](unsigned char* to, const Span& sp) {
+        tiles<E, ND, T::ROWS, NT>(to, q_head + C + sp.c0 * CH, stride, k0, T_len, sp.cols, piece);
+        tiles<E, ND, T::ROWS, NT>(to + ND * T::OWN, q_head + 2 * C + sp.c0 * CH, stride, k0,
+                                  T_len, sp.cols, piece);
+    };
+    auto fetch = [&](int x) {
+        const int i = x / per, j = x % per, q0 = i * T::KEYS;
+        const Span sp = span_of(hs, n, r, per, pass_of(j, grp, per));
+        unsigned char* at = sm.at(x);
+        tiles<E, ND, T::KEYS, NT>(at, q_head + sp.c0 * CH, stride, q0, T_len, sp.cols, piece);
+        tiles<E, ND, T::KEYS, NT>(at + ND * T::STAGE, o_head + sp.c0 * CH, (size_t)C, q0, T_len,
+                                  sp.cols, piece);
+        if (j == per - 1) {
+            float* to = sm.stats + x % RING * 3 * T::KEYS;
+            for (int e = threadIdx.x; e < 3 * T::KEYS; e += NT) {
+                const int kind = e / T::KEYS, q = e % T::KEYS;
+                const bool valid = q0 + q < T_len;
+                cp_async4(to + e, st + kind * plane + (valid ? q0 + q : 0), valid);
             }
         }
+        if (streamed) own_rows(at + 2 * ND * T::STAGE, sp);
     };
-    if (staged)
-        for (int i = 0; i < sh.cnt; ++i) {
-            const int d = sh.chunk(i), dcols = chunk_cols(hs, d);
-            copy_rows(&k_s[i][0][0], LDC<E>, CH, q_head + C + d * CH, stride, k0, T_len, dcols,
-                      piece);
-            copy_rows(&v_s[i][0][0], LDC<E>, CH, q_head + 2 * C + d * CH, stride, k0, T_len,
-                      dcols, piece);
-        }
+    if (!streamed) own_rows(sm.own, out_span);
     fetch(0);
     cp_async_commit();
 
-    float s[8][4], dp[8][4], dk[8][4], dv[8][4];
-    zero_acc(dk);
-    zero_acc(dv);
-    for (int it = 0; it < items; ++it) {
-        if (it + 1 < items) fetch(it + 1);
-        cp_async_commit();
-        cp_async_wait<STAGES - 1>();
-        const Item item(it, sh.cnt);
-        const int q0 = item.tile * TILE, i = sh.index(item.k), d = sh.chunk(i);
-        const int own = staged ? i : item.slot;
-        // qs = round(q * scale), once per staged value: each thread scales
-        // the pieces it copied itself; the barrier shows them to the block.
-        if (!item.dp) scale_rows(&q_s[item.slot][0][0], LDC<E>, CH, scale, piece);
-        __syncthreads();
-
-        if (!item.dp) {
-            if (item.k == 0) zero_acc(s);
-            chunk_scores(s, &k_s[own][0][0], LDC<E>, q_s[item.slot], chunk_cols(hs, d));  // s^T
-            if (item.k == sh.cnt - 1) put_partial(x, s);
-        } else {
-            if (item.k == 0) zero_acc(dp);
-            chunk_scores(dp, &v_s[own][0][0], LDC<E>, o_s[item.slot], chunk_cols(hs, d));  // dp^T
+    float s[NJ][4], dp[NJ][4], es[NJ][4], edp[NJ][4], dk[CPW][8][4], dv[CPW][8][4];
+#pragma unroll
+    for (int c = 0; c < CPW; ++c) {
+        zero_acc(dk[c]);
+        zero_acc(dv[c]);
+    }
+    for (int x = 0; x <= items; ++x) {
+        const int i = x / per, j = x % per;
+        if (x < items) {
+            // qs = round(q * scale), once per staged value: each thread
+            // scales the pieces of the item it copied itself.
+            stage_ready<E>([&] {
+                tiles<E, ND, T::KEYS, NT, true>(sm.at(x), qkv, 0, 0, 0, 0, piece, scale);
+            });
+            if (x + 1 < items) fetch(x + 1);
+            cp_async_commit();
+            const Span sp = span_of(hs, n, r, per, pass_of(j, grp, per));
+            const unsigned char* at = sm.at(x);
+            pass_scores<T, CPW, ND, G>(s, sm.own_of(x, 0, ND, streamed), at, g, sp.cols, j);  // s^T
+            pass_scores<T, CPW, ND, G>(dp, sm.own_of(x, 1, ND, streamed), at + ND * T::STAGE, g,
+                                       sp.cols, j);  // dp^T
         }
-        if (item.dp && item.k == sh.cnt - 1) {  // the tile's partials are complete
-            put_partial(x + 1, dp);
-            cluster.sync();
-            reduce_slice(x, x + 2, sh.n, sh.r);
-            reduce_slice(x + 1, x + 3, sh.n, sh.r);
-            cluster.sync();
-            gather_sums(s, x + 2, sh.n);
-            gather_sums(dp, x + 3, sh.n);
-            if (sh.cols > 0) {
-                const float (*st_t)[TILE] = st_s[item.slot];
+        const bool finish = j == 0 && i > 0;
+        const bool last = x < items && j == per - 1;
+        // the groups' sums with their block barriers between the second
+        // barrier's arrive and wait; one group's before the first's wait
+        if (G == 1 && last) chain_part<T, G>(sm.mine + i % 2 * T::XV, g, gt, s, dp);
+        if (finish) {
+            cluster_wait();
+            reduce_slice<T, NT, 2>(sm.mine + (i - 1) % 2 * T::XV, sm.sum, n, r);
+            reduce_slice<T, NT, 2>(sm.mine + (2 + (i - 1) % 2) * T::XV, sm.sum + T::XV, n, r);
+            cluster_arrive();
+        }
+        if (G > 1 && last) chain_part<T, G>(sm.mine + i % 2 * T::XV, g, gt, s, dp);
+        if (finish) {
+            cluster_wait();
+            gather_sum<T>(es, sm.sum, n, gt);
+            gather_sum<T>(edp, sm.sum + T::XV, n, gt);
+        }
+        if (last) cluster_arrive();
+        if (finish && out_span.cols > g * CH) {
+            const int last = i * per - 1, q0 = (i - 1) * T::KEYS;
+            const float (*st_t)[T::KEYS] =
+                reinterpret_cast<const float (*)[T::KEYS]>(sm.stats + last % RING * 3 * T::KEYS);
 #pragma unroll
-                for (int j = 0; j < 8; ++j) {
-                    const int q = 8 * j + 2 * t;  // the tile's query columns q, q + 1
-                    const float2 mm = *reinterpret_cast<const float2*>(&st_t[0][q]);
-                    const float2 il = *reinterpret_cast<const float2*>(&st_t[1][q]);
-                    const float2 dd2 = *reinterpret_cast<const float2*>(&st_t[2][q]);
-                    const float mLq[2] = {mm.x * LOG2E, mm.y * LOG2E};
-                    const float ilq[2] = {il.x, il.y}, Dq[2] = {dd2.x, dd2.y};
+            for (int k = 0; k < NJ; ++k) {
+                const int q = 8 * k + 2 * t;  // the tile's query columns q, q + 1
+                const float2 mm = *reinterpret_cast<const float2*>(&st_t[0][q]);
+                const float2 il = *reinterpret_cast<const float2*>(&st_t[1][q]);
+                const float2 dd = *reinterpret_cast<const float2*>(&st_t[2][q]);
+                const float mLq[2] = {mm.x * LOG2E, mm.y * LOG2E};
+                const float ilq[2] = {il.x, il.y}, Dq[2] = {dd.x, dd.y};
 #pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int kk = e & 1;
-                        const float p = q0 + q + kk < T_len
-                                            ? exp2_approx(fmaf(s[j][e], LOG2E, -mLq[kk])) * ilq[kk]
-                                            : 0.f;
-                        dp[j][e] = p * (dp[j][e] - Dq[kk]);  // ds
-                        s[j][e] = p;
-                    }
+                for (int e = 0; e < 4; ++e) {
+                    const int kk = e & 1;
+                    const float p = q0 + q + kk < T_len
+                                        ? exp2_approx(fmaf(es[k][e], LOG2E, -mLq[kk])) * ilq[kk]
+                                        : 0.f;
+                    edp[k][e] = p * (edp[k][e] - Dq[kk]);  // ds
+                    es[k][e] = p;
                 }
-                chunk_pv(dv, s, o_s[item.slot], sh.cols);
-                chunk_pv(dk, dp, q_s[item.last_score_slot], sh.cols);
+            }
+            const unsigned char* at = sm.at(last);
+#pragma unroll
+            for (int c = 0; c < CPW; ++c) {
+                const int d = g + c * G, dcols = min(CH, out_span.cols - d * CH);
+                if (d >= ND || dcols <= 0) break;
+                output_product<T>(dv[c], es, at + (ND + d) * T::STAGE, dcols);
+                output_product<T>(dk[c], edp, at + d * T::STAGE, dcols);
             }
         }
-        __syncthreads();
     }
-    cluster.sync();  // no block leaves while a peer may still read its sums
+    cluster_arrive();  // no block leaves while a peer may still read its sums
+    cluster_wait();
 
-    if (sh.cols > 0) {
-        E* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * hs + sh.c * CH;
-        store_acc<E, 8>(k_out, stride, row, T_len, dk, sh.cols, hs & 1, 1.f, 1.f);
-        store_acc<E, 8>(k_out + C, stride, row, T_len, dv, sh.cols, hs & 1, 1.f, 1.f);
+#pragma unroll
+    for (int c = 0; c < CPW; ++c) {
+        const int d = g + c * G, dcols = min(CH, out_span.cols - d * CH);
+        if (d >= ND || dcols <= 0) break;
+        E* k_out = dqkv + (size_t)b * T_len * stride + C + (size_t)h * hs + (out_span.c0 + d) * CH;
+        store_acc<E, 8>(k_out, stride, row, T_len, dk[c], dcols, hs & 1, 1.f, 1.f);
+        store_acc<E, 8>(k_out + C, stride, row, T_len, dv[c], dcols, hs & 1, 1.f, 1.f);
     }
 }
 
-// Dynamic shared memory of a wide kernel: `xtiles` exchange tiles, `rings`
-// rings of STAGES chunk tiles (the own rows' among them, staged or
-// streamed), and (dk/dv kernel) the query tiles' m, 1 / l and D.
-template <typename E> constexpr int wide_smem_bytes(int xtiles, int rings, bool stats) {
-    return xtiles * (int)sizeof(XTile) + rings * STAGES * TILE * LDC<E> * (int)sizeof(E) +
-           (stats ? STAGES * 3 * TILE * (int)sizeof(float) : 0);
-}
-static_assert(wide_smem_bytes<float>(4, 4, true) <= 232448, "a block's shared memory");
+// ---------------------------------------------------------------------------
+// The launchers.
 
-// The cluster of a head of hs columns (ops/kernels/attention.py's
-// `kernel_layout`): per = ceil(nd / MAX_CLUSTER) groups, each a cluster of
-// n = ceil(nd / per) blocks.
+// A head's clusters (ops/kernels/attention.py's `kernel_layout`): n blocks
+// a cluster, per groups of clusters, at most `chunks` chunks a block.
 struct WideLayout {
-    int per, n;
+    int n, per, chunks;
 };
 
-inline WideLayout wide_layout(int hs) {
-    const int nd = (hs + CH - 1) / CH, per = (nd + MAX_CLUSTER - 1) / MAX_CLUSTER;
-    return {per, (nd + per - 1) / per};
+// The layout for a head of hs columns at `row_tiles` tiles of ROWS own rows
+// in all (B * NH * ceil(T / ROWS)): the most chunks a block of `most`,
+// most / 2, ... that keeps the cluster within MAX_CLUSTER blocks and the
+// launch at `min_blocks` blocks or more, else one (see the opening note).
+inline WideLayout wide_layout(int hs, long long row_tiles, int most, long long min_blocks) {
+    const int nd = (hs + CH - 1) / CH;
+    for (int c = most; c > 1; c /= 2) {
+        const int n = (nd + c - 1) / c;
+        if (n <= MAX_CLUSTER && row_tiles * n >= min_blocks) return {n, 1, (nd + n - 1) / n};
+    }
+    const int n = nd < MAX_CLUSTER ? nd : MAX_CLUSTER;
+    return {n, (nd + n - 1) / n, 1};
+}
+
+// Calls f(std::integral_constant<int, ND>()) for ND = 1 .. MOST_CHUNKS<E>.
+template <typename E, typename F> int with_block_chunks(int nd, F&& f) {
+    if constexpr (MOST_CHUNKS<E> >= 4) {
+        if (nd == 4) return f(std::integral_constant<int, 4>());
+        if (nd == 3) return f(std::integral_constant<int, 3>());
+    }
+    if (nd == 2) return f(std::integral_constant<int, 2>());
+    return f(std::integral_constant<int, 1>());
 }
 
 // One launch of `kernel` on grid (tiles * n, NH * per, B) in clusters of
-// (n, 1, 1), with `smem` bytes of dynamic shared memory.
+// (n, 1, 1), `threads` a block, with `smem` bytes of dynamic shared memory
+// (`limit` the most any launch of it takes).
 template <typename... Params, typename... Args>
-cudaError_t launch_wide(void (*kernel)(Params...), int smem, WideLayout w, int T_len, int NH,
-                        int B, cudaStream_t stream, Args... args) {
-    const long long tiles = (T_len + TILE - 1) / TILE;
+cudaError_t launch_wide(void (*kernel)(Params...), int threads, int smem, int limit,
+                        WideLayout w, long long tiles, int NH, int B, cudaStream_t stream,
+                        Args... args) {
     if ((long long)NH * w.per > 65535 || tiles * w.n > 0x7fffffffLL) return cudaErrorInvalidValue;
-    cudaError_t err = allow_smem(kernel, smem);
+    cudaError_t err = allow_smem(kernel, limit);
     if (err != cudaSuccess) return err;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3((unsigned)(tiles * w.n), (unsigned)(NH * w.per), (unsigned)B);
-    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cudaLaunchAttribute attr[1];
@@ -629,43 +857,120 @@ cudaError_t launch_wide(void (*kernel)(Params...), int smem, WideLayout w, int T
     return err != cudaSuccess ? err : last;
 }
 
+template <typename E> long long row_tiles(int B, int T_len, int NH) {
+    return (long long)B * NH * ((T_len + Geo<E>::ROWS - 1) / Geo<E>::ROWS);
+}
+
 template <typename E>
-int fwd_wide(const void* qkv, void* out, int B, int T_len, int C, int NH, float scale,
-             cudaStream_t stream) {
+int fwd_wide(const void* qkv, void* out, int B, int T_len, int C, int NH, float scale, int most,
+             long long min_blocks, cudaStream_t stream) {
     const int hs = C / NH;
-    const WideLayout w = wide_layout(hs);
-    return (int)launch_wide(qkv_attention_fwd_wide_kernel<E>, wide_smem_bytes<E>(2, 3, false), w,
-                            T_len, NH, B, stream, static_cast<const E*>(qkv), static_cast<E*>(out),
-                            T_len, C, hs, piece_bytes(hs, sizeof(E)), w.per, scale);
+    const WideLayout w = wide_layout(hs, row_tiles<E>(B, T_len, NH), most, min_blocks);
+    return with_block_chunks<E>(w.chunks, [&](auto chunks) {
+        constexpr int ND = decltype(chunks)::value;
+        using T = Tiles<E>;
+        constexpr int limit = wide_smem_bytes<T>(ND, 1, false, false) >
+                                      wide_smem_bytes<T>(ND, 1, ND == 1, false)
+                                  ? wide_smem_bytes<T>(ND, 1, false, false)
+                                  : wide_smem_bytes<T>(ND, 1, ND == 1, false);
+        static_assert(limit <= SMEM_LIMIT, "a block's shared memory");
+        return (int)launch_wide(qkv_attention_fwd_wide_kernel<E, ND>, ND * T::GT,
+                                wide_smem_bytes<T>(ND, 1, w.per > 1, false), limit, w,
+                                (T_len + T::ROWS - 1) / T::ROWS, NH, B, stream,
+                                static_cast<const E*>(qkv), static_cast<E*>(out), T_len, C, hs,
+                                piece_bytes(hs, sizeof(E)), w.per, scale);
+    });
 }
 
 template <typename E>
 int bwd_wide(const void* qkv, const void* dout, void* dqkv, float* stats, int B, int T_len, int C,
-             int NH, float scale, cudaStream_t stream) {
+             int NH, float scale, int most, long long min_blocks, cudaStream_t stream) {
     const int hs = C / NH, piece = piece_bytes(hs, sizeof(E));
-    const WideLayout w = wide_layout(hs);
-    const E* x = static_cast<const E*>(qkv);
-    const E* dy = static_cast<const E*>(dout);
-    E* dx = static_cast<E*>(dqkv);
-    cudaError_t err = launch_wide(qkv_attention_bwd_dq_wide_kernel<E>,
-                                  wide_smem_bytes<E>(4, 4, false), w, T_len, NH, B, stream, x, dy,
-                                  dx, stats, T_len, C, NH, hs, piece, w.per, scale);
-    if (err != cudaSuccess) return (int)err;
-    return (int)launch_wide(qkv_attention_bwd_dkv_wide_kernel<E>, wide_smem_bytes<E>(4, 4, true), w,
-                            T_len, NH, B, stream, x, dy, dx, static_cast<const float*>(stats),
-                            T_len, C, NH, hs, piece, w.per, scale);
+    const WideLayout w = wide_layout(hs, row_tiles<E>(B, T_len, NH), most, min_blocks);
+    return with_block_chunks<E>(w.chunks, [&](auto chunks) {
+        constexpr int ND = decltype(chunks)::value;
+        using T = Tiles<E>;
+        constexpr int dq_limit = wide_smem_bytes<T>(ND, 2, false, false) >
+                                         wide_smem_bytes<T>(ND, 2, ND == 1, false)
+                                     ? wide_smem_bytes<T>(ND, 2, false, false)
+                                     : wide_smem_bytes<T>(ND, 2, ND == 1, false);
+        constexpr int dkv_limit = wide_smem_bytes<T>(ND, 2, false, true) >
+                                          wide_smem_bytes<T>(ND, 2, ND == 1, true)
+                                      ? wide_smem_bytes<T>(ND, 2, false, true)
+                                      : wide_smem_bytes<T>(ND, 2, ND == 1, true);
+        static_assert(dq_limit <= SMEM_LIMIT && dkv_limit <= SMEM_LIMIT,
+                      "a block's shared memory");
+        const long long tiles = (T_len + T::ROWS - 1) / T::ROWS;
+        const E* x = static_cast<const E*>(qkv);
+        const E* dy = static_cast<const E*>(dout);
+        E* dx = static_cast<E*>(dqkv);
+        const cudaError_t err = launch_wide(
+            qkv_attention_bwd_dq_wide_kernel<E, ND>, bwd_groups<E>(ND) * T::GT,
+            wide_smem_bytes<T>(ND, 2, w.per > 1, false), dq_limit, w, tiles, NH, B, stream, x, dy,
+            dx, stats, T_len, C, NH, hs, piece, w.per, scale);
+        if (err != cudaSuccess) return (int)err;
+        return (int)launch_wide(qkv_attention_bwd_dkv_wide_kernel<E, ND>, bwd_groups<E>(ND) * T::GT,
+                                wide_smem_bytes<T>(ND, 2, w.per > 1, true), dkv_limit, w, tiles,
+                                NH, B, stream, x, dy, dx, static_cast<const float*>(stats), T_len,
+                                C, NH, hs, piece, w.per, scale);
+    });
 }
+
+int most_chunks(int is_bf16) { return is_bf16 ? MOST_CHUNKS<bf16> : MOST_CHUNKS<float>; }
 
 }  // namespace
 
 int attention_fwd_wide(const void* qkv, void* out, int B, int T_len, int C, int NH, float scale,
                        int is_bf16, cudaStream_t stream) {
-    return is_bf16 ? fwd_wide<bf16>(qkv, out, B, T_len, C, NH, scale, stream)
-                   : fwd_wide<float>(qkv, out, B, T_len, C, NH, scale, stream);
+    const int most = most_chunks(is_bf16);
+    return is_bf16 ? fwd_wide<bf16>(qkv, out, B, T_len, C, NH, scale, most, MIN_BLOCKS, stream)
+                   : fwd_wide<float>(qkv, out, B, T_len, C, NH, scale, most, MIN_BLOCKS, stream);
 }
 
 int attention_bwd_wide(const void* qkv, const void* dout, void* dqkv, float* stats, int B,
                        int T_len, int C, int NH, float scale, int is_bf16, cudaStream_t stream) {
-    return is_bf16 ? bwd_wide<bf16>(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, stream)
-                   : bwd_wide<float>(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, stream);
+    const int most = most_chunks(is_bf16);
+    return is_bf16 ? bwd_wide<bf16>(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, most,
+                                    MIN_BLOCKS, stream)
+                   : bwd_wide<float>(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, most,
+                                     MIN_BLOCKS, stream);
 }
+
+// The cluster kernels of `unet_qkv_attention_fwd` and `_bwd` (the same
+// arguments, a head wider than CH * MAX_CHUNKS) at `chunks` chunks a block
+// at the most (1, 2 or, bfloat16 only, 4), whatever the launch's size:
+// utils/attn_sweep.py times each beside the rule's choice, utils/attn_phases.py
+// clocks the forward's phases.
+extern "C" int unet_qkv_attention_fwd_cluster(const void* qkv, void* out, int B, int T_len, int C,
+                                              int NH, float scale, int is_bf16, int chunks,
+                                              cudaStream_t stream) {
+    if (B <= 0 || T_len <= 0 || NH <= 0 || C % NH != 0 || C / NH <= CH * MAX_CHUNKS ||
+        chunks < 1 || chunks > most_chunks(is_bf16))
+        return (int)cudaErrorInvalidValue;
+    return is_bf16 ? fwd_wide<bf16>(qkv, out, B, T_len, C, NH, scale, chunks, 0, stream)
+                   : fwd_wide<float>(qkv, out, B, T_len, C, NH, scale, chunks, 0, stream);
+}
+
+extern "C" int unet_qkv_attention_bwd_cluster(const void* qkv, const void* dout, void* dqkv,
+                                              float* stats, int B, int T_len, int C, int NH,
+                                              float scale, int is_bf16, int chunks,
+                                              cudaStream_t stream) {
+    if (B <= 0 || T_len <= 0 || NH <= 0 || C % NH != 0 || C / NH <= CH * MAX_CHUNKS ||
+        chunks < 1 || chunks > most_chunks(is_bf16))
+        return (int)cudaErrorInvalidValue;
+    return is_bf16 ? bwd_wide<bf16>(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, chunks, 0,
+                                    stream)
+                   : bwd_wide<float>(qkv, dout, dqkv, stats, B, T_len, C, NH, scale, chunks, 0,
+                                     stream);
+}
+
+#ifdef WIDE_PHASE_CLOCKS
+// The forward kernel's phase cycles summed over its blocks since the last
+// call, then the blocks counted (WIDE_PHASES + 1 values); zeroes them.
+extern "C" int unet_wide_phase_clocks(unsigned long long* out) {
+    cudaError_t err = cudaMemcpyFromSymbol(out, g_wide_clocks, sizeof(g_wide_clocks));
+    if (err != cudaSuccess) return (int)err;
+    const unsigned long long zero[WIDE_PHASES + 1] = {};
+    return (int)cudaMemcpyToSymbol(g_wide_clocks, zero, sizeof(zero));
+}
+#endif

@@ -40,11 +40,13 @@ one group of warps a chunk (a warpgroup in bfloat16, on `wgmma`), each
 group the score products over its own chunk, the block adding the
 partial scores in shared memory in group order, then each group its own
 chunk of the output; a wider head in thread-block clusters of up to
-`MAX_CLUSTER` blocks (csrc/attention_wide.cu), each block the score
-products over its own chunks, the cluster adding the partial scores
-through distributed shared memory, then a chunk of the output each
-(`kernel_layout` says which a head takes).  The plain version takes any
-head size.
+`MAX_CLUSTER` such blocks (csrc/attention_wide.cu), each block the score
+products over its own run of chunks, its groups' partials summed in
+shared memory, one partial a block added up through distributed shared
+memory in rank order (the cluster barrier split around the next stage's
+score products), then each group its chunk of the output
+(`kernel_layout` says which a head takes, and how many chunks a block
+holds).  The plain version takes any head size.
 
 The backward recomputes the scores from qkv in two kernels that need no
 order between blocks: one for dq and the rows' softmax statistics (two
@@ -63,30 +65,53 @@ from unet_tpu_torch.ops.kernels import _build
 # The tile widths csrc/attention.cu's kernels are compiled for
 # (`with_head_size` there); other heads go in chunks of CHUNK columns (`CH`
 # in csrc/attention.cuh), at most MAX_CHUNKS of them in the chunked kernels,
-# wider heads in clusters of at most MAX_CLUSTER blocks.  The chunked
-# kernels' blocks take CHUNKED_ROWS rows (`Geo` in
-# csrc/attention_chunked.cu).
+# wider heads in clusters of at most MAX_CLUSTER blocks.  The chunked and
+# cluster kernels' blocks take CHUNKED_ROWS rows (`Geo` in
+# csrc/attention.cuh); a cluster's block holds at most BLOCK_CHUNKS chunks
+# (`MOST_CHUNKS` in csrc/attention_wide.cu), fewer where the launch would
+# have fewer than MIN_BLOCKS blocks (`MIN_BLOCKS`: half an H100's SMs;
+# utils/attn_sweep.py times the alternatives).
 HEAD_SIZES = (16, 32, 64)
 CHUNK = 64
 MAX_CHUNKS = 4
 MAX_CLUSTER = 8
 CHUNKED_ROWS = {torch.bfloat16: 64, torch.float32: 32}
+BLOCK_CHUNKS = {torch.bfloat16: 4, torch.float32: 2}
+MIN_BLOCKS = 64
 
 
-def kernel_layout(head_size, dtype):
+def row_tiles(B, T, num_heads, dtype):
+    """The tiles of `CHUNKED_ROWS` own rows of a launch: B * NH * ceil(T /
+    rows), what the cluster kernels' grid-size rule counts."""
+    return B * num_heads * -(-T // CHUNKED_ROWS[dtype])
+
+
+def kernel_layout(head_size, dtype, row_tiles=None, most=None):
     """How the kernels take a head of `head_size` columns of `dtype`:
     ("tile", W), a block's rows in tiles W wide (the first of `HEAD_SIZES`
     at or above it; a row of a multiple of 16 bytes); ("chunked", nd), the
     head in nd chunks of `CHUNK` columns (at most `MAX_CHUNKS`), one block
     of nd groups of warps a tile of rows, group g the score products over
-    chunk g and chunk g of the output; or, wider, ("cluster", n, per):
-    clusters of n blocks, each block the score products over `per` chunks
-    at most (its chunks r, r + n, ...) and one chunk of the output, in
-    `per` groups of clusters (`wide_layout` in csrc/attention_wide.cu)."""
+    chunk g and chunk g of the output; or, wider, ("cluster", n, per,
+    chunks): clusters of n blocks, each block a run of at most `chunks`
+    chunks (a group of warps each), in `per` groups of clusters
+    (`wide_layout` in csrc/attention_wide.cu).  A block takes the most of
+    `BLOCK_CHUNKS` (or `most`), then half that, ..., that keeps the cluster within
+    `MAX_CLUSTER` blocks and a launch of `row_tiles` tiles of rows (None: a
+    launch large enough for any) at `MIN_BLOCKS` blocks or more; else one
+    chunk a block, in per = ceil(nd / MAX_CLUSTER) groups of clusters each
+    recomputing the scores."""
     nd = -(-head_size // CHUNK)
     if nd > MAX_CHUNKS:
-        per = -(-nd // MAX_CLUSTER)
-        return ("cluster", -(-nd // per), per)
+        c = most or BLOCK_CHUNKS[dtype]
+        while c > 1:
+            n = -(-nd // c)
+            if n <= MAX_CLUSTER and (row_tiles is None
+                                     or row_tiles * n >= MIN_BLOCKS):
+                return ("cluster", n, 1, -(-nd // n))
+            c //= 2
+        n = min(nd, MAX_CLUSTER)
+        return ("cluster", n, -(-nd // n), 1)
     itemsize = torch.empty((), dtype=dtype).element_size()
     if head_size * itemsize % 16 == 0:
         for width in HEAD_SIZES:
@@ -95,20 +120,21 @@ def kernel_layout(head_size, dtype):
     return ("chunked", nd)
 
 
-def work_ratio(head_size, dtype, backward):
+def work_ratio(head_size, dtype, backward, row_tiles=None):
     """The tensor-core work the kernels do for a head of `head_size`
     columns over the same products exactly `head_size` deep and wide (1.0:
-    nothing wasted).  A tile W wide does every product over W columns.
-    Chunked, the block's groups share the scores: each score product
-    (forward: s; backward: s and dp twice in the dq kernel, once in the
-    dk/dv kernel) over the whole head once, split by chunk between the
-    groups, and the output products (out; dq, dk and dv) over each group's
-    own chunk; in clusters, each of the `per` groups of clusters does the
-    score products over the whole head once, split between its blocks,
-    and the output products over its own chunks.  Both k-step by k-step,
-    the output products' width too: 16 columns in bfloat16 (`wgmma`'s N
-    in the chunked kernels), 8 in float32."""
-    kind, n, *rest = kernel_layout(head_size, dtype)
+    nothing wasted), at the layout `kernel_layout` gives for `row_tiles`.
+    A tile W wide does every product over W columns.  Chunked, the block's
+    groups share the scores: each score product (forward: s; backward: s
+    and dp twice in the dq kernel, once in the dk/dv kernel) over the whole
+    head once, split by chunk between the groups, and the output products
+    (out; dq, dk and dv) over each group's own chunk; in clusters, each of
+    the `per` groups of clusters does the score products over the whole
+    head once, split between its blocks, and the output products over its
+    own chunks (1.0 wherever one group of clusters holds the head).  Both
+    k-step by k-step, the output products' width too: 16 columns in
+    bfloat16 (`wgmma`'s N), 8 in float32."""
+    kind, n, *rest = kernel_layout(head_size, dtype, row_tiles)
     if kind == "tile":
         return n / head_size
     nd = -(-head_size // CHUNK)
@@ -145,7 +171,8 @@ def head_size_fault(widths, head_size):
 
 def route(dtype):
     """The tensor-core route the launchers take for a call of this type:
-    "bf16" (bf16 operands: `mma.sync`, `wgmma` in the chunked kernels) or
+    "bf16" (bf16 operands: `mma.sync`, `wgmma` in the chunked and cluster
+    kernels) or
     "3xtf32" (float32 as three TF32 `mma.sync` products;
     csrc/attention.cu's `*_tf32_kernel`s)."""
     return "bf16" if dtype == torch.bfloat16 else "3xtf32"
@@ -194,8 +221,9 @@ def _check_cuda(qkv, num_heads):
         raise ValueError(f"empty input {tuple(qkv.shape)}")
     # grid (x, y, B): x the tiles of rows (a cluster's n blocks side by
     # side), y the heads (times the groups of clusters)
-    layout = kernel_layout(C // num_heads, qkv.dtype)
-    rows = CHUNKED_ROWS[qkv.dtype] if layout[0] == "chunked" else 64
+    layout = kernel_layout(C // num_heads, qkv.dtype,
+                           row_tiles(B, T, num_heads, qkv.dtype))
+    rows = 64 if layout[0] == "tile" else CHUNKED_ROWS[qkv.dtype]
     blocks_x, blocks_y = -(-T // rows), num_heads
     if layout[0] == "cluster":
         blocks_x, blocks_y = blocks_x * layout[1], num_heads * layout[2]
@@ -330,6 +358,9 @@ class QKVAttention(torch.autograd.Function):
 _ARGTYPES = {
     "unet_qkv_attention_fwd": "pp" "iiii" "f" "i" "p",
     "unet_qkv_attention_bwd": "pppp" "iiii" "f" "i" "p",
+    # the cluster kernels at a given most chunks a block (utils/attn_sweep.py)
+    "unet_qkv_attention_fwd_cluster": "pp" "iiii" "f" "ii" "p",
+    "unet_qkv_attention_bwd_cluster": "pppp" "iiii" "f" "ii" "p",
 }
 
 
